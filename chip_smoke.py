@@ -4,7 +4,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases (each prints progress; any failure raises and exits nonzero):
+Phases (each prints progress and its time; any failure raises and exits
+nonzero):
 
 1. the card's name and power limit (nvidia-smi); refuses to run without a
    CUDA device;
@@ -12,12 +13,28 @@ Phases (each prints progress; any failure raises and exits nonzero):
 3. holds each kernel against its plain PyTorch version (accel/bvh.py) on
    the card: on every query of a 256x256 demo frame (camera, GI and shadow
    rays) and on random rays with dead lanes, exclude_tri and each
-   visibility bit; prints mismatch counts and the times of both;
+   visibility bit; prints mismatch counts, the times of both and the bound;
 4. renders demo_scene(skin=False) at 256x256, AA 2, through the kernels,
    with the kernels' launch counts reset first and the plain walk barred
    from CUDA tensors; prints seconds per frame, the query counts and the
    rate;
-5. renders at 32x32 on the card and on the CPU (plain walk) and compares.
+5. renders the demo at 32x32 on the card and on the CPU (plain walk) and
+   compares;
+6. holds both kernels to the plain walk on every query of a 64x64, AA 3
+   frame of scenes/glass_sphere.ass at its own depths with Russian
+   roulette from refraction depth 2 (march steps with finite t_max and
+   exclude = the previous hit, roulette-dead lanes with t_max 0); times the
+   kernels on those queries and profiles a 128x128 frame, one full tile of
+   the timed frame;
+7. renders the glass scene at 256x256, AA 3, its own options, through the
+   kernels (counts reset, plain walk barred); prints seconds per frame, the
+   query counts, the rate and the refraction AOV;
+8. the stage timing of the TPU tool tools/trace_decomp2.py (j_walk): each
+   kernel alone, warm, on 262,144 coherent camera rays of the glass scene
+   and 262,144 incoherent cosine-bounce rays from their hits, beside its
+   byte and operation bounds;
+9. renders the glass scene at 32x32 on the card and on the CPU and
+   compares.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -32,9 +49,16 @@ import time
 import numpy as np
 import torch
 
+DEVICE = "cuda"
 SIZE = 256          # frame width and height of the main-path render
 AA = 2
 SEED = 0
+GLASS = "scenes/glass_sphere.ass"
+GLASS_AA = 3
+GLASS_CHECK = 64    # width and height of the glass frame held to the walk
+GLASS_RR = 2        # roulette start of that frame (the JAX bench's)
+PROFILE_SIZE = 128  # the profiled glass frame: one full tile at AA 3
+JWALK_RAYS = 262144
 REPLACES = {
     "rls_nearest": "rlshaders_tpu/ops/intersect_pallas.py:342",
     "rls_occluded": "rlshaders_tpu/ops/intersect_pallas.py:455",
@@ -48,6 +72,22 @@ SOURCE = "rlshaders_tpu_torch/ops/csrc/intersect.cu"
 PIX_TOL = 1e-3        # abs, per channel
 PIX_FRAC = 0.98       # share of pixels within PIX_TOL
 MEAN_RTOL = 2e-3      # frame mean, relative
+
+# The bound of a kernel (the least time the card could take for the work):
+# the larger of the bytes it must move over the H100's HBM rate and its
+# float operations over the H100's float32 rate outside the tensor cores.
+# Bytes: each ray's o, d, t_max and exclude (32 B) read once, each output
+# written once (nearest: t, tri, u, v, 16 B; occluded: 1 B), and the tree
+# and triangle tables read once. Operations: the slab tests and triangle
+# tests the plain walk makes for these rays (accel/bvh.py `counts`), times
+# the float operations of each in ops/csrc/intersect.cu, counting every
+# add, multiply, min, max, abs, compare and reciprocal as one.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_RAY = 9       # inv_dir: abs, compare, reciprocal per axis
+OPS_PER_BOX = 25      # box_hit: 6 sub, 6 mul, 11 min/max, 2 compares
+OPS_PER_TRI = 53      # tri_test: Moller-Trumbore and its 6 hit compares
+OUT_BYTES = {"rls_nearest": 16, "rls_occluded": 1}
 
 
 def log(msg: str) -> None:
@@ -76,7 +116,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_queries(scene, accel, wavefront, tracemod):
+def capture_queries(scene, accel, wavefront, tracemod, **render_kw):
     """Render one frame on the card, recording the inputs of every ray
     query it makes."""
     calls = []
@@ -103,8 +143,7 @@ def capture_queries(scene, accel, wavefront, tracemod):
 
     tracemod.nearest, tracemod.occluded = nearest, occluded
     try:
-        wavefront.render(scene, accel, device="cuda", seed=SEED,
-                         aa_samples=AA, xres=SIZE, yres=SIZE)
+        wavefront.render(scene, accel, seed=SEED, **render_kw)
     finally:
         tracemod.nearest, tracemod.occluded = real_nearest, real_occluded
     return calls
@@ -129,10 +168,10 @@ def random_queries(accel, n: int, seed: int):
     t_max[rng.random(n) < 0.3] = 1e30
     n_tri = accel.tree.tri_order.shape[0]
     ex = np.where(rng.random(n) < 0.3, rng.integers(0, n_tri, n), -1)
-    tens = (torch.tensor(o, dtype=torch.float32, device="cuda"),
-            torch.tensor(d, dtype=torch.float32, device="cuda"),
-            torch.tensor(t_max, dtype=torch.float32, device="cuda"),
-            torch.tensor(ex, dtype=torch.int32, device="cuda"))
+    tens = (torch.tensor(o, dtype=torch.float32, device=DEVICE),
+            torch.tensor(d, dtype=torch.float32, device=DEVICE),
+            torch.tensor(t_max, dtype=torch.float32, device=DEVICE),
+            torch.tensor(ex, dtype=torch.int32, device=DEVICE))
     out = []
     for bit in range(8):
         for name in ("rls_nearest", "rls_occluded"):
@@ -142,12 +181,18 @@ def random_queries(accel, n: int, seed: int):
 
 def compare(accel, calls, bvh, kernels):
     """Run kernel and plain version on each captured query; returns per
-    kernel (mismatching rays, rays, max abs error)."""
-    res = {k: [0, 0, 0.0] for k in REPLACES}
+    kernel [mismatching rays, rays, max abs error, the plain walk's work
+    counts, the plain walk's seconds]."""
+    res = {k: [0, 0, 0.0, {}, 0.0] for k in REPLACES}
     for name, o, d, tm, ex, vis in calls:
+        counts = res[name][3]
         if name == "rls_nearest":
             hk = kernels.nearest(accel.tree, accel.tris, o, d, tm, ex, vis)
-            hp = bvh.intersect(accel.tree, accel.tris, o, d, tm, ex, vis)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hp = bvh.intersect(accel.tree, accel.tris, o, d, tm, ex, vis,
+                               counts=counts)
+            torch.cuda.synchronize()
             bad = ((hk.tri != hp.tri) | (hk.t != hp.t) | (hk.u != hp.u)
                    | (hk.v != hp.v))
             hit = hp.tri >= 0
@@ -157,39 +202,160 @@ def compare(accel, calls, bvh, kernels):
                       float((hk.v - hp.v).abs().max()))
         else:
             bk = kernels.occluded(accel.tree, accel.tris, o, d, tm, ex, vis)
-            bp = bvh.occluded(accel.tree, accel.tris, o, d, tm, ex, vis)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bp = bvh.occluded(accel.tree, accel.tris, o, d, tm, ex, vis,
+                              counts=counts)
+            torch.cuda.synchronize()
             bad = bk != bp
             err = float(bad.any())
         r = res[name]
+        r[4] += time.perf_counter() - t0
         r[0] += int(bad.sum())
         r[1] += o.shape[0]
         r[2] = max(r[2], err)
     return res
 
 
-def time_kernels(accel, calls, bvh, kernels):
-    """Per kernel: (kernel ms, plain ms, rays) for all of the frame's
-    queries of that kernel, run back to back."""
+def bound(name: str, rays: int, counts: dict, accel) -> dict:
+    """The kernel's bound for `rays` rays whose walk did `counts`."""
+    n_nodes = accel.tree.first.shape[0]
+    n_tris = accel.tree.tri_order.shape[0]
+    table_bytes = n_nodes * (24 + 12) + n_tris * (36 + 4 + 4 + 1)
+    nbytes = rays * (32 + OUT_BYTES[name]) + table_bytes
+    ops = (OPS_PER_RAY * counts.get("rays", 0)
+           + OPS_PER_BOX * counts.get("boxes", 0)
+           + OPS_PER_TRI * counts.get("tris", 0))
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "byte_ms": byte_ms, "op_ms": op_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def time_kernels(accel, calls, bvh, kernels, plain=True, reps=10):
+    """Per kernel: (kernel ms, plain ms or None, rays) for all of the
+    frame's queries of that kernel, run back to back."""
     out = {}
     for name in REPLACES:
         mine = [c[1:] for c in calls if c[0] == name]
         if name == "rls_nearest":
-            kern, plain = kernels.nearest, bvh.intersect
+            kern, walk = kernels.nearest, bvh.intersect
         else:
-            kern, plain = kernels.occluded, bvh.occluded
+            kern, walk = kernels.occluded, bvh.occluded
 
         def run(fn, mine=mine):
             for o, d, tm, ex, vis in mine:
                 fn(accel.tree, accel.tris, o, d, tm, ex, vis)
 
-        # plain, kernel, kernel, plain: clocks drift less across a pair
-        p1 = cuda_ms(lambda: run(plain), 2)
-        k1 = cuda_ms(lambda: run(kern), 10)
-        k2 = cuda_ms(lambda: run(kern), 10)
-        p2 = cuda_ms(lambda: run(plain), 2)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
-                     sum(c[0].shape[0] for c in mine))
+        if plain:
+            # plain, kernel, kernel, plain: clocks drift less across a pair
+            p1 = cuda_ms(lambda: run(walk), 2)
+            k1 = cuda_ms(lambda: run(kern), reps)
+            k2 = cuda_ms(lambda: run(kern), reps)
+            p2 = cuda_ms(lambda: run(walk), 2)
+            out[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                         sum(c[0].shape[0] for c in mine))
+        else:
+            out[name] = (cuda_ms(lambda: run(kern), reps), None,
+                         sum(c[0].shape[0] for c in mine))
     return out
+
+
+def reset(kernels) -> None:
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def barred_render(wavefront, bvh, scene, accel, **kw):
+    """One timed render with the plain walk barred: (output, seconds)."""
+    def barred(*args, **kwargs):
+        raise AssertionError("the plain BVH walk was called on the card")
+
+    real = bvh.intersect, bvh.occluded
+    bvh.intersect = bvh.occluded = barred
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wavefront.render(scene, accel, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    finally:
+        bvh.intersect, bvh.occluded = real
+
+
+def check_planes(out, size) -> None:
+    for k, v in out.items():
+        if k == "__stats__":
+            continue
+        if tuple(v.shape) != (size, size, 3):
+            raise AssertionError(f"{k} has shape {tuple(v.shape)}")
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"non-finite values in {k}")
+    if not float(out["RGBA"].mean()) > 0.0:
+        raise AssertionError("black frame")
+
+
+def cuda_vs_cpu(wavefront, tag, scenes, tol, **kw):
+    """Render on the card and on the CPU and compare every plane."""
+    pix_tol, pix_frac, mean_rtol = tol
+    small = {}
+    for dev, (sc, ac) in scenes.items():
+        o = wavefront.render(sc, ac, seed=SEED, **kw)
+        small[dev] = {k: v.cpu().numpy() for k, v in o.items()
+                      if k != "__stats__"}
+    for k in small["cpu"]:
+        a, b = small["cuda"][k], small["cpu"][k]
+        within = float((np.abs(a - b).max(-1) <= pix_tol).mean())
+        mean_err = abs(float(a.mean()) - float(b.mean())) / max(
+            abs(float(b.mean())), 1e-6)
+        log(f"[{tag}] {k}: share of pixels within {pix_tol}: {within:.4f}, "
+            f"mean cuda {a.mean():.6f} cpu {b.mean():.6f} (rel "
+            f"{mean_err:.3g})")
+        if within < pix_frac or mean_err > mean_rtol:
+            raise AssertionError(f"{k}: CUDA and CPU frames disagree")
+
+
+def profile_frame(wavefront, scene, accel, **kw) -> None:
+    """Device time of one frame by kernel (torch.profiler): prints the
+    device busy share and the largest entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        wavefront.render(scene, accel, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = prof.key_averages()
+    dev = [(getattr(r, "self_device_time_total", 0.0), r.count, r.key)
+           for r in rows]
+    total = sum(t for t, _, _ in dev) / 1e3
+    launches = sum(r.count for r in rows if r.key == "cudaLaunchKernel")
+    log(f"[6] profile: wall {wall:.4f} s (profiled), device time "
+        f"{total:.4f} ms, busy share {total / 1e3 / wall:.4f}, "
+        f"cudaLaunchKernel calls {launches}")
+    for t, n, key in sorted(dev, reverse=True)[:8]:
+        log(f"[6]   {t / 1e3:10.4f} ms  {n:8d} x  {key[:70]}")
+
+
+def jwalk_rays(scene, accel, tracemod, rng, cameramod):
+    """tools/trace_decomp2.py's two ray sets on the scene: coherent camera
+    rays (256x256, AA 2) and cosine-bounce rays about +z from their hits,
+    offset 1e-3 along the new direction (misses bounce from t = 1e30)."""
+    n = JWALK_RAYS
+    key = rng.PRNGKey(0)
+    rays = cameramod.generate(scene.camera, key, 2, 256, 256)
+    o, d = rays.origin[:n].contiguous(), rays.direction[:n].contiguous()
+    hit = tracemod.nearest(accel, o, d, vis_mask=1)
+    po = o + d * hit.t[:, None]
+    u = rng.uniform(key, (n, 2), o.device)
+    r = torch.sqrt(u[:, 0])
+    phi = 2 * np.pi * u[:, 1]
+    d2 = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                      torch.sqrt(1.0 - u[:, 0])], -1)
+    return {"coherent": (o, d), "incoherent": ((po + 1e-3 * d2), d2)}
 
 
 def main() -> int:
@@ -199,10 +365,14 @@ def main() -> int:
         return 1
     from rlshaders_tpu_torch.accel import bvh
     from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.integrator import camera as cameramod
     from rlshaders_tpu_torch.integrator import wavefront
     from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build
     from rlshaders_tpu_torch.scene.demo import demo_scene
 
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"[1] device: {name} | nvidia-smi: {card} | torch {torch.__version__}"
@@ -212,8 +382,11 @@ def main() -> int:
     lib = kernels.build()
     log(f"[2] built {lib} in {time.perf_counter() - t0:.2f} s")
 
-    scene, accel = demo_scene(skin=False, device="cuda")
-    calls = capture_queries(scene, accel, wavefront, tracemod)
+    # ---- demo: kernels vs the plain walk on every query of a frame ----
+    t0 = time.perf_counter()
+    scene, accel = demo_scene(skin=False)
+    calls = capture_queries(scene, accel, wavefront, tracemod,
+                            aa_samples=AA, xres=SIZE, yres=SIZE)
     frame = compare(accel, calls, bvh, kernels)
     rand = compare(accel, random_queries(accel, 100_000, 7), bvh, kernels)
     for k in REPLACES:
@@ -225,74 +398,160 @@ def main() -> int:
         if frame[k][0] or rand[k][0]:
             raise AssertionError(f"{k} disagrees with its plain version")
     times = time_kernels(accel, calls, bvh, kernels)
+    demo_bound = {}
     for k, (km, pm, r) in times.items():
+        b = demo_bound[k] = bound(k, r, frame[k][3], accel)
         log(f"[3] {k}: all {r} rays of the frame's queries: kernel "
-            f"{km:.4f} ms, plain {pm:.4f} ms")
+            f"{km:.4f} ms, plain {pm:.4f} ms; walk {frame[k][3]}; bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
+            f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), "
+            f"share {b['bound_ms'] / km:.4f}")
+    del calls
+    log(f"[3] phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- the main path: a timed 256x256 frame through the kernels ----
-    def barred(*args, **kwargs):
-        raise AssertionError("the plain BVH walk was called on the card")
-
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
-    real = bvh.intersect, bvh.occluded
-    bvh.intersect = bvh.occluded = barred
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = wavefront.render(scene, accel, device="cuda", seed=SEED,
-                               aa_samples=AA, xres=SIZE, yres=SIZE)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    finally:
-        bvh.intersect, bvh.occluded = real
-    launches = dict(kernels.LAUNCHES)
-    stats = out["__stats__"]
-    rgba = out["RGBA"]
-    if tuple(rgba.shape) != (SIZE, SIZE, 3):
-        raise AssertionError(f"frame shape {tuple(rgba.shape)}")
-    for k, v in out.items():
-        if k != "__stats__" and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite values in {k}")
-    if not float(rgba.mean()) > 0.0:
-        raise AssertionError("black frame")
-    for k, n in launches.items():
+    # ---- the demo path: a timed 256x256 frame through the kernels ----
+    reset(kernels)
+    out, dt = barred_render(wavefront, bvh, scene, accel, aa_samples=AA,
+                            xres=SIZE, yres=SIZE)
+    demo_launches = dict(kernels.LAUNCHES)
+    check_planes(out, SIZE)
+    for k, n in demo_launches.items():
         if n <= 0:
-            raise AssertionError(f"{k} was not launched by the render")
+            raise AssertionError(f"{k} was not launched by the demo render")
+    stats = out["__stats__"]
     rays = stats["nearest_rays"] + stats["shadow_rays"]
     log(f"[4] {SIZE}x{SIZE} AA {AA}: {dt:.4f} s/frame, mean RGB "
-        f"{float(rgba.mean()):.6f}, launches {launches}, nearest rays "
-        f"{stats['nearest_rays']}, shadow rays {stats['shadow_rays']}, "
-        f"{rays / dt / 1e6:.3f} Mrays/s (nearest+shadow)")
+        f"{float(out['RGBA'].mean()):.6f}, launches {demo_launches}, "
+        f"nearest rays {stats['nearest_rays']}, shadow rays "
+        f"{stats['shadow_rays']}, {rays / dt / 1e6:.3f} Mrays/s "
+        f"(nearest+shadow)")
 
-    # ---- the same small frame on the card and on the CPU ----
-    cpu_scene, cpu_accel = demo_scene(skin=False, device="cpu")
-    small = {}
-    for dev, (sc, ac) in (("cuda", (scene, accel)),
-                          ("cpu", (cpu_scene, cpu_accel))):
-        o = wavefront.render(sc, ac, device=dev, seed=SEED, aa_samples=AA,
-                             xres=32, yres=32)
-        small[dev] = {k: v.cpu().numpy() for k, v in o.items()
-                      if k != "__stats__"}
-    worst = 1.0
-    for k in small["cpu"]:
-        a, b = small["cuda"][k], small["cpu"][k]
-        within = float((np.abs(a - b).max(-1) <= PIX_TOL).mean())
-        mean_err = abs(float(a.mean()) - float(b.mean())) / max(
-            abs(float(b.mean())), 1e-6)
-        log(f"[5] {k}: share of pixels within {PIX_TOL}: {within:.4f}, "
-            f"mean cuda {a.mean():.6f} cpu {b.mean():.6f}")
-        if within < PIX_FRAC or mean_err > MEAN_RTOL:
-            raise AssertionError(f"{k}: CUDA and CPU frames disagree")
-        worst = min(worst, within)
+    t0 = time.perf_counter()
+    cuda_vs_cpu(wavefront, "5", {
+        "cuda": (scene, accel), "cpu": demo_scene(skin=False, device="cpu")},
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=32, yres=32)
+    log(f"[5] phase {time.perf_counter() - t0:.1f} s")
 
-    kernels_line = {"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[k], "launches": launches[k],
-         "max_abs_err": max(frame[k][2], rand[k][2]),
-         "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in REPLACES]}
-    print(json.dumps(kernels_line))
+    # ---- glass: every query of a 64x64 frame with roulette-dead lanes ----
+    t0 = time.perf_counter()
+    gscene = build(GLASS)
+    gaccel = tracemod.build(gscene.geometry)
+    calls = capture_queries(gscene, gaccel, wavefront, tracemod,
+                            aa_samples=GLASS_AA, xres=GLASS_CHECK,
+                            yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
+    glass = compare(gaccel, calls, bvh, kernels)
+    for k in REPLACES:
+        mine = [c for c in calls if c[0] == k]
+        dead = sum(int((c[3] <= 0).sum()) for c in mine)
+        finite = sum(int(((c[3] > 0) & (c[3] < 1e29)).sum()) for c in mine)
+        excl = sum(int((c[4] >= 0).sum()) for c in mine)
+        log(f"[6] {k}: {len(mine)} queries, {glass[k][1]} rays ({dead} dead "
+            f"with t_max <= 0, {finite} with a finite t_max, {excl} with an "
+            f"exclude), {glass[k][0]} mismatches, max abs err "
+            f"{glass[k][2]:.3g}")
+        if glass[k][0]:
+            raise AssertionError(f"{k} disagrees with its plain version on "
+                                 f"the glass frame")
+    gtimes = time_kernels(gaccel, calls, bvh, kernels, plain=False, reps=3)
+    glass_bound = {}
+    for k, (km, _, r) in gtimes.items():
+        b = glass_bound[k] = bound(k, r, glass[k][3], gaccel)
+        log(f"[6] {k}: all {r} rays of the glass frame's queries: kernel "
+            f"{km:.4f} ms, plain {glass[k][4] * 1e3:.4f} ms (one pass); "
+            f"walk {glass[k][3]}; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} (bytes {b['byte_ms']:.4f} ms, operations "
+            f"{b['op_ms']:.4f} ms), share {b['bound_ms'] / km:.4f}")
+    del calls
+    try:
+        profile_frame(wavefront, gscene, gaccel, aa_samples=GLASS_AA,
+                      xres=PROFILE_SIZE, yres=PROFILE_SIZE)
+    except Exception as e:  # the profile is a reading, not a check
+        log(f"[6] profile: not measured ({type(e).__name__}: {e})")
+    log(f"[6] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the glass path: a timed 256x256, AA 3 frame ----
+    reset(kernels)
+    gout, gdt = barred_render(wavefront, bvh, gscene, gaccel,
+                              aa_samples=GLASS_AA, xres=SIZE, yres=SIZE)
+    glass_launches = dict(kernels.LAUNCHES)
+    check_planes(gout, SIZE)
+    if glass_launches["rls_nearest"] <= 0:
+        raise AssertionError("rls_nearest was not launched by the glass "
+                             "render")
+    refr = float(gout["refraction"].mean())
+    if not refr > 0.0:
+        raise AssertionError("the refraction AOV is black")
+    gstats = gout["__stats__"]
+    grays = gstats["nearest_rays"] + gstats["shadow_rays"]
+    log(f"[7] glass {SIZE}x{SIZE} AA {GLASS_AA}: {gdt:.4f} s/frame, mean "
+        f"RGB {float(gout['RGBA'].mean()):.6f}, refraction AOV mean "
+        f"{refr:.6f}, all planes finite, launches {glass_launches}, "
+        f"nearest rays {gstats['nearest_rays']} ({gstats['march_segments']} "
+        f"shadow segments marched), shadow rays {gstats['shadow_rays']}, "
+        f"{grays / gdt / 1e6:.3f} Mrays/s (nearest+shadow)")
+    del gout
+
+    # ---- j_walk: each kernel alone at the TPU tool's query shapes ----
+    t0 = time.perf_counter()
+    jsets = jwalk_rays(gscene, gaccel, tracemod, rng, cameramod)
+    n = JWALK_RAYS
+    tmax = torch.full((n,), 1e30, device=DEVICE)
+    ex = torch.full((n,), -1, dtype=torch.int32, device=DEVICE)
+    jwalk = {}
+    for tag, (o, d) in jsets.items():
+        for k, kern, walk in (("rls_nearest", kernels.nearest, bvh.intersect),
+                              ("rls_occluded", kernels.occluded,
+                               bvh.occluded)):
+            counts = {}
+            walk(gaccel.tree, gaccel.tris, o, d, tmax, ex, 0xFF,
+                 counts=counts)
+            ms = cuda_ms(lambda: kern(gaccel.tree, gaccel.tris, o, d, tmax,
+                                      ex, 0xFF), 50)
+            pms = cuda_ms(lambda: walk(gaccel.tree, gaccel.tris, o, d, tmax,
+                                       ex, 0xFF), 1)
+            b = bound(k, n, counts, gaccel)
+            jwalk[(k, tag)] = (ms, pms, b)
+            log(f"[8] j_walk {tag} {k}: {ms:.4f} ms, {n / ms / 1e3:.1f} "
+                f"Mrays/s, plain {pms:.4f} ms; walk {counts}; byte bound "
+                f"{b['byte_ms']:.4f} ms, "
+                f"operation bound {b['op_ms']:.4f} ms, share of the larger "
+                f"({b['bound_by']}) {b['bound_ms'] / ms:.4f}")
+    log(f"[8] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the glass frame on the card and on the CPU ----
+    t0 = time.perf_counter()
+    cscene = build(GLASS, device="cpu")
+    cuda_vs_cpu(wavefront, "9", {
+        "cuda": (gscene, gaccel),
+        "cpu": (cscene, tracemod.build(cscene.geometry))},
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=32, yres=32)
+    log(f"[9] phase {time.perf_counter() - t0:.1f} s")
+
+    entries = []
+    for k in REPLACES:
+        entry = {
+            "name": k, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[k],
+            "launches": demo_launches[k] + glass_launches[k],
+            "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2]),
+            "ms": times[k][0], "plain_ms": times[k][1],
+            "bound_ms": demo_bound[k]["bound_ms"],
+            "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
+            "launches_demo": demo_launches[k],
+            "launches_glass": glass_launches[k],
+            "glass_ms": gtimes[k][0], "glass_plain_ms": glass[k][4] * 1e3,
+            "glass_bound_ms": glass_bound[k]["bound_ms"],
+            "glass_bound_by": glass_bound[k]["bound_by"],
+        }
+        for tag in jsets:
+            ms, pms, b = jwalk[(k, tag)]
+            entry[f"jwalk_{tag}_ms"] = ms
+            entry[f"jwalk_{tag}_plain_ms"] = pms
+            entry[f"jwalk_{tag}_bound_ms"] = b["bound_ms"]
+            entry[f"jwalk_{tag}_bound_by"] = b["bound_by"]
+        entries.append(entry)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

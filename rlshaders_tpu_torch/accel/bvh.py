@@ -14,6 +14,12 @@ operation for operation. They serve CPU tensors and the kernels' tests.
 Tie rule: a triangle replaces the current best only at a strictly smaller
 t, so among equal-t hits the first one met in the walk wins (the JAX BVH's
 rule; the TPU kernel instead keeps the largest triangle id).
+
+Both walks take an optional `counts` dict and add to it the work they did:
+"rays" (live rays), "boxes" (slab tests) and "tris" (triangle tests of
+leaves whose box was hit). The kernels do the same tests, except that the
+any-hit kernel stops inside a leaf at its first blocker where the plain walk
+tests the whole leaf. Counting synchronises with the device at every step.
 """
 from __future__ import annotations
 
@@ -198,9 +204,14 @@ def tri_test(v0, e1, e2, o, d, t_eps, t_best):
     return ok, t, u, v
 
 
+def _count(counts, key: str, n) -> None:
+    if counts is not None:
+        counts[key] = counts.get(key, 0) + int(n)
+
+
 def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
               t_max: torch.Tensor, exclude_tri: torch.Tensor, vis_mask: int,
-              t_eps: float = 1e-4) -> Hit:
+              t_eps: float = 1e-4, counts: dict | None = None) -> Hit:
     """Nearest hit of rays (R, 3) over triangles whose visibility shares a
     bit with vis_mask and that are not the ray's exclude_tri. A miss
     reports t = min(t_max, 1e30) and tri = -1; lanes with t_max <= 0 are
@@ -214,6 +225,7 @@ def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
     v_out = torch.zeros(r, dtype=torch.float32, device=o.device)
 
     ray = torch.nonzero(t_max > 0.0).squeeze(1)
+    _count(counts, "rays", ray.numel())
     o, d, excl = o[ray], d[ray], exclude_tri[ray]
     inv_d = _inv_dir(d)
     t_best, tri, uu, vv = t_out[ray], tri_out[ray], u_out[ray], v_out[ray]
@@ -224,6 +236,9 @@ def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
         cnt = tree.count[node]
         is_leaf = first >= 0
         leaf = box & is_leaf
+        if counts is not None:
+            _count(counts, "boxes", ray.numel())
+            _count(counts, "tris", torch.where(leaf, cnt, 0).sum())
         for k in range(LEAF_SIZE):
             ti = torch.clamp(first + k, 0, n_slots - 1)
             ok, t, u, v = tri_test(tris.v0[ti], tris.e1[ti], tris.e2[ti],
@@ -254,7 +269,7 @@ def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
 
 def occluded(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
              t_max: torch.Tensor, exclude_tri: torch.Tensor, vis_mask: int,
-             t_eps: float = 1e-4) -> torch.Tensor:
+             t_eps: float = 1e-4, counts: dict | None = None) -> torch.Tensor:
     """Any-hit shadow query: True where an opaque triangle whose visibility
     shares a bit with vis_mask, other than exclude_tri, lies at
     t_eps < t < t_max. A ray stops walking at its first blocker."""
@@ -264,6 +279,7 @@ def occluded(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
     out = torch.zeros(r, dtype=torch.bool, device=o.device)
 
     ray = torch.nonzero(t_max > 0.0).squeeze(1)
+    _count(counts, "rays", ray.numel())
     o, d, excl, tmax = o[ray], d[ray], exclude_tri[ray], t_max[ray]
     inv_d = _inv_dir(d)
     node = torch.zeros(ray.shape[0], dtype=torch.int64, device=o.device)
@@ -273,6 +289,9 @@ def occluded(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
         cnt = tree.count[node]
         is_leaf = first >= 0
         leaf = box & is_leaf
+        if counts is not None:
+            _count(counts, "boxes", ray.numel())
+            _count(counts, "tris", torch.where(leaf, cnt, 0).sum())
         blocked = torch.zeros_like(leaf)
         for k in range(LEAF_SIZE):
             ti = torch.clamp(first + k, 0, n_slots - 1)

@@ -1,8 +1,9 @@
-"""GGX microfacet BRDF with VNDF importance sampling: the reflection path.
+"""GGX microfacet BSDF with VNDF importance sampling.
 
 Counterpart of rlshaders_tpu/bsdf/ggx.py (anisotropic GGX NDF, Smith G1,
 exact dielectric Fresnel with TIR, Heitz & d'Eon slope-space VNDF sampling,
-the Walter Eq.20 reflection term). Refraction waits for its own slice.
+the Walter Eq.20 reflection term, and rough refraction: the Eq.21 refraction
+term, the Eq.40 refracted direction and the Eq.41 sample weight).
 
 Local shading frame: the normal is +z, the alpha_x axis is +x; directions
 point away from the surface and are channel-split `V3` triples.
@@ -194,6 +195,47 @@ def reflection_term(params: GGXParams, wo: V3, wi: V3) -> torch.Tensor:
     return f * gd
 
 
+def refraction_term(params: GGXParams, wo: V3, wi: V3) -> torch.Tensor:
+    """Scalar refraction BTDF value, Walter Eq.21 (rlGgx.h:316-328)."""
+    ht = -vec3.normalize(wo * params.ior_in + wi * params.ior_out)
+    f = 1.0 - fresnel_dielectric(wo, ht, params.ior_in, params.ior_out)
+    odotn = torch.abs(wi.z)
+    idotn = torch.abs(wo.z)
+    odoth = vec3.dot(wi, ht)
+    idoth = vec3.dot(wo, ht)
+    s = params.ior_in * idoth + params.ior_out * odoth
+    denom = odotn * idotn * (s * s)
+    g = smith_g(wo, wi, ht, params.alpha_g)
+    d = d_ggx_aniso(ht, params.alpha_x, params.alpha_y)
+    return (torch.abs(odoth * idoth) * (params.ior_out * params.ior_out)
+            * f * g * d / torch.clamp_min(denom, 1e-12))
+
+
+def bsdf_sample_weight(params: GGXParams, wo: V3, wi: V3,
+                       m: V3) -> torch.Tensor:
+    """Weight of an NDF-sampled BSDF path, Walter Eq.41 (rlGgx.h:294-301):
+    G |i.h| / (|i.n| |m.n|)."""
+    idoth = vec3.dot(wo, m)
+    mdotn = torch.abs(m.z)
+    idotn = torch.abs(wo.z)
+    g = smith_g(wo, wi, m, params.alpha_g)
+    return g * torch.abs(idoth / torch.clamp_min(idotn * mdotn, 1e-12))
+
+
+def refract_direction(m: V3, wo: V3, ior_in, ior_out):
+    """Refract `wo` about the microfacet normal `m` (Walter Eq.40); returns
+    (wi, tir). `wi` points into the transmitted hemisphere; where `tir` is
+    True it is meaningless and callers mirror-reflect instead."""
+    eta = ior_in / ior_out
+    idotm = vec3.dot(wo, m)
+    sign = torch.sign(wo.z)
+    sign = torch.where(sign == 0.0, 1.0, sign)
+    cos2 = 1.0 - eta * eta * (1.0 - idotm * idotm)
+    tir = cos2 < 0.0
+    k = eta * idotm - sign * torch.sqrt(torch.clamp_min(cos2, 0.0))
+    return vec3.normalize(m * k - wo * eta), tir
+
+
 def sample(params: GGXParams, wo: V3, rx, ry):
     """Sample a reflected direction via VNDF. Returns (wi, fresnel_weight)."""
     m = sample_vndf(wo, params.alpha_x, params.alpha_y, rx, ry)
@@ -206,3 +248,13 @@ def pdf(params: GGXParams, wo: V3, wi: V3) -> torch.Tensor:
     """PDF of `sample` for MIS (rlGgx.h:121-127)."""
     h = vec3.normalize(wo + wi)
     return vndf_pdf(params, wo, h)
+
+
+def sample_refract(params: GGXParams, wo: V3, rx, ry):
+    """One rough-refraction sample (integrateRefract, rlGgx.h:228-243):
+    draw a microfacet normal from the VNDF, refract about it (mirror-reflect
+    on TIR) and weight by Eq.41. Returns (wi, weight, tir)."""
+    m = sample_vndf(wo, params.alpha_x, params.alpha_y, rx, ry)
+    wi_refr, tir = refract_direction(m, wo, params.ior_in, params.ior_out)
+    wi = vec3.where(tir, vec3.reflect(wo, m), wi_refr)
+    return wi, bsdf_sample_weight(params, wo, wi, m), tir

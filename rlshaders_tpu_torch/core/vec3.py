@@ -99,6 +99,17 @@ def maxc(a: V3) -> torch.Tensor:
     return torch.maximum(a.x, torch.maximum(a.y, a.z))
 
 
+def vmax(a: V3, b: V3) -> V3:
+    """Componentwise maximum."""
+    return V3(torch.maximum(a.x, b.x), torch.maximum(a.y, b.y),
+              torch.maximum(a.z, b.z))
+
+
+def clip(a: V3, lo: float, hi: float) -> V3:
+    return V3(torch.clamp(a.x, lo, hi), torch.clamp(a.y, lo, hi),
+              torch.clamp(a.z, lo, hi))
+
+
 def tile(a: V3, k: int) -> V3:
     """Repeat the batch k times (column-major chunks: [a; a; ...])."""
     return V3(a.x.repeat(k), a.y.repeat(k), a.z.repeat(k))

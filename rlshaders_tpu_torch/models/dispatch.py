@@ -12,6 +12,7 @@ materials, and textures or bump maps.
 Lobe contract (local frame, +z = forward-facing shading normal):
   diffuse:  f*cos V3, pdf   (cosine sampled)
   specular: f*cos V3, pdf
+  refract:  sampled direction and its Walter Eq.41 weight * Kt * KtColor
 """
 from __future__ import annotations
 
@@ -37,9 +38,12 @@ class MatG(NamedTuple):
     spec_ksn: torch.Tensor
     spec_dist: torch.Tensor          # 0 GGX, 1 Beckmann
     ggx: ggx.GGXParams
+    kt_color: V3                     # KtColor * Kt
+    opacity: V3
     emission: V3
     has_diffuse: torch.Tensor        # bool masks
     has_spec: torch.Tensor
+    has_refract: torch.Tensor
 
 
 def check_supported(mats: Materials) -> None:
@@ -78,6 +82,7 @@ def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor,
     # at 1e-4 (rlGgx.h:139)
     ggx_p = ggx.make_params(g.spec_roughness, torch.clamp_min(g.ior, 1e-4),
                             g.spec_aniso, entering)
+    kt_color = v3(g.kt_color) * g.kt
     eps = 1e-5
     return MatG(
         mtype=g.mtype,
@@ -88,9 +93,12 @@ def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor,
         spec_ksn=g.spec_ksn,
         spec_dist=g.spec_dist,
         ggx=ggx_p,
+        kt_color=kt_color,
+        opacity=v3(g.opacity),
         emission=v3(g.emission),
         has_diffuse=_absmax(diffuse_color) > eps,
         has_spec=_absmax(spec_weight) > eps,
+        has_refract=_absmax(kt_color) > eps,
     )
 
 
@@ -151,3 +159,10 @@ def sample_specular(m: MatG, wo: V3, rx, ry) -> V3:
     wi_ggx, _ = ggx.sample(m.ggx, wo, rx, ry)
     wi_beck = beckmann.sample(wo, m.ggx.alpha_g, rx, ry)
     return vec3.where(m.spec_dist == 1, wi_beck, wi_ggx)
+
+
+def sample_refract(m: MatG, wo: V3, rx, ry):
+    """(wi V3, weight V3) of one rough-refraction sample (integrateRefract
+    per sample, rlGgx.h:228-243); the weight is 0 where nothing refracts."""
+    wi, w, _ = ggx.sample_refract(m.ggx, wo, rx, ry)
+    return wi, vec3.where(m.has_refract, m.kt_color * w, 0.0)

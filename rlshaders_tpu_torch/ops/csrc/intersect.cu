@@ -27,7 +27,11 @@
 // memory latency, not on arithmetic or bandwidth, and neighbouring threads
 // diverge as their rays take different paths. The simple design does nothing
 // about it yet: no ray sorting, no shared-memory copy of the tree's top, no
-// wide nodes. The trees of the ported scenes are small enough to stay in L1.
+// wide nodes, no compaction of dead lanes (most lanes of the transparent-
+// shadow march carry t_max 0 and return at once). The trees of the ported
+// scenes (up to 609 nodes and 1,026 triangles) fit in L1 and L2; measured
+// on the H100, both kernels run far below their byte and operation bounds
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

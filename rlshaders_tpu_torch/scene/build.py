@@ -3,7 +3,8 @@
 Counterpart of rlshaders_tpu/scene/build.py: triangulated world-space
 geometry, the material table, quad lights, the skydome, the perspective
 camera and the render options, read as the reference's ShaderData::update
-does. Tables are built in numpy and moved once to `device`.
+does. Tables are built in numpy and moved once to `device`: the card
+unless the caller asks for the CPU.
 
 Differences from the JAX build, all deliberate:
 
@@ -12,8 +13,8 @@ Differences from the JAX build, all deliberate:
 * texture links and disk lights raise NotImplementedError: textures and
   the disk sampler are later slices of the port;
 * the material table holds the fields the ported shading reads, plus the
-  ids (`kd_tex`, `ks_tex`, `bump_tex`) and weights (`kt`, `opacity`,
-  `sss_weight`) that let the renderer refuse what it cannot shade yet.
+  ids (`kd_tex`, `ks_tex`, `bump_tex`) and the weight `sss_weight` that let
+  the renderer refuse what it cannot shade yet.
 """
 from __future__ import annotations
 
@@ -79,6 +80,7 @@ class Materials(NamedTuple):
     spec_aniso: torch.Tensor
     spec_dist: torch.Tensor        # 0 GGX, 1 Beckmann (cook_torrance)
     glossy_caustics: torch.Tensor  # (M,) bool
+    kt_color: torch.Tensor         # (M, 3)
     kt: torch.Tensor
     ior: torch.Tensor
     opacity: torch.Tensor          # (M, 3)
@@ -203,9 +205,9 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, device=device).to(dtype)
 
 
-def build(path_or_nodes, device="cpu") -> Scene:
+def build(path_or_nodes, device="cuda") -> Scene:
     """Assemble a Scene from an .ass path or a pre-parsed node list, with
-    every table on `device`."""
+    every table on `device` (the card by default; "cpu" for the CPU)."""
     nodes = parse(path_or_nodes) if isinstance(path_or_nodes, str) \
         else path_or_nodes
 
@@ -290,7 +292,7 @@ def build(path_or_nodes, device="cpu") -> Scene:
             "ks_tex": -1, "bump_tex": -1,
             "spec_roughness": 0.4, "spec_aniso": 0.0, "spec_dist": 0,
             "glossy_caustics": True,
-            "kt": 0.0, "ior": 1.0,
+            "kt_color": np.ones(3, np.float32), "kt": 0.0, "ior": 1.0,
             "opacity": np.ones(3, np.float32),
             "emission": np.zeros(3, np.float32),
             "sss_weight": 0.0,
@@ -306,6 +308,7 @@ def build(path_or_nodes, device="cpu") -> Scene:
                 ks=fnum(node.get("Ks", 0.5)),
                 spec_roughness=fnum(node.get("specularRoughness", 0.0)),
                 spec_aniso=fnum(node.get("anisotropic", 0.0)),
+                kt_color=_gamma_rgb(node.get("KtColor", 1.0), g),
                 kt=fnum(node.get("Kt", 0.0)),
                 ior=fnum(node.get("ior", 1.0), 1.0),
                 opacity=fnum(node.get("opacity", 1.0))
@@ -502,7 +505,7 @@ def build(path_or_nodes, device="cpu") -> Scene:
     )
 
 
-def build_text(text: str, device="cpu") -> Scene:
+def build_text(text: str, device="cuda") -> Scene:
     """Build from .ass source text (a temporary file feeds the parser)."""
     import tempfile
 

@@ -143,7 +143,7 @@ polymesh
 """
 
 
-def demo_scene(skin: bool = True, device="cpu"):
+def demo_scene(skin: bool = True, device="cuda"):
     """Build the demo scene on `device`; returns (scene, accel).
 
     skin=False gives the blob the floor's material, as the JAX version

@@ -223,8 +223,7 @@ def _demo_frame_queries():
 
     ttrace.nearest, ttrace.occluded = nearest, occluded
     try:
-        wavefront.render(scene, accel, device="cpu", aa_samples=2, xres=32,
-                         yres=32)
+        wavefront.render(scene, accel, aa_samples=2, xres=32, yres=32)
     finally:
         ttrace.nearest, ttrace.occluded = real
     return jscene, jaccel, calls

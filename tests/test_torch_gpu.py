@@ -7,8 +7,10 @@ without them. Run it on the card without the repository's conftest.py
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 The kernels must equal their plain versions exactly (the .cu file builds
-with -fmad=false and repeats the plain walk's order of operations). The
-CUDA render is held to the CPU render with chip_smoke.py's tolerance.
+with -fmad=false and repeats the plain walk's order of operations), also
+on the queries of the transparent-shadow march: per-ray finite t_max, dead
+lanes and exclude = the previous hit. The CUDA renders (the demo and the
+glass sphere) are held to the CPU renders with chip_smoke.py's tolerance.
 """
 import types
 
@@ -98,9 +100,71 @@ def test_cuda_render_matches_cpu_render(cuda_device):
     out = {}
     for dev in (cuda_device, "cpu"):
         scene, accel = demo_scene(skin=False, device=dev)
-        out[str(dev)] = wavefront.render(scene, accel, device=dev, seed=0,
-                                         aa_samples=2, xres=32, yres=32)
+        out[str(dev)] = wavefront.render(scene, accel, seed=0, aa_samples=2,
+                                         xres=32, yres=32)
     a, b = out["cuda"]["RGBA"].cpu().numpy(), out["cpu"]["RGBA"].numpy()
     assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
     assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+def _glass(device):
+    from rlshaders_tpu_torch.scene.build import build
+
+    scene = build("scenes/glass_sphere.ass", device=device)
+    return scene, trace.build(scene.geometry)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_walk_on_march_queries(cuda_device):
+    """A shadow march through the glass sphere, step by step: each step's
+    rays carry the remaining segment as t_max (0 once used up) and exclude
+    the triangle the previous step hit."""
+    from rlshaders_tpu_torch.ops import intersect as kernels
+
+    _, acc = _glass(cuda_device)
+    rs = np.random.default_rng(5)
+    n = 50000
+    o = np.stack([rs.uniform(-1.5, 1.5, n), rs.uniform(2.5, 4.0, n),
+                  rs.uniform(-1.5, 1.5, n)], 1)
+    d = np.stack([rs.uniform(-1.5, 1.5, n), np.zeros(n),
+                  rs.uniform(-1.5, 1.5, n)], 1) - o
+    length = np.linalg.norm(d, axis=1)
+    d /= length[:, None]
+    t_max = np.where(rs.random(n) < 0.2, 0.0, length * rs.uniform(0.2, 1.2, n))
+    o, d, remaining = (torch.tensor(a, dtype=torch.float32,
+                                    device=cuda_device)
+                       for a in (o, d, t_max))
+    ex = torch.full((n,), -1, dtype=torch.int32, device=cuda_device)
+    finite = dead = excluded = 0
+    for _ in range(4):
+        tm = torch.clamp_min(remaining, 0.0)
+        hk = kernels.nearest(acc.tree, acc.tris, o, d, tm, ex, 2)
+        hp = bvh.intersect(acc.tree, acc.tris, o, d, tm, ex, 2)
+        for a, b in zip(hk, hp):
+            assert torch.equal(a, b)
+        finite += int(((tm > 0) & (tm < 1e29)).sum())
+        dead += int((tm <= 0).sum())
+        excluded += int((ex >= 0).sum())
+        ok = (hk.tri >= 0) & (hk.t < remaining)
+        step = torch.where(ok, hk.t + 2e-3, remaining)
+        o = o + d * step[:, None]
+        remaining = remaining - step
+        ex = torch.where(ok, hk.tri, -1)
+    assert finite > n // 2 and dead > n // 2 and excluded > n // 10
+
+
+@pytest.mark.gpu
+def test_cuda_glass_render_matches_cpu_render(cuda_device):
+    from rlshaders_tpu_torch.integrator import wavefront
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene, accel = _glass(dev)
+        out[str(dev)] = wavefront.render(scene, accel, seed=0, aa_samples=2,
+                                         xres=32, yres=32)
+    for name in ("RGBA", "refraction"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
     assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]

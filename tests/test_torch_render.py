@@ -38,11 +38,11 @@ def frames():
     jout = jwave.render(jscene, jaccel, seed=0, aa_samples=AA, xres=RES,
                         yres=RES)
     scene, accel = demo_scene(skin=False, device="cpu")
-    own = twave.render(scene, accel, device="cpu", seed=0, aa_samples=AA,
+    own = twave.render(scene, accel, seed=0, aa_samples=AA,
                        xres=RES, yres=RES)
     iscene, iaccel = interop.scene_from_numpy(
         interop.scene_tables(jscene, jaccel), "cpu")
-    via = twave.render(iscene, iaccel, device="cpu", seed=0, aa_samples=AA,
+    via = twave.render(iscene, iaccel, seed=0, aa_samples=AA,
                        xres=RES, yres=RES)
     return jout, own, via
 

@@ -58,7 +58,7 @@ def frames(tmp_path_factory):
     jout = jwave.render(jscene, jaccel, **kw)
     scene, accel = interop.scene_from_numpy(
         interop.scene_tables(jscene, jaccel), "cpu")
-    return jout, twave.render(scene, accel, device="cpu", **kw)
+    return jout, twave.render(scene, accel, **kw)
 
 
 @pytest.mark.parametrize("name", PLANES)

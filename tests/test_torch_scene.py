@@ -7,6 +7,7 @@ which the port drops.
 """
 import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -85,7 +86,7 @@ def test_build_tables_equal_jax_build(tmp_path):
 
 
 def test_interop_round_trip():
-    scene, accel = tdemo.demo_scene(skin=False)
+    scene, accel = tdemo.demo_scene(skin=False, device="cpu")
     s2, a2 = interop.scene_from_numpy(interop.scene_tables(scene, accel),
                                       "cpu")
     for t1, t2 in ((scene.geometry, s2.geometry),
@@ -107,17 +108,41 @@ def test_unported_features_raise(snippet, what):
     src = _jax_demo(skin=False).replace('shader "mat_floor"', 'shader "m"',
                                         1) + snippet
     with pytest.raises(NotImplementedError):
-        tbuild.build_text(src)
+        tbuild.build_text(src, device="cpu")
 
 
 def test_unported_materials_raise_in_gather():
     from rlshaders_tpu_torch.models import dispatch
 
-    scene, _ = tdemo.demo_scene(skin=True)
+    scene, _ = tdemo.demo_scene(skin=True, device="cpu")
     m = scene.materials
     with pytest.raises(NotImplementedError, match="rlSkin"):
         dispatch.gather(m, torch.zeros(4, dtype=torch.int32),
                         torch.ones(4, dtype=torch.bool))
+
+
+def test_entry_points_default_to_the_card():
+    """build, build_text and demo_scene put the scene on the card unless
+    asked for the CPU; render runs where the scene lives."""
+    from rlshaders_tpu_torch.integrator import wavefront as twave
+
+    for fn in (tbuild.build, tbuild.build_text, tdemo.demo_scene):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "device" not in inspect.signature(twave.render).parameters
+    if torch.cuda.is_available():
+        assert tdemo.demo_scene(skin=False)[0].device.type == "cuda"
+    else:
+        # no fallback: torch's own error
+        with pytest.raises((AssertionError, RuntimeError)):
+            tdemo.demo_scene(skin=False)
+    scene, accel = tdemo.demo_scene(skin=False, device="cpu")
+    out = twave.render(scene, accel, aa_samples=1, xres=4, yres=4)
+    assert all(v.device.type == "cpu" for k, v in out.items()
+               if k != "__stats__")
+    meta = accel._replace(
+        tree=accel.tree._replace(bbox_min=accel.tree.bbox_min.to("meta")))
+    with pytest.raises(ValueError, match="accel is on meta"):
+        twave.render(scene, meta, aa_samples=1, xres=4, yres=4)
 
 
 def _imports(path):
