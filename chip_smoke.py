@@ -24,8 +24,8 @@ nonzero):
    frame of scenes/glass_sphere.ass at its own depths with Russian
    roulette from refraction depth 2 (march steps with finite t_max and
    exclude = the previous hit, roulette-dead lanes with t_max 0); times the
-   kernels on those queries and profiles a 128x128 frame, one full tile of
-   the timed frame;
+   kernels and, in one uncounted pass, the plain walk on those queries, and
+   profiles a 128x128 frame, one full tile of the timed frame;
 7. renders the glass scene at 256x256, AA 3, its own options, through the
    kernels (counts reset, plain walk barred); prints seconds per frame, the
    query counts, the rate and the refraction AOV;
@@ -76,9 +76,12 @@ MEAN_RTOL = 2e-3      # frame mean, relative
 # The bound of a kernel (the least time the card could take for the work):
 # the larger of the bytes it must move over the H100's HBM rate and its
 # float operations over the H100's float32 rate outside the tensor cores.
-# Bytes: each ray's o, d, t_max and exclude (32 B) read once, each output
-# written once (nearest: t, tri, u, v, 16 B; occluded: 1 B), and the tree
-# and triangle tables read once. Operations: the slab tests and triangle
+# Bytes: each output written once (nearest: t, tri, u, v, 16 B; occluded:
+# 1 B); each live ray's o, d, t_max and exclude (32 B) read once, but only
+# the 4 B of t_max of a dead lane (t_max <= 0), since the kernels read the
+# rest inside `if (tm > 0)`; and the tree and triangle tables read once.
+# The live count is the plain walk's (`counts["rays"]`). Operations: the
+# slab tests and triangle
 # tests the plain walk makes for these rays (accel/bvh.py `counts`), times
 # the float operations of each in ops/csrc/intersect.cu, counting every
 # add, multiply, min, max, abs, compare and reciprocal as one.
@@ -105,6 +108,12 @@ def card_line() -> str:
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of fn on the card (after one warm call)."""
     fn()
+    return events_ms(fn, reps)
+
+
+def events_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of fn on the card, CUDA events, no warm
+    call."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -182,17 +191,14 @@ def random_queries(accel, n: int, seed: int):
 def compare(accel, calls, bvh, kernels):
     """Run kernel and plain version on each captured query; returns per
     kernel [mismatching rays, rays, max abs error, the plain walk's work
-    counts, the plain walk's seconds]."""
-    res = {k: [0, 0, 0.0, {}, 0.0] for k in REPLACES}
+    counts]. The walk counts its work here, so it is not timed here."""
+    res = {k: [0, 0, 0.0, {}] for k in REPLACES}
     for name, o, d, tm, ex, vis in calls:
         counts = res[name][3]
         if name == "rls_nearest":
             hk = kernels.nearest(accel.tree, accel.tris, o, d, tm, ex, vis)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             hp = bvh.intersect(accel.tree, accel.tris, o, d, tm, ex, vis,
                                counts=counts)
-            torch.cuda.synchronize()
             bad = ((hk.tri != hp.tri) | (hk.t != hp.t) | (hk.u != hp.u)
                    | (hk.v != hp.v))
             hit = hp.tri >= 0
@@ -202,15 +208,11 @@ def compare(accel, calls, bvh, kernels):
                       float((hk.v - hp.v).abs().max()))
         else:
             bk = kernels.occluded(accel.tree, accel.tris, o, d, tm, ex, vis)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             bp = bvh.occluded(accel.tree, accel.tris, o, d, tm, ex, vis,
                               counts=counts)
-            torch.cuda.synchronize()
             bad = bk != bp
             err = float(bad.any())
         r = res[name]
-        r[4] += time.perf_counter() - t0
         r[0] += int(bad.sum())
         r[1] += o.shape[0]
         r[2] = max(r[2], err)
@@ -222,8 +224,10 @@ def bound(name: str, rays: int, counts: dict, accel) -> dict:
     n_nodes = accel.tree.first.shape[0]
     n_tris = accel.tree.tri_order.shape[0]
     table_bytes = n_nodes * (24 + 12) + n_tris * (36 + 4 + 4 + 1)
-    nbytes = rays * (32 + OUT_BYTES[name]) + table_bytes
-    ops = (OPS_PER_RAY * counts.get("rays", 0)
+    live = counts["rays"]
+    nbytes = (live * (32 + OUT_BYTES[name])
+              + (rays - live) * (4 + OUT_BYTES[name]) + table_bytes)
+    ops = (OPS_PER_RAY * live
            + OPS_PER_BOX * counts.get("boxes", 0)
            + OPS_PER_TRI * counts.get("tris", 0))
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -233,32 +237,32 @@ def bound(name: str, rays: int, counts: dict, accel) -> dict:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
 
-def time_kernels(accel, calls, bvh, kernels, plain=True, reps=10):
-    """Per kernel: (kernel ms, plain ms or None, rays) for all of the
-    frame's queries of that kernel, run back to back."""
+def pair(name: str, kernels, bvh):
+    """(kernel wrapper, plain version) of a kernel."""
+    if name == "rls_nearest":
+        return kernels.nearest, bvh.intersect
+    return kernels.occluded, bvh.occluded
+
+
+def run_all(fn, accel, queries) -> None:
+    for o, d, tm, ex, vis in queries:
+        fn(accel.tree, accel.tris, o, d, tm, ex, vis)
+
+
+def time_kernels(accel, calls, bvh, kernels):
+    """Per kernel: (kernel ms, plain ms, rays) for all of the frame's
+    queries of that kernel, run back to back."""
     out = {}
     for name in REPLACES:
         mine = [c[1:] for c in calls if c[0] == name]
-        if name == "rls_nearest":
-            kern, walk = kernels.nearest, bvh.intersect
-        else:
-            kern, walk = kernels.occluded, bvh.occluded
-
-        def run(fn, mine=mine):
-            for o, d, tm, ex, vis in mine:
-                fn(accel.tree, accel.tris, o, d, tm, ex, vis)
-
-        if plain:
-            # plain, kernel, kernel, plain: clocks drift less across a pair
-            p1 = cuda_ms(lambda: run(walk), 2)
-            k1 = cuda_ms(lambda: run(kern), reps)
-            k2 = cuda_ms(lambda: run(kern), reps)
-            p2 = cuda_ms(lambda: run(walk), 2)
-            out[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
-                         sum(c[0].shape[0] for c in mine))
-        else:
-            out[name] = (cuda_ms(lambda: run(kern), reps), None,
-                         sum(c[0].shape[0] for c in mine))
+        kern, walk = pair(name, kernels, bvh)
+        # plain, kernel, kernel, plain: clocks drift less across a pair
+        p1 = cuda_ms(lambda: run_all(walk, accel, mine), 2)
+        k1 = cuda_ms(lambda: run_all(kern, accel, mine), 10)
+        k2 = cuda_ms(lambda: run_all(kern, accel, mine), 10)
+        p2 = cuda_ms(lambda: run_all(walk, accel, mine), 2)
+        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                     sum(c[0].shape[0] for c in mine))
     return out
 
 
@@ -328,6 +332,7 @@ def profile_frame(wavefront, scene, accel, **kw) -> None:
         wavefront.render(scene, accel, seed=SEED, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
     rows = prof.key_averages()
     dev = [(getattr(r, "self_device_time_total", 0.0), r.count, r.key)
            for r in rows]
@@ -335,7 +340,8 @@ def profile_frame(wavefront, scene, accel, **kw) -> None:
     launches = sum(r.count for r in rows if r.key == "cudaLaunchKernel")
     log(f"[6] profile: wall {wall:.4f} s (profiled), device time "
         f"{total:.4f} ms, busy share {total / 1e3 / wall:.4f}, "
-        f"cudaLaunchKernel calls {launches}")
+        f"cudaLaunchKernel calls {launches}; reading the profile took "
+        f"{time.perf_counter() - t1:.1f} s")
     for t, n, key in sorted(dev, reverse=True)[:8]:
         log(f"[6]   {t / 1e3:10.4f} ms  {n:8d} x  {key[:70]}")
 
@@ -440,6 +446,7 @@ def main() -> int:
                             aa_samples=GLASS_AA, xres=GLASS_CHECK,
                             yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
     glass = compare(gaccel, calls, bvh, kernels)
+    log(f"[6] captured and compared in {time.perf_counter() - t0:.1f} s")
     for k in REPLACES:
         mine = [c for c in calls if c[0] == k]
         dead = sum(int((c[3] <= 0).sum()) for c in mine)
@@ -452,21 +459,24 @@ def main() -> int:
         if glass[k][0]:
             raise AssertionError(f"{k} disagrees with its plain version on "
                                  f"the glass frame")
-    gtimes = time_kernels(gaccel, calls, bvh, kernels, plain=False, reps=3)
-    glass_bound = {}
-    for k, (km, _, r) in gtimes.items():
+    gtimes, glass_bound = {}, {}
+    for k in REPLACES:
+        mine = [c[1:] for c in calls if c[0] == k]
+        kern, walk = pair(k, kernels, bvh)
+        km = cuda_ms(lambda: run_all(kern, gaccel, mine), 3)
+        # the plain walk takes minutes here: one pass, warm from compare()
+        pm = events_ms(lambda: run_all(walk, gaccel, mine), 1)
+        r = sum(c[0].shape[0] for c in mine)
+        gtimes[k] = (km, pm, r)
         b = glass_bound[k] = bound(k, r, glass[k][3], gaccel)
         log(f"[6] {k}: all {r} rays of the glass frame's queries: kernel "
-            f"{km:.4f} ms, plain {glass[k][4] * 1e3:.4f} ms (one pass); "
+            f"{km:.4f} ms, plain {pm:.4f} ms (one pass); "
             f"walk {glass[k][3]}; bound {b['bound_ms']:.4f} ms by "
             f"{b['bound_by']} (bytes {b['byte_ms']:.4f} ms, operations "
             f"{b['op_ms']:.4f} ms), share {b['bound_ms'] / km:.4f}")
     del calls
-    try:
-        profile_frame(wavefront, gscene, gaccel, aa_samples=GLASS_AA,
-                      xres=PROFILE_SIZE, yres=PROFILE_SIZE)
-    except Exception as e:  # the profile is a reading, not a check
-        log(f"[6] profile: not measured ({type(e).__name__}: {e})")
+    profile_frame(wavefront, gscene, gaccel, aa_samples=GLASS_AA,
+                  xres=PROFILE_SIZE, yres=PROFILE_SIZE)
     log(f"[6] phase {time.perf_counter() - t0:.1f} s")
 
     # ---- the glass path: a timed 256x256, AA 3 frame ----
@@ -539,7 +549,7 @@ def main() -> int:
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
             "launches_demo": demo_launches[k],
             "launches_glass": glass_launches[k],
-            "glass_ms": gtimes[k][0], "glass_plain_ms": glass[k][4] * 1e3,
+            "glass_ms": gtimes[k][0], "glass_plain_ms": gtimes[k][1],
             "glass_bound_ms": glass_bound[k]["bound_ms"],
             "glass_bound_by": glass_bound[k]["bound_by"],
         }

@@ -19,7 +19,8 @@ Both walks take an optional `counts` dict and add to it the work they did:
 "rays" (live rays), "boxes" (slab tests) and "tris" (triangle tests of
 leaves whose box was hit). The kernels do the same tests, except that the
 any-hit kernel stops inside a leaf at its first blocker where the plain walk
-tests the whole leaf. Counting synchronises with the device at every step.
+tests the whole leaf. Counting synchronises with the device at every step,
+so a timing of the walk must not pass `counts`: count in a separate call.
 """
 from __future__ import annotations
 
