@@ -12,8 +12,11 @@ nonzero):
 2. builds the ray-query kernels (ops/csrc/intersect.cu) with nvcc;
 3. holds each kernel against its plain PyTorch version (accel/bvh.py) on
    the card: on every query of a 256x256 demo frame (camera, GI and shadow
-   rays) and on random rays with dead lanes, exclude_tri and each
-   visibility bit; prints mismatch counts, the times of both and the bound;
+   rays), on random rays with dead lanes, exclude_tri and each visibility
+   bit, and on random rays through a 12,000-triangle soup (too large for
+   shared memory: the global path) and a 4,000-triangle one (the nodes
+   path); prints mismatch counts, the launches of each table path, the
+   times of both and the bound;
 4. renders demo_scene(skin=False) at 256x256, AA 2, through the kernels,
    with the kernels' launch counts reset first and the plain walk barred
    from CUDA tensors; prints seconds per frame, the query counts and the
@@ -24,8 +27,11 @@ nonzero):
    frame of scenes/glass_sphere.ass at its own depths with Russian
    roulette from refraction depth 2 (march steps with finite t_max and
    exclude = the previous hit, roulette-dead lanes with t_max 0); times the
-   kernels and, in one uncounted pass, the plain walk on those queries, and
-   profiles a 128x128 frame, one full tile of the timed frame;
+   kernels and, in one uncounted pass, the plain walk on those queries,
+   checks the kernels' device time against torch.profiler's sum of their
+   launches, prints the dead lanes of those queries (launches with no live
+   lane, 32-lane groups with a live lane), and profiles a 128x128 frame,
+   one full tile of the timed frame;
 7. renders the glass scene at 256x256, AA 3, its own options, through the
    kernels (counts reset, plain walk barred); prints seconds per frame, the
    query counts, the rate and the refraction AOV;
@@ -36,8 +42,18 @@ nonzero):
 9. renders the glass scene at 32x32 on the card and on the CPU and
    compares.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+Each kernel is timed two ways at each shape (the demo frame's queries, the
+glass frame's, the two j_walk sets): `device_ms`, the shape's queries
+captured in one CUDA graph whose replays are timed with CUDA events (what
+the card spends; the wrappers' host time is paid once, at capture), and
+`call_ms`, the same queries as eager wrapper calls timed with CUDA events
+(what the main path pays per call). The share of the bound is taken from
+`device_ms`.
+
+The last three lines of the output are: a JSON object with one entry per
+kernel (with, per shape, its launches, device_ms and call_ms); the card's
+name and power limit as nvidia-smi prints them; and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -45,6 +61,8 @@ import json
 import subprocess
 import sys
 import time
+import types
+from functools import partial
 
 import numpy as np
 import torch
@@ -59,6 +77,7 @@ GLASS_CHECK = 64    # width and height of the glass frame held to the walk
 GLASS_RR = 2        # roulette start of that frame (the JAX bench's)
 PROFILE_SIZE = 128  # the profiled glass frame: one full tile at AA 3
 JWALK_RAYS = 262144
+SOUPS = {12000: "global", 4000: "nodes"}  # triangles: the table path taken
 REPLACES = {
     "rls_nearest": "rlshaders_tpu/ops/intersect_pallas.py:342",
     "rls_occluded": "rlshaders_tpu/ops/intersect_pallas.py:455",
@@ -125,6 +144,36 @@ def events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(run, reps: int) -> float:
+    """Device milliseconds of one call of `run` (a pass of kernel
+    launches): the pass captured in one CUDA graph, its replays timed with
+    CUDA events, so the launches' host time is paid once, at capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    ms = cuda_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def profiled_ms(run, key: str) -> float:
+    """torch.profiler's device milliseconds of the kernels whose name holds
+    `key`, over one eager call of `run`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(r.self_device_time_total for r in prof.key_averages()
+               if key in r.key) / 1e3
+
+
 def capture_queries(scene, accel, wavefront, tracemod, **render_kw):
     """Render one frame on the card, recording the inputs of every ray
     query it makes."""
@@ -188,6 +237,20 @@ def random_queries(accel, n: int, seed: int):
     return out
 
 
+def soup_accel(tracemod, t: int, seed: int = 8):
+    """A random soup of t small triangles on the card, random visibility
+    bits and opacity."""
+    rs = np.random.default_rng(seed)
+    geom = types.SimpleNamespace(
+        v0=rs.uniform(-1, 1, (t, 3)), e1=rs.uniform(-0.05, 0.05, (t, 3)),
+        e2=rs.uniform(-0.05, 0.05, (t, 3)),
+        visibility=rs.integers(1, 256, t), opaque=rs.random(t) < 0.7)
+    dtypes = {"visibility": torch.int32, "opaque": torch.bool}
+    return tracemod.build(types.SimpleNamespace(**{
+        k: torch.tensor(v, dtype=dtypes.get(k, torch.float32), device=DEVICE)
+        for k, v in vars(geom).items()}))
+
+
 def compare(accel, calls, bvh, kernels):
     """Run kernel and plain version on each captured query; returns per
     kernel [mismatching rays, rays, max abs error, the plain walk's work
@@ -196,7 +259,7 @@ def compare(accel, calls, bvh, kernels):
     for name, o, d, tm, ex, vis in calls:
         counts = res[name][3]
         if name == "rls_nearest":
-            hk = kernels.nearest(accel.tree, accel.tris, o, d, tm, ex, vis)
+            hk = kernels.nearest(accel.packed, o, d, tm, ex, vis)
             hp = bvh.intersect(accel.tree, accel.tris, o, d, tm, ex, vis,
                                counts=counts)
             bad = ((hk.tri != hp.tri) | (hk.t != hp.t) | (hk.u != hp.u)
@@ -207,7 +270,7 @@ def compare(accel, calls, bvh, kernels):
                       float((hk.u - hp.u).abs().max()),
                       float((hk.v - hp.v).abs().max()))
         else:
-            bk = kernels.occluded(accel.tree, accel.tris, o, d, tm, ex, vis)
+            bk = kernels.occluded(accel.packed, o, d, tm, ex, vis)
             bp = bvh.occluded(accel.tree, accel.tris, o, d, tm, ex, vis,
                               counts=counts)
             bad = bk != bp
@@ -217,6 +280,11 @@ def compare(accel, calls, bvh, kernels):
         r[1] += o.shape[0]
         r[2] = max(r[2], err)
     return res
+
+
+def table_bytes(accel) -> int:
+    p = accel.packed
+    return p.nodes.numel() * 4 + p.tris.numel() * 4
 
 
 def bound(name: str, rays: int, counts: dict, accel) -> dict:
@@ -237,38 +305,74 @@ def bound(name: str, rays: int, counts: dict, accel) -> dict:
             "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
 
 
-def pair(name: str, kernels, bvh):
-    """(kernel wrapper, plain version) of a kernel."""
+def pair(name: str, kernels, bvh, accel):
+    """(kernel wrapper, plain version) of a kernel on accel's tables, each
+    a function of (o, d, t_max, exclude, vis_mask)."""
     if name == "rls_nearest":
-        return kernels.nearest, bvh.intersect
-    return kernels.occluded, bvh.occluded
+        return (partial(kernels.nearest, accel.packed),
+                partial(bvh.intersect, accel.tree, accel.tris))
+    return (partial(kernels.occluded, accel.packed),
+            partial(bvh.occluded, accel.tree, accel.tris))
 
 
-def run_all(fn, accel, queries) -> None:
-    for o, d, tm, ex, vis in queries:
-        fn(accel.tree, accel.tris, o, d, tm, ex, vis)
+def run_all(fn, queries) -> None:
+    for q in queries:
+        fn(*q)
+
+
+def kernel_ms(kern, queries, reps: int) -> tuple:
+    """(device_ms, call_ms) of one pass of the kernel over queries."""
+    run = partial(run_all, kern, queries)
+    return device_ms(run, reps), cuda_ms(run, reps)
 
 
 def time_kernels(accel, calls, bvh, kernels):
-    """Per kernel: (kernel ms, plain ms, rays) for all of the frame's
-    queries of that kernel, run back to back."""
+    """Per kernel: (device ms, call ms, plain ms, rays, launches) for all
+    of the frame's queries of that kernel, run back to back."""
     out = {}
     for name in REPLACES:
         mine = [c[1:] for c in calls if c[0] == name]
-        kern, walk = pair(name, kernels, bvh)
+        kern, walk = pair(name, kernels, bvh, accel)
         # plain, kernel, kernel, plain: clocks drift less across a pair
-        p1 = cuda_ms(lambda: run_all(walk, accel, mine), 2)
-        k1 = cuda_ms(lambda: run_all(kern, accel, mine), 10)
-        k2 = cuda_ms(lambda: run_all(kern, accel, mine), 10)
-        p2 = cuda_ms(lambda: run_all(walk, accel, mine), 2)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
-                     sum(c[0].shape[0] for c in mine))
+        p1 = cuda_ms(lambda: run_all(walk, mine), 2)
+        d1, c1 = kernel_ms(kern, mine, 10)
+        d2, c2 = kernel_ms(kern, mine, 10)
+        p2 = cuda_ms(lambda: run_all(walk, mine), 2)
+        out[name] = ((d1 + d2) / 2, (c1 + c2) / 2, (p1 + p2) / 2,
+                     sum(c[0].shape[0] for c in mine), len(mine))
+    return out
+
+
+def dead_lanes(calls, name: str) -> dict:
+    """The dead lanes (t_max <= 0) of a kernel's queries: launches with no
+    live lane, and how the live lanes fall into 32-lane groups."""
+    out = {"launches": 0, "no_live": 0, "rays": 0, "live": 0, "groups": 0,
+           "live_groups": 0}
+    for c in calls:
+        if c[0] != name:
+            continue
+        live = c[3] > 0
+        pad = torch.zeros((-live.numel()) % 32, dtype=torch.bool,
+                          device=live.device)
+        groups = torch.cat([live, pad]).view(-1, 32).any(1)
+        n_live = int(live.sum())
+        out["launches"] += 1
+        out["no_live"] += int(n_live == 0)
+        out["rays"] += live.numel()
+        out["live"] += n_live
+        out["groups"] += groups.numel()
+        out["live_groups"] += int(groups.sum())
     return out
 
 
 def reset(kernels) -> None:
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    for counts in (kernels.LAUNCHES, kernels.PATH_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def path_launches(kernels) -> dict:
+    return {k: n for k, n in kernels.PATH_LAUNCHES.items() if n}
 
 
 def barred_render(wavefront, bvh, scene, accel, **kw):
@@ -393,8 +497,11 @@ def main() -> int:
     scene, accel = demo_scene(skin=False)
     calls = capture_queries(scene, accel, wavefront, tracemod,
                             aa_samples=AA, xres=SIZE, yres=SIZE)
+    reset(kernels)
     frame = compare(accel, calls, bvh, kernels)
     rand = compare(accel, random_queries(accel, 100_000, 7), bvh, kernels)
+    log(f"[3] demo tables {table_bytes(accel)} B: launches by table path "
+        f"{path_launches(kernels)}")
     for k in REPLACES:
         live = sum(int((c[3] > 0).sum()) for c in calls if c[0] == k)
         log(f"[3] {k}: frame queries {frame[k][1]} rays ({live} live, the "
@@ -403,15 +510,33 @@ def main() -> int:
             f"mismatches; max abs err {max(frame[k][2], rand[k][2]):.3g}")
         if frame[k][0] or rand[k][0]:
             raise AssertionError(f"{k} disagrees with its plain version")
+    soup_err = 0.0
+    for t, path in SOUPS.items():
+        sacc = soup_accel(tracemod, t)
+        reset(kernels)
+        res = compare(sacc, random_queries(sacc, 20_000, 11), bvh, kernels)
+        took = path_launches(kernels)
+        log(f"[3] {t}-triangle soup, tables {table_bytes(sacc)} B: launches "
+            f"by table path {took}; " + "; ".join(
+                f"{k} {res[k][1]} rays, {res[k][0]} mismatches"
+                for k in REPLACES))
+        if set(took) != {path}:
+            raise AssertionError(f"the {t}-triangle soup took {took}, "
+                                 f"expected the {path} path")
+        if any(res[k][0] for k in REPLACES):
+            raise AssertionError(f"a kernel disagrees with its plain version "
+                                 f"on the {t}-triangle soup")
+        soup_err = max(soup_err, *(res[k][2] for k in REPLACES))
     times = time_kernels(accel, calls, bvh, kernels)
     demo_bound = {}
-    for k, (km, pm, r) in times.items():
+    for k, (dm, cm, pm, r, n) in times.items():
         b = demo_bound[k] = bound(k, r, frame[k][3], accel)
-        log(f"[3] {k}: all {r} rays of the frame's queries: kernel "
-            f"{km:.4f} ms, plain {pm:.4f} ms; walk {frame[k][3]}; bound "
-            f"{b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
-            f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), "
-            f"share {b['bound_ms'] / km:.4f}")
+        log(f"[3] {k}: all {r} rays of the frame's {n} queries: device "
+            f"{dm:.4f} ms, call {cm:.4f} ms ({dm / n * 1e3:.2f} / "
+            f"{cm / n * 1e3:.2f} us per launch), plain {pm:.4f} ms; walk "
+            f"{frame[k][3]}; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"(bytes {b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), "
+            f"share of device time {b['bound_ms'] / dm:.4f}")
     del calls
     log(f"[3] phase {time.perf_counter() - t0:.1f} s")
 
@@ -427,7 +552,8 @@ def main() -> int:
     stats = out["__stats__"]
     rays = stats["nearest_rays"] + stats["shadow_rays"]
     log(f"[4] {SIZE}x{SIZE} AA {AA}: {dt:.4f} s/frame, mean RGB "
-        f"{float(out['RGBA'].mean()):.6f}, launches {demo_launches}, "
+        f"{float(out['RGBA'].mean()):.6f}, launches {demo_launches}, by "
+        f"table path {path_launches(kernels)}, "
         f"nearest rays {stats['nearest_rays']}, shadow rays "
         f"{stats['shadow_rays']}, {rays / dt / 1e6:.3f} Mrays/s "
         f"(nearest+shadow)")
@@ -445,8 +571,11 @@ def main() -> int:
     calls = capture_queries(gscene, gaccel, wavefront, tracemod,
                             aa_samples=GLASS_AA, xres=GLASS_CHECK,
                             yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
+    reset(kernels)
     glass = compare(gaccel, calls, bvh, kernels)
-    log(f"[6] captured and compared in {time.perf_counter() - t0:.1f} s")
+    log(f"[6] captured and compared in {time.perf_counter() - t0:.1f} s; "
+        f"glass tables {table_bytes(gaccel)} B: launches by table path "
+        f"{path_launches(kernels)}")
     for k in REPLACES:
         mine = [c for c in calls if c[0] == k]
         dead = sum(int((c[3] <= 0).sum()) for c in mine)
@@ -459,21 +588,33 @@ def main() -> int:
         if glass[k][0]:
             raise AssertionError(f"{k} disagrees with its plain version on "
                                  f"the glass frame")
+        dl = dead_lanes(calls, k)
+        log(f"[6] {k} dead lanes: {dl['no_live']} of {dl['launches']} "
+            f"launches have no live lane; live share {dl['live'] / dl['rays']:.4f}; "
+            f"32-lane groups with a live lane {dl['live_groups']} of "
+            f"{dl['groups']} ({dl['live_groups'] / dl['groups']:.4f}), live "
+            f"share inside them "
+            f"{dl['live'] / max(32 * dl['live_groups'], 1):.4f}")
     gtimes, glass_bound = {}, {}
     for k in REPLACES:
         mine = [c[1:] for c in calls if c[0] == k]
-        kern, walk = pair(k, kernels, bvh)
-        km = cuda_ms(lambda: run_all(kern, gaccel, mine), 3)
+        kern, walk = pair(k, kernels, bvh, gaccel)
+        dm, cm = kernel_ms(kern, mine, 3)
+        prof = profiled_ms(partial(run_all, kern, mine),
+                           k[len("rls_"):] + "_kernel")
         # the plain walk takes minutes here: one pass, warm from compare()
-        pm = events_ms(lambda: run_all(walk, gaccel, mine), 1)
+        pm = events_ms(lambda: run_all(walk, mine), 1)
         r = sum(c[0].shape[0] for c in mine)
-        gtimes[k] = (km, pm, r)
+        gtimes[k] = (dm, cm, pm, r, len(mine))
         b = glass_bound[k] = bound(k, r, glass[k][3], gaccel)
-        log(f"[6] {k}: all {r} rays of the glass frame's queries: kernel "
-            f"{km:.4f} ms, plain {pm:.4f} ms (one pass); "
-            f"walk {glass[k][3]}; bound {b['bound_ms']:.4f} ms by "
-            f"{b['bound_by']} (bytes {b['byte_ms']:.4f} ms, operations "
-            f"{b['op_ms']:.4f} ms), share {b['bound_ms'] / km:.4f}")
+        log(f"[6] {k}: all {r} rays of the glass frame's {len(mine)} "
+            f"queries: device {dm:.4f} ms (torch.profiler's sum of the "
+            f"kernel's launches {prof:.4f} ms), call {cm:.4f} ms "
+            f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us per "
+            f"launch), plain {pm:.4f} ms (one pass); walk {glass[k][3]}; "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
+            f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
+            f"of device time {b['bound_ms'] / dm:.4f}")
     del calls
     profile_frame(wavefront, gscene, gaccel, aa_samples=GLASS_AA,
                   xres=PROFILE_SIZE, yres=PROFILE_SIZE)
@@ -495,7 +636,8 @@ def main() -> int:
     grays = gstats["nearest_rays"] + gstats["shadow_rays"]
     log(f"[7] glass {SIZE}x{SIZE} AA {GLASS_AA}: {gdt:.4f} s/frame, mean "
         f"RGB {float(gout['RGBA'].mean()):.6f}, refraction AOV mean "
-        f"{refr:.6f}, all planes finite, launches {glass_launches}, "
+        f"{refr:.6f}, all planes finite, launches {glass_launches}, by table "
+        f"path {path_launches(kernels)}, "
         f"nearest rays {gstats['nearest_rays']} ({gstats['march_segments']} "
         f"shadow segments marched), shadow rays {gstats['shadow_rays']}, "
         f"{grays / gdt / 1e6:.3f} Mrays/s (nearest+shadow)")
@@ -509,23 +651,21 @@ def main() -> int:
     ex = torch.full((n,), -1, dtype=torch.int32, device=DEVICE)
     jwalk = {}
     for tag, (o, d) in jsets.items():
-        for k, kern, walk in (("rls_nearest", kernels.nearest, bvh.intersect),
-                              ("rls_occluded", kernels.occluded,
-                               bvh.occluded)):
+        for k in REPLACES:
+            kern, walk = pair(k, kernels, bvh, gaccel)
+            q = [(o, d, tmax, ex, 0xFF)]
             counts = {}
-            walk(gaccel.tree, gaccel.tris, o, d, tmax, ex, 0xFF,
-                 counts=counts)
-            ms = cuda_ms(lambda: kern(gaccel.tree, gaccel.tris, o, d, tmax,
-                                      ex, 0xFF), 50)
-            pms = cuda_ms(lambda: walk(gaccel.tree, gaccel.tris, o, d, tmax,
-                                       ex, 0xFF), 1)
+            walk(o, d, tmax, ex, 0xFF, counts=counts)
+            dm, cm = kernel_ms(kern, q, 50)
+            pms = cuda_ms(lambda: walk(o, d, tmax, ex, 0xFF), 1)
             b = bound(k, n, counts, gaccel)
-            jwalk[(k, tag)] = (ms, pms, b)
-            log(f"[8] j_walk {tag} {k}: {ms:.4f} ms, {n / ms / 1e3:.1f} "
-                f"Mrays/s, plain {pms:.4f} ms; walk {counts}; byte bound "
-                f"{b['byte_ms']:.4f} ms, "
-                f"operation bound {b['op_ms']:.4f} ms, share of the larger "
-                f"({b['bound_by']}) {b['bound_ms'] / ms:.4f}")
+            jwalk[(k, tag)] = (dm, cm, pms, b)
+            log(f"[8] j_walk {tag} {k}: device {dm:.4f} ms "
+                f"({n / dm / 1e3:.1f} Mrays/s), call {cm:.4f} ms, plain "
+                f"{pms:.4f} ms; walk {counts}; byte bound "
+                f"{b['byte_ms']:.4f} ms, operation bound {b['op_ms']:.4f} "
+                f"ms, share of the larger ({b['bound_by']}) of device time "
+                f"{b['bound_ms'] / dm:.4f}")
     log(f"[8] phase {time.perf_counter() - t0:.1f} s")
 
     # ---- the glass frame on the card and on the CPU ----
@@ -539,27 +679,31 @@ def main() -> int:
 
     entries = []
     for k in REPLACES:
-        entry = {
+        def shape(dm, cm, pm, b, launches):
+            return {"launches": launches, "device_ms": dm, "call_ms": cm,
+                    "plain_ms": pm, "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"]}
+
+        dm, cm, pm, _, nq = times[k]
+        shapes = {"demo": shape(dm, cm, pm, demo_bound[k], nq)}
+        dm, cm, pm, _, nq = gtimes[k]
+        shapes["glass"] = shape(dm, cm, pm, glass_bound[k], nq)
+        for tag in jsets:
+            dm, cm, pm, b = jwalk[(k, tag)]
+            shapes[f"jwalk_{tag}"] = shape(dm, cm, pm, b, 1)
+        entries.append({
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k],
             "launches": demo_launches[k] + glass_launches[k],
-            "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2]),
-            "ms": times[k][0], "plain_ms": times[k][1],
+            "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
+                               soup_err),
+            "ms": times[k][0], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
             "launches_demo": demo_launches[k],
             "launches_glass": glass_launches[k],
-            "glass_ms": gtimes[k][0], "glass_plain_ms": gtimes[k][1],
-            "glass_bound_ms": glass_bound[k]["bound_ms"],
-            "glass_bound_by": glass_bound[k]["bound_by"],
-        }
-        for tag in jsets:
-            ms, pms, b = jwalk[(k, tag)]
-            entry[f"jwalk_{tag}_ms"] = ms
-            entry[f"jwalk_{tag}_plain_ms"] = pms
-            entry[f"jwalk_{tag}_bound_ms"] = b["bound_ms"]
-            entry[f"jwalk_{tag}_bound_by"] = b["bound_by"]
-        entries.append(entry)
+            "shapes": shapes,
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

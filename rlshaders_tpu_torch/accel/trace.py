@@ -19,13 +19,15 @@ from ..ops import intersect as kernels
 
 
 class Accel(NamedTuple):
-    tree: bvhmod.BVH
+    tree: bvhmod.BVH          # structure-of-arrays tables: the plain walk's
     tris: bvhmod.Tris
+    packed: kernels.Packed    # the same tables as the kernels' records
 
 
 def from_arrays(geometry, bbox_min, bbox_max, first, count, miss,
                 tri_order) -> Accel:
-    """Accel from BVH arrays over `geometry` (its tensors' device)."""
+    """Accel from BVH arrays over `geometry` (its tensors' device); packs
+    and checks the kernels' tables once, here."""
     dev = geometry.v0.device
 
     def t(a, dtype):
@@ -44,7 +46,7 @@ def from_arrays(geometry, bbox_min, bbox_max, first, count, miss,
         vis=geometry.visibility[slot].contiguous(),
         opaque=geometry.opaque[slot].contiguous(),
     )
-    return Accel(tree=tree, tris=tris)
+    return Accel(tree=tree, tris=tris, packed=kernels.pack(tree, tris))
 
 
 def build(geometry) -> Accel:
@@ -68,13 +70,12 @@ def nearest(accel: Accel, o, d, vis_mask: int, exclude_tri=None,
         t_max = torch.full((r,), 1e30, dtype=torch.float32, device=o.device)
     if exclude_tri is None:
         exclude_tri = torch.full((r,), -1, dtype=torch.int32, device=o.device)
-    args = (accel.tree, accel.tris, o.contiguous(), d.contiguous(),
-            t_max.contiguous(), exclude_tri.to(torch.int32).contiguous(),
-            vis_mask, t_eps)
+    rays = (o.contiguous(), d.contiguous(), t_max.contiguous(),
+            exclude_tri.to(torch.int32).contiguous(), vis_mask, t_eps)
     if o.device.type == "cpu":
-        return bvhmod.intersect(*args)
+        return bvhmod.intersect(accel.tree, accel.tris, *rays)
     if o.device.type == "cuda":
-        return kernels.nearest(*args)
+        return kernels.nearest(accel.packed, *rays)
     raise _no_path(o)
 
 
@@ -84,11 +85,10 @@ def occluded(accel: Accel, o, d, t_max, vis_mask: int, exclude_tri=None,
     r = o.shape[0]
     if exclude_tri is None:
         exclude_tri = torch.full((r,), -1, dtype=torch.int32, device=o.device)
-    args = (accel.tree, accel.tris, o.contiguous(), d.contiguous(),
-            t_max.contiguous(), exclude_tri.to(torch.int32).contiguous(),
-            vis_mask, t_eps)
+    rays = (o.contiguous(), d.contiguous(), t_max.contiguous(),
+            exclude_tri.to(torch.int32).contiguous(), vis_mask, t_eps)
     if o.device.type == "cpu":
-        return bvhmod.occluded(*args)
+        return bvhmod.occluded(accel.tree, accel.tris, *rays)
     if o.device.type == "cuda":
-        return kernels.occluded(*args)
+        return kernels.occluded(accel.packed, *rays)
     raise _no_path(o)

@@ -22,234 +22,497 @@
 // largest id instead). A miss reports t = min(t_max, 1e30) and tri = -1.
 // Lanes with t_max <= 0 are dead and miss without walking.
 //
-// What bounds it on an H100: each visited node and each tested triangle is a
-// dependent load from global memory (through L1/L2), so a thread waits on
-// memory latency, not on arithmetic or bandwidth, and neighbouring threads
-// diverge as their rays take different paths. The simple design does nothing
-// about it yet: no ray sorting, no shared-memory copy of the tree's top, no
-// wide nodes, no compaction of dead lanes (most lanes of the transparent-
-// shadow march carry t_max 0 and return at once). The trees of the ported
-// scenes (up to 609 nodes and 1,026 triangles) fit in L1 and L2; measured
-// on the H100, both kernels run far below their byte and operation bounds
-// (PERF.md).
+// Tables (packed once per Accel by ops/intersect.py::pack). A node is one
+// 32-byte record of two 16-byte words, (bmin.xyz, code) and (bmax.xyz,
+// miss), where code is -1 for an inner node and first << 3 | count for a
+// leaf. A triangle slot is one 48-byte record, (v0.xyz, id), (e1.xyz, vis),
+// (e2.xyz, opaque). Every read of a record is a 16-byte load.
+//
+// Paths, chosen per Accel by table size (ops/intersect.py::table_path):
+//   shared  both tables staged into shared memory, once per block;
+//   nodes   the nodes staged, the triangles read from global memory;
+//   global  both read from global memory through the read-only cache.
+// The staging copy is either cp.async (16 bytes a thread) or one TMA bulk
+// copy per table completing on an mbarrier; the path code says which.
+//
+// What bounds it on an H100, and what the design does about it: a launch
+// of the ray queries is small (the glass frame hands ~216,000 rays to
+// each nearest launch, 85% of them dead), so its device time is a fixed
+// cost (launch, the grid's ramp and drain, writing every lane's output)
+// plus the longest walk of a live ray, a chain of dependent loads, and not
+// the bytes or operations of the work. So:
+//   - a persistent grid of the blocks that fit on the card at once; a
+//     block loops over chunks of rays;
+//   - a chunk's dead lanes answer at once, in coalesced stores, and a
+//     block whose chunks hold no live lane never stages the tables;
+//   - each warp gathers the live rays of its slice of the chunk (ballot,
+//     popc) into a queue in shared memory and walks 32 live rays at a time,
+//     so a warp walks once where it would have walked once per 32-ray
+//     group holding a live lane;
+//   - the walk's dependent loads hit shared memory (about 30 cycles)
+//     instead of L1 or L2, where the tables fit.
+// PERF.md has the device times against the bound and the PR 2 kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-struct Tree {
-  const float* bmin;    // (N, 3)
-  const float* bmax;    // (N, 3)
-  const int* first;     // (N,) leaf: first slot; inner: -1
-  const int* count;     // (N,)
-  const int* miss;      // (N,)
-  const int* order;     // (T,) slot -> original triangle id
-  const float* v0;      // (T, 3) slot order
-  const float* e1;      // (T, 3)
-  const float* e2;      // (T, 3)
-  const int* vis;       // (T,)
-  const uint8_t* opaque;  // (T,) bool
-  int n_nodes;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxGroups = 4;  // 32-ray groups in a warp's slice of a chunk
+// dynamic shared memory: the warps' queues of live rays, then the tables
+constexpr int kQueueBytes = kWarps * 32 * kMaxGroups * 4;
+
+enum Path : int {
+  kGlobal = 0,
+  kNodes = 1,     // nodes staged by cp.async
+  kShared = 2,    // both staged by cp.async
+  kNodesTma = 3,  // nodes staged by a TMA bulk copy
+  kSharedTma = 4  // both staged by TMA bulk copies
 };
+
+struct Query {
+  const int4* nodes;  // 2 words per node
+  const int4* tris;   // 3 words per triangle slot
+  int n_nodes;
+  int n_tris;
+  const float* o;      // (n, 3)
+  const float* d;      // (n, 3)
+  const float* t_max;  // (n,)
+  const int* exclude;  // (n,)
+  int n;
+  int vis_mask;
+  float t_eps;
+  int groups;  // 32-ray groups per warp slice, 1..kMaxGroups
+  void* out;   // nearest: (4, n) floats t, tri (int bits), u, v; any-hit: n bytes
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  int excl;
+};
+
+template <bool kShared>
+__device__ __forceinline__ int4 word(const int4* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+__device__ __forceinline__ float fl(int bits) { return __int_as_float(bits); }
 
 __device__ __forceinline__ float inv_dir(float d) {
   return fabsf(d) > 1e-12f ? 1.0f / d : 1e12f;
 }
 
-__device__ __forceinline__ bool box_hit(const Tree& tr, int node, float ox,
-                                        float oy, float oz, float ix, float iy,
-                                        float iz, float t_best) {
-  const float* lo = tr.bmin + 3 * node;
-  const float* hi = tr.bmax + 3 * node;
-  float t0x = (lo[0] - ox) * ix, t1x = (hi[0] - ox) * ix;
-  float t0y = (lo[1] - oy) * iy, t1y = (hi[1] - oy) * iy;
-  float t0z = (lo[2] - oz) * iz, t1z = (hi[2] - oz) * iz;
+__device__ __forceinline__ bool box_hit(int4 lo, int4 hi, const Ray& r,
+                                        float t_best) {
+  float t0x = (fl(lo.x) - r.ox) * r.ix, t1x = (fl(hi.x) - r.ox) * r.ix;
+  float t0y = (fl(lo.y) - r.oy) * r.iy, t1y = (fl(hi.y) - r.oy) * r.iy;
+  float t0z = (fl(lo.z) - r.oz) * r.iz, t1z = (fl(hi.z) - r.oz) * r.iz;
   float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   return tf >= fmaxf(tn, 0.0f) && tn < t_best;
 }
 
-// Moller-Trumbore in the plain version's order of operations.
-__device__ __forceinline__ bool tri_test(const Tree& tr, int s, float ox,
-                                         float oy, float oz, float dx,
-                                         float dy, float dz, float t_eps,
-                                         float t_best, float* t_hit,
-                                         float* u_hit, float* v_hit) {
-  const float* a = tr.v0 + 3 * s;
-  const float* b = tr.e1 + 3 * s;
-  const float* c = tr.e2 + 3 * s;
-  float px = dy * c[2] - dz * c[1];
-  float py = dz * c[0] - dx * c[2];
-  float pz = dx * c[1] - dy * c[0];
-  float det = b[0] * px + b[1] * py + b[2] * pz;
+// Moller-Trumbore in the plain version's order of operations; a = (v0, id),
+// b = (e1, vis), c = (e2, opaque).
+__device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
+                                         float t_eps, float t_best,
+                                         float* t_hit, float* u_hit,
+                                         float* v_hit) {
+  float px = r.dy * fl(c.z) - r.dz * fl(c.y);
+  float py = r.dz * fl(c.x) - r.dx * fl(c.z);
+  float pz = r.dx * fl(c.y) - r.dy * fl(c.x);
+  float det = fl(b.x) * px + fl(b.y) * py + fl(b.z) * pz;
   if (!(fabsf(det) > 1e-12f)) return false;
   float inv = 1.0f / det;
-  float tx = ox - a[0], ty = oy - a[1], tz = oz - a[2];
+  float tx = r.ox - fl(a.x), ty = r.oy - fl(a.y), tz = r.oz - fl(a.z);
   float u = (tx * px + ty * py + tz * pz) * inv;
-  float qx = ty * b[2] - tz * b[1];
-  float qy = tz * b[0] - tx * b[2];
-  float qz = tx * b[1] - ty * b[0];
-  float v = (dx * qx + dy * qy + dz * qz) * inv;
-  float t = (c[0] * qx + c[1] * qy + c[2] * qz) * inv;
+  float qx = ty * fl(b.z) - tz * fl(b.y);
+  float qy = tz * fl(b.x) - tx * fl(b.z);
+  float qz = tx * fl(b.y) - ty * fl(b.x);
+  float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  float t = (fl(c.x) * qx + fl(c.y) * qy + fl(c.z) * qz) * inv;
   *t_hit = t;
   *u_hit = u;
   *v_hit = v;
   return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_eps && t < t_best;
 }
 
-__global__ void nearest_kernel(Tree tr, const float* __restrict__ o,
-                               const float* __restrict__ d,
-                               const float* __restrict__ t_max,
-                               const int* __restrict__ exclude, int n_rays,
-                               int vis_mask, float t_eps,
-                               float* __restrict__ t_out,
-                               int* __restrict__ tri_out,
-                               float* __restrict__ u_out,
-                               float* __restrict__ v_out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  float tm = t_max[r];
-  float t_best = fminf(tm, 1e30f);
-  int tri = -1;
-  float ub = 0.0f, vb = 0.0f;
-  if (tm > 0.0f) {
-    float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-    float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-    float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-    int excl = exclude[r];
-    int node = 0;
-    while (node < tr.n_nodes) {
-      bool hit = box_hit(tr, node, ox, oy, oz, ix, iy, iz, t_best);
-      int first = tr.first[node];
-      if (hit && first < 0) {
-        node += 1;
-        continue;
-      }
-      if (hit) {
-        int cnt = tr.count[node];
-        for (int s = first; s < first + cnt; ++s) {
-          float t, u, v;
-          if (tri_test(tr, s, ox, oy, oz, dx, dy, dz, t_eps, t_best, &t, &u,
-                       &v) &&
-              tr.order[s] != excl && (tr.vis[s] & vis_mask) != 0) {
+// The walk of one ray. Nearest: updates the best hit and returns false.
+// Any-hit (t_best = t_max, fixed): returns true at the first opaque blocker.
+template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
+__device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
+                                     int n_nodes, const Ray& r, int vis_mask,
+                                     float t_eps, float& t_best, int& tri,
+                                     float& ub, float& vb) {
+  int node = 0;
+  while (node < n_nodes) {
+    const int4 lo = word<kNodesShared>(nodes + 2 * node);
+    const int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
+    const bool hit = box_hit(lo, hi, r, t_best);
+    if (hit && lo.w < 0) {
+      node += 1;
+      continue;
+    }
+    if (hit) {
+      const int first = lo.w >> 3, end = first + (lo.w & 7);
+      for (int s = first; s < end; ++s) {
+        const int4 a = word<kTrisShared>(tris + 3 * s);
+        const int4 b = word<kTrisShared>(tris + 3 * s + 1);
+        const int4 c = word<kTrisShared>(tris + 3 * s + 2);
+        float t, u, v;
+        if (tri_test(a, b, c, r, t_eps, t_best, &t, &u, &v) &&
+            a.w != r.excl && (b.w & vis_mask) != 0) {
+          if constexpr (kAnyHit) {
+            if (c.w != 0) return true;
+          } else {
             t_best = t;
-            tri = tr.order[s];
+            tri = a.w;
             ub = u;
             vb = v;
           }
         }
       }
-      node = tr.miss[node];
     }
+    node = hi.w;
   }
-  t_out[r] = t_best;
-  tri_out[r] = tri;
-  u_out[r] = ub;
-  v_out[r] = vb;
+  return false;
 }
 
-__global__ void occluded_kernel(Tree tr, const float* __restrict__ o,
-                                const float* __restrict__ d,
-                                const float* __restrict__ t_max,
-                                const int* __restrict__ exclude, int n_rays,
-                                int vis_mask, float t_eps,
-                                uint8_t* __restrict__ blocked_out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  float tm = t_max[r];
-  uint8_t blocked = 0;
-  if (tm > 0.0f) {
-    float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
-    float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
-    float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
-    int excl = exclude[r];
-    int node = 0;
-    while (node < tr.n_nodes && !blocked) {
-      bool hit = box_hit(tr, node, ox, oy, oz, ix, iy, iz, tm);
-      int first = tr.first[node];
-      if (hit && first < 0) {
-        node += 1;
-        continue;
-      }
-      if (hit) {
-        int cnt = tr.count[node];
-        for (int s = first; s < first + cnt; ++s) {
-          float t, u, v;
-          if (tri_test(tr, s, ox, oy, oz, dx, dy, dz, t_eps, tm, &t, &u,
-                       &v) &&
-              tr.opaque[s] && tr.order[s] != excl &&
-              (tr.vis[s] & vis_mask) != 0) {
-            blocked = 1;
-            break;
-          }
+template <bool kAnyHit>
+__device__ __forceinline__ void write_miss(const Query& q, int i, float tm) {
+  if constexpr (kAnyHit) {
+    static_cast<uint8_t*>(q.out)[i] = 0;
+  } else {
+    float* out = static_cast<float*>(q.out);
+    out[i] = fminf(tm, 1e30f);
+    reinterpret_cast<int*>(out)[q.n + i] = -1;
+    out[2 * q.n + i] = 0.0f;
+    out[3 * q.n + i] = 0.0f;
+  }
+}
+
+template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
+__device__ __forceinline__ void trace_ray(const Query& q, const int4* nodes,
+                                          const int4* tris, int i) {
+  const float tm = q.t_max[i];
+  Ray r;
+  r.ox = q.o[3 * i];
+  r.oy = q.o[3 * i + 1];
+  r.oz = q.o[3 * i + 2];
+  r.dx = q.d[3 * i];
+  r.dy = q.d[3 * i + 1];
+  r.dz = q.d[3 * i + 2];
+  r.ix = inv_dir(r.dx);
+  r.iy = inv_dir(r.dy);
+  r.iz = inv_dir(r.dz);
+  r.excl = q.exclude[i];
+  float t_best = kAnyHit ? tm : fminf(tm, 1e30f);
+  int tri = -1;
+  float ub = 0.0f, vb = 0.0f;
+  const bool blocked = walk<kNodesShared, kTrisShared, kAnyHit>(
+      nodes, tris, q.n_nodes, r, q.vis_mask, q.t_eps, t_best, tri, ub, vb);
+  if constexpr (kAnyHit) {
+    static_cast<uint8_t*>(q.out)[i] = blocked ? 1 : 0;
+  } else {
+    float* out = static_cast<float*>(q.out);
+    out[i] = t_best;
+    reinterpret_cast<int*>(out)[q.n + i] = tri;
+    out[2 * q.n + i] = ub;
+    out[3 * q.n + i] = vb;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy_cp_async(int4* dst, const int4* src,
+                                              int words) {
+  for (int k = threadIdx.x; k < words; k += kThreads) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst + k)),
+                 "l"(src + k)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void copy_bulk(int4* dst, const int4* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Stage the tables of the path into shared memory; every thread of the
+// block calls it, and every thread sees the tables when it returns.
+template <bool kTrisShared, bool kTma>
+__device__ __forceinline__ void stage(const Query& q, int4* s_nodes,
+                                      int4* s_tris, uint64_t* bar) {
+  if constexpr (kTma) {
+    if (threadIdx.x == 0) {
+      const uint32_t nb = 32u * q.n_nodes;
+      const uint32_t tb = kTrisShared ? 48u * q.n_tris : 0u;
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_addr(bar)),
+          "r"(nb + tb)
+          : "memory");
+      if (nb) copy_bulk(s_nodes, q.nodes, nb, bar);
+      if (tb) copy_bulk(s_tris, q.tris, tb, bar);
+    }
+    uint32_t done = 0;
+    const uint32_t phase = 0;
+    while (!done) {
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          " selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(smem_addr(bar)), "r"(phase)
+          : "memory");
+    }
+  } else {
+    copy_cp_async(s_nodes, q.nodes, 2 * q.n_nodes);
+    if constexpr (kTrisShared) copy_cp_async(s_tris, q.tris, 3 * q.n_tris);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
+}
+
+template <int kPath, bool kAnyHit>
+__device__ __forceinline__ void run(const Query& q) {
+  constexpr bool kNodesShared = kPath != kGlobal;
+  constexpr bool kTrisShared = kPath == kShared || kPath == kSharedTma;
+  constexpr bool kTma = kPath == kNodesTma || kPath == kSharedTma;
+  extern __shared__ int4 smem[];
+  __shared__ uint64_t bar;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* queue = reinterpret_cast<int*>(smem) + warp * 32 * kMaxGroups;
+  int4* s_nodes = smem + kQueueBytes / 16;
+  int4* s_tris = s_nodes + 2 * q.n_nodes;
+  const int4* nodes = kNodesShared ? s_nodes : q.nodes;
+  const int4* tris = kTrisShared ? s_tris : q.tris;
+  if constexpr (kTma) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_addr(&bar))
+                   : "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  const int slice = 32 * q.groups;
+  const long long chunk = (long long)kWarps * slice;
+  bool staged = false;
+  for (long long base = blockIdx.x * chunk; base < q.n;
+       base += gridDim.x * chunk) {
+    // Dead lanes answer here, in coalesced stores; each warp keeps the
+    // ballots of its slice's live lanes.
+    const long long s0 = base + (long long)warp * slice;
+    unsigned live[kMaxGroups];
+    bool any = false;
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      live[g] = 0u;
+      if (g < q.groups) {
+        const long long i = s0 + 32 * g + lane;
+        bool lv = false;
+        if (i < q.n) {
+          const float tm = q.t_max[i];
+          lv = tm > 0.0f;
+          if (!lv) write_miss<kAnyHit>(q, (int)i, tm);
         }
+        live[g] = __ballot_sync(0xffffffffu, lv);
+        any |= live[g] != 0u;
       }
-      node = tr.miss[node];
     }
+    if (!__syncthreads_or(any)) continue;
+    if constexpr (kNodesShared) {
+      if (!staged) {
+        stage<kTrisShared, kTma>(q, s_nodes, s_tris, &bar);
+        staged = true;
+      }
+    }
+    // The warp's live rays, gathered into its queue, walked 32 at a time.
+    int n_live = 0;
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int g = 0; g < kMaxGroups; ++g) {
+      if ((live[g] >> lane) & 1u)
+        queue[n_live + __popc(live[g] & below)] = (int)(s0 + 32 * g + lane);
+      n_live += __popc(live[g]);
+    }
+    __syncwarp();
+    for (int k = 0; k < n_live; k += 32) {
+      if (k + lane < n_live)
+        trace_ray<kNodesShared, kTrisShared, kAnyHit>(q, nodes, tris,
+                                                      queue[k + lane]);
+    }
+    __syncwarp();
   }
-  blocked_out[r] = blocked;
 }
 
-constexpr int kThreads = 128;
+template <int kPath>
+__global__ void __launch_bounds__(kThreads) nearest_kernel(Query q) {
+  run<kPath, false>(q);
+}
 
-Tree make_tree(const float* bmin, const float* bmax, const int* first,
-               const int* count, const int* miss, const int* order,
-               const float* v0, const float* e1, const float* e2,
-               const int* vis, const uint8_t* opaque, int n_nodes) {
-  Tree tr;
-  tr.bmin = bmin;
-  tr.bmax = bmax;
-  tr.first = first;
-  tr.count = count;
-  tr.miss = miss;
-  tr.order = order;
-  tr.v0 = v0;
-  tr.e1 = e1;
-  tr.e2 = e2;
-  tr.vis = vis;
-  tr.opaque = opaque;
-  tr.n_nodes = n_nodes;
-  return tr;
+template <int kPath>
+__global__ void __launch_bounds__(kThreads) occluded_kernel(Query q) {
+  run<kPath, true>(q);
+}
+
+template <bool kAnyHit>
+const void* kernel_for(int path) {
+  switch (path) {
+#define RLS_CASE(P)                                                   \
+  case P:                                                             \
+    return kAnyHit ? reinterpret_cast<const void*>(occluded_kernel<P>) \
+                   : reinterpret_cast<const void*>(nearest_kernel<P>);
+    RLS_CASE(kGlobal)
+    RLS_CASE(kNodes)
+    RLS_CASE(kShared)
+    RLS_CASE(kNodesTma)
+    RLS_CASE(kSharedTma)
+#undef RLS_CASE
+    default:
+      return nullptr;
+  }
+}
+
+int table_bytes(int path, int n_nodes, int n_tris) {
+  if (path == kGlobal) return 0;
+  const bool tris = path == kShared || path == kSharedTma;
+  return 32 * n_nodes + (tris ? 48 * n_tris : 0);
+}
+
+// Blocks of `fn` resident on the whole card at `smem` bytes of dynamic
+// shared memory, cached per (device, kernel, bytes). The first use of a
+// kernel on a device opts it in to the device's largest shared memory.
+cudaError_t resident_blocks(const void* fn, int smem, int* blocks) {
+  struct Entry {
+    int dev;
+    const void* fn;
+    int smem;
+    int blocks;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int n_cached = 0;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int k = 0; k < n_cached; ++k) {
+    if (cache[k].dev == dev && cache[k].fn == fn && cache[k].smem == smem) {
+      *blocks = cache[k].blocks;
+      return cudaSuccess;
+    }
+  }
+  cudaFuncAttributes attr;
+  int optin, sms, per_sm;
+  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  const int room = optin - (int)attr.sharedSizeBytes;
+  if (smem > room) return cudaErrorInvalidValue;
+  if (smem > attr.maxDynamicSharedSizeBytes &&
+      (err = cudaFuncSetAttribute(
+           fn, cudaFuncAttributeMaxDynamicSharedMemorySize, room)) !=
+          cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, fn, kThreads, smem)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = per_sm * sms;
+  if (n_cached < 64) cache[n_cached++] = Entry{dev, fn, smem, *blocks};
+  return cudaSuccess;
+}
+
+template <bool kAnyHit>
+int launch(int path, Query q, void* stream) {
+  if (q.n <= 0) return 0;
+  const void* fn = kernel_for<kAnyHit>(path);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const int smem = kQueueBytes + table_bytes(path, q.n_nodes, q.n_tris);
+  int blocks;
+  cudaError_t err = resident_blocks(fn, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  // the longest slices that still give every resident block a chunk
+  const long long per_block = q.n / blocks;
+  q.groups = (int)(per_block / kThreads);
+  q.groups = q.groups < 1 ? 1 : (q.groups > kMaxGroups ? kMaxGroups : q.groups);
+  const long long chunk = (long long)kThreads * q.groups;
+  const long long chunks = (q.n + chunk - 1) / chunk;
+  const int grid = (int)(chunks < blocks ? chunks : blocks);
+  void* args[] = {&q};
+  err = cudaLaunchKernel(fn, dim3(grid), dim3(kThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+Query make_query(const void* nodes, const void* tris, int n_nodes, int n_tris,
+                 const float* o, const float* d, const float* t_max,
+                 const int* exclude, int n_rays, int vis_mask, float t_eps,
+                 void* out) {
+  Query q;
+  q.nodes = static_cast<const int4*>(nodes);
+  q.tris = static_cast<const int4*>(tris);
+  q.n_nodes = n_nodes;
+  q.n_tris = n_tris;
+  q.o = o;
+  q.d = d;
+  q.t_max = t_max;
+  q.exclude = exclude;
+  q.n = n_rays;
+  q.vis_mask = vis_mask;
+  q.t_eps = t_eps;
+  q.groups = 1;
+  q.out = out;
+  return q;
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Each launches on `stream` and
-// returns cudaGetLastError() of the launch; 0 means it was accepted.
-extern "C" int rls_nearest(const float* bmin, const float* bmax,
-                           const int* first, const int* count,
-                           const int* miss, const int* order, const float* v0,
-                           const float* e1, const float* e2, const int* vis,
-                           const uint8_t* opaque, int n_nodes, const float* o,
+// Plain C entry points (bound with ctypes). `nodes` and `tris` are the
+// packed tables, 16-byte aligned; `path` is a Path code. Each launches on
+// `stream` and returns the launch's CUDA error; 0 means it was accepted.
+extern "C" int rls_nearest(const void* nodes, const void* tris, int n_nodes,
+                           int n_tris, int path, const float* o,
                            const float* d, const float* t_max,
                            const int* exclude, int n_rays, int vis_mask,
-                           float t_eps, float* t_out, int* tri_out,
-                           float* u_out, float* v_out, void* stream) {
-  if (n_rays <= 0) return 0;
-  Tree tr = make_tree(bmin, bmax, first, count, miss, order, v0, e1, e2, vis,
-                      opaque, n_nodes);
-  int blocks = (n_rays + kThreads - 1) / kThreads;
-  nearest_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tr, o, d, t_max, exclude, n_rays, vis_mask, t_eps, t_out, tri_out,
-      u_out, v_out);
-  return (int)cudaGetLastError();
+                           float t_eps, float* out, void* stream) {
+  return launch<false>(path,
+                       make_query(nodes, tris, n_nodes, n_tris, o, d, t_max,
+                                  exclude, n_rays, vis_mask, t_eps, out),
+                       stream);
 }
 
-extern "C" int rls_occluded(const float* bmin, const float* bmax,
-                            const int* first, const int* count,
-                            const int* miss, const int* order,
-                            const float* v0, const float* e1, const float* e2,
-                            const int* vis, const uint8_t* opaque, int n_nodes,
-                            const float* o, const float* d,
-                            const float* t_max, const int* exclude,
-                            int n_rays, int vis_mask, float t_eps,
-                            uint8_t* blocked_out, void* stream) {
-  if (n_rays <= 0) return 0;
-  Tree tr = make_tree(bmin, bmax, first, count, miss, order, v0, e1, e2, vis,
-                      opaque, n_nodes);
-  int blocks = (n_rays + kThreads - 1) / kThreads;
-  occluded_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tr, o, d, t_max, exclude, n_rays, vis_mask, t_eps, blocked_out);
-  return (int)cudaGetLastError();
+extern "C" int rls_occluded(const void* nodes, const void* tris, int n_nodes,
+                            int n_tris, int path, const float* o,
+                            const float* d, const float* t_max,
+                            const int* exclude, int n_rays, int vis_mask,
+                            float t_eps, uint8_t* blocked_out, void* stream) {
+  return launch<true>(path,
+                      make_query(nodes, tris, n_nodes, n_tris, o, d, t_max,
+                                 exclude, n_rays, vis_mask, t_eps,
+                                 blocked_out),
+                      stream);
 }

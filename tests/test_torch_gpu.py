@@ -9,7 +9,11 @@ without them. Run it on the card without the repository's conftest.py
 The kernels must equal their plain versions exactly (the .cu file builds
 with -fmad=false and repeats the plain walk's order of operations), also
 on the queries of the transparent-shadow march: per-ray finite t_max, dead
-lanes and exclude = the previous hit. The CUDA renders (the demo and the
+lanes and exclude = the previous hit; on every table path (tables in
+shared memory, the nodes only, or neither; staged by cp.async or TMA);
+on a soup too large for shared memory; on launches whose lanes are all
+dead or all dead but the last; and at ray counts that are no multiple of
+a warp or a block. The CUDA renders (the demo and the
 glass sphere) are held to the CPU renders with chip_smoke.py's tolerance.
 """
 import types
@@ -29,12 +33,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _soup_accel(device, t=900, seed=3):
+def _soup_accel(device, t=900, seed=3, size=0.3):
     rs = np.random.default_rng(seed)
     geom = types.SimpleNamespace(
         v0=torch.tensor(rs.uniform(-1, 1, (t, 3)), dtype=torch.float32),
-        e1=torch.tensor(rs.uniform(-0.3, 0.3, (t, 3)), dtype=torch.float32),
-        e2=torch.tensor(rs.uniform(-0.3, 0.3, (t, 3)), dtype=torch.float32),
+        e1=torch.tensor(rs.uniform(-size, size, (t, 3)), dtype=torch.float32),
+        e2=torch.tensor(rs.uniform(-size, size, (t, 3)), dtype=torch.float32),
         visibility=torch.tensor(np.where(rs.random(t) < 0.5, 2, 3),
                                 dtype=torch.int32),
         opaque=torch.tensor(rs.random(t) < 0.7),
@@ -44,34 +48,103 @@ def _soup_accel(device, t=900, seed=3):
     return trace.build(geom)
 
 
-@pytest.mark.gpu
-def test_kernels_match_plain_walk(cuda_device):
-    from rlshaders_tpu_torch.ops import intersect as kernels
-
-    acc = _soup_accel(cuda_device)
-    rs = np.random.default_rng(4)
-    n = 20000
+def _rays(device, n, seed=4, n_tris=900):
+    """Random rays with axis-aligned ones, dead lanes (t_max <= 0),
+    unbounded ones and excludes."""
+    rs = np.random.default_rng(seed)
     d = rs.normal(size=(n, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     d[:16] = [0.0, -1.0, 0.0]
     d[:8, 0] = -0.0
     t_max = rs.uniform(-0.5, 3.0, n)
     t_max[:100] = 1e30
-    ex = np.where(rs.random(n) < 0.3, rs.integers(0, 900, n), -1)
-    args = [torch.tensor(a, dtype=dt, device=cuda_device) for a, dt in (
+    ex = np.where(rs.random(n) < 0.3, rs.integers(0, n_tris, n), -1)
+    return [torch.tensor(a, dtype=dt, device=device) for a, dt in (
         (rs.uniform(-2, 2, (n, 3)), torch.float32), (d, torch.float32),
         (t_max, torch.float32), (ex, torch.int32))]
+
+
+def _assert_kernels_equal_walk(acc, args, vis_mask, packed=None):
+    from rlshaders_tpu_torch.ops import intersect as kernels
+
+    packed = acc.packed if packed is None else packed
+    hk = kernels.nearest(packed, *args, vis_mask)
+    hp = bvh.intersect(acc.tree, acc.tris, *args, vis_mask)
+    for a, b in zip(hk, hp):
+        assert torch.equal(a, b)
+    bk = kernels.occluded(packed, *args, vis_mask)
+    bp = bvh.occluded(acc.tree, acc.tris, *args, vis_mask)
+    assert torch.equal(bk, bp)
+    return hp, bp
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_walk(cuda_device):
+    from rlshaders_tpu_torch.ops import intersect as kernels
+
+    acc = _soup_accel(cuda_device)
+    assert acc.packed.path == "shared"
+    args = _rays(cuda_device, 20000)
     before = dict(kernels.LAUNCHES)
     for vis_mask in (1, 2, 3, 4):
-        hk = kernels.nearest(acc.tree, acc.tris, *args, vis_mask)
-        hp = bvh.intersect(acc.tree, acc.tris, *args, vis_mask)
-        for a, b in zip(hk, hp):
-            assert torch.equal(a, b)
-        bk = kernels.occluded(acc.tree, acc.tris, *args, vis_mask)
-        bp = bvh.occluded(acc.tree, acc.tris, *args, vis_mask)
-        assert torch.equal(bk, bp)
+        _assert_kernels_equal_walk(acc, args, vis_mask)
     assert kernels.LAUNCHES["rls_nearest"] == before["rls_nearest"] + 4
     assert kernels.LAUNCHES["rls_occluded"] == before["rls_occluded"] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["shared", "nodes", "global", "shared-tma",
+                                  "nodes-tma"])
+def test_every_table_path_matches_plain_walk(cuda_device, path):
+    from rlshaders_tpu_torch.ops import intersect as kernels
+
+    acc = _soup_accel(cuda_device)
+    args = _rays(cuda_device, 20000, seed=6)
+    before = kernels.PATH_LAUNCHES[path]
+    for vis_mask in (1, 2):
+        _assert_kernels_equal_walk(acc, args, vis_mask,
+                                   acc.packed._replace(path=path))
+    assert kernels.PATH_LAUNCHES[path] == before + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,path", [(12000, "global"), (4000, "nodes")])
+def test_large_soups_take_their_path(cuda_device, t, path):
+    """A 12,000-triangle soup fits in no shared memory, a 4,000-triangle
+    one with its nodes only."""
+    acc = _soup_accel(cuda_device, t=t, seed=8, size=0.05)
+    assert acc.packed.path == path
+    args = _rays(cuda_device, 30000, seed=9, n_tris=t)
+    for vis_mask in (1, 2):
+        hp, bp = _assert_kernels_equal_walk(acc, args, vis_mask)
+    assert bool((hp.tri >= 0).any()) and bool(bp.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_ragged_ray_counts(cuda_device, n):
+    acc = _soup_accel(cuda_device)
+    args = _rays(cuda_device, n, seed=n)
+    args[2][:] = 5.0        # all lanes live, bounded
+    _assert_kernels_equal_walk(acc, args, 3)
+    args[2][n // 2:] = 0.0  # the second half dead
+    _assert_kernels_equal_walk(acc, args, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", ["none", "last"])
+def test_launches_of_dead_lanes(cuda_device, live):
+    """All lanes dead (t_max 0 or below), or all but the last."""
+    acc = _soup_accel(cuda_device)
+    n = 70000
+    args = _rays(cuda_device, n, seed=12)
+    args[2][:] = torch.where(torch.arange(n, device=cuda_device) % 2 == 0,
+                             0.0, -1.0)
+    if live == "last":
+        args[2][-1] = 1e30
+    hp, bp = _assert_kernels_equal_walk(acc, args, 3)
+    assert bool((hp.tri[:-1] == -1).all()) and not bool(bp[:-1].any())
+    assert torch.equal(hp.t[:-1], args[2][:-1])
 
 
 @pytest.mark.gpu
@@ -84,12 +157,11 @@ def test_wrapper_refuses_bad_inputs(cuda_device):
     tm = torch.ones(4, device=cuda_device)
     ex = torch.full((4,), -1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        kernels.nearest(acc.tree, acc.tris, o, d, tm, ex.long(), 1)
+        kernels.nearest(acc.packed, o, d, tm, ex.long(), 1)
     with pytest.raises(ValueError):
-        kernels.nearest(acc.tree, acc.tris, o.cpu(), d, tm, ex, 1)
+        kernels.nearest(acc.packed, o.cpu(), d, tm, ex, 1)
     with pytest.raises(ValueError):
-        kernels.occluded(acc.tree, acc.tris, o, d.t().contiguous().t(), tm,
-                         ex, 1)
+        kernels.occluded(acc.packed, o, d.t().contiguous().t(), tm, ex, 1)
 
 
 @pytest.mark.gpu
@@ -139,7 +211,7 @@ def test_kernel_matches_plain_walk_on_march_queries(cuda_device):
     finite = dead = excluded = 0
     for _ in range(4):
         tm = torch.clamp_min(remaining, 0.0)
-        hk = kernels.nearest(acc.tree, acc.tris, o, d, tm, ex, 2)
+        hk = kernels.nearest(acc.packed, o, d, tm, ex, 2)
         hp = bvh.intersect(acc.tree, acc.tris, o, d, tm, ex, 2)
         for a, b in zip(hk, hp):
             assert torch.equal(a, b)
