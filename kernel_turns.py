@@ -5,7 +5,7 @@ Run from the repository root, with another version of the package (its
 .gitignore lists:
 
     git archive <commit> rlshaders_tpu_torch | tar -x -C parent_tree
-    python3 kernel_turns.py parent_tree
+    python3 kernel_turns.py parent_tree [--kernels-only]
 
 The other version is imported as `rls_parent`, with its own wrappers and
 kernels, built from its own source. Its wrappers take the structure-of-
@@ -20,18 +20,21 @@ shape, in turns (parent, this tree, this tree, parent):
 - call_ms: the same queries as eager wrapper calls, timed with CUDA events;
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
-Then this tree's kernels on every table path and staging copy (shared,
-shared-tma, nodes, nodes-tma, global) at each shape; and the demo (256x256,
-AA 2) and glass (256x256, AA 3) frames, each rendered twice by each
-package's own render(), in turns. Prints the card and writes everything to
-chiprun_out/kernel_turns.json.
+Then this tree's kernels on every table path (shared, nodes, global) at
+each shape, and built with each register bound of MIN_BLOCKS (the blocks
+of 512 threads an SM must hold: intersect.cu's RLS_MIN_BLOCKS); and the
+demo (256x256, AA 2) and glass (256x256, AA 3) frames, each rendered twice
+by each package's own render(), in turns (left out with --kernels-only).
+Prints the card and writes everything to chiprun_out/kernel_turns.json.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib
 import importlib.util
 import json
 import os
+import subprocess
 import sys
 import time
 from functools import partial
@@ -42,7 +45,8 @@ import chip_smoke as cs
 
 PARENT = "rls_parent"
 SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
-VARIANTS = ("shared", "shared-tma", "nodes", "nodes-tma", "global")
+VARIANTS = ("shared", "nodes", "global")
+MIN_BLOCKS = (2, 3, 4)
 
 
 def load_parent(root: str):
@@ -60,6 +64,27 @@ def load_parent(root: str):
 
 def sub(pkg: str, name: str):
     return importlib.import_module(f"{pkg}.{name}")
+
+
+def variant_lib(new, min_blocks: int):
+    """This tree's kernels built with -DRLS_MIN_BLOCKS=min_blocks, bound
+    as ops/intersect.py binds them."""
+    out = os.path.join(new.BUILD_DIR, f"librls_intersect_mb{min_blocks}.so")
+    os.makedirs(new.BUILD_DIR, exist_ok=True)
+    proc = subprocess.run(
+        [new._nvcc(), *new.NVCC_FLAGS, f"-DRLS_MIN_BLOCKS={min_blocks}",
+         "-Xptxas", "-v", "-o", out, new.SOURCE],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(proc.stdout + proc.stderr)
+    regs = sorted({line.split("Used ")[1].split(" registers")[0]
+                   for line in proc.stderr.splitlines()
+                   if "registers" in line})
+    lib = ctypes.CDLL(out)
+    for fn in (lib.rls_nearest, lib.rls_occluded):
+        fn.argtypes = new._load().rls_nearest.argtypes
+        fn.restype = ctypes.c_int
+    return lib, regs
 
 
 def queries(gscene, gaccel, dscene, daccel) -> dict:
@@ -105,7 +130,7 @@ def wrappers(old, new, accel, packed=None) -> dict:
     }
 
 
-def main(root: str) -> int:
+def main(root: str, render_frames: bool) -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
         return 1
@@ -171,6 +196,26 @@ def main(root: str) -> int:
             result["variants"][f"{k} {shape}"] = times
             cs.log(f"{k} {shape} by table path, device ms: {times}")
 
+    default = new._load()
+    result["min_blocks"] = {}
+    libs = {mb: variant_lib(new, mb) for mb in MIN_BLOCKS}
+    for mb, (_, regs) in libs.items():
+        cs.log(f"RLS_MIN_BLOCKS={mb}: registers per thread {regs}")
+    try:
+        for shape in SHAPES:
+            accel, mine = qs[shape]
+            for k in cs.REPLACES:
+                fn = wrappers(old, new, accel)["this"][k]
+                times = {}
+                for mb in (*MIN_BLOCKS, *MIN_BLOCKS[::-1]):
+                    new._lib = libs[mb][0]
+                    times.setdefault(mb, []).append(cs.device_ms(
+                        partial(cs.run_all, fn, mine[k]), reps[shape]))
+                result["min_blocks"][f"{k} {shape}"] = times
+                cs.log(f"{k} {shape} by RLS_MIN_BLOCKS, device ms: {times}")
+    finally:
+        new._lib = default
+
     pscene = sub(PARENT, "scene.build").build(cs.GLASS)
     ptrace = sub(PARENT, "accel.trace")
     frames = {
@@ -185,7 +230,7 @@ def main(root: str) -> int:
                            gscene, gaccel)},
     }
     aa = {"demo": cs.AA, "glass": cs.GLASS_AA}
-    for shape, vers in frames.items():
+    for shape, vers in (frames if render_frames else {}).items():
         secs = {"parent": [], "this": []}
         for ver in ("parent", "this", "this", "parent") * 2:
             wf, scene, accel = vers[ver]
@@ -209,7 +254,8 @@ def main(root: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    if len(args) not in (1, 2) or args[1:] not in ([], ["--kernels-only"]):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(args[0], render_frames=args[1:] == []))

@@ -16,8 +16,9 @@ t, so among equal-t hits the first one met in the walk wins (the JAX BVH's
 rule; the TPU kernel instead keeps the largest triangle id).
 
 Both walks take an optional `counts` dict and add to it the work they did:
-"rays" (live rays), "boxes" (slab tests) and "tris" (triangle tests of
-leaves whose box was hit). The kernels do the same tests, except that the
+"rays" (live rays), "boxes" (slab tests), "tris" (triangle tests of
+leaves whose box was hit) and "steps" (lockstep steps: the slab tests of
+the call's longest walk). The kernels do the same tests, except that the
 any-hit kernel stops inside a leaf at its first blocker where the plain walk
 tests the whole leaf. Counting synchronises with the device at every step,
 so a timing of the walk must not pass `counts`: count in a separate call.
@@ -240,6 +241,7 @@ def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
         if counts is not None:
             _count(counts, "boxes", ray.numel())
             _count(counts, "tris", torch.where(leaf, cnt, 0).sum())
+            _count(counts, "steps", 1)
         for k in range(LEAF_SIZE):
             ti = torch.clamp(first + k, 0, n_slots - 1)
             ok, t, u, v = tri_test(tris.v0[ti], tris.e1[ti], tris.e2[ti],
@@ -293,6 +295,7 @@ def occluded(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
         if counts is not None:
             _count(counts, "boxes", ray.numel())
             _count(counts, "tris", torch.where(leaf, cnt, 0).sum())
+            _count(counts, "steps", 1)
         blocked = torch.zeros_like(leaf)
         for k in range(LEAF_SIZE):
             ti = torch.clamp(first + k, 0, n_slots - 1)

@@ -32,25 +32,28 @@
 //   shared  both tables staged into shared memory, once per block;
 //   nodes   the nodes staged, the triangles read from global memory;
 //   global  both read from global memory through the read-only cache.
-// The staging copy is either cp.async (16 bytes a thread) or one TMA bulk
-// copy per table completing on an mbarrier; the path code says which.
+// A block stages lazily: the first of its warps that has a live ray to
+// walk issues one TMA bulk copy per table, completing on an mbarrier, and
+// each warp that walks waits on that barrier. A block whose rays are all
+// dead never stages, and no warp waits for another.
 //
 // What bounds it on an H100, and what the design does about it: a launch
-// of the ray queries is small (the glass frame hands ~216,000 rays to
-// each nearest launch, 85% of them dead), so its device time is a fixed
-// cost (launch, the grid's ramp and drain, writing every lane's output)
-// plus the longest walk of a live ray, a chain of dependent loads, and not
-// the bytes or operations of the work. So:
-//   - a persistent grid of the blocks that fit on the card at once; a
-//     block loops over chunks of rays;
-//   - a chunk's dead lanes answer at once, in coalesced stores, and a
-//     block whose chunks hold no live lane never stages the tables;
-//   - each warp gathers the live rays of its slice of the chunk (ballot,
-//     popc) into a queue in shared memory and walks 32 live rays at a time,
-//     so a warp walks once where it would have walked once per 32-ray
-//     group holding a live lane;
-//   - the walk's dependent loads hit shared memory (about 30 cycles)
-//     instead of L1 or L2, where the tables fit.
+// lasts as long as its slowest warp, and a warp as long as the longest
+// walk among its rays: a chain of dependent loads and slab tests (up to
+// hundreds of steps for a ray that starts inside the glass sphere), not
+// the launch's bytes or operations (PERF.md: the glass launches run at a
+// few percent of their byte bound). So:
+//   - a grid of the blocks that fit on the card at once; each warp owns
+//     one contiguous share of the rays and runs on its own, with no block
+//     barrier after the start;
+//   - dead lanes answer at once, in coalesced stores; live rays go into
+//     the warp's queue in shared memory (ballot, popc) and are walked 32
+//     at a time, so a warp walks once per 32 live rays of its share;
+//   - the walk loads both possible successors of a node (node + 1 and the
+//     miss link) while it tests the node, so the loads leave the chain;
+//     a leaf's triangles are tested unrolled; reciprocals are
+//     __frcp_rn, which rounds as the division it replaces;
+//   - the tables sit in shared memory where they fit.
 // PERF.md has the device times against the bound and the PR 2 kernels.
 
 #include <cuda_runtime.h>
@@ -62,17 +65,14 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxGroups = 4;  // 32-ray groups in a warp's slice of a chunk
-// dynamic shared memory: the warps' queues of live rays, then the tables
-constexpr int kQueueBytes = kWarps * 32 * kMaxGroups * 4;
+constexpr int kQueue = 64;  // a warp's queue of live rays: < 32 + 32
+// dynamic shared memory: the warps' queues, then the tables
+constexpr int kQueueBytes = kWarps * kQueue * 4;
+#ifndef RLS_MIN_BLOCKS
+#define RLS_MIN_BLOCKS 2  // blocks per SM the registers must allow
+#endif
 
-enum Path : int {
-  kGlobal = 0,
-  kNodes = 1,     // nodes staged by cp.async
-  kShared = 2,    // both staged by cp.async
-  kNodesTma = 3,  // nodes staged by a TMA bulk copy
-  kSharedTma = 4  // both staged by TMA bulk copies
-};
+enum Path : int { kGlobal = 0, kNodes = 1, kShared = 2 };
 
 struct Query {
   const int4* nodes;  // 2 words per node
@@ -86,8 +86,8 @@ struct Query {
   int n;
   int vis_mask;
   float t_eps;
-  int groups;  // 32-ray groups per warp slice, 1..kMaxGroups
-  void* out;   // nearest: (4, n) floats t, tri (int bits), u, v; any-hit: n bytes
+  int per_warp;  // rays of each warp's share
+  void* out;     // nearest: (4, n) floats t, tri (int bits), u, v; any-hit: n bytes
 };
 
 struct Ray {
@@ -106,8 +106,9 @@ __device__ __forceinline__ int4 word(const int4* p) {
 
 __device__ __forceinline__ float fl(int bits) { return __int_as_float(bits); }
 
+// 1 / d rounded to nearest, as the plain version's division
 __device__ __forceinline__ float inv_dir(float d) {
-  return fabsf(d) > 1e-12f ? 1.0f / d : 1e12f;
+  return fabsf(d) > 1e-12f ? __frcp_rn(d) : 1e12f;
 }
 
 __device__ __forceinline__ bool box_hit(int4 lo, int4 hi, const Ray& r,
@@ -121,17 +122,17 @@ __device__ __forceinline__ bool box_hit(int4 lo, int4 hi, const Ray& r,
 }
 
 // Moller-Trumbore in the plain version's order of operations; a = (v0, id),
-// b = (e1, vis), c = (e2, opaque).
+// b = (e1, vis), c = (e2, opaque). Returns whether the triangle passes the
+// rules other than t < t_best, which the caller tests against its best.
 __device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
-                                         float t_eps, float t_best,
+                                         int vis_mask, float t_eps,
                                          float* t_hit, float* u_hit,
                                          float* v_hit) {
   float px = r.dy * fl(c.z) - r.dz * fl(c.y);
   float py = r.dz * fl(c.x) - r.dx * fl(c.z);
   float pz = r.dx * fl(c.y) - r.dy * fl(c.x);
   float det = fl(b.x) * px + fl(b.y) * py + fl(b.z) * pz;
-  if (!(fabsf(det) > 1e-12f)) return false;
-  float inv = 1.0f / det;
+  float inv = __frcp_rn(det);
   float tx = r.ox - fl(a.x), ty = r.oy - fl(a.y), tz = r.oz - fl(a.z);
   float u = (tx * px + ty * py + tz * pz) * inv;
   float qx = ty * fl(b.z) - tz * fl(b.y);
@@ -142,48 +143,63 @@ __device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
   *t_hit = t;
   *u_hit = u;
   *v_hit = v;
-  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_eps && t < t_best;
+  return fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+         t > t_eps && a.w != r.excl && (b.w & vis_mask) != 0;
 }
 
 // The walk of one ray. Nearest: updates the best hit and returns false.
 // Any-hit (t_best = t_max, fixed): returns true at the first opaque blocker.
 template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
 __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
-                                     int n_nodes, const Ray& r, int vis_mask,
-                                     float t_eps, float& t_best, int& tri,
-                                     float& ub, float& vb) {
+                                     int n_nodes, int n_tris, const Ray& r,
+                                     int vis_mask, float t_eps, float& t_best,
+                                     int& tri, float& ub, float& vb) {
+  if (n_nodes <= 0 || n_tris <= 0) return false;
   int node = 0;
-  while (node < n_nodes) {
-    const int4 lo = word<kNodesShared>(nodes + 2 * node);
-    const int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
+  int4 lo = word<kNodesShared>(nodes), hi = word<kNodesShared>(nodes + 1);
+  while (true) {
+    // both successors, loaded while this node is tested (clamped in range)
+    const int na = node + 1 < n_nodes ? node + 1 : node;
+    const int nb = hi.w < n_nodes ? hi.w : node;
+    const int4 lo_a = word<kNodesShared>(nodes + 2 * na);
+    const int4 hi_a = word<kNodesShared>(nodes + 2 * na + 1);
+    const int4 lo_b = word<kNodesShared>(nodes + 2 * nb);
+    const int4 hi_b = word<kNodesShared>(nodes + 2 * nb + 1);
     const bool hit = box_hit(lo, hi, r, t_best);
-    if (hit && lo.w < 0) {
-      node += 1;
+    if (hit && lo.w < 0) {  // an inner node's left child is node + 1
+      node = na;
+      lo = lo_a;
+      hi = hi_a;
       continue;
     }
     if (hit) {
-      const int first = lo.w >> 3, end = first + (lo.w & 7);
-      for (int s = first; s < end; ++s) {
+      const int first = lo.w >> 3, cnt = lo.w & 7;
+      bool blocked = false;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // LEAF_SIZE
+        const int s = min(first + k, n_tris - 1);
         const int4 a = word<kTrisShared>(tris + 3 * s);
         const int4 b = word<kTrisShared>(tris + 3 * s + 1);
         const int4 c = word<kTrisShared>(tris + 3 * s + 2);
         float t, u, v;
-        if (tri_test(a, b, c, r, t_eps, t_best, &t, &u, &v) &&
-            a.w != r.excl && (b.w & vis_mask) != 0) {
-          if constexpr (kAnyHit) {
-            if (c.w != 0) return true;
-          } else {
-            t_best = t;
-            tri = a.w;
-            ub = u;
-            vb = v;
-          }
+        const bool ok = tri_test(a, b, c, r, vis_mask, t_eps, &t, &u, &v) &&
+                        t < t_best && k < cnt;
+        if constexpr (kAnyHit) {
+          blocked |= ok && c.w != 0;
+        } else if (ok) {
+          t_best = t;
+          tri = a.w;
+          ub = u;
+          vb = v;
         }
       }
+      if (kAnyHit && blocked) return true;
     }
-    node = hi.w;
+    if (hi.w >= n_nodes) return false;
+    node = nb;
+    lo = lo_b;
+    hi = hi_b;
   }
-  return false;
 }
 
 template <bool kAnyHit>
@@ -218,7 +234,8 @@ __device__ __forceinline__ void trace_ray(const Query& q, const int4* nodes,
   int tri = -1;
   float ub = 0.0f, vb = 0.0f;
   const bool blocked = walk<kNodesShared, kTrisShared, kAnyHit>(
-      nodes, tris, q.n_nodes, r, q.vis_mask, q.t_eps, t_best, tri, ub, vb);
+      nodes, tris, q.n_nodes, q.n_tris, r, q.vis_mask, q.t_eps, t_best, tri,
+      ub, vb);
   if constexpr (kAnyHit) {
     static_cast<uint8_t*>(q.out)[i] = blocked ? 1 : 0;
   } else {
@@ -234,16 +251,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void copy_cp_async(int4* dst, const int4* src,
-                                              int words) {
-  for (int k = threadIdx.x; k < words; k += kThreads) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_addr(dst + k)),
-                 "l"(src + k)
-                 : "memory");
-  }
-}
-
 __device__ __forceinline__ void copy_bulk(int4* dst, const int4* src,
                                           uint32_t bytes, uint64_t* bar) {
   asm volatile(
@@ -253,57 +260,53 @@ __device__ __forceinline__ void copy_bulk(int4* dst, const int4* src,
       : "memory");
 }
 
-// Stage the tables of the path into shared memory; every thread of the
-// block calls it, and every thread sees the tables when it returns.
-template <bool kTrisShared, bool kTma>
-__device__ __forceinline__ void stage(const Query& q, int4* s_nodes,
-                                      int4* s_tris, uint64_t* bar) {
-  if constexpr (kTma) {
-    if (threadIdx.x == 0) {
-      const uint32_t nb = 32u * q.n_nodes;
-      const uint32_t tb = kTrisShared ? 48u * q.n_tris : 0u;
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              smem_addr(bar)),
-          "r"(nb + tb)
-          : "memory");
-      if (nb) copy_bulk(s_nodes, q.nodes, nb, bar);
-      if (tb) copy_bulk(s_tris, q.tris, tb, bar);
-    }
-    uint32_t done = 0;
-    const uint32_t phase = 0;
-    while (!done) {
-      asm volatile(
-          "{\n .reg .pred p;\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-          " selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(smem_addr(bar)), "r"(phase)
-          : "memory");
-    }
-  } else {
-    copy_cp_async(s_nodes, q.nodes, 2 * q.n_nodes);
-    if constexpr (kTrisShared) copy_cp_async(s_tris, q.tris, 3 * q.n_tris);
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
+// Called by a whole warp that is about to walk: the first such warp of
+// the block issues the copies of the tables; every caller waits for them.
+template <bool kTrisShared>
+__device__ __forceinline__ void acquire_tables(const Query& q, int4* s_nodes,
+                                               int4* s_tris, uint64_t* bar,
+                                               int* issued) {
+  if ((threadIdx.x & 31) == 0 && atomicCAS(issued, 0, 1) == 0) {
+    const uint32_t nb = 32u * q.n_nodes;
+    const uint32_t tb = kTrisShared ? 48u * q.n_tris : 0u;
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_addr(bar)),
+        "r"(nb + tb)
+        : "memory");
+    if (nb) copy_bulk(s_nodes, q.nodes, nb, bar);
+    if (tb) copy_bulk(s_tris, q.tris, tb, bar);
+  }
+  __syncwarp();
+  uint32_t done = 0;
+  const uint32_t phase = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
   }
 }
 
 template <int kPath, bool kAnyHit>
 __device__ __forceinline__ void run(const Query& q) {
   constexpr bool kNodesShared = kPath != kGlobal;
-  constexpr bool kTrisShared = kPath == kShared || kPath == kSharedTma;
-  constexpr bool kTma = kPath == kNodesTma || kPath == kSharedTma;
+  constexpr bool kTrisShared = kPath == kShared;
   extern __shared__ int4 smem[];
   __shared__ uint64_t bar;
+  __shared__ int issued;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* queue = reinterpret_cast<int*>(smem) + warp * 32 * kMaxGroups;
+  int* queue = reinterpret_cast<int*>(smem) + warp * kQueue;
   int4* s_nodes = smem + kQueueBytes / 16;
   int4* s_tris = s_nodes + 2 * q.n_nodes;
   const int4* nodes = kNodesShared ? s_nodes : q.nodes;
   const int4* tris = kTrisShared ? s_tris : q.tris;
-  if constexpr (kTma) {
+  if constexpr (kNodesShared) {
     if (threadIdx.x == 0) {
+      issued = 0;
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
                        smem_addr(&bar))
                    : "memory");
@@ -311,64 +314,56 @@ __device__ __forceinline__ void run(const Query& q) {
     }
     __syncthreads();
   }
-  const int slice = 32 * q.groups;
-  const long long chunk = (long long)kWarps * slice;
-  bool staged = false;
-  for (long long base = blockIdx.x * chunk; base < q.n;
-       base += gridDim.x * chunk) {
-    // Dead lanes answer here, in coalesced stores; each warp keeps the
-    // ballots of its slice's live lanes.
-    const long long s0 = base + (long long)warp * slice;
-    unsigned live[kMaxGroups];
-    bool any = false;
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      live[g] = 0u;
-      if (g < q.groups) {
-        const long long i = s0 + 32 * g + lane;
-        bool lv = false;
-        if (i < q.n) {
-          const float tm = q.t_max[i];
-          lv = tm > 0.0f;
-          if (!lv) write_miss<kAnyHit>(q, (int)i, tm);
-        }
-        live[g] = __ballot_sync(0xffffffffu, lv);
-        any |= live[g] != 0u;
+  bool have_tables = !kNodesShared;
+  // this warp's share of the rays
+  const long long start =
+      ((long long)blockIdx.x * kWarps + warp) * (long long)q.per_warp;
+  const long long end =
+      start + q.per_warp < q.n ? start + q.per_warp : (long long)q.n;
+  const unsigned below = (1u << lane) - 1u;
+  int count = 0;  // live rays in the queue
+  for (long long base = start; base < end; base += 32) {
+    const long long i = base + lane;
+    bool live = false;
+    if (i < end) {
+      const float tm = q.t_max[i];
+      live = tm > 0.0f;
+      if (!live) write_miss<kAnyHit>(q, (int)i, tm);
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (live) queue[count + __popc(m & below)] = (int)i;
+    count += __popc(m);
+    if (count >= 32) {
+      __syncwarp();
+      if (!have_tables) {
+        acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
+        have_tables = true;
       }
+      count -= 32;
+      const int r = queue[count + lane];
+      __syncwarp();
+      trace_ray<kNodesShared, kTrisShared, kAnyHit>(q, nodes, tris, r);
     }
-    if (!__syncthreads_or(any)) continue;
-    if constexpr (kNodesShared) {
-      if (!staged) {
-        stage<kTrisShared, kTma>(q, s_nodes, s_tris, &bar);
-        staged = true;
-      }
-    }
-    // The warp's live rays, gathered into its queue, walked 32 at a time.
-    int n_live = 0;
-    const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      if ((live[g] >> lane) & 1u)
-        queue[n_live + __popc(live[g] & below)] = (int)(s0 + 32 * g + lane);
-      n_live += __popc(live[g]);
-    }
+  }
+  if (count > 0) {
     __syncwarp();
-    for (int k = 0; k < n_live; k += 32) {
-      if (k + lane < n_live)
-        trace_ray<kNodesShared, kTrisShared, kAnyHit>(q, nodes, tris,
-                                                      queue[k + lane]);
-    }
-    __syncwarp();
+    if (!have_tables)
+      acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
+    if (lane < count)
+      trace_ray<kNodesShared, kTrisShared, kAnyHit>(q, nodes, tris,
+                                                    queue[lane]);
   }
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads) nearest_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS)
+    nearest_kernel(Query q) {
   run<kPath, false>(q);
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads) occluded_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS)
+    occluded_kernel(Query q) {
   run<kPath, true>(q);
 }
 
@@ -382,8 +377,6 @@ const void* kernel_for(int path) {
     RLS_CASE(kGlobal)
     RLS_CASE(kNodes)
     RLS_CASE(kShared)
-    RLS_CASE(kNodesTma)
-    RLS_CASE(kSharedTma)
 #undef RLS_CASE
     default:
       return nullptr;
@@ -392,8 +385,7 @@ const void* kernel_for(int path) {
 
 int table_bytes(int path, int n_nodes, int n_tris) {
   if (path == kGlobal) return 0;
-  const bool tris = path == kShared || path == kSharedTma;
-  return 32 * n_nodes + (tris ? 48 * n_tris : 0);
+  return 32 * n_nodes + (path == kShared ? 48 * n_tris : 0);
 }
 
 // Blocks of `fn` resident on the whole card at `smem` bytes of dynamic
@@ -454,13 +446,14 @@ int launch(int path, Query q, void* stream) {
   int blocks;
   cudaError_t err = resident_blocks(fn, smem, &blocks);
   if (err != cudaSuccess) return (int)err;
-  // the longest slices that still give every resident block a chunk
-  const long long per_block = q.n / blocks;
-  q.groups = (int)(per_block / kThreads);
-  q.groups = q.groups < 1 ? 1 : (q.groups > kMaxGroups ? kMaxGroups : q.groups);
-  const long long chunk = (long long)kThreads * q.groups;
-  const long long chunks = (q.n + chunk - 1) / chunk;
-  const int grid = (int)(chunks < blocks ? chunks : blocks);
+  // every resident warp gets an equal share (whole warps of rays when the
+  // launch is small)
+  const long long warps = (long long)blocks * kWarps;
+  long long per_warp = (q.n + warps - 1) / warps;
+  if (per_warp < 32) per_warp = 32;
+  q.per_warp = (int)per_warp;
+  const long long per_block = per_warp * kWarps;
+  const int grid = (int)((q.n + per_block - 1) / per_block);
   void* args[] = {&q};
   err = cudaLaunchKernel(fn, dim3(grid), dim3(kThreads), args, smem,
                          static_cast<cudaStream_t>(stream));
@@ -484,7 +477,7 @@ Query make_query(const void* nodes, const void* tris, int n_nodes, int n_tris,
   q.n = n_rays;
   q.vis_mask = vis_mask;
   q.t_eps = t_eps;
-  q.groups = 1;
+  q.per_warp = 32;
   q.out = out;
   return q;
 }

@@ -51,12 +51,9 @@ TRI_WORDS = 12    # 48 B per triangle slot
 # the warps' ray queues (intersect.cu kQueueBytes) and 1 KB for the static
 # shared memory: the room for the tables.
 SMEM_OPTIN_BYTES = 232_448
-QUEUE_BYTES = 8_192
+QUEUE_BYTES = 4_096
 TABLE_ROOM = SMEM_OPTIN_BYTES - QUEUE_BYTES - 1_024
-# intersect.cu's Path codes; "-tma" stages by TMA bulk copies, the others
-# by cp.async
-PATHS = {"global": 0, "nodes": 1, "shared": 2, "nodes-tma": 3,
-         "shared-tma": 4}
+PATHS = {"global": 0, "nodes": 1, "shared": 2}  # intersect.cu's Path codes
 
 LAUNCHES = {"rls_nearest": 0, "rls_occluded": 0}
 PATH_LAUNCHES = dict.fromkeys(PATHS, 0)

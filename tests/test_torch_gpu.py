@@ -10,7 +10,7 @@ The kernels must equal their plain versions exactly (the .cu file builds
 with -fmad=false and repeats the plain walk's order of operations), also
 on the queries of the transparent-shadow march: per-ray finite t_max, dead
 lanes and exclude = the previous hit; on every table path (tables in
-shared memory, the nodes only, or neither; staged by cp.async or TMA);
+shared memory, the nodes only, or neither);
 on a soup too large for shared memory; on launches whose lanes are all
 dead or all dead but the last; and at ray counts that are no multiple of
 a warp or a block. The CUDA renders (the demo and the
@@ -93,8 +93,7 @@ def test_kernels_match_plain_walk(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["shared", "nodes", "global", "shared-tma",
-                                  "nodes-tma"])
+@pytest.mark.parametrize("path", ["shared", "nodes", "global"])
 def test_every_table_path_matches_plain_walk(cuda_device, path):
     from rlshaders_tpu_torch.ops import intersect as kernels
 
