@@ -49,10 +49,11 @@
 //   - dead lanes answer at once, in coalesced stores; live rays go into
 //     the warp's queue in shared memory (ballot, popc) and are walked 32
 //     at a time, so a warp walks once per 32 live rays of its share;
-//   - the walk loads both possible successors of a node (node + 1 and the
-//     miss link) while it tests the node, so the loads leave the chain;
-//     a leaf's triangles are tested unrolled; reciprocals are
-//     __frcp_rn, which rounds as the division it replaces;
+//   - a lane postpones a hit leaf's triangle tests until the other lanes
+//     of its warp have reached a leaf or the end (the while-while walk of
+//     Aila and Laine, 2009, in skip-link form), so a warp does not pay a
+//     leaf on nearly every step; reciprocals are __frcp_rn, which rounds
+//     as the division it replaces;
 //   - the tables sit in shared memory where they fit.
 // PERF.md has the device times against the bound and the PR 2 kernels.
 
@@ -149,57 +150,54 @@ __device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
 
 // The walk of one ray. Nearest: updates the best hit and returns false.
 // Any-hit (t_best = t_max, fixed): returns true at the first opaque blocker.
+// A lane runs slab tests until it reaches a leaf whose box it hits, and
+// only then tests that leaf's triangles: the lanes of a warp leave the
+// inner loop at different steps and meet after it, so the warp tests its
+// lanes' leaves together instead of paying a leaf on nearly every step.
+// Each lane still makes its own tests in the plain walk's order.
 template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
 __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
                                      int n_nodes, int n_tris, const Ray& r,
                                      int vis_mask, float t_eps, float& t_best,
                                      int& tri, float& ub, float& vb) {
-  if (n_nodes <= 0 || n_tris <= 0) return false;
+  if (n_tris <= 0) return false;
   int node = 0;
-  int4 lo = word<kNodesShared>(nodes), hi = word<kNodesShared>(nodes + 1);
-  while (true) {
-    // both successors, loaded while this node is tested (clamped in range)
-    const int na = node + 1 < n_nodes ? node + 1 : node;
-    const int nb = hi.w < n_nodes ? hi.w : node;
-    const int4 lo_a = word<kNodesShared>(nodes + 2 * na);
-    const int4 hi_a = word<kNodesShared>(nodes + 2 * na + 1);
-    const int4 lo_b = word<kNodesShared>(nodes + 2 * nb);
-    const int4 hi_b = word<kNodesShared>(nodes + 2 * nb + 1);
-    const bool hit = box_hit(lo, hi, r, t_best);
-    if (hit && lo.w < 0) {  // an inner node's left child is node + 1
-      node = na;
-      lo = lo_a;
-      hi = hi_a;
-      continue;
+  while (node < n_nodes) {
+    int leaf = -1;  // the code of the hit leaf to test
+    while (node < n_nodes) {
+      const int4 lo = word<kNodesShared>(nodes + 2 * node);
+      const int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
+      const bool hit = box_hit(lo, hi, r, t_best);
+      if (hit && lo.w < 0) {  // an inner node's left child is node + 1
+        node += 1;
+        continue;
+      }
+      node = hi.w;
+      if (hit) {
+        leaf = lo.w;
+        break;
+      }
     }
-    if (hit) {
-      const int first = lo.w >> 3, cnt = lo.w & 7;
-      bool blocked = false;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {  // LEAF_SIZE
-        const int s = min(first + k, n_tris - 1);
-        const int4 a = word<kTrisShared>(tris + 3 * s);
-        const int4 b = word<kTrisShared>(tris + 3 * s + 1);
-        const int4 c = word<kTrisShared>(tris + 3 * s + 2);
-        float t, u, v;
-        const bool ok = tri_test(a, b, c, r, vis_mask, t_eps, &t, &u, &v) &&
-                        t < t_best && k < cnt;
+    if (leaf < 0) break;
+    const int first = leaf >> 3, end = first + (leaf & 7);
+    for (int s = first; s < end; ++s) {
+      const int4 a = word<kTrisShared>(tris + 3 * s);
+      const int4 b = word<kTrisShared>(tris + 3 * s + 1);
+      const int4 c = word<kTrisShared>(tris + 3 * s + 2);
+      float t, u, v;
+      if (tri_test(a, b, c, r, vis_mask, t_eps, &t, &u, &v) && t < t_best) {
         if constexpr (kAnyHit) {
-          blocked |= ok && c.w != 0;
-        } else if (ok) {
+          if (c.w != 0) return true;
+        } else {
           t_best = t;
           tri = a.w;
           ub = u;
           vb = v;
         }
       }
-      if (kAnyHit && blocked) return true;
     }
-    if (hi.w >= n_nodes) return false;
-    node = nb;
-    lo = lo_b;
-    hi = hi_b;
   }
+  return false;
 }
 
 template <bool kAnyHit>
