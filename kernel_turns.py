@@ -21,8 +21,8 @@ shape, in turns (parent, this tree, this tree, parent):
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
 Then this tree's kernels on every table path (shared, nodes, global) at
-each shape, and built with each register bound of MIN_BLOCKS (the blocks
-of 512 threads an SM must hold: intersect.cu's RLS_MIN_BLOCKS); and the
+each shape, and built with each launch shape of BUILDS (intersect.cu's
+RLS_THREADS, RLS_MIN_BLOCKS, RLS_PER_WARP), all built at once; and the
 demo (256x256, AA 2) and glass (256x256, AA 3) frames, each rendered twice
 by each package's own render(), in turns (left out with --kernels-only).
 Prints the card and writes everything to chiprun_out/kernel_turns.json.
@@ -46,7 +46,16 @@ import chip_smoke as cs
 PARENT = "rls_parent"
 SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
 VARIANTS = ("shared", "nodes", "global")
-MIN_BLOCKS = (2, 3, 4)
+BUILDS = {
+    "as built": (),
+    "min_blocks 3": ("-DRLS_MIN_BLOCKS=3",),
+    "one ray a lane": ("-DRLS_PER_WARP=32",),
+    "256 threads": ("-DRLS_THREADS=256", "-DRLS_MIN_BLOCKS=4"),
+    "256 threads, one ray a lane": ("-DRLS_THREADS=256", "-DRLS_MIN_BLOCKS=4",
+                                    "-DRLS_PER_WARP=32"),
+    "128 threads, one ray a lane": ("-DRLS_THREADS=128", "-DRLS_MIN_BLOCKS=8",
+                                    "-DRLS_PER_WARP=32"),
+}
 
 
 def load_parent(root: str):
@@ -66,25 +75,32 @@ def sub(pkg: str, name: str):
     return importlib.import_module(f"{pkg}.{name}")
 
 
-def variant_lib(new, min_blocks: int):
-    """This tree's kernels built with -DRLS_MIN_BLOCKS=min_blocks, bound
-    as ops/intersect.py binds them."""
-    out = os.path.join(new.BUILD_DIR, f"librls_intersect_mb{min_blocks}.so")
+def variant_libs(new) -> dict:
+    """{build: (library, registers per thread)}: this tree's kernels built
+    with each entry of BUILDS, all nvcc processes at once, bound as
+    ops/intersect.py binds them."""
     os.makedirs(new.BUILD_DIR, exist_ok=True)
-    proc = subprocess.run(
-        [new._nvcc(), *new.NVCC_FLAGS, f"-DRLS_MIN_BLOCKS={min_blocks}",
-         "-Xptxas", "-v", "-o", out, new.SOURCE],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stdout + proc.stderr)
-    regs = sorted({line.split("Used ")[1].split(" registers")[0]
-                   for line in proc.stderr.splitlines()
-                   if "registers" in line})
-    lib = ctypes.CDLL(out)
-    for fn in (lib.rls_nearest, lib.rls_occluded):
-        fn.argtypes = new._load().rls_nearest.argtypes
-        fn.restype = ctypes.c_int
-    return lib, regs
+    procs = {}
+    for k, (name, flags) in enumerate(BUILDS.items()):
+        out = os.path.join(new.BUILD_DIR, f"librls_intersect_v{k}.so")
+        procs[name] = (out, subprocess.Popen(
+            [new._nvcc(), *new.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
+             out, new.SOURCE],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    argtypes = new._load().rls_nearest.argtypes
+    for name, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(stdout + stderr)
+        regs = sorted({line.split("Used ")[1].split(" registers")[0]
+                       for line in stderr.splitlines() if "registers" in line})
+        lib = ctypes.CDLL(out)
+        for fn in (lib.rls_nearest, lib.rls_occluded):
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        libs[name] = (lib, regs)
+    return libs
 
 
 def queries(gscene, gaccel, dscene, daccel) -> dict:
@@ -197,22 +213,25 @@ def main(root: str, render_frames: bool) -> int:
             cs.log(f"{k} {shape} by table path, device ms: {times}")
 
     default = new._load()
-    result["min_blocks"] = {}
-    libs = {mb: variant_lib(new, mb) for mb in MIN_BLOCKS}
-    for mb, (_, regs) in libs.items():
-        cs.log(f"RLS_MIN_BLOCKS={mb}: registers per thread {regs}")
+    result["builds"] = {}
+    libs = variant_libs(new)
+    for name, (_, regs) in libs.items():
+        cs.log(f"build {name}: registers per thread {regs}")
     try:
         for shape in SHAPES:
             accel, mine = qs[shape]
             for k in cs.REPLACES:
-                fn = wrappers(old, new, accel)["this"][k]
-                times = {}
-                for mb in (*MIN_BLOCKS, *MIN_BLOCKS[::-1]):
-                    new._lib = libs[mb][0]
-                    times.setdefault(mb, []).append(cs.device_ms(
-                        partial(cs.run_all, fn, mine[k]), reps[shape]))
-                result["min_blocks"][f"{k} {shape}"] = times
-                cs.log(f"{k} {shape} by RLS_MIN_BLOCKS, device ms: {times}")
+                for path in VARIANTS:
+                    fn = wrappers(old, new, accel, accel.packed._replace(
+                        path=path))["this"][k]
+                    times = {}
+                    for name in (*BUILDS, *list(BUILDS)[::-1]):
+                        new._lib = libs[name][0]
+                        times.setdefault(name, []).append(cs.device_ms(
+                            partial(cs.run_all, fn, mine[k]), reps[shape]))
+                    result["builds"][f"{k} {shape} {path}"] = times
+                    cs.log(f"{k} {shape} {path} by build, device ms: "
+                           f"{ {n: round(min(t), 5) for n, t in times.items()} }")
     finally:
         new._lib = default
 

@@ -64,14 +64,21 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+// Launch shape; kernel_turns.py measures other values by -D.
+#ifndef RLS_THREADS
+#define RLS_THREADS 512  // threads per block
+#endif
+#ifndef RLS_MIN_BLOCKS
+#define RLS_MIN_BLOCKS 2  // blocks per SM the registers must allow
+#endif
+#ifndef RLS_PER_WARP
+#define RLS_PER_WARP 0  // rays per warp; 0: an equal share per resident warp
+#endif
+constexpr int kThreads = RLS_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQueue = 64;  // a warp's queue of live rays: < 32 + 32
 // dynamic shared memory: the warps' queues, then the tables
 constexpr int kQueueBytes = kWarps * kQueue * 4;
-#ifndef RLS_MIN_BLOCKS
-#define RLS_MIN_BLOCKS 2  // blocks per SM the registers must allow
-#endif
 
 enum Path : int { kGlobal = 0, kNodes = 1, kShared = 2 };
 
@@ -447,7 +454,7 @@ int launch(int path, Query q, void* stream) {
   // every resident warp gets an equal share (whole warps of rays when the
   // launch is small)
   const long long warps = (long long)blocks * kWarps;
-  long long per_warp = (q.n + warps - 1) / warps;
+  long long per_warp = RLS_PER_WARP > 0 ? RLS_PER_WARP : (q.n + warps - 1) / warps;
   if (per_warp < 32) per_warp = 32;
   q.per_warp = (int)per_warp;
   const long long per_block = per_warp * kWarps;
