@@ -22,7 +22,8 @@ shape, in turns (parent, this tree, this tree, parent):
 
 Then this tree's kernels on every table path (shared, nodes, global) at
 each shape, and built with each launch shape of BUILDS (intersect.cu's
-RLS_THREADS, RLS_MIN_BLOCKS, RLS_PER_WARP), all built at once; and the
+RLS_THREADS, RLS_MIN_BLOCKS, RLS_PER_WARP, RLS_PREFETCH), all built at
+once; and the
 demo (256x256, AA 2) and glass (256x256, AA 3) frames, each rendered twice
 by each package's own render(), in turns (left out with --kernels-only).
 Prints the card and writes everything to chiprun_out/kernel_turns.json.
@@ -48,13 +49,12 @@ SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
 VARIANTS = ("shared", "nodes", "global")
 BUILDS = {
     "as built": (),
-    "min_blocks 3": ("-DRLS_MIN_BLOCKS=3",),
-    "one ray a lane": ("-DRLS_PER_WARP=32",),
-    "256 threads": ("-DRLS_THREADS=256", "-DRLS_MIN_BLOCKS=4"),
-    "256 threads, one ray a lane": ("-DRLS_THREADS=256", "-DRLS_MIN_BLOCKS=4",
-                                    "-DRLS_PER_WARP=32"),
-    "128 threads, one ray a lane": ("-DRLS_THREADS=128", "-DRLS_MIN_BLOCKS=8",
-                                    "-DRLS_PER_WARP=32"),
+    "per_warp 32": ("-DRLS_PER_WARP=32",),
+    "per_warp 64": ("-DRLS_PER_WARP=64",),
+    "per_warp 128": ("-DRLS_PER_WARP=128",),
+    "per_warp 32, prefetch": ("-DRLS_PER_WARP=32", "-DRLS_PREFETCH=1"),
+    "per_warp 32, 1024 threads": ("-DRLS_PER_WARP=32", "-DRLS_THREADS=1024",
+                                  "-DRLS_MIN_BLOCKS=1"),
 }
 
 

@@ -74,6 +74,9 @@ namespace {
 #ifndef RLS_PER_WARP
 #define RLS_PER_WARP 0  // rays per warp; 0: an equal share per resident warp
 #endif
+#ifndef RLS_PREFETCH
+#define RLS_PREFETCH 0  // load node + 1 while testing node
+#endif
 constexpr int kThreads = RLS_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQueue = 64;  // a warp's queue of live rays: < 32 + 32
@@ -171,12 +174,24 @@ __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
   int node = 0;
   while (node < n_nodes) {
     int leaf = -1;  // the code of the hit leaf to test
-    while (node < n_nodes) {
-      const int4 lo = word<kNodesShared>(nodes + 2 * node);
-      const int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
+    int4 lo = word<kNodesShared>(nodes + 2 * node);
+    int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
+    while (true) {
+#if RLS_PREFETCH
+      const int nx = node + 1 < n_nodes ? node + 1 : node;
+      const int4 lo1 = word<kNodesShared>(nodes + 2 * nx);
+      const int4 hi1 = word<kNodesShared>(nodes + 2 * nx + 1);
+#endif
       const bool hit = box_hit(lo, hi, r, t_best);
       if (hit && lo.w < 0) {  // an inner node's left child is node + 1
         node += 1;
+#if RLS_PREFETCH
+        lo = lo1;
+        hi = hi1;
+#else
+        lo = word<kNodesShared>(nodes + 2 * node);
+        hi = word<kNodesShared>(nodes + 2 * node + 1);
+#endif
         continue;
       }
       node = hi.w;
@@ -184,6 +199,9 @@ __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
         leaf = lo.w;
         break;
       }
+      if (node >= n_nodes) break;
+      lo = word<kNodesShared>(nodes + 2 * node);
+      hi = word<kNodesShared>(nodes + 2 * node + 1);
     }
     if (leaf < 0) break;
     const int first = leaf >> 3, end = first + (leaf & 7);
