@@ -21,9 +21,8 @@ shape, in turns (parent, this tree, this tree, parent):
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
 Then this tree's kernels on every table path (shared, nodes, global) at
-each shape, and built with each launch shape of BUILDS (intersect.cu's
-RLS_THREADS, RLS_MIN_BLOCKS, RLS_PER_WARP, RLS_PREFETCH), all built at
-once; and the
+each shape, and built with each setting of BUILDS (intersect.cu's
+RLS_SPLIT), all built at once; and the
 demo (256x256, AA 2) and glass (256x256, AA 3) frames, each rendered twice
 by each package's own render(), in turns (left out with --kernels-only).
 Prints the card and writes everything to chiprun_out/kernel_turns.json.
@@ -49,12 +48,10 @@ SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
 VARIANTS = ("shared", "nodes", "global")
 BUILDS = {
     "as built": (),
-    "per_warp 32": ("-DRLS_PER_WARP=32",),
-    "per_warp 64": ("-DRLS_PER_WARP=64",),
-    "per_warp 128": ("-DRLS_PER_WARP=128",),
-    "per_warp 32, prefetch": ("-DRLS_PER_WARP=32", "-DRLS_PREFETCH=1"),
-    "per_warp 32, 1024 threads": ("-DRLS_PER_WARP=32", "-DRLS_THREADS=1024",
-                                  "-DRLS_MIN_BLOCKS=1"),
+    "no split": ("-DRLS_SPLIT=0",),
+    "split up to 4 live": ("-DRLS_SPLIT=4",),
+    "split up to 16 live": ("-DRLS_SPLIT=16",),
+    "split up to 32 live": ("-DRLS_SPLIT=32",),
 }
 
 

@@ -32,64 +32,58 @@
 //   shared  both tables staged into shared memory, once per block;
 //   nodes   the nodes staged, the triangles read from global memory;
 //   global  both read from global memory through the read-only cache.
-// A block stages lazily: the first of its warps that has a live ray to
-// walk issues one TMA bulk copy per table, completing on an mbarrier, and
-// each warp that walks waits on that barrier. A block whose rays are all
-// dead never stages, and no warp waits for another.
+// A block stages lazily: the first of its warps that has a live ray issues
+// one TMA bulk copy per table, completing on an mbarrier, and each warp
+// with a live ray waits on that barrier. A block whose rays are all dead
+// never stages, and a warp whose rays are all dead never waits.
 //
 // What bounds it on an H100, and what the design does about it: a launch
-// lasts as long as its slowest warp, and a warp as long as the longest
-// walk among its rays: a chain of dependent loads and slab tests (up to
-// hundreds of steps for a ray that starts inside the glass sphere), not
-// the launch's bytes or operations (PERF.md: the glass launches run at a
-// few percent of their byte bound). So:
-//   - a grid of the blocks that fit on the card at once; each warp owns
-//     one contiguous share of the rays and runs on its own, with no block
-//     barrier after the start;
-//   - dead lanes answer at once, in coalesced stores; live rays go into
-//     the warp's queue in shared memory (ballot, popc) and are walked 32
-//     at a time, so a warp walks once per 32 live rays of its share;
+// lasts as long as its slowest warps, and a warp as long as the longest
+// walk among its lanes, a chain of dependent loads and slab tests (up to
+// hundreds of steps for a ray that starts inside the glass sphere); not
+// the launch's bytes or operations (the glass launches run at a few
+// percent of their byte bound; PERF.md). So:
+//   - one ray a lane, 512 lanes a block, a grid of all the rays: the
+//     block scheduler hands a finished block's place to the next block,
+//     which beat a grid of resident blocks looping over shares of the rays
+//     and warps compacting their live rays (PERF.md, PR 3);
+//   - dead lanes answer at once; a warp with no live lane exits;
 //   - a lane postpones a hit leaf's triangle tests until the other lanes
 //     of its warp have reached a leaf or the end (the while-while walk of
 //     Aila and Laine, 2009, in skip-link form), so a warp does not pay a
 //     leaf on nearly every step; reciprocals are __frcp_rn, which rounds
 //     as the division it replaces;
+//   - any-hit: a warp with few live rays splits each ray's walk over the
+//     subtrees of the tree's cut (ops/intersect.py::pack) among its idle
+//     lanes and ORs their answers. With t_max fixed, whether a node's box
+//     is hit does not depend on the order of the walk, and a child's box
+//     lies inside its parent's (also in float32), so the triangles tested
+//     are the plain walk's and the answer is the same;
 //   - the tables sit in shared memory where they fit.
-// PERF.md has the device times against the bound and the PR 2 kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
 #include <mutex>
+#include <utility>
 
 namespace {
 
-// Launch shape; kernel_turns.py measures other values by -D.
-#ifndef RLS_THREADS
-#define RLS_THREADS 512  // threads per block
+constexpr int kThreads = 512;
+#ifndef RLS_SPLIT
+#define RLS_SPLIT 8  // any-hit: most live rays a warp splits over its lanes
 #endif
-#ifndef RLS_MIN_BLOCKS
-#define RLS_MIN_BLOCKS 2  // blocks per SM the registers must allow
-#endif
-#ifndef RLS_PER_WARP
-#define RLS_PER_WARP 0  // rays per warp; 0: an equal share per resident warp
-#endif
-#ifndef RLS_PREFETCH
-#define RLS_PREFETCH 0  // load node + 1 while testing node
-#endif
-constexpr int kThreads = RLS_THREADS;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQueue = 64;  // a warp's queue of live rays: < 32 + 32
-// dynamic shared memory: the warps' queues, then the tables
-constexpr int kQueueBytes = kWarps * kQueue * 4;
 
 enum Path : int { kGlobal = 0, kNodes = 1, kShared = 2 };
 
 struct Query {
   const int4* nodes;  // 2 words per node
   const int4* tris;   // 3 words per triangle slot
+  const int* cut;     // roots of subtrees that partition the tree, DFS order
   int n_nodes;
   int n_tris;
+  int n_cut;
   const float* o;      // (n, 3)
   const float* d;      // (n, 3)
   const float* t_max;  // (n,)
@@ -97,8 +91,7 @@ struct Query {
   int n;
   int vis_mask;
   float t_eps;
-  int per_warp;  // rays of each warp's share
-  void* out;     // nearest: (4, n) floats t, tri (int bits), u, v; any-hit: n bytes
+  void* out;  // nearest: (4, n) floats t, tri (int bits), u, v; any-hit: n bytes
 };
 
 struct Ray {
@@ -158,8 +151,10 @@ __device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
          t > t_eps && a.w != r.excl && (b.w & vis_mask) != 0;
 }
 
-// The walk of one ray. Nearest: updates the best hit and returns false.
-// Any-hit (t_best = t_max, fixed): returns true at the first opaque blocker.
+// The walk of one ray over the nodes [node, end): the whole tree, or one
+// subtree (its nodes are contiguous in DFS order and their links stay
+// inside it). Nearest: updates the best hit and returns false. Any-hit
+// (t_best = t_max, fixed): returns true at the first opaque blocker.
 // A lane runs slab tests until it reaches a leaf whose box it hits, and
 // only then tests that leaf's triangles: the lanes of a warp leave the
 // inner loop at different steps and meet after it, so the warp tests its
@@ -167,31 +162,17 @@ __device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
 // Each lane still makes its own tests in the plain walk's order.
 template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
 __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
-                                     int n_nodes, int n_tris, const Ray& r,
+                                     int node, int end, const Ray& r,
                                      int vis_mask, float t_eps, float& t_best,
                                      int& tri, float& ub, float& vb) {
-  if (n_tris <= 0) return false;
-  int node = 0;
-  while (node < n_nodes) {
+  while (node < end) {
     int leaf = -1;  // the code of the hit leaf to test
-    int4 lo = word<kNodesShared>(nodes + 2 * node);
-    int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
-    while (true) {
-#if RLS_PREFETCH
-      const int nx = node + 1 < n_nodes ? node + 1 : node;
-      const int4 lo1 = word<kNodesShared>(nodes + 2 * nx);
-      const int4 hi1 = word<kNodesShared>(nodes + 2 * nx + 1);
-#endif
+    while (node < end) {
+      const int4 lo = word<kNodesShared>(nodes + 2 * node);
+      const int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
       const bool hit = box_hit(lo, hi, r, t_best);
       if (hit && lo.w < 0) {  // an inner node's left child is node + 1
         node += 1;
-#if RLS_PREFETCH
-        lo = lo1;
-        hi = hi1;
-#else
-        lo = word<kNodesShared>(nodes + 2 * node);
-        hi = word<kNodesShared>(nodes + 2 * node + 1);
-#endif
         continue;
       }
       node = hi.w;
@@ -199,13 +180,10 @@ __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
         leaf = lo.w;
         break;
       }
-      if (node >= n_nodes) break;
-      lo = word<kNodesShared>(nodes + 2 * node);
-      hi = word<kNodesShared>(nodes + 2 * node + 1);
     }
     if (leaf < 0) break;
-    const int first = leaf >> 3, end = first + (leaf & 7);
-    for (int s = first; s < end; ++s) {
+    const int first = leaf >> 3, stop = first + (leaf & 7);
+    for (int s = first; s < stop; ++s) {
       const int4 a = word<kTrisShared>(tris + 3 * s);
       const int4 b = word<kTrisShared>(tris + 3 * s + 1);
       const int4 c = word<kTrisShared>(tris + 3 * s + 2);
@@ -225,23 +203,7 @@ __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
   return false;
 }
 
-template <bool kAnyHit>
-__device__ __forceinline__ void write_miss(const Query& q, int i, float tm) {
-  if constexpr (kAnyHit) {
-    static_cast<uint8_t*>(q.out)[i] = 0;
-  } else {
-    float* out = static_cast<float*>(q.out);
-    out[i] = fminf(tm, 1e30f);
-    reinterpret_cast<int*>(out)[q.n + i] = -1;
-    out[2 * q.n + i] = 0.0f;
-    out[3 * q.n + i] = 0.0f;
-  }
-}
-
-template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
-__device__ __forceinline__ void trace_ray(const Query& q, const int4* nodes,
-                                          const int4* tris, int i) {
-  const float tm = q.t_max[i];
+__device__ __forceinline__ Ray load_ray(const Query& q, int i) {
   Ray r;
   r.ox = q.o[3 * i];
   r.oy = q.o[3 * i + 1];
@@ -253,21 +215,7 @@ __device__ __forceinline__ void trace_ray(const Query& q, const int4* nodes,
   r.iy = inv_dir(r.dy);
   r.iz = inv_dir(r.dz);
   r.excl = q.exclude[i];
-  float t_best = kAnyHit ? tm : fminf(tm, 1e30f);
-  int tri = -1;
-  float ub = 0.0f, vb = 0.0f;
-  const bool blocked = walk<kNodesShared, kTrisShared, kAnyHit>(
-      nodes, tris, q.n_nodes, q.n_tris, r, q.vis_mask, q.t_eps, t_best, tri,
-      ub, vb);
-  if constexpr (kAnyHit) {
-    static_cast<uint8_t*>(q.out)[i] = blocked ? 1 : 0;
-  } else {
-    float* out = static_cast<float*>(q.out);
-    out[i] = t_best;
-    reinterpret_cast<int*>(out)[q.n + i] = tri;
-    out[2 * q.n + i] = ub;
-    out[3 * q.n + i] = vb;
-  }
+  return r;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -283,8 +231,8 @@ __device__ __forceinline__ void copy_bulk(int4* dst, const int4* src,
       : "memory");
 }
 
-// Called by a whole warp that is about to walk: the first such warp of
-// the block issues the copies of the tables; every caller waits for them.
+// Called by a whole warp with a live ray: the first such warp of the block
+// issues the copies of the tables; every caller waits for them.
 template <bool kTrisShared>
 __device__ __forceinline__ void acquire_tables(const Query& q, int4* s_nodes,
                                                int4* s_tris, uint64_t* bar,
@@ -314,6 +262,45 @@ __device__ __forceinline__ void acquire_tables(const Query& q, int4* s_nodes,
   }
 }
 
+// Any-hit for a warp with few live rays (mask `live`, at most RLS_SPLIT):
+// lane groups of `width` lanes, one per live ray, each lane of a group
+// walking every width-th subtree of the cut; each live lane writes the OR
+// of its group.
+template <bool kNodesShared, bool kTrisShared>
+__device__ __forceinline__ void occluded_split(const Query& q,
+                                               const int4* nodes,
+                                               const int4* tris,
+                                               unsigned live, int base) {
+  const int lane = threadIdx.x & 31;
+  const int n_live = __popc(live);
+  const int width = 1 << (31 - __clz(32 / n_live));  // a power of two
+  const int g = lane / width, j = lane % width;
+  bool blocked = false;
+  if (g < n_live) {
+    unsigned m = live;
+    for (int k = 0; k < g; ++k) m &= m - 1;
+    const int i = base + __ffs(m) - 1;
+    const Ray r = load_ray(q, i);
+    float t_best = q.t_max[i];
+    int tri = -1;
+    float ub = 0.0f, vb = 0.0f;
+    for (int c = j; c < q.n_cut && !blocked; c += width) {
+      const int root = __ldg(q.cut + c);
+      const int end = word<kNodesShared>(nodes + 2 * root + 1).w;
+      blocked = walk<kNodesShared, kTrisShared, true>(
+          nodes, tris, root, end, r, q.vis_mask, q.t_eps, t_best, tri, ub,
+          vb);
+    }
+  }
+  const unsigned votes = __ballot_sync(0xffffffffu, blocked);
+  if ((live >> lane) & 1u) {
+    const int g_mine = __popc(live & ((1u << lane) - 1u));
+    const unsigned group = width == 32 ? 0xffffffffu : (1u << width) - 1u;
+    static_cast<uint8_t*>(q.out)[base + lane] =
+        ((votes >> (g_mine * width)) & group) != 0u ? 1 : 0;
+  }
+}
+
 template <int kPath, bool kAnyHit>
 __device__ __forceinline__ void run(const Query& q) {
   constexpr bool kNodesShared = kPath != kGlobal;
@@ -321,9 +308,7 @@ __device__ __forceinline__ void run(const Query& q) {
   extern __shared__ int4 smem[];
   __shared__ uint64_t bar;
   __shared__ int issued;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int* queue = reinterpret_cast<int*>(smem) + warp * kQueue;
-  int4* s_nodes = smem + kQueueBytes / 16;
+  int4* s_nodes = smem;
   int4* s_tris = s_nodes + 2 * q.n_nodes;
   const int4* nodes = kNodesShared ? s_nodes : q.nodes;
   const int4* tris = kTrisShared ? s_tris : q.tris;
@@ -337,56 +322,58 @@ __device__ __forceinline__ void run(const Query& q) {
     }
     __syncthreads();
   }
-  bool have_tables = !kNodesShared;
-  // this warp's share of the rays
-  const long long start =
-      ((long long)blockIdx.x * kWarps + warp) * (long long)q.per_warp;
-  const long long end =
-      start + q.per_warp < q.n ? start + q.per_warp : (long long)q.n;
-  const unsigned below = (1u << lane) - 1u;
-  int count = 0;  // live rays in the queue
-  for (long long base = start; base < end; base += 32) {
-    const long long i = base + lane;
-    bool live = false;
-    if (i < end) {
-      const float tm = q.t_max[i];
-      live = tm > 0.0f;
-      if (!live) write_miss<kAnyHit>(q, (int)i, tm);
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    if (live) queue[count + __popc(m & below)] = (int)i;
-    count += __popc(m);
-    if (count >= 32) {
-      __syncwarp();
-      if (!have_tables) {
-        acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
-        have_tables = true;
-      }
-      count -= 32;
-      const int r = queue[count + lane];
-      __syncwarp();
-      trace_ray<kNodesShared, kTrisShared, kAnyHit>(q, nodes, tris, r);
+  const int lane = threadIdx.x & 31;
+  const int base = blockIdx.x * kThreads + (threadIdx.x - lane);
+  const int i = base + lane;
+  float tm = 0.0f;
+  if (i < q.n) tm = q.t_max[i];
+  const bool live = tm > 0.0f;
+  if (i < q.n && !live) {  // a dead lane misses without walking
+    if constexpr (kAnyHit) {
+      static_cast<uint8_t*>(q.out)[i] = 0;
+    } else {
+      float* out = static_cast<float*>(q.out);
+      out[i] = fminf(tm, 1e30f);
+      reinterpret_cast<int*>(out)[q.n + i] = -1;
+      out[2 * q.n + i] = 0.0f;
+      out[3 * q.n + i] = 0.0f;
     }
   }
-  if (count > 0) {
-    __syncwarp();
-    if (!have_tables)
-      acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
-    if (lane < count)
-      trace_ray<kNodesShared, kTrisShared, kAnyHit>(q, nodes, tris,
-                                                    queue[lane]);
+  const unsigned lives = __ballot_sync(0xffffffffu, live);
+  if (lives == 0u) return;
+  if constexpr (kNodesShared)
+    acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
+  if constexpr (kAnyHit) {
+    if (__popc(lives) <= RLS_SPLIT) {
+      occluded_split<kNodesShared, kTrisShared>(q, nodes, tris, lives, base);
+      return;
+    }
+  }
+  if (!live) return;
+  const Ray r = load_ray(q, i);
+  float t_best = kAnyHit ? tm : fminf(tm, 1e30f);
+  int tri = -1;
+  float ub = 0.0f, vb = 0.0f;
+  const bool blocked = walk<kNodesShared, kTrisShared, kAnyHit>(
+      nodes, tris, 0, q.n_nodes, r, q.vis_mask, q.t_eps, t_best, tri, ub, vb);
+  if constexpr (kAnyHit) {
+    static_cast<uint8_t*>(q.out)[i] = blocked ? 1 : 0;
+  } else {
+    float* out = static_cast<float*>(q.out);
+    out[i] = t_best;
+    reinterpret_cast<int*>(out)[q.n + i] = tri;
+    out[2 * q.n + i] = ub;
+    out[3 * q.n + i] = vb;
   }
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS)
-    nearest_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads) nearest_kernel(Query q) {
   run<kPath, false>(q);
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS)
-    occluded_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads) occluded_kernel(Query q) {
   run<kPath, true>(q);
 }
 
@@ -411,53 +398,33 @@ int table_bytes(int path, int n_nodes, int n_tris) {
   return 32 * n_nodes + (path == kShared ? 48 * n_tris : 0);
 }
 
-// Blocks of `fn` resident on the whole card at `smem` bytes of dynamic
-// shared memory, cached per (device, kernel, bytes). The first use of a
-// kernel on a device opts it in to the device's largest shared memory.
-cudaError_t resident_blocks(const void* fn, int smem, int* blocks) {
-  struct Entry {
-    int dev;
-    const void* fn;
-    int smem;
-    int blocks;
-  };
+// Checks that `smem` bytes of dynamic shared memory fit a block of `fn` on
+// the current device; the first use of a kernel on a device opts it in to
+// the device's largest shared memory (cached per device and kernel).
+cudaError_t fit_shared(const void* fn, int smem) {
   static std::mutex mu;
-  static Entry cache[64];
-  static int n_cached = 0;
+  static std::map<std::pair<int, const void*>, int> room;  // bytes
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  for (int k = 0; k < n_cached; ++k) {
-    if (cache[k].dev == dev && cache[k].fn == fn && cache[k].smem == smem) {
-      *blocks = cache[k].blocks;
-      return cudaSuccess;
-    }
+  auto it = room.find({dev, fn});
+  if (it == room.end()) {
+    cudaFuncAttributes attr;
+    int optin;
+    if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(
+             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return err;
+    const int bytes = optin - (int)attr.sharedSizeBytes;
+    if ((err = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
+        cudaSuccess)
+      return err;
+    it = room.emplace(std::make_pair(dev, fn), bytes).first;
   }
-  cudaFuncAttributes attr;
-  int optin, sms, per_sm;
-  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(
-           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-      cudaSuccess)
-    return err;
-  const int room = optin - (int)attr.sharedSizeBytes;
-  if (smem > room) return cudaErrorInvalidValue;
-  if (smem > attr.maxDynamicSharedSizeBytes &&
-      (err = cudaFuncSetAttribute(
-           fn, cudaFuncAttributeMaxDynamicSharedMemorySize, room)) !=
-          cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fn, kThreads, smem)) != cudaSuccess)
-    return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = per_sm * sms;
-  if (n_cached < 64) cache[n_cached++] = Entry{dev, fn, smem, *blocks};
-  return cudaSuccess;
+  return smem <= it->second ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <bool kAnyHit>
@@ -465,34 +432,28 @@ int launch(int path, Query q, void* stream) {
   if (q.n <= 0) return 0;
   const void* fn = kernel_for<kAnyHit>(path);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const int smem = kQueueBytes + table_bytes(path, q.n_nodes, q.n_tris);
-  int blocks;
-  cudaError_t err = resident_blocks(fn, smem, &blocks);
+  const int smem = table_bytes(path, q.n_nodes, q.n_tris);
+  cudaError_t err = fit_shared(fn, smem);
   if (err != cudaSuccess) return (int)err;
-  // every resident warp gets an equal share (whole warps of rays when the
-  // launch is small)
-  const long long warps = (long long)blocks * kWarps;
-  long long per_warp = RLS_PER_WARP > 0 ? RLS_PER_WARP : (q.n + warps - 1) / warps;
-  if (per_warp < 32) per_warp = 32;
-  q.per_warp = (int)per_warp;
-  const long long per_block = per_warp * kWarps;
-  const int grid = (int)((q.n + per_block - 1) / per_block);
   void* args[] = {&q};
-  err = cudaLaunchKernel(fn, dim3(grid), dim3(kThreads), args, smem,
+  err = cudaLaunchKernel(fn, dim3((q.n + kThreads - 1) / kThreads),
+                         dim3(kThreads), args, smem,
                          static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }
 
-Query make_query(const void* nodes, const void* tris, int n_nodes, int n_tris,
-                 const float* o, const float* d, const float* t_max,
-                 const int* exclude, int n_rays, int vis_mask, float t_eps,
-                 void* out) {
+Query make_query(const void* nodes, const void* tris, const int* cut,
+                 int n_nodes, int n_tris, int n_cut, const float* o,
+                 const float* d, const float* t_max, const int* exclude,
+                 int n_rays, int vis_mask, float t_eps, void* out) {
   Query q;
   q.nodes = static_cast<const int4*>(nodes);
   q.tris = static_cast<const int4*>(tris);
+  q.cut = cut;
   q.n_nodes = n_nodes;
   q.n_tris = n_tris;
+  q.n_cut = n_cut;
   q.o = o;
   q.d = d;
   q.t_max = t_max;
@@ -500,7 +461,6 @@ Query make_query(const void* nodes, const void* tris, int n_nodes, int n_tris,
   q.n = n_rays;
   q.vis_mask = vis_mask;
   q.t_eps = t_eps;
-  q.per_warp = 32;
   q.out = out;
   return q;
 }
@@ -508,27 +468,31 @@ Query make_query(const void* nodes, const void* tris, int n_nodes, int n_tris,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `nodes` and `tris` are the
-// packed tables, 16-byte aligned; `path` is a Path code. Each launches on
-// `stream` and returns the launch's CUDA error; 0 means it was accepted.
-extern "C" int rls_nearest(const void* nodes, const void* tris, int n_nodes,
-                           int n_tris, int path, const float* o,
+// packed tables, 16-byte aligned, and `cut` the n_cut subtree roots that
+// partition the tree; `path` is a Path code. Each launches on `stream`
+// and returns the launch's CUDA error; 0 means it was accepted.
+extern "C" int rls_nearest(const void* nodes, const void* tris,
+                           const int* cut, int n_nodes, int n_tris,
+                           int n_cut, int path, const float* o,
                            const float* d, const float* t_max,
                            const int* exclude, int n_rays, int vis_mask,
                            float t_eps, float* out, void* stream) {
-  return launch<false>(path,
-                       make_query(nodes, tris, n_nodes, n_tris, o, d, t_max,
-                                  exclude, n_rays, vis_mask, t_eps, out),
-                       stream);
+  return launch<false>(
+      path,
+      make_query(nodes, tris, cut, n_nodes, n_tris, n_cut, o, d, t_max,
+                 exclude, n_rays, vis_mask, t_eps, out),
+      stream);
 }
 
-extern "C" int rls_occluded(const void* nodes, const void* tris, int n_nodes,
-                            int n_tris, int path, const float* o,
+extern "C" int rls_occluded(const void* nodes, const void* tris,
+                            const int* cut, int n_nodes, int n_tris,
+                            int n_cut, int path, const float* o,
                             const float* d, const float* t_max,
                             const int* exclude, int n_rays, int vis_mask,
                             float t_eps, uint8_t* blocked_out, void* stream) {
-  return launch<true>(path,
-                      make_query(nodes, tris, n_nodes, n_tris, o, d, t_max,
-                                 exclude, n_rays, vis_mask, t_eps,
-                                 blocked_out),
-                      stream);
+  return launch<true>(
+      path,
+      make_query(nodes, tris, cut, n_nodes, n_tris, n_cut, o, d, t_max,
+                 exclude, n_rays, vis_mask, t_eps, blocked_out),
+      stream);
 }

@@ -10,10 +10,12 @@ built and checked once per `Accel` (accel/trace.py::from_arrays): a node is
 32 bytes, (bbox_min.xyz, code) and (bbox_max.xyz, miss), where code is -1
 for an inner node and `first << 3 | count` for a leaf; a triangle slot is
 48 bytes, (v0.xyz, id), (e1.xyz, vis), (e2.xyz, opaque). Floats are kept
-by their bits in int32 words. Where the tables are kept during a launch
-(`table_path`) follows from their size: both in shared memory ("shared"),
-the nodes only ("nodes"), or neither ("global"). Each launch checks only
-the ray tensors.
+by their bits in int32 words. Beside them, the roots of up to 32 subtrees
+that partition the tree (`subtree_cut`), over which the any-hit kernel
+splits a ray's walk among idle lanes. Where the tables are kept during a
+launch (`table_path`) follows from their size: both in shared memory
+("shared"), the nodes only ("nodes"), or neither ("global"). Each launch
+checks only the ray tensors.
 
 The source is compiled by nvcc into a shared library with a plain C
 interface at first use, into `rlshaders_tpu_torch/build/` (named by a hash
@@ -48,11 +50,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 NODE_WORDS = 8    # 32 B per node
 TRI_WORDS = 12    # 48 B per triangle slot
 # Dynamic shared memory a block may opt in to on an H100 (227 KB), less
-# the warps' ray queues (intersect.cu kQueueBytes) and 1 KB for the static
-# shared memory: the room for the tables.
+# 1 KB for the static shared memory: the room for the tables.
 SMEM_OPTIN_BYTES = 232_448
-QUEUE_BYTES = 4_096
-TABLE_ROOM = SMEM_OPTIN_BYTES - QUEUE_BYTES - 1_024
+TABLE_ROOM = SMEM_OPTIN_BYTES - 1_024
+CUT_PARTS = 32    # subtrees of the cut: one per lane of a warp
 PATHS = {"global": 0, "nodes": 1, "shared": 2}  # intersect.cu's Path codes
 
 LAUNCHES = {"rls_nearest": 0, "rls_occluded": 0}
@@ -67,6 +68,7 @@ class Packed(NamedTuple):
 
     nodes: torch.Tensor  # (N, 8) int32
     tris: torch.Tensor   # (T, 12) int32
+    cut: torch.Tensor    # (C,) int32 subtree roots, C <= CUT_PARTS
     path: str            # a key of PATHS
 
 
@@ -77,6 +79,24 @@ def table_path(n_nodes: int, n_tris: int) -> str:
     if n_nodes * 4 * NODE_WORDS <= TABLE_ROOM:
         return "nodes"
     return "global"
+
+
+def subtree_cut(first, miss) -> list[int]:
+    """Roots of at most CUT_PARTS subtrees whose node ranges [r, miss[r])
+    hold every leaf once, in DFS order: the whole tree, split at its
+    largest inner subtree (into the children r + 1 and miss[r + 1]) until
+    there are CUT_PARTS or only leaves. The inner nodes left out need no
+    test: a child's box lies inside its parent's."""
+    first, miss = list(first), list(miss)
+    roots = [0] if first else []
+    while len(roots) < CUT_PARTS:
+        inner = [r for r in roots if first[r] < 0]
+        if not inner:
+            break
+        r = max(inner, key=lambda n: miss[n] - n)
+        roots.remove(r)
+        roots += [r + 1, miss[r + 1]]
+    return sorted(roots)
 
 
 def pack(tree: BVH, tris: Tris) -> Packed:
@@ -111,7 +131,9 @@ def pack(tree: BVH, tris: Tris) -> Packed:
     for x in (nodes, slots):
         if x.data_ptr() % 16:
             raise ValueError("packed tables must be 16-byte aligned")
-    return Packed(nodes=nodes, tris=slots, path=table_path(n, t))
+    cut = torch.tensor(subtree_cut(tree.first.tolist(), tree.miss.tolist()),
+                       dtype=i32, device=dev)
+    return Packed(nodes=nodes, tris=slots, cut=cut, path=table_path(n, t))
 
 
 def _nvcc() -> str:
@@ -154,7 +176,7 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            args = [p, p, i, i, i, p, p, p, p, i, i, f, p, p]
+            args = [p, p, p, i, i, i, i, p, p, p, p, i, i, f, p, p]
             lib.rls_nearest.argtypes = args
             lib.rls_nearest.restype = i
             lib.rls_occluded.argtypes = args
@@ -192,8 +214,9 @@ def _launch(name: str, packed: Packed, o, d, t_max, exclude_tri, vis_mask,
         _check(arg, x, dt, shape, dev)
     lib = _lib or _load()
     err = getattr(lib, name)(
-        packed.nodes.data_ptr(), packed.tris.data_ptr(),
-        packed.nodes.shape[0], packed.tris.shape[0], PATHS[packed.path],
+        packed.nodes.data_ptr(), packed.tris.data_ptr(), packed.cut.data_ptr(),
+        packed.nodes.shape[0], packed.tris.shape[0], packed.cut.shape[0],
+        PATHS[packed.path],
         o.data_ptr(), d.data_ptr(), t_max.data_ptr(), exclude_tri.data_ptr(),
         r, int(vis_mask), t_eps, out.data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index))

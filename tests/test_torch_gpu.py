@@ -12,8 +12,9 @@ on the queries of the transparent-shadow march: per-ray finite t_max, dead
 lanes and exclude = the previous hit; on every table path (tables in
 shared memory, the nodes only, or neither);
 on a soup too large for shared memory; on launches whose lanes are all
-dead or all dead but the last; and at ray counts that are no multiple of
-a warp or a block. The CUDA renders (the demo and the
+dead or all dead but the last; on sparse live lanes, where the any-hit
+kernel splits a ray's walk over a warp's idle lanes; and at ray counts
+that are no multiple of a warp or a block. The CUDA renders (the demo and the
 glass sphere) are held to the CPU renders with chip_smoke.py's tolerance.
 """
 import types
@@ -239,3 +240,17 @@ def test_cuda_glass_render_matches_cpu_render(cuda_device):
         assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
         assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
     assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("share", [0.01, 0.05, 0.2])
+def test_sparse_live_lanes(cuda_device, share):
+    """A few live lanes a warp (the any-hit kernel splits their walks over
+    the warp's idle lanes), on the soup and on the glass scene."""
+    rs = np.random.default_rng(int(share * 100))
+    for acc in (_soup_accel(cuda_device), _glass(cuda_device)[1]):
+        args = _rays(cuda_device, 50000, seed=13)
+        dead = torch.tensor(rs.random(50000) >= share, device=cuda_device)
+        args[2] = torch.where(dead, 0.0, args[2].abs() + 0.1)
+        for vis_mask in (1, 2):
+            _, bp = _assert_kernels_equal_walk(acc, args, vis_mask)

@@ -5,10 +5,12 @@ A node is one 32-byte record, (bbox_min.xyz, code) and (bbox_max.xyz,
 miss), with code -1 for an inner node and first << 3 | count for a leaf; a
 triangle slot is one 48-byte record, (v0.xyz, id), (e1.xyz, vis), (e2.xyz,
 opaque). The floats are moved, not recomputed, so unpacking with torch ops
-must give back exactly the tables the plain walk reads. Which tables the
-kernels stage in shared memory follows from their size: the demo and glass
-scenes fit whole, a 4,000-triangle soup with its nodes only, a
-12,000-triangle soup not at all.
+must give back exactly the tables the plain walk reads. The subtree cut
+over which the any-hit kernel splits a walk holds every leaf once, and the
+plain any-hit walk over its subtrees, ORed, equals the walk over the whole
+tree. Which tables the kernels stage in shared memory follows from their
+size: the demo and glass scenes fit whole, a 4,000-triangle soup with its
+nodes only, a 12,000-triangle soup not at all.
 """
 import types
 
@@ -168,9 +170,64 @@ def test_interop_accel_packs_the_jax_tables():
     again = kernels.pack(acc.tree, acc.tris)
     assert torch.equal(acc.packed.nodes, again.nodes)
     assert torch.equal(acc.packed.tris, again.tris)
+    assert torch.equal(acc.packed.cut, again.cut)
     assert acc.packed.path == again.path == "shared"
     tree, _ = _unpack(acc.packed)
     for f in TB.BVH._fields:
         np.testing.assert_array_equal(getattr(tree, f).numpy(),
                                       np.asarray(tables[f"bvh.{f}"]),
                                       err_msg=f)
+
+
+def _subtree(tree, root):
+    """The BVH of the subtree at `root` (its nodes are contiguous in DFS
+    order), with its links shifted to start at 0."""
+    end = int(tree.miss[root])
+    return TB.BVH(bbox_min=tree.bbox_min[root:end],
+                  bbox_max=tree.bbox_max[root:end],
+                  first=tree.first[root:end], count=tree.count[root:end],
+                  miss=tree.miss[root:end] - root, tri_order=tree.tri_order)
+
+
+@pytest.mark.parametrize("name", ["demo", "glass", "soup"])
+def test_cut_holds_every_leaf_once(accels, name):
+    tree, cut = accels[name].tree, accels[name].packed.cut
+    roots = cut.tolist()
+    assert cut.dtype == torch.int32 and roots == sorted(set(roots))
+    assert 1 <= len(roots) <= kernels.CUT_PARTS
+    n = tree.first.shape[0]
+    cover = torch.zeros(n, dtype=torch.int64)
+    for r in roots:
+        cover[r:int(tree.miss[r])] += 1
+    leaf = tree.first >= 0
+    assert bool((cover[leaf] == 1).all())
+    assert bool((cover <= 1).all())
+    if n > 2 * kernels.CUT_PARTS:
+        assert len(roots) == kernels.CUT_PARTS
+
+
+@pytest.mark.parametrize("name", ["glass", "soup"])
+def test_any_hit_over_the_cut_equals_the_walk(accels, name):
+    """The any-hit kernel's split: OR of the plain walk over each subtree
+    of the cut equals the plain walk over the tree, lane for lane."""
+    acc = accels[name]
+    rs = np.random.default_rng(3)
+    n = 3000
+    lo = acc.tree.bbox_min[0].numpy()
+    hi = acc.tree.bbox_max[0].numpy()
+    o = torch.tensor(rs.uniform(lo, hi, (n, 3)), dtype=torch.float32)
+    d = torch.tensor(rs.normal(size=(n, 3)), dtype=torch.float32)
+    d = d / d.norm(dim=1, keepdim=True)
+    tm = torch.tensor(rs.uniform(-0.5, 2.0 * float(np.abs(hi - lo).max()),
+                                 n), dtype=torch.float32)
+    ex = torch.tensor(np.where(rs.random(n) < 0.3,
+                               rs.integers(0, acc.tris.v0.shape[0], n), -1),
+                      dtype=torch.int32)
+    for vis_mask in (1, 2):
+        whole = TB.occluded(acc.tree, acc.tris, o, d, tm, ex, vis_mask)
+        split = torch.zeros(n, dtype=torch.bool)
+        for r in acc.packed.cut.tolist():
+            split |= TB.occluded(_subtree(acc.tree, r), acc.tris, o, d, tm,
+                                 ex, vis_mask)
+        assert torch.equal(split, whole)
+        assert 0 < int(whole.sum()) < n
