@@ -48,10 +48,11 @@ SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
 VARIANTS = ("shared", "nodes", "global")
 BUILDS = {
     "as built": (),
-    "no split": ("-DRLS_SPLIT=0",),
+    "min_blocks 3": ("-DRLS_MIN_BLOCKS=3",),
+    "256 threads": ("-DRLS_THREADS=256",),
+    "256 threads, min_blocks 6": ("-DRLS_THREADS=256", "-DRLS_MIN_BLOCKS=6"),
+    "1024 threads": ("-DRLS_THREADS=1024",),
     "split up to 4 live": ("-DRLS_SPLIT=4",),
-    "split up to 16 live": ("-DRLS_SPLIT=16",),
-    "split up to 32 live": ("-DRLS_SPLIT=32",),
 }
 
 

@@ -70,7 +70,13 @@
 
 namespace {
 
-constexpr int kThreads = 512;
+#ifndef RLS_THREADS
+#define RLS_THREADS 512
+#endif
+#ifndef RLS_MIN_BLOCKS
+#define RLS_MIN_BLOCKS 1
+#endif
+constexpr int kThreads = RLS_THREADS;
 #ifndef RLS_SPLIT
 #define RLS_SPLIT 8  // any-hit: most live rays a warp splits over its lanes
 #endif
@@ -368,12 +374,12 @@ __device__ __forceinline__ void run(const Query& q) {
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads) nearest_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS) nearest_kernel(Query q) {
   run<kPath, false>(q);
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads) occluded_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS) occluded_kernel(Query q) {
   run<kPath, true>(q);
 }
 
