@@ -27,11 +27,11 @@ nonzero):
    frame of scenes/glass_sphere.ass at its own depths with Russian
    roulette from refraction depth 2 (march steps with finite t_max and
    exclude = the previous hit, roulette-dead lanes with t_max 0); times the
-   kernels and, in one uncounted pass, the plain walk on those queries,
+   kernels (not the plain walk: one pass takes minutes, and PR 2 timed it),
    checks the kernels' device time against torch.profiler's sum of their
    launches, prints the dead lanes of those queries (launches with no live
-   lane, 32-lane groups with a live lane), and profiles a 128x128 frame,
-   one full tile of the timed frame;
+   lane, 32-lane groups with a live lane) and the longest walk of each
+   launch, and profiles a 128x128 frame, one full tile of the timed frame;
 7. renders the glass scene at 256x256, AA 3, its own options, through the
    kernels (counts reset, plain walk barred); prints seconds per frame, the
    query counts, the rate and the refraction AOV;
@@ -598,20 +598,23 @@ def main() -> int:
     gtimes, glass_bound = {}, {}
     for k in REPLACES:
         mine = [c[1:] for c in calls if c[0] == k]
-        kern, walk = pair(k, kernels, bvh, gaccel)
+        kern, _ = pair(k, kernels, bvh, gaccel)
         dm, cm = kernel_ms(kern, mine, 3)
         prof = profiled_ms(partial(run_all, kern, mine),
                            k[len("rls_"):] + "_kernel")
-        # the plain walk takes minutes here: one pass, warm from compare()
-        pm = events_ms(lambda: run_all(walk, mine), 1)
         r = sum(c[0].shape[0] for c in mine)
-        gtimes[k] = (dm, cm, pm, r, len(mine))
+        gtimes[k] = (dm, cm, None, r, len(mine))
         b = glass_bound[k] = bound(k, r, glass[k][3], gaccel)
+        walks = glass[k][3]
+        working = sum(1 for c in mine if bool((c[2] > 0).any()))
         log(f"[6] {k}: all {r} rays of the glass frame's {len(mine)} "
             f"queries: device {dm:.4f} ms (torch.profiler's sum of the "
             f"kernel's launches {prof:.4f} ms), call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us per "
-            f"launch), plain {pm:.4f} ms (one pass); walk {glass[k][3]}; "
+            f"launch); walk {walks}: per live ray "
+            f"{walks['boxes'] / walks['rays']:.2f} slab tests, the longest "
+            f"walk of a launch with a live lane "
+            f"{walks['steps'] / working:.2f} on average; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")

@@ -5,7 +5,7 @@ Run from the repository root, with another version of the package (its
 .gitignore lists:
 
     git archive <commit> rlshaders_tpu_torch | tar -x -C parent_tree
-    python3 kernel_turns.py parent_tree [--kernels-only]
+    python3 kernel_turns.py parent_tree
 
 The other version is imported as `rls_parent`, with its own wrappers and
 kernels, built from its own source. Its wrappers take the structure-of-
@@ -21,20 +21,16 @@ shape, in turns (parent, this tree, this tree, parent):
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
 Then this tree's kernels on every table path (shared, nodes, global) at
-each shape, and built with each setting of BUILDS (intersect.cu's
-RLS_SPLIT), all built at once; and the
-demo (256x256, AA 2) and glass (256x256, AA 3) frames, each rendered twice
-by each package's own render(), in turns (left out with --kernels-only).
-Prints the card and writes everything to chiprun_out/kernel_turns.json.
+each shape; and the demo (256x256, AA 2) and glass (256x256, AA 3) frames,
+each rendered twice by each package's own render(), in turns. Prints the
+card and writes everything to chiprun_out/kernel_turns.json.
 """
 from __future__ import annotations
 
-import ctypes
 import importlib
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 import time
 from functools import partial
@@ -46,14 +42,6 @@ import chip_smoke as cs
 PARENT = "rls_parent"
 SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
 VARIANTS = ("shared", "nodes", "global")
-BUILDS = {
-    "as built": (),
-    "min_blocks 3": ("-DRLS_MIN_BLOCKS=3",),
-    "256 threads": ("-DRLS_THREADS=256",),
-    "256 threads, min_blocks 6": ("-DRLS_THREADS=256", "-DRLS_MIN_BLOCKS=6"),
-    "1024 threads": ("-DRLS_THREADS=1024",),
-    "split up to 4 live": ("-DRLS_SPLIT=4",),
-}
 
 
 def load_parent(root: str):
@@ -71,34 +59,6 @@ def load_parent(root: str):
 
 def sub(pkg: str, name: str):
     return importlib.import_module(f"{pkg}.{name}")
-
-
-def variant_libs(new) -> dict:
-    """{build: (library, registers per thread)}: this tree's kernels built
-    with each entry of BUILDS, all nvcc processes at once, bound as
-    ops/intersect.py binds them."""
-    os.makedirs(new.BUILD_DIR, exist_ok=True)
-    procs = {}
-    for k, (name, flags) in enumerate(BUILDS.items()):
-        out = os.path.join(new.BUILD_DIR, f"librls_intersect_v{k}.so")
-        procs[name] = (out, subprocess.Popen(
-            [new._nvcc(), *new.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
-             out, new.SOURCE],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    libs = {}
-    argtypes = new._load().rls_nearest.argtypes
-    for name, (out, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(stdout + stderr)
-        regs = sorted({line.split("Used ")[1].split(" registers")[0]
-                       for line in stderr.splitlines() if "registers" in line})
-        lib = ctypes.CDLL(out)
-        for fn in (lib.rls_nearest, lib.rls_occluded):
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        libs[name] = (lib, regs)
-    return libs
 
 
 def queries(gscene, gaccel, dscene, daccel) -> dict:
@@ -144,7 +104,7 @@ def wrappers(old, new, accel, packed=None) -> dict:
     }
 
 
-def main(root: str, render_frames: bool) -> int:
+def main(root: str) -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
         return 1
@@ -210,29 +170,6 @@ def main(root: str, render_frames: bool) -> int:
             result["variants"][f"{k} {shape}"] = times
             cs.log(f"{k} {shape} by table path, device ms: {times}")
 
-    default = new._load()
-    result["builds"] = {}
-    libs = variant_libs(new)
-    for name, (_, regs) in libs.items():
-        cs.log(f"build {name}: registers per thread {regs}")
-    try:
-        for shape in SHAPES:
-            accel, mine = qs[shape]
-            for k in cs.REPLACES:
-                for path in VARIANTS:
-                    fn = wrappers(old, new, accel, accel.packed._replace(
-                        path=path))["this"][k]
-                    times = {}
-                    for name in (*BUILDS, *list(BUILDS)[::-1]):
-                        new._lib = libs[name][0]
-                        times.setdefault(name, []).append(cs.device_ms(
-                            partial(cs.run_all, fn, mine[k]), reps[shape]))
-                    result["builds"][f"{k} {shape} {path}"] = times
-                    cs.log(f"{k} {shape} {path} by build, device ms: "
-                           f"{ {n: round(min(t), 5) for n, t in times.items()} }")
-    finally:
-        new._lib = default
-
     pscene = sub(PARENT, "scene.build").build(cs.GLASS)
     ptrace = sub(PARENT, "accel.trace")
     frames = {
@@ -247,7 +184,7 @@ def main(root: str, render_frames: bool) -> int:
                            gscene, gaccel)},
     }
     aa = {"demo": cs.AA, "glass": cs.GLASS_AA}
-    for shape, vers in (frames if render_frames else {}).items():
+    for shape, vers in frames.items():
         secs = {"parent": [], "this": []}
         for ver in ("parent", "this", "this", "parent") * 2:
             wf, scene, accel = vers[ver]
@@ -271,8 +208,7 @@ def main(root: str, render_frames: bool) -> int:
 
 
 if __name__ == "__main__":
-    args = sys.argv[1:]
-    if len(args) not in (1, 2) or args[1:] not in ([], ["--kernels-only"]):
+    if len(sys.argv) != 2:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(args[0], render_frames=args[1:] == []))
+    sys.exit(main(sys.argv[1]))

@@ -70,16 +70,8 @@
 
 namespace {
 
-#ifndef RLS_THREADS
-#define RLS_THREADS 512
-#endif
-#ifndef RLS_MIN_BLOCKS
-#define RLS_MIN_BLOCKS 1
-#endif
-constexpr int kThreads = RLS_THREADS;
-#ifndef RLS_SPLIT
-#define RLS_SPLIT 8  // any-hit: most live rays a warp splits over its lanes
-#endif
+constexpr int kThreads = 512;
+constexpr int kSplitMax = 8;  // any-hit: most live rays a warp splits
 
 enum Path : int { kGlobal = 0, kNodes = 1, kShared = 2 };
 
@@ -268,7 +260,7 @@ __device__ __forceinline__ void acquire_tables(const Query& q, int4* s_nodes,
   }
 }
 
-// Any-hit for a warp with few live rays (mask `live`, at most RLS_SPLIT):
+// Any-hit for a warp with few live rays (mask `live`, at most kSplitMax):
 // lane groups of `width` lanes, one per live ray, each lane of a group
 // walking every width-th subtree of the cut; each live lane writes the OR
 // of its group.
@@ -350,7 +342,7 @@ __device__ __forceinline__ void run(const Query& q) {
   if constexpr (kNodesShared)
     acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
   if constexpr (kAnyHit) {
-    if (__popc(lives) <= RLS_SPLIT) {
+    if (__popc(lives) <= kSplitMax) {
       occluded_split<kNodesShared, kTrisShared>(q, nodes, tris, lives, base);
       return;
     }
@@ -374,12 +366,12 @@ __device__ __forceinline__ void run(const Query& q) {
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS) nearest_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads) nearest_kernel(Query q) {
   run<kPath, false>(q);
 }
 
 template <int kPath>
-__global__ void __launch_bounds__(kThreads, RLS_MIN_BLOCKS) occluded_kernel(Query q) {
+__global__ void __launch_bounds__(kThreads) occluded_kernel(Query q) {
   run<kPath, true>(q);
 }
 
