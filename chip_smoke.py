@@ -27,7 +27,7 @@ nonzero):
    frame of scenes/glass_sphere.ass at its own depths with Russian
    roulette from refraction depth 2 (march steps with finite t_max and
    exclude = the previous hit, roulette-dead lanes with t_max 0); times the
-   kernels (not the plain walk: one pass takes minutes, and PR 2 timed it),
+   kernels (not the plain walk: one pass takes minutes; PERF.md has it),
    checks the kernels' device time against torch.profiler's sum of their
    launches, prints the dead lanes of those queries (launches with no live
    lane, 32-lane groups with a live lane) and the longest walk of each

@@ -5,7 +5,7 @@ Run from the repository root, with another version of the package (its
 .gitignore lists:
 
     git archive <commit> rlshaders_tpu_torch | tar -x -C parent_tree
-    python3 kernel_turns.py parent_tree
+    python3 kernel_turns.py parent_tree [results.json]
 
 The other version is imported as `rls_parent`, with its own wrappers and
 kernels, built from its own source. Its wrappers take the structure-of-
@@ -23,7 +23,8 @@ shape, in turns (parent, this tree, this tree, parent):
 Then this tree's kernels on every table path (shared, nodes, global) at
 each shape; and the demo (256x256, AA 2) and glass (256x256, AA 3) frames,
 each rendered twice by each package's own render(), in turns. Prints the
-card and writes everything to chiprun_out/kernel_turns.json.
+card and writes everything to results.json (by default
+out/kernel_turns.json).
 """
 from __future__ import annotations
 
@@ -104,7 +105,7 @@ def wrappers(old, new, accel, packed=None) -> dict:
     }
 
 
-def main(root: str) -> int:
+def main(root: str, results: str) -> int:
     if not torch.cuda.is_available():
         print("kernel_turns: no CUDA device", file=sys.stderr)
         return 1
@@ -199,8 +200,8 @@ def main(root: str) -> int:
                f"{secs}")
     del parent
 
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "kernel_turns.json"), "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(results)), exist_ok=True)
+    with open(results, "w") as f:
         json.dump(result, f, indent=1)
     cs.log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -208,7 +209,8 @@ def main(root: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], sys.argv[2] if len(sys.argv) == 3
+                  else os.path.join("out", "kernel_turns.json")))

@@ -46,7 +46,7 @@
 //   - one ray a lane, 512 lanes a block, a grid of all the rays: the
 //     block scheduler hands a finished block's place to the next block,
 //     which beat a grid of resident blocks looping over shares of the rays
-//     and warps compacting their live rays (PERF.md, PR 3);
+//     and warps compacting their live rays (PERF.md);
 //   - dead lanes answer at once; a warp with no live lane exits;
 //   - a lane postpones a hit leaf's triangle tests until the other lanes
 //     of its warp have reached a leaf or the end (the while-while walk of

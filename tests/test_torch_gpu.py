@@ -253,4 +253,4 @@ def test_sparse_live_lanes(cuda_device, share):
         dead = torch.tensor(rs.random(50000) >= share, device=cuda_device)
         args[2] = torch.where(dead, 0.0, args[2].abs() + 0.1)
         for vis_mask in (1, 2):
-            _, bp = _assert_kernels_equal_walk(acc, args, vis_mask)
+            _assert_kernels_equal_walk(acc, args, vis_mask)
