@@ -20,9 +20,8 @@ shape, in turns (parent, this tree, this tree, parent):
 - call_ms: the same queries as eager wrapper calls, timed with CUDA events;
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
-Then this tree's kernels on every table path (shared, nodes, global) at
-each shape; and the demo (256x256, AA 2) and glass (256x256, AA 3) frames,
-each rendered twice by each package's own render(), in turns. Prints the
+Then the demo (256x256, AA 2) and glass (256x256, AA 3) frames, each
+rendered twice by each package's own render(), in turns. Prints the
 card and writes everything to results.json (by default
 out/kernel_turns.json).
 """
@@ -42,7 +41,6 @@ import chip_smoke as cs
 
 PARENT = "rls_parent"
 SHAPES = ("demo", "glass", "jwalk_coherent", "jwalk_incoherent")
-VARIANTS = ("shared", "nodes", "global")
 
 
 def load_parent(root: str):
@@ -92,9 +90,9 @@ def queries(gscene, gaccel, dscene, daccel) -> dict:
     return out
 
 
-def wrappers(old, new, accel, packed=None) -> dict:
+def wrappers(old, new, accel) -> dict:
     """{version: {kernel: fn(o, d, t_max, exclude, vis_mask)}}."""
-    p = accel.packed if packed is None else packed
+    p = accel.packed
     return {
         "parent": {"rls_nearest": partial(old.nearest, accel.tree,
                                           accel.tris),
@@ -126,7 +124,7 @@ def main(root: str, results: str) -> int:
     gscene = build(cs.GLASS)
     gaccel = tracemod.build(gscene.geometry)
     qs = queries(gscene, gaccel, dscene, daccel)
-    result = {"card": card, "kernels": {}, "variants": {}, "frames": {}}
+    result = {"card": card, "kernels": {}, "frames": {}}
 
     reps = {"demo": 10, "glass": 3, "jwalk_coherent": 50,
             "jwalk_incoherent": 50}
@@ -157,19 +155,6 @@ def main(root: str, results: str) -> int:
                    f" -> {rec['device_ms']['this'][0] / n * 1e3:.2f}, call "
                    f"{rec['call_ms']['parent'][0] / n * 1e3:.2f} -> "
                    f"{rec['call_ms']['this'][0] / n * 1e3:.2f}")
-
-    for shape in SHAPES:
-        accel, mine = qs[shape]
-        for k in cs.REPLACES:
-            times = {}
-            for path in (accel.packed.path, *VARIANTS, accel.packed.path):
-                fn = wrappers(old, new, accel,
-                              accel.packed._replace(path=path))["this"][k]
-                times.setdefault(path, []).append(
-                    cs.device_ms(partial(cs.run_all, fn, mine[k]),
-                                 reps[shape]))
-            result["variants"][f"{k} {shape}"] = times
-            cs.log(f"{k} {shape} by table path, device ms: {times}")
 
     pscene = sub(PARENT, "scene.build").build(cs.GLASS)
     ptrace = sub(PARENT, "accel.trace")

@@ -30,7 +30,6 @@
 //
 // Paths, chosen per Accel by table size (ops/intersect.py::table_path):
 //   shared  both tables staged into shared memory, once per block;
-//   nodes   the nodes staged, the triangles read from global memory;
 //   global  both read from global memory through the read-only cache.
 // A block stages lazily: the first of its warps that has a live ray issues
 // one TMA bulk copy per table, completing on an mbarrier, and each warp
@@ -64,8 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <map>
 #include <mutex>
+#include <set>
 #include <utility>
 
 namespace {
@@ -73,7 +72,7 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kSplitMax = 8;  // any-hit: most live rays a warp splits
 
-enum Path : int { kGlobal = 0, kNodes = 1, kShared = 2 };
+enum Path : int { kGlobal = 0, kShared = 1 };
 
 struct Query {
   const int4* nodes;  // 2 words per node
@@ -158,7 +157,7 @@ __device__ __forceinline__ bool tri_test(int4 a, int4 b, int4 c, const Ray& r,
 // inner loop at different steps and meet after it, so the warp tests its
 // lanes' leaves together instead of paying a leaf on nearly every step.
 // Each lane still makes its own tests in the plain walk's order.
-template <bool kNodesShared, bool kTrisShared, bool kAnyHit>
+template <bool kShared, bool kAnyHit>
 __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
                                      int node, int end, const Ray& r,
                                      int vis_mask, float t_eps, float& t_best,
@@ -166,8 +165,8 @@ __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
   while (node < end) {
     int leaf = -1;  // the code of the hit leaf to test
     while (node < end) {
-      const int4 lo = word<kNodesShared>(nodes + 2 * node);
-      const int4 hi = word<kNodesShared>(nodes + 2 * node + 1);
+      const int4 lo = word<kShared>(nodes + 2 * node);
+      const int4 hi = word<kShared>(nodes + 2 * node + 1);
       const bool hit = box_hit(lo, hi, r, t_best);
       if (hit && lo.w < 0) {  // an inner node's left child is node + 1
         node += 1;
@@ -182,9 +181,9 @@ __device__ __forceinline__ bool walk(const int4* nodes, const int4* tris,
     if (leaf < 0) break;
     const int first = leaf >> 3, stop = first + (leaf & 7);
     for (int s = first; s < stop; ++s) {
-      const int4 a = word<kTrisShared>(tris + 3 * s);
-      const int4 b = word<kTrisShared>(tris + 3 * s + 1);
-      const int4 c = word<kTrisShared>(tris + 3 * s + 2);
+      const int4 a = word<kShared>(tris + 3 * s);
+      const int4 b = word<kShared>(tris + 3 * s + 1);
+      const int4 c = word<kShared>(tris + 3 * s + 2);
       float t, u, v;
       if (tri_test(a, b, c, r, vis_mask, t_eps, &t, &u, &v) && t < t_best) {
         if constexpr (kAnyHit) {
@@ -231,13 +230,12 @@ __device__ __forceinline__ void copy_bulk(int4* dst, const int4* src,
 
 // Called by a whole warp with a live ray: the first such warp of the block
 // issues the copies of the tables; every caller waits for them.
-template <bool kTrisShared>
 __device__ __forceinline__ void acquire_tables(const Query& q, int4* s_nodes,
                                                int4* s_tris, uint64_t* bar,
                                                int* issued) {
   if ((threadIdx.x & 31) == 0 && atomicCAS(issued, 0, 1) == 0) {
     const uint32_t nb = 32u * q.n_nodes;
-    const uint32_t tb = kTrisShared ? 48u * q.n_tris : 0u;
+    const uint32_t tb = 48u * q.n_tris;
     asm volatile(
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
             smem_addr(bar)),
@@ -264,7 +262,7 @@ __device__ __forceinline__ void acquire_tables(const Query& q, int4* s_nodes,
 // lane groups of `width` lanes, one per live ray, each lane of a group
 // walking every width-th subtree of the cut; each live lane writes the OR
 // of its group.
-template <bool kNodesShared, bool kTrisShared>
+template <bool kShared>
 __device__ __forceinline__ void occluded_split(const Query& q,
                                                const int4* nodes,
                                                const int4* tris,
@@ -284,8 +282,8 @@ __device__ __forceinline__ void occluded_split(const Query& q,
     float ub = 0.0f, vb = 0.0f;
     for (int c = j; c < q.n_cut && !blocked; c += width) {
       const int root = __ldg(q.cut + c);
-      const int end = word<kNodesShared>(nodes + 2 * root + 1).w;
-      blocked = walk<kNodesShared, kTrisShared, true>(
+      const int end = word<kShared>(nodes + 2 * root + 1).w;
+      blocked = walk<kShared, true>(
           nodes, tris, root, end, r, q.vis_mask, q.t_eps, t_best, tri, ub,
           vb);
     }
@@ -301,16 +299,15 @@ __device__ __forceinline__ void occluded_split(const Query& q,
 
 template <int kPath, bool kAnyHit>
 __device__ __forceinline__ void run(const Query& q) {
-  constexpr bool kNodesShared = kPath != kGlobal;
-  constexpr bool kTrisShared = kPath == kShared;
+  constexpr bool kStaged = kPath == kShared;
   extern __shared__ int4 smem[];
   __shared__ uint64_t bar;
   __shared__ int issued;
   int4* s_nodes = smem;
   int4* s_tris = s_nodes + 2 * q.n_nodes;
-  const int4* nodes = kNodesShared ? s_nodes : q.nodes;
-  const int4* tris = kTrisShared ? s_tris : q.tris;
-  if constexpr (kNodesShared) {
+  const int4* nodes = kStaged ? s_nodes : q.nodes;
+  const int4* tris = kStaged ? s_tris : q.tris;
+  if constexpr (kStaged) {
     if (threadIdx.x == 0) {
       issued = 0;
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
@@ -339,11 +336,10 @@ __device__ __forceinline__ void run(const Query& q) {
   }
   const unsigned lives = __ballot_sync(0xffffffffu, live);
   if (lives == 0u) return;
-  if constexpr (kNodesShared)
-    acquire_tables<kTrisShared>(q, s_nodes, s_tris, &bar, &issued);
+  if constexpr (kStaged) acquire_tables(q, s_nodes, s_tris, &bar, &issued);
   if constexpr (kAnyHit) {
     if (__popc(lives) <= kSplitMax) {
-      occluded_split<kNodesShared, kTrisShared>(q, nodes, tris, lives, base);
+      occluded_split<kStaged>(q, nodes, tris, lives, base);
       return;
     }
   }
@@ -352,7 +348,7 @@ __device__ __forceinline__ void run(const Query& q) {
   float t_best = kAnyHit ? tm : fminf(tm, 1e30f);
   int tri = -1;
   float ub = 0.0f, vb = 0.0f;
-  const bool blocked = walk<kNodesShared, kTrisShared, kAnyHit>(
+  const bool blocked = walk<kStaged, kAnyHit>(
       nodes, tris, 0, q.n_nodes, r, q.vis_mask, q.t_eps, t_best, tri, ub, vb);
   if constexpr (kAnyHit) {
     static_cast<uint8_t*>(q.out)[i] = blocked ? 1 : 0;
@@ -383,7 +379,6 @@ const void* kernel_for(int path) {
     return kAnyHit ? reinterpret_cast<const void*>(occluded_kernel<P>) \
                    : reinterpret_cast<const void*>(nearest_kernel<P>);
     RLS_CASE(kGlobal)
-    RLS_CASE(kNodes)
     RLS_CASE(kShared)
 #undef RLS_CASE
     default:
@@ -391,38 +386,32 @@ const void* kernel_for(int path) {
   }
 }
 
-int table_bytes(int path, int n_nodes, int n_tris) {
-  if (path == kGlobal) return 0;
-  return 32 * n_nodes + (path == kShared ? 48 * n_tris : 0);
-}
-
-// Checks that `smem` bytes of dynamic shared memory fit a block of `fn` on
-// the current device; the first use of a kernel on a device opts it in to
-// the device's largest shared memory (cached per device and kernel).
-cudaError_t fit_shared(const void* fn, int smem) {
+// The first launch of a kernel on a device opts it in to the device's
+// largest dynamic shared memory (remembered per device and kernel). Whether
+// the tables fit is decided once, by ops/intersect.py::table_path; a launch
+// that asks for more than the device gives fails with its CUDA error.
+cudaError_t opt_in(const void* fn) {
   static std::mutex mu;
-  static std::map<std::pair<int, const void*>, int> room;  // bytes
+  static std::set<std::pair<int, const void*>> done;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> lock(mu);
-  auto it = room.find({dev, fn});
-  if (it == room.end()) {
-    cudaFuncAttributes attr;
-    int optin;
-    if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(
-             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
-        cudaSuccess)
-      return err;
-    const int bytes = optin - (int)attr.sharedSizeBytes;
-    if ((err = cudaFuncSetAttribute(
-             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)) !=
-        cudaSuccess)
-      return err;
-    it = room.emplace(std::make_pair(dev, fn), bytes).first;
-  }
-  return smem <= it->second ? cudaSuccess : cudaErrorInvalidValue;
+  if (done.count({dev, fn})) return cudaSuccess;
+  cudaFuncAttributes attr;
+  int optin;
+  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(fn,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  optin - (int)attr.sharedSizeBytes)) !=
+      cudaSuccess)
+    return err;
+  done.insert({dev, fn});
+  return cudaSuccess;
 }
 
 template <bool kAnyHit>
@@ -430,8 +419,8 @@ int launch(int path, Query q, void* stream) {
   if (q.n <= 0) return 0;
   const void* fn = kernel_for<kAnyHit>(path);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  const int smem = table_bytes(path, q.n_nodes, q.n_tris);
-  cudaError_t err = fit_shared(fn, smem);
+  const int smem = path == kShared ? 32 * q.n_nodes + 48 * q.n_tris : 0;
+  cudaError_t err = smem > 0 ? opt_in(fn) : cudaSuccess;
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&q};
   err = cudaLaunchKernel(fn, dim3((q.n + kThreads - 1) / kThreads),

@@ -13,9 +13,9 @@ for an inner node and `first << 3 | count` for a leaf; a triangle slot is
 by their bits in int32 words. Beside them, the roots of up to 32 subtrees
 that partition the tree (`subtree_cut`), over which the any-hit kernel
 splits a ray's walk among idle lanes. Where the tables are kept during a
-launch (`table_path`) follows from their size: both in shared memory
-("shared"), the nodes only ("nodes"), or neither ("global"). Each launch
-checks only the ray tensors.
+launch (`table_path`) follows from their size: in shared memory where both
+fit ("shared"), else in global memory ("global"). Each launch checks only
+the ray tensors.
 
 The source is compiled by nvcc into a shared library with a plain C
 interface at first use, into `rlshaders_tpu_torch/build/` (named by a hash
@@ -50,11 +50,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 NODE_WORDS = 8    # 32 B per node
 TRI_WORDS = 12    # 48 B per triangle slot
 # Dynamic shared memory a block may opt in to on an H100 (227 KB), less
-# 1 KB for the static shared memory: the room for the tables.
+# 1 KB for the static shared memory: the room for the tables. This is the
+# one place that decides whether they fit; the kernel opts in to the
+# device's largest room and a launch that asks for more fails.
 SMEM_OPTIN_BYTES = 232_448
 TABLE_ROOM = SMEM_OPTIN_BYTES - 1_024
 CUT_PARTS = 32    # subtrees of the cut: one per lane of a warp
-PATHS = {"global": 0, "nodes": 1, "shared": 2}  # intersect.cu's Path codes
+PATHS = {"global": 0, "shared": 1}  # intersect.cu's Path codes
 
 LAUNCHES = {"rls_nearest": 0, "rls_occluded": 0}
 PATH_LAUNCHES = dict.fromkeys(PATHS, 0)
@@ -76,8 +78,6 @@ def table_path(n_nodes: int, n_tris: int) -> str:
     """Where the kernels keep tables of this size during a launch."""
     if n_nodes * 4 * NODE_WORDS + n_tris * 4 * TRI_WORDS <= TABLE_ROOM:
         return "shared"
-    if n_nodes * 4 * NODE_WORDS <= TABLE_ROOM:
-        return "nodes"
     return "global"
 
 

@@ -9,13 +9,13 @@ without them. Run it on the card without the repository's conftest.py
 The kernels must equal their plain versions exactly (the .cu file builds
 with -fmad=false and repeats the plain walk's order of operations), also
 on the queries of the transparent-shadow march: per-ray finite t_max, dead
-lanes and exclude = the previous hit; on every table path (tables in
-shared memory, the nodes only, or neither);
-on a soup too large for shared memory; on launches whose lanes are all
-dead or all dead but the last; on sparse live lanes, where the any-hit
-kernel splits a ray's walk over a warp's idle lanes; and at ray counts
-that are no multiple of a warp or a block. The CUDA renders (the demo and the
-glass sphere) are held to the CPU renders with chip_smoke.py's tolerance.
+lanes and exclude = the previous hit; on both table paths (tables in
+shared memory or in global memory); on soups too large for shared memory;
+on launches whose lanes are all dead or all dead but the last; on sparse
+live lanes, where the any-hit kernel splits a ray's walk over a warp's
+idle lanes; and at ray counts that are no multiple of a warp or a block.
+The CUDA renders (the demo and the glass sphere) are held to the CPU
+renders with chip_smoke.py's tolerance.
 """
 import types
 
@@ -94,7 +94,7 @@ def test_kernels_match_plain_walk(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["shared", "nodes", "global"])
+@pytest.mark.parametrize("path", ["shared", "global"])
 def test_every_table_path_matches_plain_walk(cuda_device, path):
     from rlshaders_tpu_torch.ops import intersect as kernels
 
@@ -108,10 +108,10 @@ def test_every_table_path_matches_plain_walk(cuda_device, path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,path", [(12000, "global"), (4000, "nodes")])
+@pytest.mark.parametrize("t,path", [(12000, "global"), (4000, "global")])
 def test_large_soups_take_their_path(cuda_device, t, path):
-    """A 12,000-triangle soup fits in no shared memory, a 4,000-triangle
-    one with its nodes only."""
+    """Neither soup's tables fit in shared memory (the 4,000-triangle
+    soup's nodes alone would)."""
     acc = _soup_accel(cuda_device, t=t, seed=8, size=0.05)
     assert acc.packed.path == path
     args = _rays(cuda_device, 30000, seed=9, n_tris=t)

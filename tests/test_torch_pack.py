@@ -9,8 +9,8 @@ must give back exactly the tables the plain walk reads. The subtree cut
 over which the any-hit kernel splits a walk holds every leaf once, and the
 plain any-hit walk over its subtrees, ORed, equals the walk over the whole
 tree. Which tables the kernels stage in shared memory follows from their
-size: the demo and glass scenes fit whole, a 4,000-triangle soup with its
-nodes only, a 12,000-triangle soup not at all.
+size: the demo and glass scenes fit whole; 4,000- and 12,000-triangle
+soups do not, and read both tables from global memory.
 """
 import types
 
@@ -113,7 +113,8 @@ def test_scene_table_bytes(accels):
     assert nbytes(accels["glass"].packed) == 609 * 32 + 1026 * 48 == 68736
 
 
-@pytest.mark.parametrize("t,path", [(4000, "nodes"), (12000, "global")])
+@pytest.mark.parametrize("t,path", [(600, "shared"), (4000, "global"),
+                                    (12000, "global")])
 def test_path_follows_table_size(accels, t, path):
     assert accels["demo"].packed.path == "shared"
     assert accels["glass"].packed.path == "shared"
@@ -121,11 +122,13 @@ def test_path_follows_table_size(accels, t, path):
     n = acc.tree.first.shape[0]
     assert acc.packed.path == path
     assert kernels.table_path(n, t) == path
-    if path == "global":
+    assert (n * 32 + t * 48 <= kernels.TABLE_ROOM) == (path == "shared")
+    if t == 4000:
+        # the nodes alone would fit; only the whole tables count
+        assert n * 32 <= kernels.TABLE_ROOM < n * 32 + t * 48
+    if t == 12000:
         # neither table alone fits (8,000-odd nodes: about 258 KB)
         assert n * 32 > kernels.TABLE_ROOM and t * 48 > kernels.TABLE_ROOM
-    else:
-        assert n * 32 <= kernels.TABLE_ROOM < n * 32 + t * 48
 
 
 def test_table_room_is_an_h100_block():
@@ -134,7 +137,8 @@ def test_table_room_is_an_h100_block():
     room = kernels.TABLE_ROOM
     assert kernels.table_path(room // 32, 0) == "shared"
     assert kernels.table_path(room // 32 + 1, 0) == "global"
-    assert kernels.table_path(1, room // 48 + 1) == "nodes"
+    assert kernels.table_path(1, room // 48 + 1) == "global"
+    assert set(kernels.PATHS) == {"shared", "global"}
 
 
 def test_pack_refuses_bad_tables():
