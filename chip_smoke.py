@@ -30,7 +30,8 @@ nonzero):
    checks the kernels' device time against torch.profiler's sum of their
    launches, prints the dead lanes of those queries (launches with no live
    lane, 32-lane groups with a live lane) and the longest walk of each
-   launch, and profiles a 128x128 frame, one full tile of the timed frame;
+   launch, and profiles a 128x128 frame, one full tile of the timed frame
+   (the card's activity only: the device time by kernel, its busy share);
 7. renders the glass scene at 256x256, AA 3, its own options, through the
    kernels (counts reset, plain walk barred); prints seconds per frame, the
    query counts, the rate and the refraction AOV;
@@ -38,11 +39,24 @@ nonzero):
    kernel alone, warm, on 262,144 coherent camera rays of the glass scene
    and 262,144 incoherent cosine-bounce rays from their hits, beside its
    byte and operation bounds;
-9. renders the glass scene at 32x32 on the card and on the CPU and
+9. renders the glass scene at 16x16 on the card and on the CPU and
+   compares;
+10. holds both kernels to the plain walk on every query of a 64x64, AA 2
+   frame of scenes/skin_closeup.ass (the SSS probe stage: probes with an
+   exclude and foreign-hit termination, the probe-hit light columns) and
+   of a 64x64, AA 2 frame of demo_scene() with its rlSkin blob; prints the
+   rays with an exclude and the dead lanes; times both kernels on the skin
+   frame's queries (the `skin` shape) beside the plain walk and the bound;
+11. renders scenes/skin_closeup.ass at its own options (512x512, AA 2)
+   through the kernels (counts reset, plain walk barred); checks every
+   plane and that the sss AOV is above 0; prints seconds per frame, the
+   rays, the launches per kernel, and the device busy share of one
+   profiled tile (128x128, AA 2);
+12. renders the skin scene at 64x64, AA 2 on the card and on the CPU and
    compares.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
-glass frame's, the two j_walk sets): `device_ms`, the shape's queries
+glass frame's, the skin frame's, the two j_walk sets): `device_ms`, the shape's queries
 captured in one CUDA graph whose replays are timed with CUDA events (what
 the card spends; the wrappers' host time is paid once, at capture), and
 `call_ms`, the same queries as eager wrapper calls timed with CUDA events
@@ -76,7 +90,11 @@ GLASS = "scenes/glass_sphere.ass"
 GLASS_AA = 3
 GLASS_CHECK = 64    # width and height of the glass frame held to the walk
 GLASS_RR = 2        # roulette start of that frame (the JAX bench's)
-PROFILE_SIZE = 128  # the profiled glass frame: one full tile at AA 3
+PROFILE_SIZE = 128  # the profiled frames: one full tile at AA 2 or 3
+GLASS_CPU = 16      # width and height of the glass CUDA vs CPU frames
+SKIN = "scenes/skin_closeup.ass"
+SKIN_CHECK = 64     # width and height of the skin frames held to the walk
+SKIN_CPU = 64       # width and height of the skin CUDA vs CPU frames
 JWALK_RAYS = 262144
 SOUP = 12000       # triangles: tables too large for shared memory
 REPLACES = {
@@ -344,6 +362,17 @@ def time_kernels(accel, calls, bvh, kernels):
     return out
 
 
+def query_mix(calls, name: str) -> str:
+    """The rays of a kernel's queries: dead (t_max <= 0), with a finite
+    t_max, with an exclude."""
+    mine = [c for c in calls if c[0] == name]
+    dead = sum(int((c[3] <= 0).sum()) for c in mine)
+    finite = sum(int(((c[3] > 0) & (c[3] < 1e29)).sum()) for c in mine)
+    excl = sum(int((c[4] >= 0).sum()) for c in mine)
+    return (f"{len(mine)} queries ({dead} rays dead with t_max <= 0, "
+            f"{finite} with a finite t_max, {excl} with an exclude)")
+
+
 def dead_lanes(calls, name: str) -> dict:
     """The dead lanes (t_max <= 0) of a kernel's queries: launches with no
     live lane, and how the live lanes fall into 32-lane groups."""
@@ -425,30 +454,31 @@ def cuda_vs_cpu(wavefront, tag, scenes, tol, **kw):
             raise AssertionError(f"{k}: CUDA and CPU frames disagree")
 
 
-def profile_frame(wavefront, scene, accel, **kw) -> None:
+def profile_frame(wavefront, tag, scene, accel, **kw) -> None:
     """Device time of one frame by kernel (torch.profiler): prints the
-    device busy share and the largest entries."""
+    device busy share and the largest kernels. Only the card's activity is
+    recorded: with the host's on too, a kernel's time is listed under its
+    aten op as well as under its own name, and a sum over the rows counts
+    it twice."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         wavefront.render(scene, accel, seed=SEED, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    rows = prof.key_averages()
-    dev = [(getattr(r, "self_device_time_total", 0.0), r.count, r.key)
-           for r in rows]
+    dev = [(r.self_device_time_total, r.count, r.key)
+           for r in prof.key_averages() if r.self_device_time_total > 0]
     total = sum(t for t, _, _ in dev) / 1e3
-    launches = sum(r.count for r in rows if r.key == "cudaLaunchKernel")
-    log(f"[6] profile: wall {wall:.4f} s (profiled), device time "
-        f"{total:.4f} ms, busy share {total / 1e3 / wall:.4f}, "
-        f"cudaLaunchKernel calls {launches}; reading the profile took "
+    kernels = sum(n for _, n, key in dev if not key.startswith("Mem"))
+    log(f"[{tag}] profile: wall {wall:.4f} s (profiled), device time "
+        f"{total:.4f} ms, busy share {total / 1e3 / wall:.4f}, kernels "
+        f"run {kernels}; reading the profile took "
         f"{time.perf_counter() - t1:.1f} s")
     for t, n, key in sorted(dev, reverse=True)[:8]:
-        log(f"[6]   {t / 1e3:10.4f} ms  {n:8d} x  {key[:70]}")
+        log(f"[{tag}]   {t / 1e3:10.4f} ms  {n:8d} x  {key[:110]}")
 
 
 def jwalk_rays(scene, accel, tracemod, rng, cameramod):
@@ -576,14 +606,8 @@ def main() -> int:
         f"glass tables {table_bytes(gaccel)} B: launches by table path "
         f"{path_launches(kernels)}")
     for k in REPLACES:
-        mine = [c for c in calls if c[0] == k]
-        dead = sum(int((c[3] <= 0).sum()) for c in mine)
-        finite = sum(int(((c[3] > 0) & (c[3] < 1e29)).sum()) for c in mine)
-        excl = sum(int((c[4] >= 0).sum()) for c in mine)
-        log(f"[6] {k}: {len(mine)} queries, {glass[k][1]} rays ({dead} dead "
-            f"with t_max <= 0, {finite} with a finite t_max, {excl} with an "
-            f"exclude), {glass[k][0]} mismatches, max abs err "
-            f"{glass[k][2]:.3g}")
+        log(f"[6] {k}: {glass[k][1]} rays in {query_mix(calls, k)}, "
+            f"{glass[k][0]} mismatches, max abs err {glass[k][2]:.3g}")
         if glass[k][0]:
             raise AssertionError(f"{k} disagrees with its plain version on "
                                  f"the glass frame")
@@ -618,7 +642,7 @@ def main() -> int:
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")
     del calls
-    profile_frame(wavefront, gscene, gaccel, aa_samples=GLASS_AA,
+    profile_frame(wavefront, "6", gscene, gaccel, aa_samples=GLASS_AA,
                   xres=PROFILE_SIZE, yres=PROFILE_SIZE)
     log(f"[6] phase {time.perf_counter() - t0:.1f} s")
 
@@ -676,8 +700,93 @@ def main() -> int:
     cuda_vs_cpu(wavefront, "9", {
         "cuda": (gscene, gaccel),
         "cpu": (cscene, tracemod.build(cscene.geometry))},
-        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=32, yres=32)
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=GLASS_CPU,
+        yres=GLASS_CPU)
     log(f"[9] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- skin: every query of 64x64 frames of the SSS probe stage ----
+    t0 = time.perf_counter()
+    sscene = build(SKIN)
+    saccel = tracemod.build(sscene.geometry)
+    calls = capture_queries(sscene, saccel, wavefront, tracemod,
+                            aa_samples=AA, xres=SKIN_CHECK, yres=SKIN_CHECK)
+    dscene, daccel = demo_scene()
+    dcalls = capture_queries(dscene, daccel, wavefront, tracemod,
+                             aa_samples=AA, xres=SKIN_CHECK, yres=SKIN_CHECK)
+    reset(kernels)
+    skin = compare(saccel, calls, bvh, kernels)
+    skin_demo = compare(daccel, dcalls, bvh, kernels)
+    log(f"[10] captured and compared in {time.perf_counter() - t0:.1f} s; "
+        f"skin tables {table_bytes(saccel)} B, demo tables "
+        f"{table_bytes(daccel)} B: launches by table path "
+        f"{path_launches(kernels)}")
+    for tag, res, cl in (("skin", skin, calls), ("skin demo", skin_demo,
+                                                   dcalls)):
+        for k in REPLACES:
+            dl = dead_lanes(cl, k)
+            log(f"[10] {tag} {k}: {res[k][1]} rays in {query_mix(cl, k)}, "
+                f"{res[k][0]} mismatches, max abs err {res[k][2]:.3g}; "
+                f"{dl['no_live']} launches with no live lane, live share "
+                f"{dl['live'] / dl['rays']:.4f}")
+            if res[k][0]:
+                raise AssertionError(f"{k} disagrees with its plain version "
+                                     f"on the {tag} frame")
+    del dcalls
+    stimes, skin_bound = {}, {}
+    for k in REPLACES:
+        mine = [c[1:] for c in calls if c[0] == k]
+        kern, walk = pair(k, kernels, bvh, saccel)
+        p1 = events_ms(lambda: run_all(walk, mine), 1)
+        dm, cm = kernel_ms(kern, mine, 5)
+        p2 = events_ms(lambda: run_all(walk, mine), 1)
+        r = sum(c[0].shape[0] for c in mine)
+        stimes[k] = (dm, cm, (p1 + p2) / 2, r, len(mine))
+        b = skin_bound[k] = bound(k, r, skin[k][3], saccel)
+        log(f"[10] {k}: all {r} rays of the skin frame's {len(mine)} "
+            f"queries: device {dm:.4f} ms, call {cm:.4f} ms "
+            f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
+            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk {skin[k][3]}; "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
+            f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
+            f"of device time {b['bound_ms'] / dm:.4f}")
+    del calls
+    log(f"[10] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the skin path: skin_closeup.ass at its own options ----
+    t0 = time.perf_counter()
+    reset(kernels)
+    sout, sdt = barred_render(wavefront, bvh, sscene, saccel)
+    skin_launches = dict(kernels.LAUNCHES)
+    so = sscene.options
+    check_planes(sout, so.xres)
+    for k, n in skin_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched by the skin render")
+    sss = float(sout["sss"].mean())
+    if not sss > 0.0:
+        raise AssertionError("the sss AOV is black")
+    sstats = sout["__stats__"]
+    srays = sstats["nearest_rays"] + sstats["shadow_rays"]
+    log(f"[11] skin {so.xres}x{so.yres} AA {so.aa_samples}: {sdt:.4f} "
+        f"s/frame, mean RGB {float(sout['RGBA'].mean()):.6f}, sss AOV mean "
+        f"{sss:.6f}, all planes finite, launches {skin_launches}, by table "
+        f"path {path_launches(kernels)}, nearest rays "
+        f"{sstats['nearest_rays']}, shadow rays {sstats['shadow_rays']}, "
+        f"{srays / sdt / 1e6:.3f} Mrays/s (nearest+shadow)")
+    del sout
+    profile_frame(wavefront, "11", sscene, saccel, aa_samples=AA,
+                  xres=PROFILE_SIZE, yres=PROFILE_SIZE)
+    log(f"[11] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the skin frame on the card and on the CPU ----
+    t0 = time.perf_counter()
+    cscene = build(SKIN, device="cpu")
+    cuda_vs_cpu(wavefront, "12", {
+        "cuda": (sscene, saccel),
+        "cpu": (cscene, tracemod.build(cscene.geometry))},
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=SKIN_CPU,
+        yres=SKIN_CPU)
+    log(f"[12] phase {time.perf_counter() - t0:.1f} s")
 
     entries = []
     for k in REPLACES:
@@ -690,20 +799,24 @@ def main() -> int:
         shapes = {"demo": shape(dm, cm, pm, demo_bound[k], nq)}
         dm, cm, pm, _, nq = gtimes[k]
         shapes["glass"] = shape(dm, cm, pm, glass_bound[k], nq)
+        dm, cm, pm, _, nq = stimes[k]
+        shapes["skin"] = shape(dm, cm, pm, skin_bound[k], nq)
         for tag in jsets:
             dm, cm, pm, b = jwalk[(k, tag)]
             shapes[f"jwalk_{tag}"] = shape(dm, cm, pm, b, 1)
         entries.append({
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k],
-            "launches": demo_launches[k] + glass_launches[k],
+            "launches": (demo_launches[k] + glass_launches[k]
+                         + skin_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
-                               soup[k][2]),
+                               soup[k][2], skin[k][2], skin_demo[k][2]),
             "ms": times[k][1], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
             "launches_demo": demo_launches[k],
             "launches_glass": glass_launches[k],
+            "launches_skin": skin_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -8,8 +8,9 @@ Run from the repository root, with another version of the package (its
     python3 kernel_turns.py parent_tree [results.json]
 
 The other version is imported as `rls_parent`, with its own wrappers and
-kernels, built from its own source. Its wrappers take the structure-of-
-arrays tables (tree, tris); this tree's take the packed tables. Both are
+kernels, built from its own source. Its wrappers take the tables it packs
+itself (`pack`), or, in a version from before packed tables, the
+structure-of-arrays tables (tree, tris). Both are
 given the same queries: every query of chip_smoke.py's 256x256 demo frame
 and of its 64x64, AA 3 glass frame with roulette from depth 2 (captured
 with this tree's package), and the two j_walk sets. For each kernel and
@@ -91,13 +92,15 @@ def queries(gscene, gaccel, dscene, daccel) -> dict:
 
 
 def wrappers(old, new, accel) -> dict:
-    """{version: {kernel: fn(o, d, t_max, exclude, vis_mask)}}."""
+    """{version: {kernel: fn(o, d, t_max, exclude, vis_mask)}}. A version
+    with packed tables (`pack`) gets them packed by its own code; an older
+    one takes the structure-of-arrays tables."""
+    tables = ((old.pack(accel.tree, accel.tris),) if hasattr(old, "pack")
+              else (accel.tree, accel.tris))
     p = accel.packed
     return {
-        "parent": {"rls_nearest": partial(old.nearest, accel.tree,
-                                          accel.tris),
-                   "rls_occluded": partial(old.occluded, accel.tree,
-                                           accel.tris)},
+        "parent": {"rls_nearest": partial(old.nearest, *tables),
+                   "rls_occluded": partial(old.occluded, *tables)},
         "this": {"rls_nearest": partial(new.nearest, p),
                  "rls_occluded": partial(new.occluded, p)},
     }

@@ -2,8 +2,9 @@
 
 Counterpart of rlshaders_tpu/bsdf/ggx.py (anisotropic GGX NDF, Smith G1,
 exact dielectric Fresnel with TIR, Heitz & d'Eon slope-space VNDF sampling,
-the Walter Eq.20 reflection term, and rough refraction: the Eq.21 refraction
-term, the Eq.40 refracted direction and the Eq.41 sample weight).
+the Walter Eq.20 reflection term, rough refraction: the Eq.21 refraction
+term, the Eq.40 refracted direction and the Eq.41 sample weight, and the
+view-averaged Fresnel of rlSkin's layering).
 
 Local shading frame: the normal is +z, the alpha_x axis is +x; directions
 point away from the surface and are channel-split `V3` triples.
@@ -242,6 +243,27 @@ def sample(params: GGXParams, wo: V3, rx, ry):
     wi = vec3.reflect(wo, m)
     fw = fresnel_dielectric(wi, m, params.ior_in, params.ior_out)
     return wi, fw
+
+
+# radical-inverse (van der Corput) points of the avg_fresnel quadrature
+_VDC16 = (0.5, 0.25, 0.75, 0.125, 0.625, 0.375, 0.875,
+          0.0625, 0.5625, 0.3125, 0.8125, 0.1875, 0.6875, 0.4375,
+          0.9375, 0.03125)
+
+
+def avg_fresnel(params: GGXParams, wo: V3, n: int = 16) -> torch.Tensor:
+    """View-averaged dielectric Fresnel over n VNDF draws at fixed
+    Hammersley points: the deterministic limit of the reference's running
+    mean `getAvgReflectWeight()` (rlGgx.h:103-106, 181-184), which rlSkin's
+    energy layering reads (rlSkin.cpp:204, 228, 238)."""
+    acc = torch.zeros_like(wo.z)
+    for i in range(n):
+        rx = torch.full_like(wo.z, (i + 0.5) / n)
+        ry = torch.full_like(wo.z, _VDC16[i % len(_VDC16)])
+        m = sample_vndf(wo, params.alpha_x, params.alpha_y, rx, ry)
+        wi = vec3.reflect(wo, m)
+        acc = acc + fresnel_dielectric(wi, m, params.ior_in, params.ior_out)
+    return acc / n
 
 
 def pdf(params: GGXParams, wo: V3, wi: V3) -> torch.Tensor:

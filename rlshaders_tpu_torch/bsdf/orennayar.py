@@ -11,6 +11,7 @@ import math
 import torch
 
 from ..core.vec3 import V3
+from ..core.vecmath import concentric_disk_sample
 
 INV_PI = 1.0 / math.pi
 
@@ -63,18 +64,5 @@ def eval_brdf(roughness, wo: V3, wi: V3) -> torch.Tensor:
 def sample_v(rx, ry) -> V3:
     """Cosine-weighted hemisphere sample (local frame) through the
     concentric (Shirley-Chiu) square-to-disk map."""
-    ox = rx * 2.0 - 1.0
-    oy = ry * 2.0 - 1.0
-    use_x = torch.abs(ox) > torch.abs(oy)
-    safe_ox = torch.where(ox == 0.0, 1.0, ox)
-    safe_oy = torch.where(oy == 0.0, 1.0, oy)
-    r = torch.where(use_x, ox, oy)
-    phi = torch.where(
-        use_x,
-        (math.pi / 4.0) * (oy / safe_ox),
-        (math.pi / 2.0) * (1.0 - 0.5 * ox / safe_oy),
-    )
-    degenerate = (ox == 0.0) & (oy == 0.0)
-    x = torch.where(degenerate, 0.0, r * torch.cos(phi))
-    y = torch.where(degenerate, 0.0, r * torch.sin(phi))
+    x, y = concentric_disk_sample(rx, ry)
     return V3(x, y, torch.sqrt(torch.clamp_min(1.0 - x * x - y * y, 0.0)))

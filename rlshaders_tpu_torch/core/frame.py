@@ -1,7 +1,10 @@
-"""Orthonormal shading frames on channel-split vectors.
+"""Orthonormal shading frames.
 
-Counterpart of the V3 half of rlshaders_tpu/core/frame.py. A frame is
-(U, V, N); BSDF code works in the local frame where N = +z, U = +x.
+Counterpart of rlshaders_tpu/core/frame.py. A frame is (U, V, N); BSDF code
+works in the local frame where N = +z, U = +x. Two forms, as in the JAX
+package: on channel-split vectors (`*_v`, the shading code's) and on
+(..., 3) rows (the SSS probe stage's). They round differently (the row
+form normalizes U after taking V = N x U), so each caller keeps its form.
 """
 from __future__ import annotations
 
@@ -11,10 +14,11 @@ import torch
 
 from . import vec3
 from .vec3 import V3
+from .vecmath import cross, normalize
 
 
 class Frame(NamedTuple):
-    u: V3
+    u: V3      # or (..., 3) rows in the row form
     v: V3
     n: V3
 
@@ -48,3 +52,24 @@ def to_world_v(frame: Frame, w: V3) -> V3:
 def tile_frame(frame: Frame, k: int) -> Frame:
     return Frame(u=vec3.tile(frame.u, k), v=vec3.tile(frame.v, k),
                  n=vec3.tile(frame.n, k))
+
+
+def build_frame_polar(n: torch.Tensor) -> Frame:
+    """Row form of `build_frame_polar_v` on (..., 3) normals: U along the
+    azimuth, V = N x U, both normalized afterwards."""
+    x, y, z = n[..., 0], n[..., 1], n[..., 2]
+    sin_theta = torch.sqrt(torch.clamp_min(x * x + y * y, 0.0))
+    degenerate = sin_theta < 1e-6
+    inv = torch.where(
+        degenerate, 0.0, 1.0 / torch.clamp_min(sin_theta, 1e-12))
+    cos_phi = torch.where(degenerate, 1.0, x * inv)
+    sin_phi = torch.where(degenerate, 0.0, y * inv)
+    u = torch.stack([-sin_phi, cos_phi, torch.zeros_like(z)], dim=-1)
+    v = cross(n, u)
+    return Frame(u=normalize(u), v=normalize(v), n=n)
+
+
+def to_world(frame: Frame, w: torch.Tensor) -> torch.Tensor:
+    """Row form of `to_world_v`: x*U + y*V + z*N on (..., 3) rows."""
+    return (w[..., 0:1] * frame.u + w[..., 1:2] * frame.v
+            + w[..., 2:3] * frame.n)

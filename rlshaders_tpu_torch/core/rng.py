@@ -143,6 +143,18 @@ def uniform2(key: torch.Tensor, shape: tuple[int, ...],
     return uniform(key, tuple(shape) + (2,), device)
 
 
+def stratified2(key: torch.Tensor, batch_shape: tuple[int, ...], n: int,
+                device="cpu") -> torch.Tensor:
+    """(..., n*n, 2) stratified samples, BATCH-major: element [..., k, :]
+    is jittered inside stratum (k % n, k // n). Not interchangeable with
+    `stratified2_flat`, which draws the same jitter in sample-major order."""
+    count = n * n
+    jitter = uniform(key, tuple(batch_shape) + (count, 2), device)
+    k = torch.arange(count, dtype=torch.float32, device=device)
+    base = torch.stack([torch.remainder(k, n), torch.floor(k / n)], dim=-1)
+    return (base + jitter) / float(n)
+
+
 def stratified2_flat(key: torch.Tensor, n: int, s: int,
                      device="cpu") -> torch.Tensor:
     """(s*s*n, 2) stratified samples in SAMPLE-MAJOR flat layout: row
@@ -233,10 +245,14 @@ def sobol2(idx: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return torch.stack([_to_unit(d0), _to_unit(d1)], dim=-1)
 
 
-def _stream_seed(pix: torch.Tensor, purpose: int, salt: int) -> torch.Tensor:
-    """Per-(pixel, purpose) scramble seed."""
-    p = _hash_u32(torch.tensor(int(purpose) & M32, dtype=torch.int64))
-    return _hash_u32((pix.to(torch.int64) & M32) ^ int(p) ^ (int(salt) & M32))
+def _stream_seed(pix: torch.Tensor, purpose, salt: int) -> torch.Tensor:
+    """Per-(pixel, purpose) scramble seed. `purpose` is an int or an int64
+    tensor of uint32 values that broadcasts against `pix`."""
+    if not isinstance(purpose, torch.Tensor):
+        purpose = torch.tensor(int(purpose), dtype=torch.int64,
+                               device=pix.device)
+    p = _hash_u32(purpose.to(pix.device))
+    return _hash_u32((pix.to(torch.int64) & M32) ^ p ^ (int(salt) & M32))
 
 
 def sobol2_flat(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
@@ -247,4 +263,15 @@ def sobol2_flat(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
     c = torch.arange(s_count, dtype=torch.int64, device=pix.device)
     idx = (aa.to(torch.int64)[None, :] * s_count + c[:, None]).reshape(-1)
     seed = _stream_seed(pix, purpose, salt).repeat(s_count)
+    return sobol2(idx, seed)
+
+
+def sobol2_rep(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
+               purpose: int, salt: int) -> torch.Tensor:
+    """(N*s_count, 2) LANE-major variant of `sobol2_flat`: row i*s_count + c
+    is lane i's c-th sample (the layout of `repeat_interleave(s_count)`
+    batches, the SSS probe stage's)."""
+    c = torch.arange(s_count, dtype=torch.int64, device=pix.device)
+    idx = (aa.to(torch.int64)[:, None] * s_count + c[None, :]).reshape(-1)
+    seed = _stream_seed(pix, purpose, salt).repeat_interleave(s_count)
     return sobol2(idx, seed)

@@ -1,10 +1,13 @@
 """Light sampling with solid-angle pdfs for MIS: quad lights and the dome.
 
-Counterpart of the flat channel-split API of rlshaders_tpu/integrator/
-lights.py that the wavefront uses: one light per call, the sample axis
-flattened into the batch. Quad lights emit along -normal (Arnold quads);
-the dome is sampled cosine-weighted about the shading normal. Disk lights
-and the lights-as-an-axis functions are later work.
+Counterpart of rlshaders_tpu/integrator/lights.py: the flat channel-split
+API the wavefront uses (one light per call, the sample axis flattened into
+the batch), and the row forms on (..., 3) tensors that the SSS stage's
+probe-hit lighting uses (lights as an axis: (N, L, S, ...)). The two forms
+round differently (the row form divides by the distance where the flat one
+multiplies by its reciprocal), so each caller keeps the JAX package's.
+Quad lights emit along -normal (Arnold quads); the dome is sampled
+cosine-weighted about the shading normal. Disk lights are later work.
 """
 from __future__ import annotations
 
@@ -15,8 +18,11 @@ import torch
 
 from ..bsdf.orennayar import sample_v
 from ..core import vec3
-from ..core.frame import build_frame_polar_v, to_world_v
+from ..core.frame import (
+    build_frame_polar, build_frame_polar_v, to_world, to_world_v,
+)
 from ..core.vec3 import V3
+from ..core.vecmath import cosine_sample_hemisphere, dot
 
 INV_PI = 1.0 / math.pi
 
@@ -104,3 +110,79 @@ def intersect_quad_flat(verts_l, normal_l, p: V3, wi: V3):
 
 def pdf_sky_v(n: V3, wi: V3) -> torch.Tensor:
     return torch.clamp_min(vec3.dot(n, wi), 0.0) * INV_PI
+
+
+# ---------------------------------------------------------------------------
+# Row forms: (..., 3) tensors, lights as an axis
+# ---------------------------------------------------------------------------
+
+
+class LightSample(NamedTuple):
+    direction: torch.Tensor  # (..., 3) unit, shading point -> light
+    dist: torch.Tensor       # (...,)
+    radiance: torch.Tensor   # (..., 3)
+    pdf: torch.Tensor        # (...,) solid-angle pdf (0 = invalid)
+
+
+def sample_quads_batched(verts, normal, area, radiance, p,
+                         u) -> LightSample:
+    """verts (L, 4, 3), p (N, 3), u (N, L, S, 2) -> fields (N, L, S, ...)."""
+    e1 = (verts[:, 1] - verts[:, 0])[None, :, None]
+    e2 = (verts[:, 3] - verts[:, 0])[None, :, None]
+    q = verts[None, :, None, 0] + u[..., 0:1] * e1 + u[..., 1:2] * e2
+    to_l = q - p[:, None, None, :]
+    dist2 = torch.clamp_min(dot(to_l, to_l), 1e-12)
+    dist = torch.sqrt(dist2)
+    wi = to_l / dist[..., None]
+    cos_l = dot(-wi, normal[None, :, None])
+    visible = cos_l > 1e-6
+    pdf = dist2 / torch.clamp_min(torch.abs(cos_l) * area[None, :, None],
+                                  1e-12)
+    return LightSample(
+        direction=wi,
+        dist=dist,
+        radiance=torch.where(visible[..., None], radiance[None, :, None],
+                             0.0),
+        pdf=torch.where(visible, pdf, 0.0),
+    )
+
+
+def sample_sky_batched(radiance, nf, u) -> LightSample:
+    """nf (N, 3), u (N, 1, S, 2) -> (N, 1, S, ...) cosine samples about nf."""
+    local = cosine_sample_hemisphere(u[..., 0], u[..., 1])
+    wi = to_world(build_frame_polar(nf[:, None, None, :]), local)
+    pdf = torch.clamp_min(torch.clamp_min(local[..., 2], 0.0) * INV_PI, 1e-9)
+    return LightSample(
+        direction=wi,
+        dist=torch.full_like(pdf, 1e30),
+        radiance=torch.broadcast_to(radiance, wi.shape),
+        pdf=pdf,
+    )
+
+
+def intersect_quad(verts, normal, p, wi):
+    """Ray-quad hit of rows p, wi (N, 3) against one light's verts (4, 3):
+    (hit, t)."""
+    e1 = verts[1] - verts[0]
+    e2 = verts[3] - verts[0]
+    denom = dot(wi, normal)
+    t = dot(verts[0] - p, normal) / torch.where(torch.abs(denom) < 1e-9,
+                                                1e-9, denom)
+    q = p + wi * t[..., None] - verts[0]
+    len1 = torch.clamp_min(dot(e1, e1), 1e-12)
+    len2 = torch.clamp_min(dot(e2, e2), 1e-12)
+    a = dot(q, e1) / len1
+    b = dot(q, e2) / len2
+    hit = (
+        (t > 1e-4)
+        & (a >= 0.0) & (a <= 1.0)
+        & (b >= 0.0) & (b <= 1.0)
+        & (dot(-wi, normal) > 1e-6)  # emission side only
+    )
+    return hit, t
+
+
+def pdf_quad(verts, normal, area, p, wi, t):
+    """Solid-angle pdf of the area sampler for a direction hitting at t."""
+    cos_l = torch.abs(dot(-wi, normal))
+    return (t * t) / torch.clamp_min(cos_l * area, 1e-12)

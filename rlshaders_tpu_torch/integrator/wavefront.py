@@ -20,14 +20,18 @@ Light transport, as in the JAX version:
   GI_refraction_depth, with optional Russian roulette on the chain;
 * shadows through transmissive or transparent surfaces: a march of
   SHADOW_HITS nearest queries multiplying each surface's transmission
-  (fully opaque scenes keep one any-hit query per segment).
+  (fully opaque scenes keep one any-hit query per segment);
+* subsurface scattering (integrator/sss.py): rlSkin's and the `standard`
+  shader's Ksss lobe at camera hits, a probe stage per tile over exactly
+  its SSS lanes, whose diffuse it replaces; and rlSkin on refracted rays,
+  one probe a hit.
 
 The defaults of the JAX knobs are constants here: MIS renormalization on,
 both MIS count scales 1, faceforward by the shading normal, Owen-Sobol
 streams at camera hits, a march of 4 hits (RLS_SHADOW_HITS). Russian
-roulette (RLS_RR_START) is `render`'s `rr_refr_start`. SSS, Disney,
-textures and disk lights are later slices; `TileRenderer` raises
-NotImplementedError on a scene that needs them.
+roulette (RLS_RR_START) is `render`'s `rr_refr_start`. Disney, textures
+and disk lights are later slices; `TileRenderer` raises NotImplementedError
+on a scene that needs them.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from ..core.frame import (
 from ..core.vec3 import V3, v3
 from ..models import dispatch
 from ..scene.build import (
-    MAT_STANDARD, Scene, VIS_CAMERA, VIS_DIFFUSE, VIS_GLOSSY,
+    MAT_SKIN, MAT_STANDARD, Scene, VIS_CAMERA, VIS_DIFFUSE, VIS_GLOSSY,
     VIS_REFRACTED, VIS_SHADOW,
 )
 from . import camera as cameramod
@@ -91,17 +95,16 @@ class SceneStatic(NamedTuple):
     nb_g: int
     has_refract: bool      # any material with Kt > 0
     has_transparent: bool  # refraction or opacity < 1: shadows march
+    has_skin: bool         # any SSS lobe (rlSkin or standard Ksss)
+    has_skin_mat: bool     # an rlSkin material (SSS on secondary rays too)
 
     @staticmethod
     def of(scene: Scene) -> "SceneStatic":
-        """Facts of `scene`; raises NotImplementedError on features of
-        later slices."""
+        """Facts of `scene`."""
         mats = scene.materials
-        if bool((mats.sss_weight > 1e-5).any()):
-            raise NotImplementedError(
-                "subsurface scattering is not ported yet")
         ql, sky, o = scene.quad_lights, scene.sky, scene.options
         has_refract = bool((mats.kt > 1e-5).any())
+        has_skin_mat = bool((mats.mtype == MAT_SKIN).any())
         return SceneStatic(
             quad_valid=ql.valid,
             quad_samples=ql.samples,
@@ -118,6 +121,8 @@ class SceneStatic(NamedTuple):
             has_refract=has_refract,
             has_transparent=(has_refract
                              or bool((mats.opacity < 1.0 - 1e-5).any())),
+            has_skin=has_skin_mat or bool((mats.sss_weight > 1e-5).any()),
+            has_skin_mat=has_skin_mat,
         )
 
 
@@ -128,6 +133,7 @@ class RenderConf(NamedTuple):
     gi_glossy_depth: int
     gi_refraction_depth: int
     gi_total_depth: int
+    gi_sss_samples: int
     nb_d: int
     nb_g: int
     nb_r: int   # camera-level refraction rays per hit
@@ -140,8 +146,10 @@ class RenderConf(NamedTuple):
 
 class Surface(NamedTuple):
     p: V3
+    ns: V3       # smooth shading normal, not faced
     nf: V3       # shading normal, faced toward the incoming ray
     mat_id: torch.Tensor
+    mesh_id: torch.Tensor
     tri: torch.Tensor     # -1 on a miss
     entering: torch.Tensor
     valid: torch.Tensor
@@ -156,6 +164,23 @@ class SampleCtx(NamedTuple):
     pix: torch.Tensor   # (N,) int32
     aa: torch.Tensor    # (N,) AA-sample index in [0, n_sub)
     salt: int           # uint32
+
+
+class SSSIn(NamedTuple):
+    """The camera-hit fields of a tile that the SSS stage reads."""
+
+    p: torch.Tensor               # (N, 3)
+    ns: torch.Tensor              # (N, 3) smooth normal, not faced
+    mesh_id: torch.Tensor
+    valid: torch.Tensor
+    sss_weight: torch.Tensor      # layered by rlSkin's Fresnel
+    sss_dist: torch.Tensor        # (N, 3)
+    sss_color: torch.Tensor       # (N, 3)
+    cavity_fadeout: torch.Tensor
+    cubic: torch.Tensor           # `standard` Ksss lanes: cubic falloff
+    pix: torch.Tensor             # the tile's sampler addressing
+    aa: torch.Tensor
+    salt: int
 
 
 class LightGrid(NamedTuple):
@@ -248,7 +273,8 @@ def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d) -> Surface:
     # side it flips per facet across grazing zones of curved meshes
     sign = torch.where(vec3.dot(ns, dv) < 0.0, 1.0, -1.0)
     return Surface(
-        p=p, nf=ns * sign, mat_id=g.mat_id[tri],
+        p=p, ns=ns, nf=ns * sign, mat_id=g.mat_id[tri],
+        mesh_id=g.mesh_id[tri],
         tri=torch.where(valid, tri_in, -1), entering=entering, valid=valid,
     )
 
@@ -403,6 +429,9 @@ def _spawn(sc, static, surf: Surface, pv, matv, frame, wo, key, lobe, nb,
         wi_l = dispatch.sample_diffuse(matv_b, wo_b, u[:, 0], u[:, 1])
         f, pdf = dispatch.eval_diffuse(matv_b, wo_b, wi_l)
         active = matv.has_diffuse
+        if static.has_skin:
+            # rlSkin's diffuse is the SSS stage's
+            active = active & (matv.mtype != MAT_SKIN)
     else:
         wi_l = dispatch.sample_specular(matv_b, wo_b, u[:, 0], u[:, 1])
         f, pdf = dispatch.eval_specular(matv_b, wo_b, wi_l)
@@ -489,6 +518,10 @@ def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
     nfv = surf.nf
     frame = build_frame_polar_v(nfv)
     wo = to_local_v(frame, -v3(d))
+    if static.has_skin_mat:
+        # rlSkin's view-averaged Fresnel layering (rlSkin.cpp:204-238): the
+        # specular under the sheen, the SSS weight and the diffuse-ray albedo
+        matv = dispatch.skin_layer_fields(matv, wo)
     sky_in_grid = not (camera_level and static.nb_d > 0 and static.nb_g > 0)
     grid = _light_grid(sc, static, pv, nfv, key, camera_level,
                        include_sky=sky_in_grid, ctx=ctx)
@@ -528,6 +561,9 @@ def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
     else:
         diffuse = _zeros3(pv.x)
         specular = _zeros3(pv.x)
+    if camera_level and static.has_skin:
+        # rlSkin's diffuse at camera hits is the SSS stage's
+        diffuse = vec3.where(matv.mtype == MAT_SKIN, 0.0, diffuse)
     radiance = diffuse + specular + matv.emission
     valid = surf.valid
     return (
@@ -684,6 +720,19 @@ def _shade_generation_t(sc, static, conf, o, d, key, vis, camera_level,
         rgb = rgb + _secondary_indirect_t(
             sc, static, conf, surf, pv, nfv, matv, frame, wo, key, ray_lobe,
             rr)
+        # rlSkin evaluates its BSSRDF on non-diffuse rays (rlSss.h:170-199),
+        # one probe deep here. The reference gates on ray_lobe "glossy" or
+        # "refracted"; its glossy families carry ray_lobe "specular", as
+        # here, so only refracted generations take it.
+        if (static.has_skin_mat and ray_lobe in ("glossy", "refracted")
+                and conf.gi_sss_samples > 0):
+            from . import sss as sssmod
+
+            is_sss = (matv.sss_weight > 1e-5) & surf.valid
+            rgb = rgb + v3(sssmod.sss_eval(
+                sc, static, sssmod.sss_fields(surf, matv, is_sss),
+                rng.fold(key, 5), n_sss=1,
+                gi_diffuse=conf.gi_diffuse_depth))
     if is_refraction and static.sky_exists:
         rgb = rgb + vec3.where(
             ~surf.valid, _row(sc.sky_radiance) * torch.ones_like(rgb.x), 0.0)
@@ -703,8 +752,9 @@ def _shade_generation_t(sc, static, conf, o, d, key, vis, camera_level,
 
 
 def _tile(sc, static, conf, origin, direction, pixel, start, key):
-    """The whole generation tree of one tile of camera rays; returns (rgb
-    (N, 3), aovs {name: (N, 3)})."""
+    """The whole generation tree of one tile of camera rays but the SSS
+    stage; returns (rgb (N, 3), aovs {name: (N, 3)}, the stage's inputs or
+    None in a scene without SSS)."""
     n0 = origin.shape[0]
     lane = start + torch.arange(n0, dtype=torch.int32, device=origin.device)
     ctx = SampleCtx(pix=pixel, aa=lane % conf.n_sub,
@@ -741,7 +791,16 @@ def _tile(sc, static, conf, origin, direction, pixel, start, key):
         c = vec3.kmean(vec3.where(ok, wgt, 0.0) * sub_rgb, conf.nb_r)
         aovs["refraction"] = c.aos()
         rgb = rgb + c
-    return rgb.aos(), aovs
+    sss_in = None
+    if static.has_skin:
+        sss_in = SSSIn(
+            p=surf0.p.aos(), ns=surf0.ns.aos(), mesh_id=surf0.mesh_id,
+            valid=surf0.valid, sss_weight=matv0.sss_weight,
+            sss_dist=matv0.sss_dist.aos(), sss_color=matv0.sss_color.aos(),
+            cavity_fadeout=matv0.cavity_fadeout,
+            cubic=matv0.mtype == MAT_STANDARD, pix=ctx.pix, aa=ctx.aa,
+            salt=ctx.salt)
+    return rgb.aos(), aovs, sss_in
 
 
 class TileRenderer:
@@ -769,6 +828,7 @@ class TileRenderer:
             gi_glossy_depth=o.gi_glossy_depth,
             gi_refraction_depth=o.gi_refraction_depth,
             gi_total_depth=o.gi_total_depth,
+            gi_sss_samples=o.gi_sss_samples,
             nb_d=self.static.nb_d, nb_g=self.static.nb_g,
             nb_r=(o.gi_refraction_samples ** 2
                   if o.gi_refraction_depth > 0 and self.static.has_refract
@@ -781,8 +841,17 @@ class TileRenderer:
                        tile_rays: int, key):
         self.stats["tiles"] += 1
         sl = slice(start, start + tile_rays)
-        return _tile(self.sc, self.static, self.conf, rays.origin[sl],
-                     rays.direction[sl], rays.pixel[sl], start, key)
+        rgb, aovs, sss_in = _tile(
+            self.sc, self.static, self.conf, rays.origin[sl],
+            rays.direction[sl], rays.pixel[sl], start, key)
+        if self.static.has_skin and self.conf.gi_sss_samples > 0:
+            from . import sss as sssmod
+
+            c = sssmod.sss_stage(self.sc, self.static, self.conf, sss_in,
+                                 rng.fold(key, 4))
+            aovs["sss"] = c
+            rgb = rgb + c
+        return rgb, aovs
 
 
 def _pad_rays(rays: cameramod.CameraRays, pad: int) -> cameramod.CameraRays:

@@ -12,9 +12,11 @@ Differences from the JAX build, all deliberate:
   TPU compiles);
 * texture links and disk lights raise NotImplementedError: textures and
   the disk sampler are later slices of the port;
-* the material table holds the fields the ported shading reads, plus the
-  ids (`kd_tex`, `ks_tex`, `bump_tex`) and the weight `sss_weight` that let
-  the renderer refuse what it cannot shade yet.
+* the material table holds the fields the ported shading reads (those of
+  rlGgx, `standard` with its Ksss lobe, and rlSkin, under the JAX names),
+  plus the texture ids (`kd_tex`, `ks_tex`, `bump_tex`) that let the
+  renderer refuse what it cannot shade yet; an rlDisney row carries only
+  its type, which shading refuses.
 """
 from __future__ import annotations
 
@@ -85,7 +87,18 @@ class Materials(NamedTuple):
     ior: torch.Tensor
     opacity: torch.Tensor          # (M, 3)
     emission: torch.Tensor         # (M, 3)
+    sss_color: torch.Tensor        # (M, 3)
     sss_weight: torch.Tensor
+    sss_dist: torch.Tensor         # (M, 3) scatter distance * multiplier
+    cavity_fadeout: torch.Tensor   # (M,) bool
+    skin_spec_color: torch.Tensor  # (M, 3) rlSkin specular lobe
+    skin_spec_weight: torch.Tensor
+    skin_spec_roughness: torch.Tensor
+    skin_spec_ior: torch.Tensor
+    skin_sheen_color: torch.Tensor  # (M, 3) rlSkin sheen lobe
+    skin_sheen_weight: torch.Tensor
+    skin_sheen_roughness: torch.Tensor
+    skin_sheen_ior: torch.Tensor
 
 
 class QuadLights(NamedTuple):
@@ -295,7 +308,14 @@ def build(path_or_nodes, device="cuda") -> Scene:
             "kt_color": np.ones(3, np.float32), "kt": 0.0, "ior": 1.0,
             "opacity": np.ones(3, np.float32),
             "emission": np.zeros(3, np.float32),
-            "sss_weight": 0.0,
+            "sss_color": np.ones(3, np.float32), "sss_weight": 0.0,
+            "sss_dist": np.ones(3, np.float32), "cavity_fadeout": True,
+            "skin_spec_color": np.ones(3, np.float32),
+            "skin_spec_weight": 0.0, "skin_spec_roughness": 0.5,
+            "skin_spec_ior": 1.44,
+            "skin_sheen_color": np.ones(3, np.float32),
+            "skin_sheen_weight": 0.0, "skin_sheen_roughness": 0.35,
+            "skin_sheen_ior": 1.44,
         }
         if node is not None and node.type == "rlGgx":
             _no_texture(node, "KdColor")
@@ -318,8 +338,27 @@ def build(path_or_nodes, device="cuda") -> Scene:
             # recorded so that shading refuses it; its lobes are not ported
             row.update(mtype=MAT_DISNEY)
         elif node is not None and node.type == "rlSkin":
-            row.update(mtype=MAT_SKIN,
-                       sss_weight=fnum(node.get("sss_weight", 1.0), 1.0))
+            # the colours carry always_linear metadata: no shader gamma
+            row.update(
+                mtype=MAT_SKIN,
+                sss_color=_gamma_rgb(node.get("sss_color", 1.0), 1.0),
+                sss_weight=fnum(node.get("sss_weight", 1.0), 1.0),
+                sss_dist=fnum(node.get("sss_dist_multiplier", 1.0), 1.0)
+                * np.asarray(node.get("sss_scatter_dist", np.ones(3)),
+                             np.float32),
+                cavity_fadeout=bool(node.get("sss_cavity_fadeout", True)),
+                skin_spec_color=_gamma_rgb(node.get("specular_color", 1.0),
+                                           1.0),
+                skin_spec_weight=fnum(node.get("specular_weight", 0.6)),
+                skin_spec_roughness=fnum(node.get("specular_roughness", 0.5)),
+                skin_spec_ior=fnum(node.get("specular_ior", 1.44), 1.44),
+                skin_sheen_color=_gamma_rgb(node.get("sheen_color", 1.0), 1.0),
+                skin_sheen_weight=fnum(node.get("sheen_weight", 0.0)),
+                skin_sheen_roughness=fnum(node.get("sheen_roughness", 0.35)),
+                skin_sheen_ior=fnum(node.get("sheen_ior", 1.44), 1.44),
+                opacity=fnum(node.get("opacity", 1.0))
+                * _gamma_rgb(node.get("opacity_color", 1.0), 1.0),
+            )
         elif node is not None and node.type == "standard":
             _no_texture(node, "Kd_color", "Ks", "Ksn", "Ks_color")
             row.update(
@@ -341,7 +380,12 @@ def build(path_or_nodes, device="cuda") -> Scene:
                 emission=fnum(node.get("emission", 0.0))
                 * _gamma_rgb(node.get("emission_color", 1.0), g),
                 opacity=_gamma_rgb(node.get("opacity", 1.0), 1.0),
+                # the Ksss lobe rides rlSkin's probe stage (integrator/sss.py)
                 sss_weight=fnum(node.get("Ksss", 0.0)),
+                sss_color=_gamma_rgb(node.get("Ksss_color", 1.0), g),
+                sss_dist=np.asarray(node.get("sss_radius", [0.1, 0.1, 0.1]),
+                                    np.float32).reshape(3),
+                cavity_fadeout=False,
             )
         mat_rows.append(row)
         mat_index[shader_name] = len(mat_rows) - 1

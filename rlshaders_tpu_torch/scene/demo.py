@@ -1,5 +1,5 @@
-"""The built-in demo scene: a GGX cube, a blob and a floor under a quad
-light and a dome; needs no file from outside the repository.
+"""The built-in demo scene: a GGX cube, an rlSkin blob and a floor under a
+quad light and a dome; needs no file from outside the repository.
 
 Counterpart of `demo_scene` in rlshaders_tpu/parallel/mesh.py. The scene
 text is a copy of that module's DEMO_SCENE_ASS (importing the JAX package
@@ -146,9 +146,9 @@ polymesh
 def demo_scene(skin: bool = True, device="cuda"):
     """Build the demo scene on `device`; returns (scene, accel).
 
-    skin=False gives the blob the floor's material, as the JAX version
-    does; skin=True keeps its rlSkin material, which this port does not
-    shade yet (rendering it raises NotImplementedError)."""
+    skin=True keeps the blob's rlSkin material (its camera hits run the SSS
+    probe stage); skin=False gives the blob the floor's material, as the
+    JAX version does."""
     src = DEMO_SCENE_ASS
     if not skin:
         src = src.replace('shader "mat_skin"', 'shader "mat_floor"')

@@ -14,8 +14,9 @@ shared memory or in global memory); on soups too large for shared memory;
 on launches whose lanes are all dead or all dead but the last; on sparse
 live lanes, where the any-hit kernel splits a ray's walk over a warp's
 idle lanes; and at ray counts that are no multiple of a warp or a block.
-The CUDA renders (the demo and the glass sphere) are held to the CPU
-renders with chip_smoke.py's tolerance.
+The CUDA renders (the demo, the glass sphere and the skin close-up with
+its SSS probe stage) are held to the CPU renders with chip_smoke.py's
+tolerance.
 """
 import types
 
@@ -254,3 +255,25 @@ def test_sparse_live_lanes(cuda_device, share):
         args[2] = torch.where(dead, 0.0, args[2].abs() + 0.1)
         for vis_mask in (1, 2):
             _assert_kernels_equal_walk(acc, args, vis_mask)
+
+
+@pytest.mark.gpu
+def test_cuda_sss_stage_matches_cpu(cuda_device):
+    """scenes/skin_closeup.ass at 8x8, AA 1: the SSS probe stage's queries
+    run through the kernels and its draws and shading on the card, held to
+    the CPU render (the plain walk) with chip_smoke.py's tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.scene.build import build
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build("scenes/skin_closeup.ass", device=dev)
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, aa_samples=1, xres=8,
+                                         yres=8)
+    for name in ("RGBA", "sss"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["sss"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]

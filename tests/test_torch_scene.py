@@ -112,13 +112,17 @@ def test_unported_features_raise(snippet, what):
 
 
 def test_unported_materials_raise_in_gather():
+    """rlDisney is refused; rlSkin, ported with the SSS slice, is not."""
     from rlshaders_tpu_torch.models import dispatch
 
     scene, _ = tdemo.demo_scene(skin=True, device="cpu")
     m = scene.materials
-    with pytest.raises(NotImplementedError, match="rlSkin"):
-        dispatch.gather(m, torch.zeros(4, dtype=torch.int32),
-                        torch.ones(4, dtype=torch.bool))
+    ids = torch.arange(3, dtype=torch.int32)
+    dispatch.gather(m, ids, torch.ones(3, dtype=torch.bool))
+    disney = m._replace(mtype=torch.where(m.mtype == tbuild.MAT_SKIN,
+                                          tbuild.MAT_DISNEY, m.mtype))
+    with pytest.raises(NotImplementedError, match="rlDisney"):
+        dispatch.gather(disney, ids, torch.ones(3, dtype=torch.bool))
 
 
 def test_entry_points_default_to_the_card():
