@@ -53,10 +53,29 @@ nonzero):
    rays, the launches per kernel, and the device busy share of one
    profiled tile (128x128, AA 2);
 12. renders the skin scene at 64x64, AA 2 on the card and on the CPU and
-   compares.
+   compares;
+13. holds both kernels to the plain walk on every query of a 64x64, AA 3
+   frame of scenes/disney_spheres.ass (six rlDisney spheres: curved
+   meshes, GTR1 and anisotropic glossy rays); prints the table path, the
+   rays, the dead lanes and the launches by table path; times both kernels
+   on those queries (the `disney` shape) beside the plain walk and the
+   bound;
+14. renders scenes/disney_spheres.ass at its own options (256x256, AA 3)
+   through the kernels (counts reset, plain walk barred); checks every
+   plane and that the indirect_specular AOV is above 0; prints seconds per
+   frame, the rays, the launches per kernel and the rate, and profiles one
+   128x128, AA 3 tile (the card's activity only);
+15. renders the Disney scene at 32x32, AA 2 on the card and on the CPU and
+   compares;
+16. times the JAX package's Disney workload (bench.py `step`: a 1920x1080
+   material grid, 8 samples a pixel, each a specular and a diffuse sample
+   with eval and both MIS pdfs) through the port's bsdf/disney.py in eager
+   torch, clearcoat 0.8 and 0.0, with CUDA events after a warm-up; prints
+   Gsamples/s counted as bench.py counts them. A measurement, not a gate.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
-glass frame's, the skin frame's, the two j_walk sets): `device_ms`, the shape's queries
+glass frame's, the skin frame's, the Disney frame's, the two j_walk sets):
+`device_ms`, the shape's queries
 captured in one CUDA graph whose replays are timed with CUDA events (what
 the card spends; the wrappers' host time is paid once, at capture), and
 `call_ms`, the same queries as eager wrapper calls timed with CUDA events
@@ -95,6 +114,13 @@ GLASS_CPU = 16      # width and height of the glass CUDA vs CPU frames
 SKIN = "scenes/skin_closeup.ass"
 SKIN_CHECK = 64     # width and height of the skin frames held to the walk
 SKIN_CPU = 64       # width and height of the skin CUDA vs CPU frames
+DISNEY = "scenes/disney_spheres.ass"
+DISNEY_AA = 3
+DISNEY_CHECK = 64   # width and height of the Disney frame held to the walk
+DISNEY_CPU = 32     # width and height of the Disney CUDA vs CPU frames
+# bench.py's Disney BSDF step: a material grid of this size, SPP samples a
+# pixel (each a specular and a diffuse BSDF sample)
+STEP_W, STEP_H, STEP_SPP = 1920, 1080, 8
 JWALK_RAYS = 262144
 SOUP = 12000       # triangles: tables too large for shared memory
 REPLACES = {
@@ -499,6 +525,175 @@ def jwalk_rays(scene, accel, tracemod, rng, cameramod):
     return {"coherent": (o, d), "incoherent": ((po + 1e-3 * d2), d2)}
 
 
+def disney_step(disney, rng, V3, w: int, h: int, spp: int,
+                clearcoat: float, device):
+    """bench.py's `make_scene_batch` and `step` through the port's
+    bsdf/disney.py: returns (step, draws), functions of a key. `step`
+    draws (spp, w*h, 4) uniforms as bench.py does (rng.uniform is
+    jax.random.uniform bit for bit) and returns the mean estimate V3;
+    `draws` is its draw alone."""
+    n = w * h
+    i = torch.arange(n, device=device)
+    x = (i % w).to(torch.float32) / w
+    y = (i // w).to(torch.float32) / h
+
+    def full(v):
+        return torch.full((n,), v, device=device)
+
+    params = disney.make_params(
+        base_color=V3(0.7 * torch.ones_like(x), 0.3 + 0.4 * x, 0.2 + 0.6 * y),
+        roughness=0.05 + 0.9 * x, metallic=y, specular=full(0.8),
+        specular_tint=full(0.3), anisotropic=0.3 * x, sheen=0.5 * y,
+        sheen_tint=full(0.5), clearcoat=full(clearcoat),
+        clearcoat_gloss=full(0.7), subsurface=full(0.2))
+    t = 0.3 + 0.5 * y
+    wo = V3(torch.sqrt(1.0 - t * t), torch.zeros_like(t), t)
+    cc = disney.has_clearcoat(params)
+
+    def draws(key):
+        return rng.uniform(key, (spp, n, 4), device)
+
+    def step(key):
+        u = draws(key)
+        zero = torch.zeros(n, device=device)
+        acc = V3(zero, zero, zero)
+        for s in range(spp):
+            us = u[s]
+            wi_s = disney.sample_specular(params, wo, us[:, 0], us[:, 1], cc)
+            f_s = disney.eval_specular_cos(params, wo, wi_s, cc)
+            p_s = disney.pdf_specular(params, wo, wi_s, cc)
+            p_sd = disney.pdf_diffuse(params, wo, wi_s)
+            w_s = p_s / torch.clamp_min(p_s + p_sd, 1e-9)
+            wi_d = disney.sample_diffuse(params, wo, us[:, 2], us[:, 3])
+            f_d = disney.eval_diffuse_cos(params, wo, wi_d)
+            p_d = disney.pdf_diffuse(params, wo, wi_d)
+            p_ds = disney.pdf_specular(params, wo, wi_d, cc)
+            w_d = p_d / torch.clamp_min(p_d + p_ds, 1e-9)
+            acc = acc + (f_s * (w_s / torch.clamp_min(p_s, 1e-9))
+                         + f_d * (w_d / torch.clamp_min(p_d, 1e-9)))
+        return acc * (1.0 / spp)
+
+    return step, draws
+
+
+def disney_phases(card: str) -> dict:
+    """Phases 13-16 on the Disney scene. Returns what the JSON line reads:
+    per kernel the compare results, the times and bound of the `disney`
+    shape, and the frame's launches."""
+    from rlshaders_tpu_torch.accel import bvh
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.bsdf import disney
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.core.vec3 import V3
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build
+
+    # ---- Disney: every query of a 64x64, AA 3 frame ----
+    t0 = time.perf_counter()
+    scene = build(DISNEY)
+    accel = tracemod.build(scene.geometry)
+    calls = capture_queries(scene, accel, wavefront, tracemod,
+                            aa_samples=DISNEY_AA, xres=DISNEY_CHECK,
+                            yres=DISNEY_CHECK)
+    reset(kernels)
+    res = compare(accel, calls, bvh, kernels)
+    log(f"[13] captured and compared in {time.perf_counter() - t0:.1f} s; "
+        f"{scene.geometry.v0.shape[0]} triangles, {accel.tree.first.shape[0]} "
+        f"nodes, tables {table_bytes(accel)} B ({accel.packed.path} path): "
+        f"launches by table path {path_launches(kernels)}")
+    for k in REPLACES:
+        dl = dead_lanes(calls, k)
+        log(f"[13] {k}: {res[k][1]} rays in {query_mix(calls, k)}, "
+            f"{res[k][0]} mismatches, max abs err {res[k][2]:.3g}; "
+            f"{dl['no_live']} launches with no live lane, live share "
+            f"{dl['live'] / dl['rays']:.4f}")
+        if res[k][0]:
+            raise AssertionError(f"{k} disagrees with its plain version on "
+                                 f"the Disney frame")
+    times, bounds = {}, {}
+    for k in REPLACES:
+        mine = [c[1:] for c in calls if c[0] == k]
+        kern, walk = pair(k, kernels, bvh, accel)
+        p1 = events_ms(lambda: run_all(walk, mine), 1)
+        dm, cm = kernel_ms(kern, mine, 5)
+        p2 = events_ms(lambda: run_all(walk, mine), 1)
+        r = sum(c[0].shape[0] for c in mine)
+        times[k] = (dm, cm, (p1 + p2) / 2, r, len(mine))
+        b = bounds[k] = bound(k, r, res[k][3], accel)
+        log(f"[13] {k}: all {r} rays of the Disney frame's {len(mine)} "
+            f"queries: device {dm:.4f} ms, call {cm:.4f} ms "
+            f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
+            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk {res[k][3]}; "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
+            f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
+            f"of device time {b['bound_ms'] / dm:.4f}")
+    del calls
+    log(f"[13] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the Disney path: disney_spheres.ass at its own options ----
+    t0 = time.perf_counter()
+    reset(kernels)
+    out, dt = barred_render(wavefront, bvh, scene, accel)
+    launches = dict(kernels.LAUNCHES)
+    o = scene.options
+    check_planes(out, o.xres)
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched by the Disney render")
+    spec = float(out["indirect_specular"].mean())
+    if not spec > 0.0:
+        raise AssertionError("the indirect_specular AOV is black")
+    stats = out["__stats__"]
+    rays = stats["nearest_rays"] + stats["shadow_rays"]
+    means = {k: round(float(v.mean()), 6) for k, v in out.items()
+             if k != "__stats__"}
+    log(f"[14] disney {o.xres}x{o.yres} AA {o.aa_samples}: {dt:.4f} s/frame, "
+        f"plane means {means}, all planes finite, launches {launches}, by table path "
+        f"{path_launches(kernels)}, nearest rays {stats['nearest_rays']}, "
+        f"shadow rays {stats['shadow_rays']}, "
+        f"{rays / dt / 1e6:.3f} Mrays/s (nearest+shadow)")
+    del out
+    profile_frame(wavefront, "14", scene, accel, aa_samples=DISNEY_AA,
+                  xres=PROFILE_SIZE, yres=PROFILE_SIZE)
+    log(f"[14] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the Disney frame on the card and on the CPU ----
+    t0 = time.perf_counter()
+    cscene = build(DISNEY, device="cpu")
+    cuda_vs_cpu(wavefront, "15", {
+        "cuda": (scene, accel),
+        "cpu": (cscene, tracemod.build(cscene.geometry))},
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=DISNEY_CPU,
+        yres=DISNEY_CPU)
+    log(f"[15] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- the JAX package's Disney workload on the card ----
+    t0 = time.perf_counter()
+    rates = {}
+    for cc in (0.8, 0.0):
+        step, draws = disney_step(disney, rng, V3, STEP_W, STEP_H, STEP_SPP,
+                                  cc, DEVICE)
+        key = rng.stream(0)
+        est = step(key)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(est.aos()).all()):
+            raise AssertionError("the Disney step is not finite")
+        keys = iter(range(1, 100))
+        ms = events_ms(lambda: step(rng.fold(key, next(keys))), 3)
+        draw_ms = events_ms(lambda: draws(rng.fold(key, next(keys))), 3)
+        rate = STEP_W * STEP_H * STEP_SPP * 2 / (ms / 1e3) / 1e9
+        rates[cc] = rate
+        log(f"[16] Disney step {STEP_W}x{STEP_H} SPP {STEP_SPP} clearcoat "
+            f"{cc}: {ms:.4f} ms a step (of which the draws {draw_ms:.4f} "
+            f"ms), {rate:.4f} Gsamples/s, mean estimate "
+            f"{[round(float(c.mean()), 6) for c in est]}; {card}")
+        del step, draws, est
+    log(f"[16] phase {time.perf_counter() - t0:.1f} s")
+    return {"compare": res, "times": times, "bounds": bounds,
+            "launches": launches, "step_gsps": rates}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -788,6 +983,8 @@ def main() -> int:
         yres=SKIN_CPU)
     log(f"[12] phase {time.perf_counter() - t0:.1f} s")
 
+    dsy = disney_phases(card)
+
     entries = []
     for k in REPLACES:
         def shape(dm, cm, pm, b, launches):
@@ -801,6 +998,8 @@ def main() -> int:
         shapes["glass"] = shape(dm, cm, pm, glass_bound[k], nq)
         dm, cm, pm, _, nq = stimes[k]
         shapes["skin"] = shape(dm, cm, pm, skin_bound[k], nq)
+        dm, cm, pm, _, nq = dsy["times"][k]
+        shapes["disney"] = shape(dm, cm, pm, dsy["bounds"][k], nq)
         for tag in jsets:
             dm, cm, pm, b = jwalk[(k, tag)]
             shapes[f"jwalk_{tag}"] = shape(dm, cm, pm, b, 1)
@@ -808,15 +1007,17 @@ def main() -> int:
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k],
             "launches": (demo_launches[k] + glass_launches[k]
-                         + skin_launches[k]),
+                         + skin_launches[k] + dsy["launches"][k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
-                               soup[k][2], skin[k][2], skin_demo[k][2]),
+                               soup[k][2], skin[k][2], skin_demo[k][2],
+                               dsy["compare"][k][2]),
             "ms": times[k][1], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
             "launches_demo": demo_launches[k],
             "launches_glass": glass_launches[k],
             "launches_skin": skin_launches[k],
+            "launches_disney": dsy["launches"][k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -21,8 +21,9 @@ shape, in turns (parent, this tree, this tree, parent):
 - call_ms: the same queries as eager wrapper calls, timed with CUDA events;
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
-Then the demo (256x256, AA 2) and glass (256x256, AA 3) frames, each
-rendered twice by each package's own render(), in turns. Prints the
+Then the demo (256x256, AA 2), glass (256x256, AA 3) and skin close-up
+(256x256, AA 2) frames, each rendered twice by each package's own
+render(), in turns. Prints the
 card and writes everything to results.json (by default
 out/kernel_turns.json).
 """
@@ -160,7 +161,9 @@ def main(root: str, results: str) -> int:
                    f"{rec['call_ms']['this'][0] / n * 1e3:.2f}")
 
     pscene = sub(PARENT, "scene.build").build(cs.GLASS)
+    pskin = sub(PARENT, "scene.build").build(cs.SKIN)
     ptrace = sub(PARENT, "accel.trace")
+    sscene = build(cs.SKIN)
     frames = {
         "demo": {"parent": (sub(PARENT, "integrator.wavefront"),
                             *sub(PARENT, "scene.demo").demo_scene(
@@ -171,8 +174,12 @@ def main(root: str, results: str) -> int:
                              ptrace.build(pscene.geometry)),
                   "this": (sub("rlshaders_tpu_torch", "integrator.wavefront"),
                            gscene, gaccel)},
+        "skin": {"parent": (sub(PARENT, "integrator.wavefront"), pskin,
+                            ptrace.build(pskin.geometry)),
+                 "this": (sub("rlshaders_tpu_torch", "integrator.wavefront"),
+                          sscene, tracemod.build(sscene.geometry))},
     }
-    aa = {"demo": cs.AA, "glass": cs.GLASS_AA}
+    aa = {"demo": cs.AA, "glass": cs.GLASS_AA, "skin": cs.AA}
     for shape, vers in frames.items():
         secs = {"parent": [], "this": []}
         for ver in ("parent", "this", "this", "parent") * 2:

@@ -105,6 +105,11 @@ def vmax(a: V3, b: V3) -> V3:
               torch.maximum(a.z, b.z))
 
 
+def luminance(a: V3) -> torch.Tensor:
+    """Rec.709 luma (colorToLuminance, rlUtil.h:36-39)."""
+    return 0.2126 * a.x + 0.7152 * a.y + 0.0722 * a.z
+
+
 def clip(a: V3, lo: float, hi: float) -> V3:
     return V3(torch.clamp(a.x, lo, hi), torch.clamp(a.y, lo, hi),
               torch.clamp(a.z, lo, hi))

@@ -24,14 +24,18 @@ Light transport, as in the JAX version:
 * subsurface scattering (integrator/sss.py): rlSkin's and the `standard`
   shader's Ksss lobe at camera hits, a probe stage per tile over exactly
   its SSS lanes, whose diffuse it replaces; and rlSkin on refracted rays,
-  one probe a hit.
+  one probe a hit;
+* rlDisney's indirect multipliers: the camera-level diffuse and glossy
+  families of a Disney hit are scaled by its indirectDiffuseScale and
+  indirectSpecularScale, and the direct light of Disney hits inside those
+  families (`indirect_scaled`) by the hit's own.
 
 The defaults of the JAX knobs are constants here: MIS renormalization on,
 both MIS count scales 1, faceforward by the shading normal, Owen-Sobol
 streams at camera hits, a march of 4 hits (RLS_SHADOW_HITS). Russian
-roulette (RLS_RR_START) is `render`'s `rr_refr_start`. Disney, textures
-and disk lights are later slices; `TileRenderer` raises NotImplementedError
-on a scene that needs them.
+roulette (RLS_RR_START) is `render`'s `rr_refr_start`. Textures and disk
+lights are later slices; `scene.build` and `TileRenderer` raise
+NotImplementedError on a scene that needs them.
 """
 from __future__ import annotations
 
@@ -47,8 +51,8 @@ from ..core.frame import (
 from ..core.vec3 import V3, v3
 from ..models import dispatch
 from ..scene.build import (
-    MAT_SKIN, MAT_STANDARD, Scene, VIS_CAMERA, VIS_DIFFUSE, VIS_GLOSSY,
-    VIS_REFRACTED, VIS_SHADOW,
+    MAT_DISNEY, MAT_SKIN, MAT_STANDARD, Scene, VIS_CAMERA, VIS_DIFFUSE,
+    VIS_GLOSSY, VIS_REFRACTED, VIS_SHADOW,
 )
 from . import camera as cameramod
 from . import lights as lightsmod
@@ -97,6 +101,7 @@ class SceneStatic(NamedTuple):
     has_transparent: bool  # refraction or opacity < 1: shadows march
     has_skin: bool         # any SSS lobe (rlSkin or standard Ksss)
     has_skin_mat: bool     # an rlSkin material (SSS on secondary rays too)
+    has_disney: bool       # an rlDisney material
 
     @staticmethod
     def of(scene: Scene) -> "SceneStatic":
@@ -105,6 +110,7 @@ class SceneStatic(NamedTuple):
         ql, sky, o = scene.quad_lights, scene.sky, scene.options
         has_refract = bool((mats.kt > 1e-5).any())
         has_skin_mat = bool((mats.mtype == MAT_SKIN).any())
+        has_disney = bool((mats.mtype == MAT_DISNEY).any())
         return SceneStatic(
             quad_valid=ql.valid,
             quad_samples=ql.samples,
@@ -123,6 +129,7 @@ class SceneStatic(NamedTuple):
                              or bool((mats.opacity < 1.0 - 1e-5).any())),
             has_skin=has_skin_mat or bool((mats.sss_weight > 1e-5).any()),
             has_skin_mat=has_skin_mat,
+            has_disney=has_disney,
         )
 
 
@@ -501,10 +508,13 @@ def _spec_direct_t(sc, static, surf: Surface, pv, matv, frame, wo, key,
 
 
 def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
-                 trace_pack=None, ctx: SampleCtx | None = None,
-                 ray_lobe="camera", rr=(0, 0, 0, 0)):
+                 indirect_scaled, trace_pack=None,
+                 ctx: SampleCtx | None = None, ray_lobe="camera",
+                 rr=(0, 0, 0, 0)):
     """Trace (unless `trace_pack` holds the hits) and shade one generation:
-    surface, material, light grid with shadow rays, MIS direct light."""
+    surface, material, light grid with shadow rays, MIS direct light.
+    `indirect_scaled` scales the direct light of Disney hits by their
+    indirect multipliers (generations inside a camera-level family)."""
     n = o.shape[0]
     if trace_pack is None:
         hit = _nearest(sc, o, d, vis)
@@ -513,6 +523,8 @@ def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
 
     surf = _surface(sc, t, tri, uu, vv, o, d)
     matv = dispatch.gather(sc.materials, surf.mat_id, surf.entering,
+                           has_skin=static.has_skin_mat,
+                           has_disney=static.has_disney,
                            diffuse_ray=(ray_lobe == "diffuse"))
     pv = surf.p
     nfv = surf.nf
@@ -564,6 +576,13 @@ def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
     if camera_level and static.has_skin:
         # rlSkin's diffuse at camera hits is the SSS stage's
         diffuse = vec3.where(matv.mtype == MAT_SKIN, 0.0, diffuse)
+    if indirect_scaled and static.has_disney:
+        is_dsy = matv.mtype == MAT_DISNEY
+        diffuse = vec3.where(is_dsy, diffuse * matv.indirect_diffuse_scale,
+                             diffuse)
+        specular = vec3.where(is_dsy,
+                              specular * matv.indirect_specular_scale,
+                              specular)
     radiance = diffuse + specular + matv.emission
     valid = surf.valid
     return (
@@ -657,7 +676,7 @@ def _refr_t(sc, static, conf, surf: Surface, pv, matv, frame, wo, key, nb,
 
 
 def _lobe_family_full(sc, static, conf, surf, pv, nfv, matv, frame, wo, key,
-                      lobe, nb, rr, cam_pickup=False,
+                      lobe, nb, rr, indirect_scaled, cam_pickup=False,
                       ctx: SampleCtx | None = None) -> V3:
     """Family + one-deeper generation. At secondary hits the deeper
     radiance counts only for `standard` materials: the rl* plugins
@@ -668,7 +687,8 @@ def _lobe_family_full(sc, static, conf, surf, pv, nfv, matv, frame, wo, key,
     _, sub_rgb, _, _ = _shade_generation_t(
         sc, static, conf, o1, d1, rng.fold(key, 7),
         VIS_DIFFUSE if lobe == "diffuse" else VIS_GLOSSY,
-        camera_level=False, rr=rr, ray_lobe=lobe, trace_pack=tp1)
+        camera_level=False, indirect_scaled=indirect_scaled, rr=rr,
+        ray_lobe=lobe, trace_pack=tp1)
     if cam_pickup:
         sub = pick + sub_rgb
     else:
@@ -678,7 +698,7 @@ def _lobe_family_full(sc, static, conf, surf, pv, nfv, matv, frame, wo, key,
 
 
 def _secondary_indirect_t(sc, static, conf, surf, pv, nfv, matv, frame, wo,
-                          key, ray_lobe, rr) -> V3:
+                          key, ray_lobe, rr, indirect_scaled) -> V3:
     """Indirect + BSDF-sampled direct light at a secondary hit under the GI
     depth gates; lobes whose depth is exhausted keep the one-sample light
     pickup."""
@@ -691,13 +711,15 @@ def _secondary_indirect_t(sc, static, conf, surf, pv, nfv, matv, frame, wo,
             and rt < conf.gi_total_depth):
         out = out + _lobe_family_full(
             sc, static, conf, surf, pv, nfv, matv, frame, wo,
-            rng.fold(key, 62), "specular", 1, (rd, rg + 1, rrf, rt + 1))
+            rng.fold(key, 62), "specular", 1, (rd, rg + 1, rrf, rt + 1),
+            indirect_scaled)
     else:
         fallback.append("specular")
     if rd < conf.gi_diffuse_depth and rt < conf.gi_total_depth:
         out = out + _lobe_family_full(
             sc, static, conf, surf, pv, nfv, matv, frame, wo,
-            rng.fold(key, 61), "diffuse", 1, (rd + 1, rg, rrf, rt + 1))
+            rng.fold(key, 61), "diffuse", 1, (rd + 1, rg, rrf, rt + 1),
+            indirect_scaled)
     else:
         fallback.append("diffuse")
     if fallback and any(static.quad_valid):
@@ -707,19 +729,19 @@ def _secondary_indirect_t(sc, static, conf, surf, pv, nfv, matv, frame, wo,
 
 
 def _shade_generation_t(sc, static, conf, o, d, key, vis, camera_level,
-                        is_refraction=False, rr=(0, 0, 0, 0),
-                        ray_lobe="camera", trace_pack=None,
+                        indirect_scaled, is_refraction=False,
+                        rr=(0, 0, 0, 0), ray_lobe="camera", trace_pack=None,
                         ctx: SampleCtx | None = None):
     """Trace + fully shade one ray generation; returns (surface pack, rgb,
     aov_d, aov_s). `rr` = (diffuse, glossy, refraction, total) depths at
     this hit. Refracted rays that miss see the dome."""
     surf, matv, pv, nfv, frame, wo, rgb, aov_d, aov_s = _gen_shade_t(
-        sc, static, conf, o, d, key, vis, camera_level, trace_pack, ctx=ctx,
-        ray_lobe=ray_lobe, rr=rr)
+        sc, static, conf, o, d, key, vis, camera_level, indirect_scaled,
+        trace_pack, ctx=ctx, ray_lobe=ray_lobe, rr=rr)
     if not camera_level:
         rgb = rgb + _secondary_indirect_t(
             sc, static, conf, surf, pv, nfv, matv, frame, wo, key, ray_lobe,
-            rr)
+            rr, indirect_scaled)
         # rlSkin evaluates its BSSRDF on non-diffuse rays (rlSss.h:170-199),
         # one probe deep here. The reference gates on ray_lobe "glossy" or
         # "refracted"; its glossy families carry ray_lobe "specular", as
@@ -744,9 +766,9 @@ def _shade_generation_t(sc, static, conf, o, d, key, vis, camera_level,
             1, rrf=rrf + 1)
         _, sub_rgb, _, _ = _shade_generation_t(
             sc, static, conf, o2, d2, rng.fold(key, 33), VIS_REFRACTED,
-            camera_level=False, is_refraction=True,
-            rr=(rd, rg, rrf + 1, rt + 1), ray_lobe="refracted",
-            trace_pack=tp2)
+            camera_level=False, indirect_scaled=indirect_scaled,
+            is_refraction=True, rr=(rd, rg, rrf + 1, rt + 1),
+            ray_lobe="refracted", trace_pack=tp2)
         rgb = rgb + vec3.where(ok, wgt * sub_rgb, 0.0)
     return (surf, matv, pv, nfv, frame, wo), rgb, aov_d, aov_s
 
@@ -761,7 +783,8 @@ def _tile(sc, static, conf, origin, direction, pixel, start, key):
                     salt=rng.bits_scalar(rng.fold(key, 3141)))
     pack, rgb, aov_dd, aov_ds = _shade_generation_t(
         sc, static, conf, origin, direction, rng.fold(key, 0), VIS_CAMERA,
-        camera_level=True, rr=(99, 99, 99, 99), ray_lobe="camera", ctx=ctx)
+        camera_level=True, indirect_scaled=False, rr=(99, 99, 99, 99),
+        ray_lobe="camera", ctx=ctx)
     surf0, matv0, pv0, nfv0, frame0, wo0 = pack
     if static.sky_exists:
         rgb = rgb + vec3.where(
@@ -776,8 +799,13 @@ def _tile(sc, static, conf, origin, direction, pixel, start, key):
         if nb:
             c = _lobe_family_full(
                 sc, static, conf, surf0, pv0, nfv0, matv0, frame0, wo0,
-                rng.fold(key, fold_id), lobe, nb, rr, cam_pickup=True,
-                ctx=ctx)
+                rng.fold(key, fold_id), lobe, nb, rr, indirect_scaled=True,
+                cam_pickup=True, ctx=ctx)
+            if static.has_disney:
+                # rlDisney's indirectDiffuseScale / indirectSpecularScale
+                s = (matv0.indirect_diffuse_scale if lobe == "diffuse"
+                     else matv0.indirect_specular_scale)
+                c = c * torch.where(matv0.mtype == MAT_DISNEY, s, 1.0)
             aovs[aov] = c.aos()
             rgb = rgb + c
     if conf.nb_r:
@@ -786,8 +814,8 @@ def _tile(sc, static, conf, origin, direction, pixel, start, key):
             rng.fold(key, 3), conf.nb_r, ctx=ctx, rrf=1)
         _, sub_rgb, _, _ = _shade_generation_t(
             sc, static, conf, o1, d1, rng.fold(key, 13), VIS_REFRACTED,
-            camera_level=False, is_refraction=True, rr=(0, 0, 1, 1),
-            ray_lobe="refracted", trace_pack=tp1)
+            camera_level=False, indirect_scaled=False, is_refraction=True,
+            rr=(0, 0, 1, 1), ray_lobe="refracted", trace_pack=tp1)
         c = vec3.kmean(vec3.where(ok, wgt, 0.0) * sub_rgb, conf.nb_r)
         aovs["refraction"] = c.aos()
         rgb = rgb + c

@@ -13,10 +13,9 @@ Differences from the JAX build, all deliberate:
 * texture links and disk lights raise NotImplementedError: textures and
   the disk sampler are later slices of the port;
 * the material table holds the fields the ported shading reads (those of
-  rlGgx, `standard` with its Ksss lobe, and rlSkin, under the JAX names),
-  plus the texture ids (`kd_tex`, `ks_tex`, `bump_tex`) that let the
-  renderer refuse what it cannot shade yet; an rlDisney row carries only
-  its type, which shading refuses.
+  rlGgx, `standard` with its Ksss lobe, rlDisney and rlSkin, under the JAX
+  names), plus the texture ids (`kd_tex`, `ks_tex`, `bump_tex`) that let
+  the renderer refuse what it cannot shade yet.
 """
 from __future__ import annotations
 
@@ -87,6 +86,16 @@ class Materials(NamedTuple):
     ior: torch.Tensor
     opacity: torch.Tensor          # (M, 3)
     emission: torch.Tensor         # (M, 3)
+    subsurface: torch.Tensor       # rlDisney lobe weights
+    metallic: torch.Tensor
+    specular: torch.Tensor
+    specular_tint: torch.Tensor
+    sheen: torch.Tensor
+    sheen_tint: torch.Tensor
+    clearcoat: torch.Tensor
+    clearcoat_gloss: torch.Tensor
+    indirect_diffuse_scale: torch.Tensor   # rlDisney's indirect multipliers
+    indirect_specular_scale: torch.Tensor
     sss_color: torch.Tensor        # (M, 3)
     sss_weight: torch.Tensor
     sss_dist: torch.Tensor         # (M, 3) scatter distance * multiplier
@@ -308,6 +317,10 @@ def build(path_or_nodes, device="cuda") -> Scene:
             "kt_color": np.ones(3, np.float32), "kt": 0.0, "ior": 1.0,
             "opacity": np.ones(3, np.float32),
             "emission": np.zeros(3, np.float32),
+            "subsurface": 0.0, "metallic": 0.0, "specular": 0.0,
+            "specular_tint": 0.0, "sheen": 0.0, "sheen_tint": 0.0,
+            "clearcoat": 0.0, "clearcoat_gloss": 0.0,
+            "indirect_diffuse_scale": 1.0, "indirect_specular_scale": 1.0,
             "sss_color": np.ones(3, np.float32), "sss_weight": 0.0,
             "sss_dist": np.ones(3, np.float32), "cavity_fadeout": True,
             "skin_spec_color": np.ones(3, np.float32),
@@ -335,8 +348,26 @@ def build(path_or_nodes, device="cuda") -> Scene:
                 * _gamma_rgb(node.get("opacity_color", 1.0), 1.0),
             )
         elif node is not None and node.type == "rlDisney":
-            # recorded so that shading refuses it; its lobes are not ported
-            row.update(mtype=MAT_DISNEY)
+            _no_texture(node, "base_color")
+            row.update(
+                mtype=MAT_DISNEY,
+                kd_color=_gamma_rgb(node.get("base_color", 1.0), g),
+                subsurface=fnum(node.get("subsurface", 0.0)),
+                metallic=fnum(node.get("metallic", 0.0)),
+                specular=fnum(node.get("specular", 0.0)),
+                specular_tint=fnum(node.get("specular_tint", 0.0)),
+                spec_roughness=fnum(node.get("roughness", 0.0)),
+                spec_aniso=fnum(node.get("anisotropic", 0.0)),
+                sheen=fnum(node.get("sheen", 0.0)),
+                sheen_tint=fnum(node.get("sheen_tint", 0.0)),
+                clearcoat=fnum(node.get("clearcoat", 0.0)),
+                clearcoat_gloss=fnum(node.get("clearcoat_gloss", 0.0)),
+                indirect_diffuse_scale=fnum(
+                    node.get("indirectDiffuseScale", 1.0), 1.0),
+                indirect_specular_scale=fnum(
+                    node.get("indirectSpecularScale", 1.0), 1.0),
+                opacity=_gamma_rgb(node.get("opacity", 1.0), 1.0),
+            )
         elif node is not None and node.type == "rlSkin":
             # the colours carry always_linear metadata: no shader gamma
             row.update(

@@ -277,7 +277,8 @@ def test_dispatch_lobes(materials, diffuse_ray):
         p=jnp.zeros((N, 3)), fp=jnp.zeros(N), fp_uv=jnp.zeros(N),
         lod_bias=-0.5, tex_gamma=1.0, diffuse_ray=diffuse_ray)
     tm = tdispatch.gather(ts.materials, torch.tensor(mat_id),
-                          torch.tensor(entering), diffuse_ray=diffuse_ray)
+                          torch.tensor(entering), has_skin=False,
+                          has_disney=False, diffuse_ray=diffuse_ray)
     for f in ("diffuse_color", "spec_weight", "emission"):
         close(getattr(tm, f), getattr(jm, f))
     for f in ("has_diffuse", "has_spec", "mtype", "spec_dist",

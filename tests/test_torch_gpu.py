@@ -14,9 +14,10 @@ shared memory or in global memory); on soups too large for shared memory;
 on launches whose lanes are all dead or all dead but the last; on sparse
 live lanes, where the any-hit kernel splits a ray's walk over a warp's
 idle lanes; and at ray counts that are no multiple of a warp or a block.
-The CUDA renders (the demo, the glass sphere and the skin close-up with
-its SSS probe stage) are held to the CPU renders with chip_smoke.py's
-tolerance.
+The CUDA renders (the demo, the glass sphere, the skin close-up with its
+SSS probe stage and the Disney spheres) are held to the CPU renders with
+chip_smoke.py's tolerance, and material dispatch queues no device-to-host
+copy.
 """
 import types
 
@@ -277,3 +278,62 @@ def test_cuda_sss_stage_matches_cpu(cuda_device):
         assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
     assert float(out["cuda"]["sss"].mean()) > 0.0
     assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+@pytest.mark.gpu
+def test_cuda_disney_render_matches_cpu(cuda_device):
+    """scenes/disney_spheres.ass at 8x8 at its own AA 3 and GI samples: the
+    Disney lanes and the indirect multipliers on the card, held to the CPU
+    render (the plain walk) with chip_smoke.py's tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.scene.build import build
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build("scenes/disney_spheres.ass", device=dev)
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, xres=8, yres=8)
+    for name in ("RGBA", "indirect_diffuse", "indirect_specular"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["indirect_specular"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+@pytest.mark.gpu
+def test_dispatch_makes_no_host_copy(cuda_device):
+    """dispatch.gather and the lobes on CUDA tables with every lane kind
+    on (the per-table flags are decided once, on the host) queue no
+    synchronizing operation."""
+    from rlshaders_tpu_torch.core.vec3 import V3, normalize
+    from rlshaders_tpu_torch.models import dispatch
+    from rlshaders_tpu_torch.scene.build import build
+
+    mats = build("scenes/disney_spheres.ass", device=cuda_device).materials
+    dispatch.check_supported(mats)
+    n = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    mat_id = torch.randint(0, mats.mtype.shape[0], (n,), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    entering = torch.rand(n, generator=gen, device=cuda_device) < 0.5
+    wo, wi = (normalize(V3(*torch.rand(3, n, generator=gen,
+                                       device=cuda_device) - 0.4))
+              for _ in range(2))
+    rx, ry = torch.rand(2, n, generator=gen, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = dispatch.gather(mats, mat_id, entering, has_skin=True,
+                            has_disney=True)
+        m = dispatch.skin_layer_fields(m, wo)
+        outs = [*dispatch.eval_diffuse(m, wo, wi),
+                *dispatch.eval_specular(m, wo, wi),
+                dispatch.sample_specular(m, wo, rx, ry),
+                dispatch.sample_diffuse(m, wo, rx, ry)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert m.dsy is not None and m.ggx2 is not None
+    for o in outs:
+        t = o.aos() if isinstance(o, V3) else o
+        assert bool(torch.isfinite(t).all())

@@ -332,7 +332,8 @@ def test_dispatch_refraction_fields_and_lobe(materials):
         p=jnp.zeros((N, 3)), fp=jnp.zeros(N), fp_uv=jnp.zeros(N),
         lod_bias=-0.5, tex_gamma=1.0)
     tm = tdispatch.gather(ts.materials, torch.tensor(mat_id),
-                          torch.tensor(entering))
+                          torch.tensor(entering), has_skin=False,
+                          has_disney=False)
     for f in ("kt_color", "opacity"):
         close(getattr(tm, f), getattr(jm, f))
     np.testing.assert_array_equal(tm.has_refract.numpy(),

@@ -112,17 +112,33 @@ def test_unported_features_raise(snippet, what):
 
 
 def test_unported_materials_raise_in_gather():
-    """rlDisney is refused; rlSkin, ported with the SSS slice, is not."""
+    """rlSkin and rlDisney gather; a texture link on rlDisney's base_color
+    is refused by the build, and a texture id by check_supported."""
     from rlshaders_tpu_torch.models import dispatch
 
     scene, _ = tdemo.demo_scene(skin=True, device="cpu")
     m = scene.materials
     ids = torch.arange(3, dtype=torch.int32)
-    dispatch.gather(m, ids, torch.ones(3, dtype=torch.bool))
+    ent = torch.ones(3, dtype=torch.bool)
+    dispatch.check_supported(m)
+    g = dispatch.gather(m, ids, ent, has_skin=True, has_disney=False)
+    assert g.dsy is None
     disney = m._replace(mtype=torch.where(m.mtype == tbuild.MAT_SKIN,
                                           tbuild.MAT_DISNEY, m.mtype))
-    with pytest.raises(NotImplementedError, match="rlDisney"):
-        dispatch.gather(disney, ids, torch.ones(3, dtype=torch.bool))
+    dispatch.check_supported(disney)
+    g = dispatch.gather(disney, ids, ent, has_skin=False, has_disney=True)
+    is_disney = g.mtype == tbuild.MAT_DISNEY
+    assert bool(is_disney.any()) and g.ggx2 is None
+    assert bool((g.has_diffuse & g.has_spec)[is_disney].all())
+    assert g.dsy.alpha_x.shape == (3,)
+    src = (_jax_demo(skin=False).replace('shader "mat_floor"', 'shader "d"',
+                                         1)
+           + 'rlDisney\n{\n name d\n base_color "tex"\n}\n'
+           'MayaFile\n{\n name tex\n filename "x.png"\n}\n')
+    with pytest.raises(NotImplementedError, match="base_color"):
+        tbuild.build_text(src, device="cpu")
+    with pytest.raises(NotImplementedError, match="textures"):
+        dispatch.check_supported(m._replace(kd_tex=torch.ones_like(m.kd_tex)))
 
 
 def test_entry_points_default_to_the_card():

@@ -325,7 +325,8 @@ def _gathered(skin_materials, seed):
         p=jnp.zeros((N, 3)), fp=jnp.zeros(N), fp_uv=jnp.zeros(N),
         lod_bias=-0.5, tex_gamma=1.0)
     tm = tdispatch.gather(ts.materials, torch.tensor(mat_id),
-                          torch.tensor(entering))
+                          torch.tensor(entering), has_skin=True,
+                          has_disney=False)
     wo = _dirs(rs)
     jm = jdispatch.skin_layer_fields(jm, jvec3.v3(jnp.asarray(wo)))
     tm = tdispatch.skin_layer_fields(tm, tvec3.v3(torch.tensor(wo)))
@@ -377,7 +378,8 @@ def test_skin_specular_lobes_match_jax(skin_materials, with_sheen):
     no_skin = mats._replace(mtype=torch.where(mats.mtype == tbuild.MAT_SKIN,
                                               tbuild.MAT_GGX, mats.mtype))
     t2 = tdispatch.gather(no_skin, torch.tensor(mat_id),
-                          torch.ones(N, dtype=torch.bool))
+                          torch.ones(N, dtype=torch.bool), has_skin=False,
+                          has_disney=False)
     assert t2.ggx2 is None and tm.ggx2 is not None
 
 
