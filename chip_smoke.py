@@ -72,9 +72,24 @@ nonzero):
    with eval and both MIS pdfs) through the port's bsdf/disney.py in eager
    torch, clearcoat 0.8 and 0.0, with CUDA events after a warm-up; prints
    Gsamples/s counted as bench.py counts them. A measurement, not a gate.
+17. holds both kernels to the plain walk on every query of a 64x64, AA 3
+   frame of scenes/textured_disk.ass at its own GI samples (3x3: textured
+   backdrop, floor and panels, four balls, two disk lights and a dome);
+   prints the table path, the rays, the dead lanes and the launches by
+   table path; times both kernels on those queries (the `textured` shape)
+   beside the plain walk and the bound;
+18. renders scenes/textured_disk.ass at its own options (256x256, AA 3)
+   through the kernels (counts reset, plain walk barred); checks every
+   plane and that the direct_diffuse AOV is above 0; prints the texture
+   table's bytes, seconds per frame, the rays, the launches per kernel
+   and the rate, and profiles one 128x128, AA 3 tile (the card's activity
+   only);
+19. renders the textured scene at 32x32, AA 2 on the card and on the CPU
+   and compares.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
-glass frame's, the skin frame's, the Disney frame's, the two j_walk sets):
+glass frame's, the skin frame's, the Disney frame's, the textured frame's,
+the two j_walk sets):
 `device_ms`, the shape's queries
 captured in one CUDA graph whose replays are timed with CUDA events (what
 the card spends; the wrappers' host time is paid once, at capture), and
@@ -118,6 +133,10 @@ DISNEY = "scenes/disney_spheres.ass"
 DISNEY_AA = 3
 DISNEY_CHECK = 64   # width and height of the Disney frame held to the walk
 DISNEY_CPU = 32     # width and height of the Disney CUDA vs CPU frames
+TEXTURED = "scenes/textured_disk.ass"
+TEXTURED_AA = 3
+TEXTURED_CHECK = 64  # width and height of the textured frame held to the walk
+TEXTURED_CPU = 32   # width and height of the textured CUDA vs CPU frames
 # bench.py's Disney BSDF step: a material grid of this size, SPP samples a
 # pixel (each a specular and a diffuse BSDF sample)
 STEP_W, STEP_H, STEP_SPP = 1920, 1080, 8
@@ -576,41 +595,45 @@ def disney_step(disney, rng, V3, w: int, h: int, spp: int,
     return step, draws
 
 
-def disney_phases(card: str) -> dict:
-    """Phases 13-16 on the Disney scene. Returns what the JSON line reads:
-    per kernel the compare results, the times and bound of the `disney`
-    shape, and the frame's launches."""
+def scene_phases(tags, path: str, aa: int, check: int, cpu_size: int,
+                 shape: str, lit_plane: str) -> dict:
+    """Three phases on one scene file (tags: their three numbers): both
+    kernels held to the plain walk on every query of a check x check, AA
+    `aa` frame, and timed there (the `shape`); the frame at the scene's
+    own options through the kernels (counts reset, plain walk barred),
+    every plane checked and `lit_plane` above 0, with one profiled tile;
+    the frame on the card and on the CPU at cpu_size, AA 2. Returns what
+    the JSON line reads: per kernel the compare results, the times and
+    bound of the shape, and the frame's launches."""
     from rlshaders_tpu_torch.accel import bvh
     from rlshaders_tpu_torch.accel import trace as tracemod
-    from rlshaders_tpu_torch.bsdf import disney
-    from rlshaders_tpu_torch.core import rng
-    from rlshaders_tpu_torch.core.vec3 import V3
     from rlshaders_tpu_torch.integrator import wavefront
     from rlshaders_tpu_torch.ops import intersect as kernels
     from rlshaders_tpu_torch.scene.build import build
 
-    # ---- Disney: every query of a 64x64, AA 3 frame ----
+    t_check, t_path, t_cpu = (str(t) for t in tags)
+    # ---- every query of a check x check frame ----
     t0 = time.perf_counter()
-    scene = build(DISNEY)
+    scene = build(path)
     accel = tracemod.build(scene.geometry)
     calls = capture_queries(scene, accel, wavefront, tracemod,
-                            aa_samples=DISNEY_AA, xres=DISNEY_CHECK,
-                            yres=DISNEY_CHECK)
+                            aa_samples=aa, xres=check, yres=check)
     reset(kernels)
     res = compare(accel, calls, bvh, kernels)
-    log(f"[13] captured and compared in {time.perf_counter() - t0:.1f} s; "
+    log(f"[{t_check}] captured and compared in "
+        f"{time.perf_counter() - t0:.1f} s; "
         f"{scene.geometry.v0.shape[0]} triangles, {accel.tree.first.shape[0]} "
         f"nodes, tables {table_bytes(accel)} B ({accel.packed.path} path): "
         f"launches by table path {path_launches(kernels)}")
     for k in REPLACES:
         dl = dead_lanes(calls, k)
-        log(f"[13] {k}: {res[k][1]} rays in {query_mix(calls, k)}, "
+        log(f"[{t_check}] {k}: {res[k][1]} rays in {query_mix(calls, k)}, "
             f"{res[k][0]} mismatches, max abs err {res[k][2]:.3g}; "
             f"{dl['no_live']} launches with no live lane, live share "
             f"{dl['live'] / dl['rays']:.4f}")
         if res[k][0]:
             raise AssertionError(f"{k} disagrees with its plain version on "
-                                 f"the Disney frame")
+                                 f"the {shape} frame")
     times, bounds = {}, {}
     for k in REPLACES:
         mine = [c[1:] for c in calls if c[0] == k]
@@ -621,17 +644,21 @@ def disney_phases(card: str) -> dict:
         r = sum(c[0].shape[0] for c in mine)
         times[k] = (dm, cm, (p1 + p2) / 2, r, len(mine))
         b = bounds[k] = bound(k, r, res[k][3], accel)
-        log(f"[13] {k}: all {r} rays of the Disney frame's {len(mine)} "
-            f"queries: device {dm:.4f} ms, call {cm:.4f} ms "
+        walks = res[k][3]
+        working = sum(1 for c in mine if bool((c[2] > 0).any()))
+        log(f"[{t_check}] {k}: all {r} rays of the {shape} frame's "
+            f"{len(mine)} queries: device {dm:.4f} ms, call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
-            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk {res[k][3]}; "
+            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk {walks}, the "
+            f"longest walk of a launch with a live lane "
+            f"{walks['steps'] / max(working, 1):.2f} on average; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")
     del calls
-    log(f"[13] phase {time.perf_counter() - t0:.1f} s")
+    log(f"[{t_check}] phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- the Disney path: disney_spheres.ass at its own options ----
+    # ---- the path: the scene at its own options ----
     t0 = time.perf_counter()
     reset(kernels)
     out, dt = barred_render(wavefront, bvh, scene, accel)
@@ -640,35 +667,49 @@ def disney_phases(card: str) -> dict:
     check_planes(out, o.xres)
     for k, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{k} was not launched by the Disney render")
-    spec = float(out["indirect_specular"].mean())
-    if not spec > 0.0:
-        raise AssertionError("the indirect_specular AOV is black")
+            raise AssertionError(f"{k} was not launched by the {shape} "
+                                 f"render")
+    if not float(out[lit_plane].mean()) > 0.0:
+        raise AssertionError(f"the {lit_plane} AOV is black")
+    tex = scene.textures
+    log(f"[{t_path}] texture table: {texture_bytes(tex)} B "
+        f"({tex.data.shape[0]} texels, levels {tex.n_levels.tolist()}, "
+        f"offsets and sizes included)")
     stats = out["__stats__"]
     rays = stats["nearest_rays"] + stats["shadow_rays"]
     means = {k: round(float(v.mean()), 6) for k, v in out.items()
              if k != "__stats__"}
-    log(f"[14] disney {o.xres}x{o.yres} AA {o.aa_samples}: {dt:.4f} s/frame, "
-        f"plane means {means}, all planes finite, launches {launches}, by table path "
-        f"{path_launches(kernels)}, nearest rays {stats['nearest_rays']}, "
-        f"shadow rays {stats['shadow_rays']}, "
-        f"{rays / dt / 1e6:.3f} Mrays/s (nearest+shadow)")
+    log(f"[{t_path}] {shape} {o.xres}x{o.yres} AA {o.aa_samples}: "
+        f"{dt:.4f} s/frame, plane means {means}, all planes finite, "
+        f"launches {launches}, by table path {path_launches(kernels)}, "
+        f"nearest rays {stats['nearest_rays']}, shadow rays "
+        f"{stats['shadow_rays']}, {rays / dt / 1e6:.3f} Mrays/s "
+        f"(nearest+shadow)")
     del out
-    profile_frame(wavefront, "14", scene, accel, aa_samples=DISNEY_AA,
+    profile_frame(wavefront, t_path, scene, accel, aa_samples=aa,
                   xres=PROFILE_SIZE, yres=PROFILE_SIZE)
-    log(f"[14] phase {time.perf_counter() - t0:.1f} s")
+    log(f"[{t_path}] phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- the Disney frame on the card and on the CPU ----
+    # ---- the frame on the card and on the CPU ----
     t0 = time.perf_counter()
-    cscene = build(DISNEY, device="cpu")
-    cuda_vs_cpu(wavefront, "15", {
+    cscene = build(path, device="cpu")
+    cuda_vs_cpu(wavefront, t_cpu, {
         "cuda": (scene, accel),
         "cpu": (cscene, tracemod.build(cscene.geometry))},
-        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=DISNEY_CPU,
-        yres=DISNEY_CPU)
-    log(f"[15] phase {time.perf_counter() - t0:.1f} s")
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=cpu_size,
+        yres=cpu_size)
+    log(f"[{t_cpu}] phase {time.perf_counter() - t0:.1f} s")
+    return {"compare": res, "times": times, "bounds": bounds,
+            "launches": launches}
 
-    # ---- the JAX package's Disney workload on the card ----
+
+def disney_step_phase(card: str) -> dict:
+    """Phase 16: bench.py's Disney step through the port's bsdf/disney.py,
+    clearcoat 0.8 and 0; returns Gsamples/s by clearcoat."""
+    from rlshaders_tpu_torch.bsdf import disney
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.core.vec3 import V3
+
     t0 = time.perf_counter()
     rates = {}
     for cc in (0.8, 0.0):
@@ -690,8 +731,11 @@ def disney_phases(card: str) -> dict:
             f"{[round(float(c.mean()), 6) for c in est]}; {card}")
         del step, draws, est
     log(f"[16] phase {time.perf_counter() - t0:.1f} s")
-    return {"compare": res, "times": times, "bounds": bounds,
-            "launches": launches, "step_gsps": rates}
+    return rates
+
+
+def texture_bytes(tex) -> int:
+    return sum(t.numel() * t.element_size() for t in tex)
 
 
 def main() -> int:
@@ -983,7 +1027,11 @@ def main() -> int:
         yres=SKIN_CPU)
     log(f"[12] phase {time.perf_counter() - t0:.1f} s")
 
-    dsy = disney_phases(card)
+    dsy = scene_phases((13, 14, 15), DISNEY, DISNEY_AA, DISNEY_CHECK,
+                       DISNEY_CPU, "disney", "indirect_specular")
+    disney_step_phase(card)
+    tex = scene_phases((17, 18, 19), TEXTURED, TEXTURED_AA, TEXTURED_CHECK,
+                       TEXTURED_CPU, "textured", "direct_diffuse")
 
     entries = []
     for k in REPLACES:
@@ -1000,6 +1048,8 @@ def main() -> int:
         shapes["skin"] = shape(dm, cm, pm, skin_bound[k], nq)
         dm, cm, pm, _, nq = dsy["times"][k]
         shapes["disney"] = shape(dm, cm, pm, dsy["bounds"][k], nq)
+        dm, cm, pm, _, nq = tex["times"][k]
+        shapes["textured"] = shape(dm, cm, pm, tex["bounds"][k], nq)
         for tag in jsets:
             dm, cm, pm, b = jwalk[(k, tag)]
             shapes[f"jwalk_{tag}"] = shape(dm, cm, pm, b, 1)
@@ -1007,10 +1057,11 @@ def main() -> int:
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k],
             "launches": (demo_launches[k] + glass_launches[k]
-                         + skin_launches[k] + dsy["launches"][k]),
+                         + skin_launches[k] + dsy["launches"][k]
+                         + tex["launches"][k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
-                               dsy["compare"][k][2]),
+                               dsy["compare"][k][2], tex["compare"][k][2]),
             "ms": times[k][1], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
@@ -1018,6 +1069,7 @@ def main() -> int:
             "launches_glass": glass_launches[k],
             "launches_skin": skin_launches[k],
             "launches_disney": dsy["launches"][k],
+            "launches_textured": tex["launches"][k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

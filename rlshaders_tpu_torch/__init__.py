@@ -4,9 +4,11 @@ The JAX package `rlshaders_tpu` stays the reference; this package mirrors
 its layout (core, scene, accel, ops, bsdf, models, integrator) and function
 names, imports torch and numpy, and never jax or rlshaders_tpu.
 
-The ported slices render scenes of rlGgx and `standard` materials under
-quad lights and a dome, rough refraction and transparent shadows included:
-`scene.demo.demo_scene(skin=False)` or `scene.build.build(path)`, then
+The ported slices render scenes of rlGgx, rlDisney, rlSkin and `standard`
+materials under quad and disk lights and a dome: rough refraction and
+transparent shadows, subsurface scattering by probe rays, and MayaFile
+textures, planar projections and bump3d maps (PNG images; JPEG is not
+decoded yet). `scene.demo.demo_scene()` or `scene.build.build(path)`, then
 `integrator.wavefront.render(scene, accel)`. Entry points put the scene on
 the card unless asked for the CPU (`device="cpu"`); `render` runs where the
 scene lives. Ray queries on CUDA tensors run the hand-written kernels of

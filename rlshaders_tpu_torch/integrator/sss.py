@@ -111,39 +111,49 @@ def _lambert_direct(sc, static, surf_p, surf_n, exclude_tri, key, sq=None,
             n, k, 1, 2)
 
     dirs, dists, rads, pdfs, sizes = [], [], [], [], []
-    ql = sc.quad_lights
-    lsel = [i for i, v in enumerate(static.quad_valid)
-            if v and static.quad_w_d[i] != 0.0]
-    quad_nl = {li: (max(static.quad_samples[li], 1) ** 2 if cam_budget
-                    else 1) for li in lsel}
-    if lsel:
-        reps = [quad_nl[li] for li in lsel]
-        k = sum(reps)
-        u = draw(11, k)
 
-        def per_col(t):
-            return torch.cat([t[li:li + 1].expand((s,) + t.shape[1:])
-                              for li, s in zip(lsel, reps)])
+    def columns(valid, samples, w_d):
+        """The lights of one kind that light diffuse: {light: its MIS
+        sample count}."""
+        return {li: (max(samples[li], 1) ** 2 if cam_budget else 1)
+                for li, v in enumerate(valid) if v and w_d[li] != 0.0}
 
-        rad = torch.cat([(ql.radiance[li] * static.quad_w_d[li])[None]
-                         .expand(s, 3) for li, s in zip(lsel, reps)])
-        ls = lightsmod.sample_quads_batched(
-            per_col(ql.verts), per_col(ql.normal), per_col(ql.area), rad,
-            surf_p, u)
+    def add(ls, k):
         dirs.append(ls.direction.reshape(n, k, 3))
         dists.append(ls.dist.reshape(n, k))
         rads.append(ls.radiance.reshape(n, k, 3))
         pdfs.append(ls.pdf.reshape(n, k))
+
+    ql, dl = sc.quad_lights, sc.disk_lights
+    quad_nl = columns(static.quad_valid, static.quad_samples,
+                      static.quad_w_d)
+    disk_nl = columns(static.disk_valid, static.disk_samples,
+                      static.disk_w_d)
+    for slot, nls, w_d, table, radiance, sampler in (
+            (11, quad_nl, static.quad_w_d, (ql.verts, ql.normal, ql.area),
+             ql.radiance, lightsmod.sample_quads_batched),
+            (12, disk_nl, static.disk_w_d,
+             (dl.center, dl.u, dl.v, dl.normal, dl.area), dl.radiance,
+             lightsmod.sample_disks_batched)):
+        if not nls:
+            continue
+        reps = list(nls.values())
+        k = sum(reps)
+        u = draw(slot, k)
+
+        def per_col(t):
+            return torch.cat([t[li:li + 1].expand((s,) + t.shape[1:])
+                              for li, s in nls.items()])
+
+        rad = torch.cat([(radiance[li] * w_d[li])[None].expand(s, 3)
+                         for li, s in nls.items()])
+        add(sampler(*(per_col(t) for t in table), rad, surf_p, u), k)
         sizes += reps
-    # (the JAX version's disk-light columns: the port has no disk lights)
     sky = static.sky_exists and static.sky_w_d != 0.0
     if sky:
         ls = lightsmod.sample_sky_batched(sc.sky_radiance * static.sky_w_d,
                                           surf_n, draw(13, 1))
-        dirs.append(ls.direction.reshape(n, 1, 3))
-        dists.append(ls.dist.reshape(n, 1))
-        rads.append(ls.radiance.reshape(n, 1, 3))
-        pdfs.append(ls.pdf.reshape(n, 1))
+        add(ls, 1)
         sizes.append(1)
     if not dirs:
         return out
@@ -185,16 +195,27 @@ def _lambert_direct(sc, static, surf_p, surf_n, exclude_tri, key, sq=None,
 
     emit = torch.zeros((n, 3), device=dev)
     hit_t = torch.full((n,), 1e30, device=dev)
-    for li in lsel:
+    for li, nl in quad_nl.items():
         hq, tq = lightsmod.intersect_quad(ql.verts[li], ql.normal[li],
                                           surf_p, bdir)
         pl_q = lightsmod.pdf_quad(ql.verts[li], ql.normal[li], ql.area[li],
                                   surf_p, bdir, tq)
-        w_b = p_b / torch.clamp_min(p_b + float(quad_nl[li]) * pl_q, 1e-12)
+        w_b = p_b / torch.clamp_min(p_b + float(nl) * pl_q, 1e-12)
         take = hq & (tq < hit_t)
         emit = torch.where(
             take[..., None],
             ql.radiance[li] * (static.quad_w_d[li] * w_b)[..., None], emit)
+        hit_t = torch.where(take, tq, hit_t)
+    for li, nl in disk_nl.items():
+        hq, tq = lightsmod.intersect_disk(dl.center[li], dl.u[li], dl.v[li],
+                                          dl.normal[li], surf_p, bdir)
+        cos_l = torch.abs(torch.sum(-bdir * dl.normal[li], -1))
+        pl_q = (tq * tq) / torch.clamp_min(cos_l * dl.area[li], 1e-12)
+        w_b = p_b / torch.clamp_min(p_b + float(nl) * pl_q, 1e-12)
+        take = hq & (tq < hit_t)
+        emit = torch.where(
+            take[..., None],
+            dl.radiance[li] * (static.disk_w_d[li] * w_b)[..., None], emit)
         hit_t = torch.where(take, tq, hit_t)
 
     any_emit = hit_t < 1e30

@@ -8,9 +8,10 @@ shadow rays, with the depth gates of the reference (rlGgx.cpp:151-154)
 unrolled by Python recursion. The JAX version's jit becomes eager torch.
 
 Light transport, as in the JAX version:
-* camera hit: direct light by MIS over the light grid (quad lights; the
-  dome column is dropped when both BSDF families spawn) + diffuse/glossy
-  families of GI_*_samples^2 rays with analytic light and dome pickup;
+* camera hit: direct light by MIS over the light grid (quad and disk
+  lights; the dome column is dropped when both BSDF families spawn) +
+  diffuse/glossy families of GI_*_samples^2 rays with analytic light and
+  dome pickup;
 * secondary hits: direct light + depth-gated continuation families for
   `standard` (Arnold recursion), direct-only for rlGgx (its indirect is
   camera-only, rlGgx.cpp:307), and the one-sample BSDF pickup of lights
@@ -28,17 +29,25 @@ Light transport, as in the JAX version:
 * rlDisney's indirect multipliers: the camera-level diffuse and glossy
   families of a Disney hit are scaled by its indirectDiffuseScale and
   indirectSpecularScale, and the direct light of Disney hits inside those
-  families (`indirect_scaled`) by the hit's own.
+  families (`indirect_scaled`) by the hit's own;
+* textures and bump maps (models/dispatch.py): every hit carries a
+  ray-cone footprint, the pixel's spread (from the render's width) times
+  the distance, widened at grazing incidence; a family ray starts from its
+  origin's footprint with the spread of its lobe (1 for diffuse rays, the
+  roughness alpha or the pixel's for glossy and refracted ones). Scenes
+  without texture links or bump maps skip all of it.
 
 The defaults of the JAX knobs are constants here: MIS renormalization on,
 both MIS count scales 1, faceforward by the shading normal, Owen-Sobol
-streams at camera hits, a march of 4 hits (RLS_SHADOW_HITS). Russian
-roulette (RLS_RR_START) is `render`'s `rr_refr_start`. Textures and disk
-lights are later slices; `scene.build` and `TileRenderer` raise
-NotImplementedError on a scene that needs them.
+streams at camera hits, a march of 4 hits (RLS_SHADOW_HITS), a level of
+detail bias of -0.5 (RLS_LOD_BIAS) and a footprint inflation exponent of
+0.5 (RLS_TEX_ANISO_ALPHA). Russian roulette (RLS_RR_START) is `render`'s
+`rr_refr_start`.
 """
 from __future__ import annotations
 
+import math
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -62,10 +71,17 @@ RAY_EPS = 1e-3
 # transparent hits a shadow segment marches through; further stacked
 # surfaces count as opaque (the JAX version's RLS_SHADOW_HITS default)
 SHADOW_HITS = 4
+# texture level of detail bias in levels: the ray cone's footprint is its
+# diameter, a level wider than a per-pixel derivative (RLS_LOD_BIAS)
+LOD_BIAS = -0.5
+# grazing widening of the footprint: fp *= max(cos^-alpha, 1 / (8 cos))
+# (RLS_TEX_ANISO_ALPHA)
+TEX_ANISO_ALPHA = 0.5
 
 # purpose ids of the per-(pixel, purpose) Sobol streams; light columns add
 # their light index
 P_QUAD = 101 << 8
+P_DISK = 301 << 8
 P_SKY = 501 << 8
 P_DIFFUSE = 601 << 8
 P_GLOSSY = 602 << 8
@@ -79,7 +95,9 @@ class DeviceScene(NamedTuple):
     geometry: object       # scene.build.Geometry
     materials: object      # scene.build.Materials
     quad_lights: object    # scene.build.QuadLights
+    disk_lights: object    # scene.build.DiskLights
     sky_radiance: torch.Tensor  # (3,)
+    textures: object       # scene.texture.TextureStack
     accel: tracemod.Accel
     stats: dict
 
@@ -91,6 +109,10 @@ class SceneStatic(NamedTuple):
     quad_samples: tuple
     quad_w_d: tuple        # per light: affect_diffuse * diffuse_weight
     quad_w_s: tuple
+    disk_valid: tuple
+    disk_samples: tuple
+    disk_w_d: tuple        # per light: affect_diffuse
+    disk_w_s: tuple
     sky_exists: bool
     sky_samples: int
     sky_w_d: float
@@ -102,12 +124,16 @@ class SceneStatic(NamedTuple):
     has_skin: bool         # any SSS lobe (rlSkin or standard Ksss)
     has_skin_mat: bool     # an rlSkin material (SSS on secondary rays too)
     has_disney: bool       # an rlDisney material
+    has_tex: bool          # a diffuse or Ks texture link
+    has_bump: bool         # a bump3d map
+    tex_gamma: float       # texture_gamma, applied after filtering
 
     @staticmethod
     def of(scene: Scene) -> "SceneStatic":
         """Facts of `scene`."""
         mats = scene.materials
-        ql, sky, o = scene.quad_lights, scene.sky, scene.options
+        ql, dl = scene.quad_lights, scene.disk_lights
+        sky, o = scene.sky, scene.options
         has_refract = bool((mats.kt > 1e-5).any())
         has_skin_mat = bool((mats.mtype == MAT_SKIN).any())
         has_disney = bool((mats.mtype == MAT_DISNEY).any())
@@ -118,6 +144,10 @@ class SceneStatic(NamedTuple):
                            zip(ql.affect_diffuse, ql.diffuse_weight)),
             quad_w_s=tuple(float(a) * float(b) for a, b in
                            zip(ql.affect_specular, ql.specular_weight)),
+            disk_valid=dl.valid,
+            disk_samples=dl.samples,
+            disk_w_d=tuple(float(a) for a in dl.affect_diffuse),
+            disk_w_s=tuple(float(a) for a in dl.affect_specular),
             sky_exists=sky.exists,
             sky_samples=sky.samples,
             sky_w_d=float(sky.affect_diffuse),
@@ -130,7 +160,13 @@ class SceneStatic(NamedTuple):
             has_skin=has_skin_mat or bool((mats.sss_weight > 1e-5).any()),
             has_skin_mat=has_skin_mat,
             has_disney=has_disney,
+            has_tex=bool((mats.kd_tex >= 0).any() | (mats.ks_tex >= 0).any()),
+            has_bump=bool((mats.bump_tex >= 0).any()),
+            tex_gamma=float(o.texture_gamma),
         )
+
+    def has_area_lights(self) -> bool:
+        return any(self.quad_valid) or any(self.disk_valid)
 
 
 class RenderConf(NamedTuple):
@@ -145,6 +181,9 @@ class RenderConf(NamedTuple):
     nb_g: int
     nb_r: int   # camera-level refraction rays per hit
     n_sub: int  # AA samples per pixel (aa^2)
+    # per-unit-distance footprint of one pixel (the ray cone's spread),
+    # from the render's width; AA samples share their pixel's
+    pix_spread: float
     # Russian roulette on the refraction chain: at refraction depth >= this
     # a continuation survives with p = clip(max channel of its weight,
     # 0.05, 1) and is reweighted 1/p; 99 = off, as in the reference
@@ -160,6 +199,10 @@ class Surface(NamedTuple):
     tri: torch.Tensor     # -1 on a miss
     entering: torch.Tensor
     valid: torch.Tensor
+    # the texture footprint (None in scenes without textures or bump):
+    uv: torch.Tensor | None     # (N, 2) interpolated mesh uv
+    fp: torch.Tensor | None     # (N,) world-space ray-cone diameter
+    fp_uv: torch.Tensor | None  # (N,) fp through the triangle's uv density
 
 
 class SampleCtx(NamedTuple):
@@ -263,7 +306,12 @@ def _shadow_transmission(sc: DeviceScene, static: SceneStatic, sh) -> V3:
     return atten
 
 
-def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d) -> Surface:
+def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d, base_fp=None,
+             spread=None) -> Surface:
+    """The hit records as surfaces. With `spread` (scenes with textures or
+    bump) also the uv and the ray-cone footprint: base_fp + spread * t,
+    widened at grazing incidence by max(cos^-alpha, 1 / (8 cos)) and
+    mapped to uv by the triangle's uv/world area ratio."""
     g = sc.geometry
     tri = torch.clamp_min(tri_in, 0).long()
     valid = tri_in >= 0
@@ -271,7 +319,8 @@ def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d) -> Surface:
     e2 = v3(g.e2[tri])
     dv = v3(d)
     p = v3(o) + dv * t
-    ng = vec3.normalize(vec3.cross(e1, e2))
+    ng_un = vec3.cross(e1, e2)
+    ng = vec3.normalize(ng_un)
     w = 1.0 - uu - vv
     ns = vec3.normalize(
         v3(g.n0[tri]) * w + v3(g.n1[tri]) * uu + v3(g.n2[tri]) * vv)
@@ -279,10 +328,26 @@ def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d) -> Surface:
     # faceforward the shading normal by its own side (ns.d): by the facet's
     # side it flips per facet across grazing zones of curved meshes
     sign = torch.where(vec3.dot(ns, dv) < 0.0, 1.0, -1.0)
+    uv = fp = fp_uv = None
+    if spread is not None:
+        uv0, uv1, uv2 = g.uv0[tri], g.uv1[tri], g.uv2[tri]
+        uv = w[..., None] * uv0 + uu[..., None] * uv1 + vv[..., None] * uv2
+        tc = torch.where(valid, t, 0.0)
+        cosg = torch.clamp_min(torch.abs(vec3.dot(ng, dv)), 0.05)
+        inflate = torch.maximum(torch.pow(cosg, -TEX_ANISO_ALPHA),
+                                1.0 / (8.0 * cosg))
+        fp = (base_fp + spread * tc) * inflate
+        duv1 = uv1 - uv0
+        duv2 = uv2 - uv0
+        area_uv = torch.abs(duv1[..., 0] * duv2[..., 1]
+                            - duv1[..., 1] * duv2[..., 0])
+        area_w = torch.sqrt(torch.clamp_min(vec3.dot(ng_un, ng_un), 0.0))
+        fp_uv = fp * torch.sqrt(area_uv / torch.clamp_min(area_w, 1e-20))
     return Surface(
         p=p, ns=ns, nf=ns * sign, mat_id=g.mat_id[tri],
         mesh_id=g.mesh_id[tri],
         tri=torch.where(valid, tri_in, -1), entering=entering, valid=valid,
+        uv=uv, fp=fp, fp_uv=fp_uv,
     )
 
 
@@ -316,6 +381,23 @@ def _light_grid(sc: DeviceScene, static: SceneStatic, pv: V3, nfv: V3, key,
             ql.verts[li], ql.normal[li], ql.area[li], ql.radiance[li],
             vec3.tile(pv, s), u)
         add(ls, s, static.quad_w_d[li], static.quad_w_s[li], s, False)
+
+    dl = sc.disk_lights
+    for li, valid in enumerate(static.disk_valid):
+        if not valid:
+            continue
+        s_per = static.disk_samples[li] if camera_level else 1
+        s = s_per * s_per
+        if ctx is not None:
+            u = rng.sobol2_flat(ctx.pix, ctx.aa, s, P_DISK + li, ctx.salt)
+        elif s > 1:
+            u = rng.stratified2_flat(rng.fold(key, 301, li), n, s_per, dev)
+        else:
+            u = rng.uniform2(rng.fold(key, 301, li), (n,), dev)
+        ls = lightsmod.sample_disk_flat(
+            dl.center[li], dl.u[li], dl.v[li], dl.normal[li], dl.area[li],
+            dl.radiance[li], vec3.tile(pv, s), u)
+        add(ls, s, static.disk_w_d[li], static.disk_w_s[li], s, False)
 
     if static.sky_exists and include_sky:
         s = max(static.sky_samples, 1) if camera_level else 1
@@ -375,29 +457,48 @@ def _direct_eval(matv, frame: Frame, wo: V3, grid: LightGrid, nb_d, nb_g,
     return contrib_d, contrib_s, live
 
 
+def _area_lights(sc, static, lobe):
+    """Every valid area light, quads then disks, as (intersect, normal,
+    area, radiance, samples, factor): `intersect(o, d)` gives (hit, t) of
+    BSDF rays, `factor` is the light's weight for `lobe`."""
+    ql, dl = sc.quad_lights, sc.disk_lights
+    for li, valid in enumerate(static.quad_valid):
+        if valid:
+            yield (partial(lightsmod.intersect_quad_flat, ql.verts[li],
+                           ql.normal[li]),
+                   ql.normal[li], ql.area[li], ql.radiance[li],
+                   static.quad_samples[li],
+                   static.quad_w_d[li] if lobe == "diffuse"
+                   else static.quad_w_s[li])
+    for li, valid in enumerate(static.disk_valid):
+        if valid:
+            yield (partial(lightsmod.intersect_disk_flat, dl.center[li],
+                           dl.u[li], dl.v[li], dl.normal[li]),
+                   dl.normal[li], dl.area[li], dl.radiance[li],
+                   static.disk_samples[li],
+                   static.disk_w_d[li] if lobe == "diffuse"
+                   else static.disk_w_s[li])
+
+
 def _light_pickup(sc, static, o: V3, d: V3, lobe_pdf, nb, camera_level,
                   lobe):
-    """Analytic emission of the nearest quad light along BSDF rays, MIS
+    """Analytic emission of the nearest area light along BSDF rays, MIS
     weighted against the light strategy: (emission V3, t_light). The caller
     tests occlusion with a shadow segment to t_light: shadow-invisible
     geometry in front of a light must not kill the pickup."""
     out = _zeros3(lobe_pdf)
     t_light = torch.full_like(lobe_pdf, 1e30)
-    ql = sc.quad_lights
-    for li, valid in enumerate(static.quad_valid):
-        if not valid:
-            continue
-        fac = static.quad_w_d[li] if lobe == "diffuse" else static.quad_w_s[li]
+    for intersect, normal, area, radiance, samples, fac in _area_lights(
+            sc, static, lobe):
         if fac == 0.0:
             continue
-        nl = float(static.quad_samples[li] ** 2) if camera_level else 1
-        hit, t = lightsmod.intersect_quad_flat(ql.verts[li], ql.normal[li],
-                                               o, d)
-        cos_l = torch.abs(vec3.dot(d, _row(ql.normal[li])))
-        p_l = (t * t) / torch.clamp_min(cos_l * ql.area[li], 1e-12)
+        nl = float(samples ** 2) if camera_level else 1
+        hit, t = intersect(o, d)
+        cos_l = torch.abs(vec3.dot(d, _row(normal)))
+        p_l = (t * t) / torch.clamp_min(cos_l * area, 1e-12)
         w = lightsmod.mis_weight(nb * lobe_pdf, nl * p_l)
         take = hit & (t < t_light)
-        out = vec3.where(take, _row(ql.radiance[li]) * (fac * w), out)
+        out = vec3.where(take, _row(radiance) * (fac * w), out)
         t_light = torch.where(take, t, t_light)
     return out, t_light
 
@@ -480,19 +581,15 @@ def _spec_direct_t(sc, static, surf: Surface, pv, matv, frame, wo, key,
               & (wo.z > 1e-4))
         emit = _zeros3(pv.x)
         t_light = torch.full((n,), 1e30, device=pv.x.device)
-        ql = sc.quad_lights
-        for li, valid in enumerate(static.quad_valid):
-            if not valid:
-                continue
-            fac = (static.quad_w_d[li] if lobe == "diffuse"
-                   else static.quad_w_s[li])
-            hq, tq = lightsmod.intersect_quad_flat(ql.verts[li],
-                                                   ql.normal[li], pv, wi_w)
-            cos_l = torch.abs(vec3.dot(wi_w, _row(ql.normal[li])))
-            p_l = (tq * tq) / torch.clamp_min(cos_l * ql.area[li], 1e-12)
+        # lights whose factor is 0 still take the nearest hit here
+        for intersect, normal, area, radiance, _, fac in _area_lights(
+                sc, static, lobe):
+            hq, tq = intersect(pv, wi_w)
+            cos_l = torch.abs(vec3.dot(wi_w, _row(normal)))
+            p_l = (tq * tq) / torch.clamp_min(cos_l * area, 1e-12)
             w_b = lightsmod.mis_weight(1.0 * pdf, 1.0 * p_l)
             take = hq & (tq < t_light)
-            emit = vec3.where(take, _row(ql.radiance[li]) * (fac * w_b), emit)
+            emit = vec3.where(take, _row(radiance) * (fac * w_b), emit)
             t_light = torch.where(take, tq, t_light)
         w_over_pdf = vec3.where(ok, f / torch.clamp_min(pdf, 1e-9), 0.0)
         any_emit = vec3.maxc(emit) > 0.0
@@ -507,25 +604,66 @@ def _spec_direct_t(sc, static, surf: Surface, pv, matv, frame, wo, key,
     return out
 
 
+def _footprint(static, conf, n, base_fp, spread, device):
+    """(base_fp, spread) of a generation's rays: None in scenes without
+    textures or bump, else a camera generation's defaults (no base, the
+    pixel's spread) where the caller gives none."""
+    if not (static.has_tex or static.has_bump):
+        return None, None
+    if base_fp is None:
+        base_fp = torch.zeros(n, device=device)
+    if spread is None:
+        spread = torch.full((n,), conf.pix_spread, device=device)
+    return base_fp, spread
+
+
+def _lobe_spread(conf, matv, lobe: str, nb: int, surf: Surface):
+    """The spread of family rays leaving `surf` by `lobe`: 1 for diffuse
+    rays, else the larger of the roughness alpha and the pixel's; None in
+    scenes without a footprint."""
+    if surf.fp is None:
+        return None
+    if lobe == "diffuse":
+        return torch.ones(surf.fp.shape[0] * nb, device=surf.fp.device)
+    return torch.clamp_min(matv.ggx.alpha_g, conf.pix_spread).repeat(nb)
+
+
+def _tiled_fp(surf: Surface, nb: int):
+    return None if surf.fp is None else surf.fp.repeat(nb)
+
+
 def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
-                 indirect_scaled, trace_pack=None,
-                 ctx: SampleCtx | None = None, ray_lobe="camera",
-                 rr=(0, 0, 0, 0)):
+                 indirect_scaled, base_fp=None, spread=None,
+                 trace_pack=None, ctx: SampleCtx | None = None,
+                 ray_lobe="camera", rr=(0, 0, 0, 0)):
     """Trace (unless `trace_pack` holds the hits) and shade one generation:
-    surface, material, light grid with shadow rays, MIS direct light.
-    `indirect_scaled` scales the direct light of Disney hits by their
-    indirect multipliers (generations inside a camera-level family)."""
+    surface, bump, material with its textures, light grid with shadow
+    rays, MIS direct light. `indirect_scaled` scales the direct light of
+    Disney hits by their indirect multipliers (generations inside a
+    camera-level family); `base_fp` and `spread` are the rays' footprint
+    at their origin and its growth per unit distance."""
     n = o.shape[0]
     if trace_pack is None:
         hit = _nearest(sc, o, d, vis)
         trace_pack = (hit.t, hit.tri, hit.u, hit.v)
     t, tri, uu, vv = trace_pack
 
-    surf = _surface(sc, t, tri, uu, vv, o, d)
+    base_fp, spread = _footprint(static, conf, n, base_fp, spread, o.device)
+    surf = _surface(sc, t, tri, uu, vv, o, d, base_fp, spread)
+    if static.has_bump:
+        ns = dispatch.apply_bump(sc.materials, sc.textures, surf.mat_id,
+                                 surf.p, surf.ns, fp=surf.fp,
+                                 tex_gamma=static.tex_gamma)
+        sign = torch.where(vec3.dot(ns, v3(d)) < 0.0, 1.0, -1.0)
+        surf = surf._replace(ns=ns, nf=ns * sign)
+    tex = None
+    if static.has_tex:
+        tex = dispatch.TexLookup(sc.textures, surf.uv, surf.p, surf.fp,
+                                 surf.fp_uv, LOD_BIAS, static.tex_gamma)
     matv = dispatch.gather(sc.materials, surf.mat_id, surf.entering,
                            has_skin=static.has_skin_mat,
                            has_disney=static.has_disney,
-                           diffuse_ray=(ray_lobe == "diffuse"))
+                           diffuse_ray=(ray_lobe == "diffuse"), tex=tex)
     pv = surf.p
     nfv = surf.nf
     frame = build_frame_polar_v(nfv)
@@ -610,7 +748,7 @@ def _family_t(sc, static, conf, surf, pv, nfv, matv, frame, wo, key, lobe,
     # plain direction offset
     sh_o1 = (vec3.tile(pv, nb) + vec3.tile(nfv, nb) * RAY_EPS
              + dV * RAY_EPS).aos()
-    if any(static.quad_valid):
+    if static.has_area_lights():
         # the BSDF-side light strategy is a shadow query to the light hit,
         # not the family ray's own geometry hit
         sh_t = torch.where(t_light < 1e30, t_light - 3 * RAY_EPS, 0.0)
@@ -688,7 +826,8 @@ def _lobe_family_full(sc, static, conf, surf, pv, nfv, matv, frame, wo, key,
         sc, static, conf, o1, d1, rng.fold(key, 7),
         VIS_DIFFUSE if lobe == "diffuse" else VIS_GLOSSY,
         camera_level=False, indirect_scaled=indirect_scaled, rr=rr,
-        ray_lobe=lobe, trace_pack=tp1)
+        ray_lobe=lobe, base_fp=_tiled_fp(surf, nb),
+        spread=_lobe_spread(conf, matv, lobe, nb, surf), trace_pack=tp1)
     if cam_pickup:
         sub = pick + sub_rgb
     else:
@@ -722,7 +861,7 @@ def _secondary_indirect_t(sc, static, conf, surf, pv, nfv, matv, frame, wo,
             indirect_scaled)
     else:
         fallback.append("diffuse")
-    if fallback and any(static.quad_valid):
+    if fallback and static.has_area_lights():
         out = out + _spec_direct_t(sc, static, surf, pv, matv, frame, wo,
                                    key, tuple(fallback))
     return out
@@ -730,14 +869,15 @@ def _secondary_indirect_t(sc, static, conf, surf, pv, nfv, matv, frame, wo,
 
 def _shade_generation_t(sc, static, conf, o, d, key, vis, camera_level,
                         indirect_scaled, is_refraction=False,
-                        rr=(0, 0, 0, 0), ray_lobe="camera", trace_pack=None,
+                        rr=(0, 0, 0, 0), ray_lobe="camera", base_fp=None,
+                        spread=None, trace_pack=None,
                         ctx: SampleCtx | None = None):
     """Trace + fully shade one ray generation; returns (surface pack, rgb,
     aov_d, aov_s). `rr` = (diffuse, glossy, refraction, total) depths at
     this hit. Refracted rays that miss see the dome."""
     surf, matv, pv, nfv, frame, wo, rgb, aov_d, aov_s = _gen_shade_t(
         sc, static, conf, o, d, key, vis, camera_level, indirect_scaled,
-        trace_pack, ctx=ctx, ray_lobe=ray_lobe, rr=rr)
+        base_fp, spread, trace_pack, ctx=ctx, ray_lobe=ray_lobe, rr=rr)
     if not camera_level:
         rgb = rgb + _secondary_indirect_t(
             sc, static, conf, surf, pv, nfv, matv, frame, wo, key, ray_lobe,
@@ -768,7 +908,9 @@ def _shade_generation_t(sc, static, conf, o, d, key, vis, camera_level,
             sc, static, conf, o2, d2, rng.fold(key, 33), VIS_REFRACTED,
             camera_level=False, indirect_scaled=indirect_scaled,
             is_refraction=True, rr=(rd, rg, rrf + 1, rt + 1),
-            ray_lobe="refracted", trace_pack=tp2)
+            ray_lobe="refracted", base_fp=surf.fp,
+            spread=_lobe_spread(conf, matv, "refracted", 1, surf),
+            trace_pack=tp2)
         rgb = rgb + vec3.where(ok, wgt * sub_rgb, 0.0)
     return (surf, matv, pv, nfv, frame, wo), rgb, aov_d, aov_s
 
@@ -815,7 +957,10 @@ def _tile(sc, static, conf, origin, direction, pixel, start, key):
         _, sub_rgb, _, _ = _shade_generation_t(
             sc, static, conf, o1, d1, rng.fold(key, 13), VIS_REFRACTED,
             camera_level=False, indirect_scaled=False, is_refraction=True,
-            rr=(0, 0, 1, 1), ray_lobe="refracted", trace_pack=tp1)
+            rr=(0, 0, 1, 1), ray_lobe="refracted",
+            base_fp=_tiled_fp(surf0, conf.nb_r),
+            spread=_lobe_spread(conf, matv0, "refracted", conf.nb_r, surf0),
+            trace_pack=tp1)
         c = vec3.kmean(vec3.where(ok, wgt, 0.0) * sub_rgb, conf.nb_r)
         aovs["refraction"] = c.aos()
         rgb = rgb + c
@@ -837,18 +982,17 @@ class TileRenderer:
     marched (their steps are nearest queries)."""
 
     def __init__(self, scene: Scene, accel: tracemod.Accel, aa_samples: int,
-                 rr_refr_start: int = 99):
-        dispatch.check_supported(scene.materials)
+                 rr_refr_start: int = 99, xres: int | None = None):
         self.static = SceneStatic.of(scene)
         self.stats = {"nearest_rays": 0, "nearest_calls": 0,
                       "shadow_rays": 0, "shadow_calls": 0,
                       "march_segments": 0, "tiles": 0}
         self.sc = DeviceScene(
             geometry=scene.geometry, materials=scene.materials,
-            quad_lights=scene.quad_lights,
+            quad_lights=scene.quad_lights, disk_lights=scene.disk_lights,
             sky_radiance=(scene.sky.radiance if scene.sky.exists
                           else torch.zeros(3, device=scene.device)),
-            accel=accel, stats=self.stats,
+            textures=scene.textures, accel=accel, stats=self.stats,
         )
         o = scene.options
         self.conf = RenderConf(
@@ -862,6 +1006,11 @@ class TileRenderer:
                   if o.gi_refraction_depth > 0 and self.static.has_refract
                   else 0),
             n_sub=aa_samples * aa_samples,
+            # the render's width, not the camera's: a reduced render keeps
+            # each pixel's footprint
+            pix_spread=float(
+                2.0 * math.tan(math.radians(scene.camera.fov_deg) * 0.5)
+                / max(xres or scene.camera.xres, 1)),
             rr_refr_start=rr_refr_start,
         )
 
@@ -918,7 +1067,7 @@ def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
 
     key = rng.stream(opts.aa_seed + seed)
     rays = cameramod.generate(scene.camera, rng.fold(key, 77), aa, xres, yres)
-    tr = TileRenderer(scene, accel, aa, rr_refr_start)
+    tr = TileRenderer(scene, accel, aa, rr_refr_start, xres=xres)
 
     n_rays = n_pix * n_sub
     tile_rays = min(tile_pixels * n_sub, n_rays)

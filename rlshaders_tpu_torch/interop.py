@@ -2,8 +2,8 @@
 
 `scene_from_numpy` builds the port's `Scene` and `Accel` from a flat dict
 of arrays named "<table>.<field>", with the tables and fields of the JAX
-package's scene (geometry, materials, quad_lights, sky, camera, options)
-and its BVH (bvh.bbox_min ... bvh.tri_order). Fields the port does not
+package's scene (geometry, materials, quad_lights, disk_lights, sky,
+camera, textures, options) and its BVH (bvh.bbox_min ... bvh.tri_order). Fields the port does not
 read are ignored. It lets the port's integrator run on exactly the inputs
 of the JAX one, independently of the port's own `build`.
 """
@@ -12,9 +12,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .accel import trace as tracemod
+from .core import cpu_math
 from .scene import build as buildmod
+from .scene import texture as texmod
 
 
 def scene_tables(scene, accel) -> dict[str, np.ndarray]:
@@ -22,7 +25,8 @@ def scene_tables(scene, accel) -> dict[str, np.ndarray]:
     np.asarray: works on this package's CPU scenes and, unchanged, on the
     JAX package's (its tables are NamedTuples of arrays too)."""
     out = {}
-    for name in ("geometry", "materials", "quad_lights", "sky", "camera"):
+    for name in ("geometry", "materials", "quad_lights", "disk_lights", "sky",
+                 "camera", "textures"):
         table = getattr(scene, name)
         for f in table._fields:
             out[f"{name}.{f}"] = np.asarray(getattr(table, f))
@@ -44,28 +48,36 @@ def _scalar(tables: dict, key: str):
 
 def scene_from_numpy(tables: dict[str, np.ndarray], device):
     """(Scene, Accel) on `device` from the JAX package's tables."""
+    if torch.device(device).type == "cpu":
+        cpu_math.settle()
     geometry = _table(buildmod.Geometry, tables, "geometry", device)
     materials = _table(buildmod.Materials, tables, "materials", device)
 
     def t(key):
         return buildmod._tensor(tables[key], device)
 
-    def host(f, cast):
+    def host(table, f, cast):
         return tuple(cast(x) for x in
-                     np.asarray(tables[f"quad_lights.{f}"]).reshape(-1))
+                     np.asarray(tables[f"{table}.{f}"]).reshape(-1))
 
     quad_lights = buildmod.QuadLights(
         verts=t("quad_lights.verts"),
         radiance=t("quad_lights.radiance"),
         normal=t("quad_lights.normal"),
         area=t("quad_lights.area"),
-        samples=host("samples", int),
-        affect_diffuse=host("affect_diffuse", bool),
-        affect_specular=host("affect_specular", bool),
-        diffuse_weight=host("diffuse_weight", float),
-        specular_weight=host("specular_weight", float),
-        valid=host("valid", bool),
+        **{f: host("quad_lights", f, cast) for f, cast in (
+            ("samples", int), ("affect_diffuse", bool),
+            ("affect_specular", bool), ("diffuse_weight", float),
+            ("specular_weight", float), ("valid", bool))},
     )
+    disk_lights = buildmod.DiskLights(
+        **{f: t(f"disk_lights.{f}") for f in (
+            "center", "u", "v", "normal", "radius", "radiance", "area")},
+        **{f: host("disk_lights", f, cast) for f, cast in (
+            ("samples", int), ("affect_diffuse", bool),
+            ("affect_specular", bool), ("valid", bool))},
+    )
+    textures = _table(texmod.TextureStack, tables, "textures", device)
     sky = buildmod.SkyLight(
         radiance=t("sky.radiance"),
         samples=int(_scalar(tables, "sky.samples")),
@@ -86,7 +98,8 @@ def scene_from_numpy(tables: dict[str, np.ndarray], device):
         for f in dataclasses.fields(buildmod.RenderOptions)
     })
     scene = buildmod.Scene(geometry=geometry, materials=materials,
-                           quad_lights=quad_lights, sky=sky, camera=camera,
+                           quad_lights=quad_lights, disk_lights=disk_lights,
+                           sky=sky, camera=camera, textures=textures,
                            options=options)
     accel = tracemod.from_arrays(
         geometry, *(tables[f"bvh.{f}"] for f in

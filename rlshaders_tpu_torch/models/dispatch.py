@@ -12,8 +12,13 @@ sss_weight on diffuse rays). Every lobe evaluator computes the models of
 all lanes and masks by type; the models of types a table lacks are left
 out, as the caller's per-table flags say.
 
-`check_supported` raises on what the port does not shade yet: textures and
-bump maps.
+Texture links (`gather`'s `tex`): the diffuse colour's MayaFile texture on
+the mesh uv or a planar MayaProjection (defaultColor outside its square,
+or wrapping), filtered at a level of detail from the ray footprint, its
+`invert` in storage space, the texture_gamma decode, then colorGain and
+colorOffset; and a Ks texture's luminance as Ks's alpha. `apply_bump`
+perturbs the shading normal by a bump3d height map. A table with no
+texture link skips all of it, as the caller's flags say.
 
 Lobe contract (local frame, +z = forward-facing shading normal):
   diffuse:  f*cos V3, pdf   (cosine sampled)
@@ -30,8 +35,14 @@ import torch
 
 from ..bsdf import beckmann, disney, ggx, orennayar
 from ..core import vec3
+from ..core.frame import build_frame_polar_v
 from ..core.vec3 import V3, v3
+from ..scene import texture as texmod
 from ..scene.build import MAT_DISNEY, MAT_SKIN, MAT_STANDARD, Materials
+
+# the least world step of bump3d's finite differences (the JAX apply_bump's
+# eps_min default)
+BUMP_EPS_MIN = 5e-3
 
 # the columns only rlDisney rows read
 _DISNEY_FIELDS = ("subsurface", "metallic", "specular", "specular_tint",
@@ -71,12 +82,97 @@ class MatG(NamedTuple):
     has_refract: torch.Tensor
 
 
-def check_supported(mats: Materials) -> None:
-    """Raise NotImplementedError for material features the port lacks (one
-    device-to-host copy: call it once per table)."""
-    tex = torch.stack([mats.kd_tex, mats.ks_tex, mats.bump_tex])
-    if bool((tex >= 0).any()):
-        raise NotImplementedError("textures and bump maps are not ported yet")
+class TexLookup(NamedTuple):
+    """What the texture lookups of a hit batch read."""
+
+    stack: texmod.TextureStack
+    uv: torch.Tensor      # (N, 2) interpolated mesh uv
+    p: V3                 # world hit positions
+    fp: torch.Tensor      # (N,) world-space ray-cone footprint
+    fp_uv: torch.Tensor   # (N,) the footprint in the triangle's uv
+    lod_bias: float
+    gamma: float          # texture_gamma, applied after filtering
+
+
+def _degamma(c: V3, gamma: float) -> V3:
+    """The texture_gamma decode, applied after filtering: textures are
+    stored and filtered in storage space, as Arnold's mips and bicubic taps
+    average pre-decode values."""
+    if gamma == 1.0:
+        return c
+    return V3(*(torch.pow(torch.clamp_min(x, 0.0), gamma) for x in c))
+
+
+def _proj_uv_scale_table(proj_inv: torch.Tensor) -> torch.Tensor:
+    """(M,) uv per world unit of each material's planar projection: local
+    = p @ P and uv = (local + 1) / 2, so duv/dp is |P column| / 2 (the mean
+    of the two uv axes)."""
+    def norm(c):
+        return torch.sqrt(c[..., 0] * c[..., 0] + c[..., 1] * c[..., 1]
+                          + c[..., 2] * c[..., 2])
+
+    return 0.25 * (norm(proj_inv[..., :3, 0]) + norm(proj_inv[..., :3, 1]))
+
+
+def _proj_xy(proj_inv_table: torch.Tensor, mid: torch.Tensor, p: V3):
+    """(local_x, local_y) of p @ the hit material's projection matrix."""
+    def e(i, j):
+        return proj_inv_table[:, i, j][mid]
+
+    lx = p.x * e(0, 0) + p.y * e(1, 0) + p.z * e(2, 0) + e(3, 0)
+    ly = p.x * e(0, 1) + p.y * e(1, 1) + p.z * e(2, 1) + e(3, 1)
+    return lx, ly
+
+
+def _planar_uv(lx, ly) -> torch.Tensor:
+    return torch.stack([(lx + 1.0) * 0.5, (ly + 1.0) * 0.5], dim=-1)
+
+
+def _inside(lx, ly) -> torch.Tensor:
+    return (torch.abs(lx) <= 1.0) & (torch.abs(ly) <= 1.0)
+
+
+def _luminance(c: V3) -> torch.Tensor:
+    return 0.212671 * c.x + 0.71516 * c.y + 0.072169 * c.z
+
+
+def _textures(mats: Materials, g: Materials, mid, t: TexLookup):
+    """(the diffuse texture colour V3, Ks) of the hits' texture links; 1
+    and the table's Ks where a hit has none."""
+    # planar projection: uv = (local + 1) / 2; outside the unit square
+    # proj 2 (`wrap on`) tiles the image, proj 1 gives defaultColor
+    lx, ly = _proj_xy(mats.kd_proj_inv, mid, t.p)
+    is_proj = g.kd_proj >= 1
+    uv = torch.where(is_proj[..., None], _planar_uv(lx, ly), t.uv)
+    in_coverage = ~is_proj | (g.kd_proj == 2) | _inside(lx, ly)
+    fpu = torch.where(is_proj,
+                      t.fp * _proj_uv_scale_table(mats.kd_proj_inv)[mid],
+                      t.fp_uv)
+    lod = texmod.compute_lod(t.stack, g.kd_tex, fpu, t.lod_bias)
+    store = texmod.sample_smart_bicubic(t.stack, g.kd_tex, uv, lod)
+    # MayaFile `invert` in storage space, before the decode; gain and
+    # offset in linear space after it
+    store = vec3.where(g.kd_tex_invs, 1.0 - store, store)
+    color = (_degamma(store, t.gamma) * v3(g.kd_tex_gain)
+             + v3(g.kd_tex_offset))
+    color = vec3.where(in_coverage, color, v3(g.kd_proj_default))
+    color = vec3.where(g.kd_tex >= 0, color, 1.0)
+
+    # a Ks texture's alpha: the luminance of an alpha-less image, 0 outside
+    # a projection's coverage
+    klx, kly = _proj_xy(mats.ks_proj_inv, mid, t.p)
+    k_proj = g.ks_proj >= 1
+    kuv = torch.where(k_proj[..., None], _planar_uv(klx, kly), uv)
+    k_cov = (g.ks_proj != 1) | _inside(klx, kly)
+    k_fpu = torch.where(
+        k_proj, t.fp * _proj_uv_scale_table(mats.ks_proj_inv)[mid], t.fp_uv)
+    k_lod = texmod.compute_lod(t.stack, g.ks_tex, k_fpu, t.lod_bias)
+    k_rgb = _degamma(
+        texmod.sample_smart_bicubic(t.stack, g.ks_tex, kuv, k_lod), t.gamma)
+    k_alpha = torch.where(k_cov, torch.clamp(_luminance(k_rgb), 0.0, 1.0),
+                          0.0)
+    ks = torch.where(g.ks_tex >= 0, g.ks * k_alpha, g.ks)
+    return color, ks
 
 
 def _absmax(c: V3) -> torch.Tensor:
@@ -85,40 +181,46 @@ def _absmax(c: V3) -> torch.Tensor:
 
 
 def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor, *,
-           has_skin: bool, has_disney: bool,
-           diffuse_ray: bool = False) -> MatG:
+           has_skin: bool, has_disney: bool, diffuse_ray: bool = False,
+           tex: TexLookup | None = None) -> MatG:
     """Gather the material rows of a hit batch and build lobe parameters.
     `has_skin` and `has_disney` say whether the table has rlSkin and
     rlDisney rows (decided once per table, on the host). Without rlSkin the
     sheen lobe is left out (`ggx2` None), without rlDisney its lobes and
     columns (`dsy` and the indirect scales None): the lobe evaluators then
-    skip their arithmetic, which would change no lane."""
+    skip their arithmetic, which would change no lane. `tex` (None for a
+    table without texture links) drives the texture lookups."""
     mid = mat_id.long()
     g = Materials(*(None if f in _DISNEY_FIELDS and not has_disney
                     else a[mid] for f, a in zip(Materials._fields, mats)))
     is_standard = g.mtype == MAT_STANDARD
     is_skin = g.mtype == MAT_SKIN
+    base_color = v3(g.kd_color)
+    ks = g.ks
+    if tex is not None:
+        tex_color, ks = _textures(mats, g, mid, tex)
+        base_color = base_color * tex_color
 
     # rlGgx/standard diffuse: Kd * Kd_color (rlGgx.cpp:278-279); rlSkin's
     # on diffuse rays: the albedo sss_color * sss_weight (rlSss.h:172-186);
     # rlDisney's lobe carries its base colour itself
     diffuse_color = vec3.where(is_skin, v3(g.sss_color) * g.sss_weight,
-                               v3(g.kd_color) * g.kd)
+                               base_color * g.kd)
     dsy_p = None
     if has_disney:
         is_disney = g.mtype == MAT_DISNEY
         diffuse_color = vec3.where(is_disney, 1.0, diffuse_color)
-        # every field per lane: base_color is kd_color, roughness
-        # spec_roughness, anisotropic spec_aniso
+        # every field per lane: base_color is the textured kd_color,
+        # roughness spec_roughness, anisotropic spec_aniso
         dsy_p = disney.make_params(
-            base_color=v3(g.kd_color), subsurface=g.subsurface,
+            base_color=base_color, subsurface=g.subsurface,
             metallic=g.metallic, specular=g.specular,
             specular_tint=g.specular_tint, roughness=g.spec_roughness,
             anisotropic=g.spec_aniso, sheen=g.sheen, sheen_tint=g.sheen_tint,
             clearcoat=g.clearcoat, clearcoat_gloss=g.clearcoat_gloss)
     spec_weight = vec3.where(is_skin,
                              v3(g.skin_spec_color) * g.skin_spec_weight,
-                             v3(g.ks_color) * g.ks)
+                             v3(g.ks_color) * ks)
     if diffuse_ray:
         # standard with enable_glossy_caustics off kills the whole specular
         # response on diffuse rays; the rl* plugins carry no such gate
@@ -169,6 +271,38 @@ def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor, *,
         has_spec=has_spec,
         has_refract=_absmax(kt_color) > eps,
     )
+
+
+def apply_bump(mats: Materials, stack: texmod.TextureStack, mat_id, p: V3,
+               ns: V3, fp, tex_gamma: float) -> V3:
+    """The shading normal perturbed by the hit material's bump3d height
+    map (finite differences of its projected luminance along two surface
+    tangents); ns where no bump is bound. The differencing step and the
+    level of detail follow the world footprint `fp` (at least
+    BUMP_EPS_MIN), which band-limits the height field to the pixel
+    scale."""
+    mid = mat_id.long()
+    bump_tex = mats.bump_tex[mid]
+    bump_proj = mats.bump_proj[mid]
+    eps = torch.clamp_min(fp, BUMP_EPS_MIN)
+    scale = _proj_uv_scale_table(mats.bump_proj_inv)[mid]
+    lod = texmod.compute_lod(stack, bump_tex, eps * scale)
+
+    def height(q: V3):
+        lx, ly = _proj_xy(mats.bump_proj_inv, mid, q)
+        rgb = _degamma(texmod.sample_bilinear(stack, bump_tex,
+                                              _planar_uv(lx, ly), lod),
+                       tex_gamma)
+        return torch.where((bump_proj == 2) | _inside(lx, ly),
+                           _luminance(rgb), 0.5)
+
+    frame = build_frame_polar_v(ns)
+    h0 = height(p)
+    gu = (height(p + frame.u * eps) - h0) / eps
+    gv = (height(p + frame.v * eps) - h0) / eps
+    bumped = vec3.normalize(
+        ns - (frame.u * gu + frame.v * gv) * mats.bump_height[mid])
+    return vec3.where(bump_tex >= 0, bumped, ns)
 
 
 def skin_layer_fields(m: MatG, wo: V3) -> MatG:

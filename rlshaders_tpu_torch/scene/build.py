@@ -1,21 +1,27 @@
 """Scene assembly: parsed .ass nodes -> tensor tables on one device.
 
 Counterpart of rlshaders_tpu/scene/build.py: triangulated world-space
-geometry, the material table, quad lights, the skydome, the perspective
-camera and the render options, read as the reference's ShaderData::update
-does. Tables are built in numpy and moved once to `device`: the card
-unless the caller asks for the CPU.
+geometry, the material table with its texture links (MayaFile,
+MayaProjection, bump3d), the texture stack, quad and disk lights, the
+skydome, the perspective camera and the render options, read as the
+reference's ShaderData::update does. Tables are built in numpy and moved
+once to `device`: the card unless the caller asks for the CPU.
 
 Differences from the JAX build, all deliberate:
 
 * no power-of-two padding of the per-triangle tables (it existed to share
   TPU compiles);
-* texture links and disk lights raise NotImplementedError: textures and
-  the disk sampler are later slices of the port;
-* the material table holds the fields the ported shading reads (those of
-  rlGgx, `standard` with its Ksss lobe, rlDisney and rlSkin, under the JAX
-  names), plus the texture ids (`kd_tex`, `ks_tex`, `bump_tex`) that let
-  the renderer refuse what it cannot shade yet.
+* trace sets raise NotImplementedError: no integrator path reads them yet;
+* images are decoded by the port's own PNG decoder (scene/texture.py); a
+  JPEG or other format raises. As in the JAX build, a texture file that is
+  not found is no texture (id -1), silently;
+* a texture file is looked for relative to `base_dir` only. The JAX build
+  also searches the directories above it (`..`, `../..`, `../../data`,
+  `../../../data`), the testsuite's layout; the port reads nothing outside
+  the directory it is given;
+* the material table holds the fields the ported shading reads, under the
+  JAX names: those of rlGgx, `standard` with its Ksss lobe, rlDisney and
+  rlSkin, and the texture, projection and bump columns.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import cpu_math
 from .ass_parser import Node, parse
+from .texture import TextureStack, load_image
 
 # Material type codes
 MAT_STANDARD = 0
@@ -70,13 +78,26 @@ class Materials(NamedTuple):
     kd_color: torch.Tensor         # (M, 3)
     kd: torch.Tensor
     kd_tex: torch.Tensor           # (M,) texture id or -1
+    kd_tex_gain: torch.Tensor      # (M, 3) MayaFile colorGain
+    kd_tex_offset: torch.Tensor    # (M, 3) MayaFile colorOffset
+    kd_tex_invs: torch.Tensor      # (M,) bool: MayaFile `invert`, applied
+    #                                in storage space, before the decode
+    kd_proj: torch.Tensor          # (M,) 0 mesh uv, 1 planar (defaultColor
+    #                                outside), 2 planar wrapping
+    kd_proj_inv: torch.Tensor      # (M, 4, 4) world -> projection matrix
+    kd_proj_default: torch.Tensor  # (M, 3) colour outside the projection
     diffuse_roughness: torch.Tensor
     ks_color: torch.Tensor         # (M, 3)
     ks: torch.Tensor
     spec_fresnel_mode: torch.Tensor  # 0 dielectric IOR, 1 Schlick, 2 none
     spec_ksn: torch.Tensor
-    ks_tex: torch.Tensor           # (M,) texture id or -1
-    bump_tex: torch.Tensor         # (M,) texture id or -1
+    ks_tex: torch.Tensor           # (M,) texture (alpha = luminance) or -1
+    ks_proj: torch.Tensor          # (M,) 0 uv, 1 or 2 planar
+    ks_proj_inv: torch.Tensor      # (M, 4, 4)
+    bump_tex: torch.Tensor         # (M,) bump height map or -1
+    bump_proj: torch.Tensor        # (M,)
+    bump_proj_inv: torch.Tensor    # (M, 4, 4)
+    bump_height: torch.Tensor      # (M,)
     spec_roughness: torch.Tensor
     spec_aniso: torch.Tensor
     spec_dist: torch.Tensor        # 0 GGX, 1 Beckmann (cook_torrance)
@@ -125,6 +146,22 @@ class QuadLights(NamedTuple):
     valid: tuple
 
 
+class DiskLights(NamedTuple):
+    """(L, ...) disk area lights; L >= 1 with a mask for the empty slot."""
+
+    center: torch.Tensor     # (L, 3)
+    u: torch.Tensor          # (L, 3) radius-scaled basis
+    v: torch.Tensor
+    normal: torch.Tensor     # (L, 3) emission is along -normal
+    radius: torch.Tensor     # (L,)
+    radiance: torch.Tensor   # (L, 3)
+    area: torch.Tensor       # (L,)
+    samples: tuple           # per-light sample counts n (n^2 samples)
+    affect_diffuse: tuple
+    affect_specular: tuple
+    valid: tuple
+
+
 class SkyLight(NamedTuple):
     radiance: torch.Tensor   # (3,)
     samples: int
@@ -167,8 +204,10 @@ class Scene:
     geometry: Geometry
     materials: Materials
     quad_lights: QuadLights
+    disk_lights: DiskLights
     sky: SkyLight
     camera: Camera
+    textures: TextureStack
     options: RenderOptions
     mesh_names: list = field(default_factory=list)
     material_names: list = field(default_factory=list)
@@ -211,14 +250,6 @@ def _triangulate(nsides, idxs: np.ndarray) -> np.ndarray:
     return idxs[np.asarray(tri_rows, np.int64)]
 
 
-def _no_texture(node: Node, *params: str) -> None:
-    for p in params:
-        if isinstance(node.get(p), str):
-            raise NotImplementedError(
-                f"{node.type} {node.name!r}: parameter {p!r} links a texture "
-                f"({node.get(p)!r}); textures are not ported yet")
-
-
 def _tensor(a, device) -> torch.Tensor:
     """numpy -> tensor on device: floats as float32, ints as int32."""
     a = np.array(a)
@@ -227,18 +258,23 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, device=device).to(dtype)
 
 
-def build(path_or_nodes, device="cuda") -> Scene:
+def build(path_or_nodes, device="cuda", base_dir: str | None = None
+          ) -> Scene:
     """Assemble a Scene from an .ass path or a pre-parsed node list, with
-    every table on `device` (the card by default; "cpu" for the CPU)."""
-    nodes = parse(path_or_nodes) if isinstance(path_or_nodes, str) \
-        else path_or_nodes
+    every table on `device` (the card by default; "cpu" for the CPU).
+    Texture file names are relative to `base_dir`: by default the scene
+    file's directory, or "." for a node list."""
+    if torch.device(device).type == "cpu":
+        cpu_math.settle()
+    if isinstance(path_or_nodes, str):
+        nodes = parse(path_or_nodes)
+        base_dir = base_dir or os.path.dirname(os.path.abspath(path_or_nodes))
+    else:
+        nodes = path_or_nodes
+        base_dir = base_dir or "."
 
     by_name: dict[str, Node] = {n.name: n for n in nodes if n.name}
     opts_node = next(n for n in nodes if n.type == "options")
-    for n in nodes:
-        if n.type == "disk_light":
-            raise NotImplementedError(
-                f"disk_light {n.name!r}: disk lights are not ported yet")
 
     opts = RenderOptions(
         aa_samples=int(opts_node.get("AA_samples", 1)),
@@ -277,21 +313,106 @@ def build(path_or_nodes, device="cuda") -> Scene:
         yres=opts.yres,
     )
 
+    # ---------------- textures ----------------
+    tex_paths: list[str] = []
+    tex_images: list[np.ndarray] = []
+    no_tex = {
+        "tex_id": -1, "gain": np.ones(3, np.float32),
+        "offset": np.zeros(3, np.float32), "invs": False, "proj": 0,
+        "proj_inv": np.eye(4, dtype=np.float32),
+        "proj_default": np.full(3, 0.5, np.float32),
+    }
+
+    def load_texture_slot(fname: str) -> int:
+        """The texture id of `fname`, relative to `base_dir` only; -1 where
+        it is not found (no texture, as in the JAX build)."""
+        p = os.path.abspath(os.path.join(base_dir, fname))
+        if not os.path.exists(p):
+            return -1
+        if p not in tex_paths:
+            tex_paths.append(p)
+            # storage space: texture_gamma is applied after the filter taps
+            # (models/dispatch._degamma)
+            tex_images.append(load_image(p))
+        return tex_paths.index(p)
+
+    def resolve_tex_input(node_or_name) -> dict:
+        """A MayaFile or MayaProjection link as a texture descriptor: the
+        texture id, colorGain and colorOffset (a projection's chained on
+        its file's), `invert`, and a planar projection's placement."""
+        node = (by_name.get(node_or_name) if isinstance(node_or_name, str)
+                else node_or_name)
+        if node is None:
+            return dict(no_tex)
+        if node.type == "MayaProjection":
+            out = resolve_tex_input(node.get("image"))
+            pm = np.asarray(node.get("placementMatrix",
+                                     np.eye(4, dtype=np.float32)),
+                            np.float32).reshape(4, 4)
+            # proj 1: planar with defaultColor outside the unit square;
+            # proj 2: planar with `wrap on` (the image tiles outside it)
+            out["proj"] = 2 if bool(node.get("wrap", True)) else 1
+            # placementMatrix already maps world -> projection space
+            full = np.eye(4, dtype=np.float32)
+            full[:3, :3] = pm[:3, :3]
+            full[3, :3] = pm[3, :3]
+            out["proj_inv"] = full
+            out["proj_default"] = _gamma_rgb(node.get("defaultColor", 0.5),
+                                             opts.texture_gamma)
+            g = _gamma_rgb(node.get("colorGain", 1.0), 1.0)
+            o = _gamma_rgb(node.get("colorOffset", 0.0), 1.0)
+            out["gain"] = out["gain"] * g
+            out["offset"] = out["offset"] * g + o
+            return out
+        if node.type != "MayaFile":
+            return dict(no_tex)
+        # colour = decode(invert(tex)) * colorGain + colorOffset: `invert`
+        # in storage space before the texture_gamma decode, gain and offset
+        # in linear space after it
+        return dict(no_tex,
+                    tex_id=load_texture_slot(node.get("filename", "")),
+                    gain=_gamma_rgb(node.get("colorGain", 1.0), 1.0),
+                    offset=_gamma_rgb(node.get("colorOffset", 0.0), 1.0),
+                    invs=bool(node.get("invert", False)))
+
+    def kd_columns(v, gamma) -> dict:
+        """A colour parameter as an RGB value or a texture link: the row's
+        kd_color and kd_tex* / kd_proj* columns."""
+        if isinstance(v, str):
+            c, t = np.ones(3, np.float32), resolve_tex_input(v)
+        else:
+            c, t = _gamma_rgb(v, gamma), dict(no_tex)
+        return {"kd_color": c, "kd_tex": t["tex_id"],
+                "kd_tex_gain": t["gain"], "kd_tex_offset": t["offset"],
+                "kd_tex_invs": t["invs"], "kd_proj": t["proj"],
+                "kd_proj_inv": t["proj_inv"],
+                "kd_proj_default": t["proj_default"]}
+
+    def scalar_or_link(v, default=0.0):
+        """A scalar parameter or a link to a texture's alpha ('node.a',
+        which samples the luminance): (value, descriptor)."""
+        if isinstance(v, str):
+            return 1.0, resolve_tex_input(v.split(".")[0])
+        val = float(v) if isinstance(v, (int, float)) else default
+        return val, dict(no_tex)
+
     # ---------------- materials ----------------
     def resolve_surface(shader_name: str):
-        """MayaShadingEngine/bump3d indirection -> surface shader node."""
+        """MayaShadingEngine/bump3d indirection -> (surface shader node,
+        bump3d node or None)."""
         node = by_name.get(shader_name)
+        bump = None
         for _ in range(4):
             if node is None:
-                return None
+                return None, bump
             if node.type == "MayaShadingEngine":
                 node = by_name.get(node.get("beauty", ""))
             elif node.type == "bump3d":
-                raise NotImplementedError(
-                    f"bump3d {node.name!r}: bump maps are not ported yet")
+                bump = node
+                node = by_name.get(node.get("shader", ""))
             else:
-                return node
-        return node
+                return node, bump
+        return node, bump
 
     def fnum(v, default=0.0):
         return float(v) if isinstance(v, (int, float)) else default
@@ -303,15 +424,17 @@ def build(path_or_nodes, device="cuda") -> Scene:
     def material_id_for(shader_name: str) -> int:
         if shader_name in mat_index:
             return mat_index[shader_name]
-        node = resolve_surface(shader_name)
+        node, bump_node = resolve_surface(shader_name)
         g = opts.shader_gamma
         row = {
-            "mtype": MAT_STANDARD,
-            "kd_color": np.ones(3, np.float32), "kd": 0.0, "kd_tex": -1,
+            "mtype": MAT_STANDARD, "kd": 0.0, **kd_columns(1.0, 1.0),
             "diffuse_roughness": 0.0,
             "ks_color": np.ones(3, np.float32), "ks": 0.0,
             "spec_fresnel_mode": 0, "spec_ksn": 0.04,
-            "ks_tex": -1, "bump_tex": -1,
+            "ks_tex": -1, "ks_proj": 0,
+            "ks_proj_inv": np.eye(4, dtype=np.float32),
+            "bump_tex": -1, "bump_proj": 0,
+            "bump_proj_inv": np.eye(4, dtype=np.float32), "bump_height": 0.0,
             "spec_roughness": 0.4, "spec_aniso": 0.0, "spec_dist": 0,
             "glossy_caustics": True,
             "kt_color": np.ones(3, np.float32), "kt": 0.0, "ior": 1.0,
@@ -331,10 +454,8 @@ def build(path_or_nodes, device="cuda") -> Scene:
             "skin_sheen_ior": 1.44,
         }
         if node is not None and node.type == "rlGgx":
-            _no_texture(node, "KdColor")
             row.update(
-                mtype=MAT_GGX,
-                kd_color=_gamma_rgb(node.get("KdColor", 1.0), g),
+                mtype=MAT_GGX, **kd_columns(node.get("KdColor", 1.0), g),
                 kd=fnum(node.get("Kd", 0.5)),
                 diffuse_roughness=fnum(node.get("diffuseRoughness", 0.0)),
                 ks_color=_gamma_rgb(node.get("KsColor", 1.0), g),
@@ -348,10 +469,8 @@ def build(path_or_nodes, device="cuda") -> Scene:
                 * _gamma_rgb(node.get("opacity_color", 1.0), 1.0),
             )
         elif node is not None and node.type == "rlDisney":
-            _no_texture(node, "base_color")
             row.update(
-                mtype=MAT_DISNEY,
-                kd_color=_gamma_rgb(node.get("base_color", 1.0), g),
+                mtype=MAT_DISNEY, **kd_columns(node.get("base_color", 1.0), g),
                 subsurface=fnum(node.get("subsurface", 0.0)),
                 metallic=fnum(node.get("metallic", 0.0)),
                 specular=fnum(node.get("specular", 0.0)),
@@ -391,17 +510,25 @@ def build(path_or_nodes, device="cuda") -> Scene:
                 * _gamma_rgb(node.get("opacity_color", 1.0), 1.0),
             )
         elif node is not None and node.type == "standard":
-            _no_texture(node, "Kd_color", "Ks", "Ksn", "Ks_color")
+            # a linked Ks ('node.a') reads as Ks 0 with no texture: the
+            # reference's MayaFile gives alpha 0 for alpha-less images on
+            # the scalar path (a bump3d's '.a' link reads the luminance)
+            ks_raw = node.get("Ks", 0.0)
+            ks_val, ks_t = ((0.0, dict(no_tex)) if isinstance(ks_raw, str)
+                            else scalar_or_link(ks_raw))
             row.update(
-                mtype=MAT_STANDARD,
-                kd_color=_gamma_rgb(node.get("Kd_color", 1.0), g),
+                mtype=MAT_STANDARD, **kd_columns(node.get("Kd_color", 1.0), g),
                 kd=fnum(node.get("Kd", 0.7)),
                 diffuse_roughness=fnum(node.get("diffuse_roughness", 0.0)),
-                ks_color=_gamma_rgb(node.get("Ks_color", 1.0), g),
-                ks=fnum(node.get("Ks", 0.0)),
+                # a linked Ks_color reads as 1 (its texture is dropped)
+                ks_color=(np.ones(3, np.float32)
+                          if isinstance(node.get("Ks_color"), str)
+                          else _gamma_rgb(node.get("Ks_color", 1.0), g)),
+                ks=ks_val, ks_tex=ks_t["tex_id"], ks_proj=ks_t["proj"],
+                ks_proj_inv=ks_t["proj_inv"],
                 spec_fresnel_mode=(
                     1 if bool(node.get("specular_Fresnel", False)) else 2),
-                spec_ksn=fnum(node.get("Ksn", 0.0)),
+                spec_ksn=scalar_or_link(node.get("Ksn", 0.0))[0],
                 spec_roughness=fnum(node.get("specular_roughness", 0.47)),
                 spec_aniso=0.0,
                 spec_dist=0 if node.get("specular_brdf") == "ggx" else 1,
@@ -418,6 +545,12 @@ def build(path_or_nodes, device="cuda") -> Scene:
                                     np.float32).reshape(3),
                 cavity_fadeout=False,
             )
+        if bump_node is not None and isinstance(bump_node.get("bump_map"),
+                                                str):
+            bt = resolve_tex_input(bump_node.get("bump_map").split(".")[0])
+            row.update(bump_tex=bt["tex_id"], bump_proj=bt["proj"],
+                       bump_proj_inv=bt["proj_inv"],
+                       bump_height=fnum(bump_node.get("bump_height", 0.0)))
         mat_rows.append(row)
         mat_index[shader_name] = len(mat_rows) - 1
         material_names.append(shader_name)
@@ -559,6 +692,49 @@ def build(path_or_nodes, device="cuda") -> Scene:
         specular_weight=tuple(qsw), valid=tuple(valid),
     )
 
+    dc, du, dv, dn, drad, dr, da, ds, dad, das = ([] for _ in range(10))
+    for n in nodes:
+        if n.type != "disk_light":
+            continue
+        m = np.asarray(n.get("matrix"), np.float32)
+        radius = float(n.get("radius", 0.5))
+        # MtoA writes the light's scale into the matrix and mirrors it in
+        # `radius`: the matrix scale where it has one, else the radius,
+        # never both
+        row_scale = float(np.linalg.norm(m[0, :3]))
+        k = (1.0 if row_scale > 1e-6 and abs(row_scale - 1.0) > 1e-4
+             else radius)
+        u = m[0, :3] * k
+        v = m[1, :3] * k
+        area = float(np.pi * np.linalg.norm(np.cross(u, v)))
+        dc.append(m[3, :3].copy())
+        du.append(u)
+        dv.append(v)
+        dn.append(-m[2, :3] / max(np.linalg.norm(m[2, :3]), 1e-20))
+        dr.append(radius)
+        da.append(area)
+        drad.append(light_radiance(n, area))
+        ds.append(int(n.get("samples", 1)))
+        dad.append(bool(n.get("affect_diffuse", True)))
+        das.append(bool(n.get("affect_specular", True)))
+    if not dc:
+        # the placeholder row of a scene without disk lights
+        dc = [np.zeros(3, np.float32)]; du = [np.array([1, 0, 0], np.float32)]
+        dv = [np.array([0, 1, 0], np.float32)]
+        dn = [np.array([0, 0, 1], np.float32)]
+        dr = [1.0]; da = [1.0]; drad = [np.zeros(3, np.float32)]; ds = [1]
+        dad = [False]; das = [False]
+    disk_lights = DiskLights(
+        center=_tensor(np.stack(dc), device), u=_tensor(np.stack(du), device),
+        v=_tensor(np.stack(dv), device), normal=_tensor(np.stack(dn), device),
+        radius=_tensor(np.asarray(dr, np.float32), device),
+        radiance=_tensor(np.stack(drad), device),
+        area=_tensor(np.asarray(da, np.float32), device),
+        samples=tuple(ds), affect_diffuse=tuple(dad),
+        affect_specular=tuple(das),
+        valid=tuple(bool(np.any(r > 0)) for r in drad),
+    )
+
     sky_node = next((n for n in nodes if n.type == "skydome_light"), None)
     if sky_node is not None:
         sky = SkyLight(
@@ -575,19 +751,23 @@ def build(path_or_nodes, device="cuda") -> Scene:
 
     return Scene(
         geometry=geometry, materials=materials, quad_lights=quad_lights,
-        sky=sky, camera=camera, options=opts,
+        disk_lights=disk_lights, sky=sky, camera=camera,
+        textures=TextureStack.build(tex_images, device), options=opts,
         mesh_names=mesh_names, material_names=material_names,
     )
 
 
-def build_text(text: str, device="cuda") -> Scene:
-    """Build from .ass source text (a temporary file feeds the parser)."""
+def build_text(text: str, device="cuda", base_dir: str | None = None
+               ) -> Scene:
+    """Build from .ass source text (a temporary file feeds the parser);
+    texture file names are relative to `base_dir` (by default the temporary
+    file's directory)."""
     import tempfile
 
     fd, path = tempfile.mkstemp(suffix=".ass")
     try:
         with os.fdopen(fd, "w") as f:
             f.write(text)
-        return build(path, device)
+        return build(path, device, base_dir)
     finally:
         os.unlink(path)

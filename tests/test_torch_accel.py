@@ -24,6 +24,9 @@ from rlshaders_tpu.accel import bvh as JB
 from rlshaders_tpu.accel import native as jnative
 from rlshaders_tpu_torch.accel import bvh as TB
 from rlshaders_tpu_torch.accel import trace as ttrace
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 ATOL = 1e-5
 

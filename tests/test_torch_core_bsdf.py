@@ -27,6 +27,9 @@ from rlshaders_tpu_torch.core import frame as tframe
 from rlshaders_tpu_torch.core import vec3 as tvec3
 from rlshaders_tpu_torch.models import dispatch as tdispatch
 from rlshaders_tpu_torch.scene import build as tbuild
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 RTOL = 2e-5
 ATOL = 2e-6

@@ -30,6 +30,7 @@ from rlshaders_tpu.models import dispatch as jdispatch
 from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu_torch import interop
 from rlshaders_tpu_torch.bsdf import disney as td
+from rlshaders_tpu_torch.core import cpu_math
 from rlshaders_tpu_torch.core import vec3 as tv
 from rlshaders_tpu_torch.models import dispatch as tdispatch
 from rlshaders_tpu_torch.scene import build as tbuild
@@ -43,17 +44,7 @@ DIR_ATOL = 1e-3
 TIGHT_SHARE = 0.99
 SCENE = "scenes/disney_spheres.ass"
 
-# The CPU build's vector math (behind torch.sqrt, exp, log, sin, cos, tan
-# and acos on CPU tensors) sets a function up at its first call. When that
-# first call is split over threads (more than 2,048 elements), one thread's
-# share has come back with about 12 correct bits (sqrt(1) = 0.99976) a few
-# times in a hundred fresh processes under load, and this module's first
-# comparison is such a call. So each function is called here, first on one
-# thread, then on every worker thread, before anything is compared.
-for _fn in (torch.sqrt, torch.rsqrt, torch.exp, torch.log, torch.sin,
-            torch.cos, torch.tan, torch.acos):
-    _fn(torch.full((1,), 0.5))
-    _fn(torch.full((1 << 16,), 0.5))
+cpu_math.settle()
 
 
 def _np(x):

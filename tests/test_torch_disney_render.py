@@ -9,6 +9,7 @@ through both the port's build and interop. The tolerances are the
 refraction slice's (tests/test_torch_refract.py), as for the glass and skin
 frames.
 """
+import dataclasses
 import re
 
 import pytest
@@ -24,6 +25,9 @@ from rlshaders_tpu_torch.core import rng
 from rlshaders_tpu_torch.integrator import camera
 from rlshaders_tpu_torch.integrator import wavefront as twave
 from rlshaders_tpu_torch.scene import build as tbuild
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 DISNEY = "scenes/disney_spheres.ass"
 RES = 16
@@ -95,9 +99,7 @@ def _lanes(scene, accel, **scales):
     for f, v in scales.items():
         m = m._replace(**{f: getattr(m, f).index_fill(
             0, torch.tensor([coat]), v)})
-    scene = tbuild.Scene(scene.geometry, m, scene.quad_lights, scene.sky,
-                         scene.camera, scene.options, scene.mesh_names,
-                         scene.material_names)
+    scene = dataclasses.replace(scene, materials=m)
     key = rng.stream(scene.options.aa_seed)
     rays = camera.generate(scene.camera, rng.fold(key, 77), 1, RES, RES)
     tr = twave.TileRenderer(scene, accel, 1)

@@ -15,9 +15,10 @@ on launches whose lanes are all dead or all dead but the last; on sparse
 live lanes, where the any-hit kernel splits a ray's walk over a warp's
 idle lanes; and at ray counts that are no multiple of a warp or a block.
 The CUDA renders (the demo, the glass sphere, the skin close-up with its
-SSS probe stage and the Disney spheres) are held to the CPU renders with
-chip_smoke.py's tolerance, and material dispatch queues no device-to-host
-copy.
+SSS probe stage, the Disney spheres and the textured scene with its disk
+lights) are held to the CPU renders with chip_smoke.py's tolerance, and
+material dispatch, its texture lookups and the bump map queue no
+device-to-host copy.
 """
 import types
 
@@ -27,6 +28,9 @@ import torch
 
 from rlshaders_tpu_torch.accel import bvh
 from rlshaders_tpu_torch.accel import trace
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 
 @pytest.fixture
@@ -302,6 +306,28 @@ def test_cuda_disney_render_matches_cpu(cuda_device):
 
 
 @pytest.mark.gpu
+def test_cuda_textured_render_matches_cpu(cuda_device):
+    """scenes/textured_disk.ass at 8x8 at its own AA 3 and GI samples: the
+    texture lookups, the bump map and the disk lights on the card, held to
+    the CPU render (the plain walk) with chip_smoke.py's tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.scene.build import build
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build("scenes/textured_disk.ass", device=dev)
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, xres=8, yres=8)
+    for name in ("RGBA", "direct_diffuse", "indirect_diffuse",
+                 "indirect_specular"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+@pytest.mark.gpu
 def test_dispatch_makes_no_host_copy(cuda_device):
     """dispatch.gather and the lobes on CUDA tables with every lane kind
     on (the per-table flags are decided once, on the host) queue no
@@ -311,7 +337,7 @@ def test_dispatch_makes_no_host_copy(cuda_device):
     from rlshaders_tpu_torch.scene.build import build
 
     mats = build("scenes/disney_spheres.ass", device=cuda_device).materials
-    dispatch.check_supported(mats)
+    tscene = build("scenes/textured_disk.ass", device=cuda_device)
     n = 4096
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     mat_id = torch.randint(0, mats.mtype.shape[0], (n,), generator=gen,
@@ -331,6 +357,19 @@ def test_dispatch_makes_no_host_copy(cuda_device):
                 *dispatch.eval_specular(m, wo, wi),
                 dispatch.sample_specular(m, wo, rx, ry),
                 dispatch.sample_diffuse(m, wo, rx, ry)]
+        tmats = tscene.materials
+        tid = mat_id % tmats.mtype.shape[0]
+        p = V3(*(8.0 * torch.rand(3, n, generator=gen, device=cuda_device)
+                 - 4.0))
+        fp = torch.rand(n, generator=gen, device=cuda_device) * 1e-2
+        uv = torch.rand(n, 2, generator=gen, device=cuda_device) * 3 - 1
+        tm = dispatch.gather(tmats, tid, entering, has_skin=False,
+                             has_disney=True, tex=dispatch.TexLookup(
+                                 tscene.textures, uv, p, fp, fp * 2.0,
+                                 -0.5, 2.2))
+        outs += [tm.diffuse_color, tm.spec_weight,
+                 dispatch.apply_bump(tmats, tscene.textures, tid, p, wo,
+                                     fp=fp, tex_gamma=2.2)]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert m.dsy is not None and m.ggx2 is not None

@@ -28,6 +28,9 @@ from rlshaders_tpu_torch.integrator import camera as tcam
 from rlshaders_tpu_torch.integrator import lights as tlights
 from rlshaders_tpu_torch.integrator import splat as tsplat
 from rlshaders_tpu_torch.scene.build import Camera as TCamera
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 RTOL = 2e-5
 ATOL = 2e-6

@@ -24,6 +24,9 @@ from rlshaders_tpu_torch.accel import trace
 from rlshaders_tpu_torch.ops import intersect as kernels
 from rlshaders_tpu_torch.scene.build import build
 from rlshaders_tpu_torch.scene.demo import demo_scene
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 
 def _soup(t, seed=8, size=0.05):

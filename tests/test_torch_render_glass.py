@@ -12,6 +12,9 @@ plane means within 4e-6 relative. The tolerances are frame A's.
 import pytest
 
 from test_torch_refract import PLANES, frames_agree, glass_copy, render_both
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 RES = 16
 FRAME_B = dict(GI_refraction_depth=1, GI_diffuse_depth=1, GI_glossy_depth=0,

@@ -22,6 +22,9 @@ from rlshaders_tpu.parallel import mesh as jmesh
 from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu_torch import interop
 from rlshaders_tpu_torch.integrator import wavefront as twave
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 RES = 24
 AA = 2

@@ -13,6 +13,9 @@ import torch
 
 from rlshaders_tpu.core import rng as jrng
 from rlshaders_tpu_torch.core import rng as trng
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 SEEDS = [0, 1, 100, 12345, 2**31 - 1]
 

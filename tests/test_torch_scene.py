@@ -21,6 +21,9 @@ from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu_torch import interop
 from rlshaders_tpu_torch.scene import build as tbuild
 from rlshaders_tpu_torch.scene import demo as tdemo
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "rlshaders_tpu_torch")
@@ -74,6 +77,13 @@ def test_build_tables_equal_jax_build(tmp_path):
         np.testing.assert_array_equal(
             np.asarray(getattr(ts.quad_lights, f)),
             np.asarray(getattr(js.quad_lights, f)), err_msg=f)
+    for f in tbuild.DiskLights._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(ts.disk_lights, f)),
+            np.asarray(getattr(js.disk_lights, f)), err_msg=f)
+    for f in ts.textures._fields:
+        np.testing.assert_array_equal(getattr(ts.textures, f).numpy(),
+                                      np.asarray(getattr(js.textures, f)))
     for f in tbuild.SkyLight._fields:
         np.testing.assert_array_equal(np.asarray(getattr(ts.sky, f)),
                                       np.asarray(getattr(js.sky, f)))
@@ -91,10 +101,11 @@ def test_interop_round_trip():
                                       "cpu")
     for t1, t2 in ((scene.geometry, s2.geometry),
                    (scene.materials, s2.materials), (accel.tree, a2.tree),
-                   (accel.tris, a2.tris)):
+                   (accel.tris, a2.tris), (scene.textures, s2.textures)):
         for a, b in zip(t1, t2):
             assert torch.equal(a, b)
     assert s2.quad_lights.valid == scene.quad_lights.valid
+    assert s2.disk_lights.valid == scene.disk_lights.valid == (False,)
     assert s2.options == scene.options
 
 
@@ -104,28 +115,52 @@ def test_interop_round_trip():
     ('disk_light\n{\n name d\n radius 1\n matrix\n 1 0 0 0\n 0 1 0 0\n'
      ' 0 0 1 0\n 0 0 0 1\n}\n', "disk light"),
 ])
-def test_unported_features_raise(snippet, what):
+def test_unported_features_raise(snippet, what, tmp_path):
+    """Texture links and disk lights raised before their slice; now they
+    build as the JAX build does: a texture whose file is not found is no
+    texture (id -1, silently), a disk light is a row of the disk table."""
     src = _jax_demo(skin=False).replace('shader "mat_floor"', 'shader "m"',
                                         1) + snippet
-    with pytest.raises(NotImplementedError):
-        tbuild.build_text(src, device="cpu")
+    scene = tbuild.build_text(src, device="cpu", base_dir=str(tmp_path))
+    m = scene.materials
+    if what == "texture":
+        assert (m.kd_tex == -1).all() and scene.textures.data.shape == (1, 3)
+    else:
+        assert scene.disk_lights.valid == (True,)
+        assert torch.equal(scene.disk_lights.normal[0],
+                           torch.tensor([0.0, 0.0, -1.0]))
+
+
+def test_still_unported_raise(tmp_path):
+    """Trace sets and image formats other than PNG raise."""
+    from PIL import Image
+
+    src = _jax_demo(skin=False)
+    with pytest.raises(NotImplementedError, match="trace sets"):
+        tbuild.build_text(src.replace(' name floor\n',
+                                      ' name floor\n trace_sets "a"\n', 1),
+                          device="cpu")
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "t.jpg")
+    src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
+           + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
+           'MayaFile\n{\n name tex\n filename "t.jpg"\n}\n')
+    with pytest.raises(NotImplementedError, match="JPEG"):
+        tbuild.build_text(src, device="cpu", base_dir=str(tmp_path))
 
 
 def test_unported_materials_raise_in_gather():
-    """rlSkin and rlDisney gather; a texture link on rlDisney's base_color
-    is refused by the build, and a texture id by check_supported."""
+    """rlSkin and rlDisney gather (nothing raises there any more), and a
+    texture link on rlDisney's base_color builds into its kd_tex column."""
     from rlshaders_tpu_torch.models import dispatch
 
     scene, _ = tdemo.demo_scene(skin=True, device="cpu")
     m = scene.materials
     ids = torch.arange(3, dtype=torch.int32)
     ent = torch.ones(3, dtype=torch.bool)
-    dispatch.check_supported(m)
     g = dispatch.gather(m, ids, ent, has_skin=True, has_disney=False)
     assert g.dsy is None
     disney = m._replace(mtype=torch.where(m.mtype == tbuild.MAT_SKIN,
                                           tbuild.MAT_DISNEY, m.mtype))
-    dispatch.check_supported(disney)
     g = dispatch.gather(disney, ids, ent, has_skin=False, has_disney=True)
     is_disney = g.mtype == tbuild.MAT_DISNEY
     assert bool(is_disney.any()) and g.ggx2 is None
@@ -134,11 +169,41 @@ def test_unported_materials_raise_in_gather():
     src = (_jax_demo(skin=False).replace('shader "mat_floor"', 'shader "d"',
                                          1)
            + 'rlDisney\n{\n name d\n base_color "tex"\n}\n'
-           'MayaFile\n{\n name tex\n filename "x.png"\n}\n')
-    with pytest.raises(NotImplementedError, match="base_color"):
-        tbuild.build_text(src, device="cpu")
-    with pytest.raises(NotImplementedError, match="textures"):
-        dispatch.check_supported(m._replace(kd_tex=torch.ones_like(m.kd_tex)))
+           'MayaFile\n{\n name tex\n filename "data/grid.png"\n}\n')
+    scene = tbuild.build_text(src, device="cpu",
+                              base_dir=os.path.join(REPO, "scenes"))
+    d = scene.material_names.index("d")
+    assert int(scene.materials.mtype[d]) == tbuild.MAT_DISNEY
+    assert int(scene.materials.kd_tex[d]) == 0
+    assert scene.textures.sizes[0, 0].tolist() == [256, 256]
+
+
+def test_cpu_entry_points_settle_the_vector_math():
+    """In a fresh process, importing the port settles nothing; each CPU
+    entry point (demo_scene, build_text and so build, scene_from_numpy)
+    settles the vector math before its arithmetic, and after it torch.sqrt
+    of 65,536 ones (a call split over every thread) is exactly 1.
+    tools/cpu_first_call.py measures the unsettled failure rate."""
+    code = ("import torch\n"
+            "from rlshaders_tpu_torch import interop\n"
+            "from rlshaders_tpu_torch.core import cpu_math\n"
+            "from rlshaders_tpu_torch.scene import build, demo\n"
+            "assert not cpu_math._settled\n"
+            "scene, accel = demo.demo_scene(skin=False, device='cpu')\n"
+            "assert cpu_math._settled\n"
+            "y = torch.sqrt(torch.ones(1 << 16))\n"
+            "assert bool((y == 1).all()), float(y.min())\n"
+            "tables = interop.scene_tables(scene, accel)\n"
+            "cpu_math._settled = False\n"
+            "build.build_text(demo.DEMO_SCENE_ASS, device='cpu')\n"
+            "assert cpu_math._settled\n"
+            "cpu_math._settled = False\n"
+            "interop.scene_from_numpy(tables, 'cpu')\n"
+            "assert cpu_math._settled\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_entry_points_default_to_the_card():

@@ -17,6 +17,9 @@ from rlshaders_tpu_torch.accel import trace as ttrace
 from rlshaders_tpu_torch.integrator import wavefront as twave
 from rlshaders_tpu_torch.integrator.sss import STD_SSS_ENERGY
 from rlshaders_tpu_torch.scene import build as tbuild
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 
 def _center(scene_text, tmp_path):

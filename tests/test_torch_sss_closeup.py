@@ -24,6 +24,9 @@ from rlshaders_tpu_torch.integrator import camera
 from rlshaders_tpu_torch.integrator import sss as tsss
 from rlshaders_tpu_torch.integrator import wavefront as twave
 from rlshaders_tpu_torch.scene import build as tbuild
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 SKIN = "scenes/skin_closeup.ass"
 RES = 8

@@ -19,6 +19,9 @@ from rlshaders_tpu_torch import interop
 from rlshaders_tpu_torch.integrator import sss as tsss
 from rlshaders_tpu_torch.integrator import wavefront as twave
 from rlshaders_tpu_torch.scene.demo import demo_scene
+from rlshaders_tpu_torch.core import cpu_math
+
+cpu_math.settle()
 
 RES = 16
 KW = dict(seed=0, aa_samples=1, xres=RES, yres=RES)

@@ -1,0 +1,156 @@
+"""A reduced copy of scenes/textured_disk.ass (16x16, AA 1, one diffuse
+and one glossy sample a hit) rendered by the JAX package and by the port
+on the CPU, every plane, through the port's build and through interop:
+MayaFile textures with gain, offset and invert, planar projections with
+wrap off and on, a bump3d, texture links on rlGgx and rlDisney, two disk
+lights and a dome, the ray-cone footprint from the render's own width.
+Also its ray counts by formula.
+
+Measured: every pixel of every plane within 2.9e-7 of the JAX frame but
+four, around one camera lane, pixel (7, 13), whose glossy family ray meets
+the backdrop 1.7 mm above its seam with the floor. There the JAX
+package's jitted frame gives the lane's indirect_specular 0, and the same
+package run op by op (jax.disable_jit) gives 0.0034, 0.0042, 0.0055: the
+fused program rounds one step of that lane's path the other way. The port
+matches the op-by-op frame everywhere within 1.2e-7. So the reference is
+the jitted frame with those four pixels of indirect_specular and RGBA (the
+planes the lane feeds) set to their op-by-op values (OPBYOP, printed by
+tools/textured_opbyop.py), held to OPBYOP_ATOL there; every pixel of every
+plane is held to PIX_ATOL, the refraction slice's per-pixel tolerance.
+"""
+import math
+import os
+import re
+
+import numpy as np
+import pytest
+
+from rlshaders_tpu.accel import trace as jtrace
+from rlshaders_tpu.integrator import wavefront as jwave
+from rlshaders_tpu.scene import build as jbuild
+from test_torch_refract import PLANES
+from rlshaders_tpu_torch import interop
+from rlshaders_tpu_torch.accel import trace as ttrace
+from rlshaders_tpu_torch.core import cpu_math
+from rlshaders_tpu_torch.integrator import wavefront as twave
+from rlshaders_tpu_torch.scene import build as tbuild
+
+cpu_math.settle()
+
+SCENE = "scenes/textured_disk.ass"
+RES = 16
+KW = dict(seed=0, aa_samples=1, xres=RES, yres=RES)
+REDUCED = dict(GI_diffuse_samples=1, GI_glossy_samples=1)
+PIX_ATOL = 1e-5
+OPBYOP_ATOL = 1e-6
+# the JAX package's op-by-op values where its jitted frame differs
+_OPBYOP_SPEC = {
+    (6, 13): (0.000721348391380161, 0.0008930732728913426,
+              0.0011662838514894247),
+    (6, 14): (0.002899603685364127, 0.0035761487670242786,
+              0.004333264194428921),
+    (7, 13): (0.002253176411613822, 0.002789569552987814,
+              0.003642959985882044),
+    (7, 14): (0.0030765451956540346, 0.003798851976171136,
+              0.004713341593742371),
+}
+_OPBYOP_RGBA = {
+    (6, 13): (0.0090651735663414, 0.01065050344914198, 0.01673559658229351),
+    (6, 14): (0.08252418041229248, 0.09196972846984863, 0.12767189741134644),
+    (7, 13): (0.040272507816553116, 0.0415126197040081, 0.05375853180885315),
+    (7, 14): (0.06633368879556656, 0.07714643329381943, 0.12026291340589523),
+}
+OPBYOP = {"indirect_specular": _OPBYOP_SPEC, "RGBA": _OPBYOP_RGBA}
+
+def textured_copy(path, **opts) -> str:
+    """scenes/textured_disk.ass with options replaced, written beside its
+    images (`path` in a directory holding data/)."""
+    with open(SCENE) as f:
+        src = f.read()
+    for k, v in opts.items():
+        src, n = re.subn(rf"^ {k} \d+$", f" {k} {v}", src, flags=re.M)
+        assert n == 1, k
+    with open(path, "w") as f:
+        f.write(src)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def frames(tmp_path_factory):
+    d = tmp_path_factory.mktemp("textured")
+    (d / "data").symlink_to(os.path.abspath("scenes/data"))
+    path = textured_copy(d / "t.ass", **REDUCED)
+    js = jbuild.build(path)
+    ja = jtrace.build(js.geometry)
+    jout = jwave.render(js, ja, **KW)
+    ts = tbuild.build(path, device="cpu")
+    accel = ttrace.build(ts.geometry)
+    own = twave.render(ts, accel, **KW)
+    iscene, iaccel = interop.scene_from_numpy(interop.scene_tables(js, ja),
+                                              "cpu")
+    via = twave.render(iscene, iaccel, **KW)
+    return jout, own, via, ts, accel
+
+
+def _agree(port, ref, name):
+    a = port[name].numpy()
+    b = np.array(ref[name])
+    assert a.shape == b.shape == (RES, RES, 3)
+    assert np.isfinite(a).all()
+    for px, v in OPBYOP.get(name, {}).items():
+        b[px] = v
+    err = np.abs(a - b).max(-1)
+    worst = np.unravel_index(np.argmax(err), err.shape)
+    assert err.max() <= PIX_ATOL, (name, err.max(), worst)
+    for px in OPBYOP.get(name, {}):
+        assert err[px] <= OPBYOP_ATOL, (name, px, err[px])
+
+
+@pytest.mark.parametrize("name", PLANES)
+def test_textured_frame_matches_jax(frames, name):
+    jout, own, via, _, _ = frames
+    _agree(own, jout, name)
+    _agree(via, jout, name)
+
+
+def test_textured_frame_is_textured(frames):
+    """Every plane the scene lights is lit, and the textures show: the
+    grid's dark lines and the disc put a spread of values in the frame."""
+    _, own, _, scene, _ = frames
+    for name in ("direct_diffuse", "indirect_diffuse", "direct_specular",
+                 "indirect_specular"):
+        assert float(own[name].mean()) > 0.0, name
+    rgb = own["RGBA"].numpy()
+    assert rgb.std() > 0.2 * rgb.mean()
+    static = twave.SceneStatic.of(scene)
+    assert static.has_tex and static.has_bump and static.tex_gamma == 2.2
+    assert static.disk_valid == (True, True)
+    assert static.disk_w_s == (1.0, 0.0)
+
+
+def test_textured_frame_counts_rays(frames):
+    _, own, via, _, _ = frames
+    n = RES * RES
+    stats = own["__stats__"]
+    # per camera ray, as (nearest rays, any-hit rays): the camera ray and
+    # its 8-column light grid (two disks of 2x2 samples; the dome column
+    # dropped) (1, 8); the diffuse family ray with its light and dome
+    # pickups, its hit's 3-column grid and both fallback lobes (1, 7); the
+    # glossy family ray with its pickups and grid, the diffuse family its
+    # hit spawns and the specular fallback (2, 13)
+    assert stats["nearest_rays"] == 4 * n
+    assert stats["shadow_rays"] == 28 * n
+    assert stats["nearest_calls"] == 4
+    assert stats["shadow_calls"] == 15
+    assert stats["march_segments"] == 0
+    assert via["__stats__"] == stats
+
+
+def test_pixel_spread_follows_the_render_width(frames):
+    """The footprint's spread is one pixel of the render's width, not of
+    the camera's (a reduced render keeps each pixel's footprint)."""
+    _, _, _, scene, accel = frames
+    want = 2.0 * math.tan(math.radians(scene.camera.fov_deg) * 0.5)
+    for xres in (None, RES, 64):
+        tr = twave.TileRenderer(scene, accel, 1, xres=xres)
+        assert tr.conf.pix_spread == want / (xres or scene.camera.xres)
