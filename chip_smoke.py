@@ -39,7 +39,7 @@ nonzero):
    kernel alone, warm, on 262,144 coherent camera rays of the glass scene
    and 262,144 incoherent cosine-bounce rays from their hits, beside its
    byte and operation bounds;
-9. renders the glass scene at 16x16 on the card and on the CPU and
+9. renders the glass scene at 12x12 on the card and on the CPU and
    compares;
 10. holds both kernels to the plain walk on every query of a 64x64, AA 2
    frame of scenes/skin_closeup.ass (the SSS probe stage: probes with an
@@ -85,11 +85,31 @@ nonzero):
    and the rate, and profiles one 128x128, AA 3 tile (the card's activity
    only);
 19. renders the textured scene at 32x32, AA 2 on the card and on the CPU
-   and compares.
+   and compares;
+20. the command line on the card: `cli.main(["render",
+   "scenes/textured_disk.ass", "-o", ..., "--passes", "2", "--aovs",
+   "--profile"])` at the scene's own options, with the kernels' launch
+   counts reset first; reads every EXR back (finite, the frame's shape),
+   holds the beauty to the float64 mean of two direct renders at seeds 0
+   and 7919 within half-float rounding, and times what the command adds
+   around `render` (the float64 mean and host copy of the planes, the EXR
+   writes); prints the passes' seconds, the stage lines, the stats line,
+   the profile's top kernels and the launches;
+21. trace sets: the textured scene with `trace_sets "setA"` on four of its
+   eight polymeshes (the floor among them); both kernels held to the plain
+   walk on every query of a 64x64, AA 3 frame rendered through each
+   subset accel of `build_trace_set` (inclusive, exclusive), and timed on
+   those queries (the `trace_sets_inclusive` and `trace_sets_exclusive`
+   shapes) beside the plain walk and the bound;
+22. `cli mkdir`, `list`, `test` and `display` on a suite written to a
+   temporary directory: the Disney and textured scenes with the port's own
+   card renders as goldens (both pass, rmse under 1e-3) and the textured
+   scene with the Disney golden (fails); checks the listing, the report's
+   rows and that every sheet decodes.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
-the two j_walk sets):
+the two trace-set frames', the two j_walk sets):
 `device_ms`, the shape's queries
 captured in one CUDA graph whose replays are timed with CUDA events (what
 the card spends; the wrappers' host time is paid once, at capture), and
@@ -106,9 +126,14 @@ name and power limit as nvidia-smi prints them; and {"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from functools import partial
@@ -125,7 +150,7 @@ GLASS_AA = 3
 GLASS_CHECK = 64    # width and height of the glass frame held to the walk
 GLASS_RR = 2        # roulette start of that frame (the JAX bench's)
 PROFILE_SIZE = 128  # the profiled frames: one full tile at AA 2 or 3
-GLASS_CPU = 16      # width and height of the glass CUDA vs CPU frames
+GLASS_CPU = 12      # width and height of the glass CUDA vs CPU frames
 SKIN = "scenes/skin_closeup.ass"
 SKIN_CHECK = 64     # width and height of the skin frames held to the walk
 SKIN_CPU = 64       # width and height of the skin CUDA vs CPU frames
@@ -137,6 +162,11 @@ TEXTURED = "scenes/textured_disk.ass"
 TEXTURED_AA = 3
 TEXTURED_CHECK = 64  # width and height of the textured frame held to the walk
 TEXTURED_CPU = 32   # width and height of the textured CUDA vs CPU frames
+CLI_TILE = 8192     # `cli render`'s and `cli test`'s --tile default
+CLI_AOVS = ["direct_diffuse", "direct_specular", "indirect_diffuse",
+            "indirect_specular", "refraction", "sss"]
+# the textured scene's polymeshes in trace set "setA" (phase 21)
+TRACE_SET_MESHES = ("floor", "inv_panel", "bump_ball", "dsy_ball")
 # bench.py's Disney BSDF step: a material grid of this size, SPP samples a
 # pixel (each a specular and a diffuse BSDF sample)
 STEP_W, STEP_H, STEP_SPP = 1920, 1080, 8
@@ -595,35 +625,27 @@ def disney_step(disney, rng, V3, w: int, h: int, spp: int,
     return step, draws
 
 
-def scene_phases(tags, path: str, aa: int, check: int, cpu_size: int,
-                 shape: str, lit_plane: str) -> dict:
-    """Three phases on one scene file (tags: their three numbers): both
-    kernels held to the plain walk on every query of a check x check, AA
-    `aa` frame, and timed there (the `shape`); the frame at the scene's
-    own options through the kernels (counts reset, plain walk barred),
-    every plane checked and `lit_plane` above 0, with one profiled tile;
-    the frame on the card and on the CPU at cpu_size, AA 2. Returns what
-    the JSON line reads: per kernel the compare results, the times and
-    bound of the shape, and the frame's launches."""
+def check_shape(t_check: str, shape: str, scene, accel, aa: int,
+                check: int):
+    """Both kernels held to the plain walk on every query of a check x
+    check, AA `aa` frame of `scene` rendered through `accel`, and timed on
+    those queries (the `shape`): the compare results, the times and the
+    bounds, per kernel. Raises on a mismatch."""
     from rlshaders_tpu_torch.accel import bvh
     from rlshaders_tpu_torch.accel import trace as tracemod
     from rlshaders_tpu_torch.integrator import wavefront
     from rlshaders_tpu_torch.ops import intersect as kernels
-    from rlshaders_tpu_torch.scene.build import build
 
-    t_check, t_path, t_cpu = (str(t) for t in tags)
-    # ---- every query of a check x check frame ----
     t0 = time.perf_counter()
-    scene = build(path)
-    accel = tracemod.build(scene.geometry)
     calls = capture_queries(scene, accel, wavefront, tracemod,
                             aa_samples=aa, xres=check, yres=check)
     reset(kernels)
     res = compare(accel, calls, bvh, kernels)
     log(f"[{t_check}] captured and compared in "
         f"{time.perf_counter() - t0:.1f} s; "
-        f"{scene.geometry.v0.shape[0]} triangles, {accel.tree.first.shape[0]} "
-        f"nodes, tables {table_bytes(accel)} B ({accel.packed.path} path): "
+        f"{accel.tree.tri_order.shape[0]} triangles, "
+        f"{accel.tree.first.shape[0]} nodes, tables {table_bytes(accel)} B "
+        f"({accel.packed.path} path): "
         f"launches by table path {path_launches(kernels)}")
     for k in REPLACES:
         dl = dead_lanes(calls, k)
@@ -657,6 +679,30 @@ def scene_phases(tags, path: str, aa: int, check: int, cpu_size: int,
             f"of device time {b['bound_ms'] / dm:.4f}")
     del calls
     log(f"[{t_check}] phase {time.perf_counter() - t0:.1f} s")
+    return res, times, bounds
+
+
+def scene_phases(tags, path: str, aa: int, check: int, cpu_size: int,
+                 shape: str, lit_plane: str) -> dict:
+    """Three phases on one scene file (tags: their three numbers): both
+    kernels held to the plain walk on every query of a check x check, AA
+    `aa` frame, and timed there (the `shape`); the frame at the scene's
+    own options through the kernels (counts reset, plain walk barred),
+    every plane checked and `lit_plane` above 0, with one profiled tile;
+    the frame on the card and on the CPU at cpu_size, AA 2. Returns what
+    the JSON line reads: per kernel the compare results, the times and
+    bound of the shape, and the frame's launches."""
+    from rlshaders_tpu_torch.accel import bvh
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build
+
+    t_check, t_path, t_cpu = (str(t) for t in tags)
+    # ---- every query of a check x check frame ----
+    scene = build(path)
+    accel = tracemod.build(scene.geometry)
+    res, times, bounds = check_shape(t_check, shape, scene, accel, aa, check)
 
     # ---- the path: the scene at its own options ----
     t0 = time.perf_counter()
@@ -736,6 +782,210 @@ def disney_step_phase(card: str) -> dict:
 
 def texture_bytes(tex) -> int:
     return sum(t.numel() * t.element_size() for t in tex)
+
+
+def trace_set_text(path: str) -> str:
+    """The scene at `path` with `trace_sets "setA"` on the polymeshes of
+    TRACE_SET_MESHES (about half of them, the floor among them)."""
+    with open(path) as f:
+        src = f.read()
+    for name in TRACE_SET_MESHES:
+        head = f"polymesh\n{{\n name {name}\n"
+        if head not in src:
+            raise AssertionError(f"no polymesh {name} in {path}")
+        src = src.replace(head, head + ' trace_sets "setA"\n')
+    return src
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 20: `cli render` of scenes/textured_disk.ass at its own
+    options, two passes, AOVs and the profile; every EXR read back; the
+    beauty against the mean of two direct renders; what the command adds
+    around `render`, piece by piece. Returns the launches of the CLI run
+    and the textured frame at seed 0 (phase 22's golden)."""
+    from rlshaders_tpu_torch import cli
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.io import exr
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli.exr")
+        reset(kernels)
+        t1 = time.perf_counter()
+        rc = cli.main(["render", TEXTURED, "-o", out, "--passes", "2",
+                       "--aovs", "--profile"])
+        wall = time.perf_counter() - t1
+        launches = dict(kernels.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli render returned {rc}")
+        for k, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{k} was not launched by cli render")
+        files = sorted(f for f in os.listdir(tmp) if f.endswith(".exr"))
+        want = ["cli.exr"] + [f"cli.{n}.exr" for n in CLI_AOVS]
+        if files != sorted(want):
+            raise AssertionError(f"cli render wrote {files}")
+        planes = {f: exr.read_rgb(os.path.join(tmp, f)) for f in files}
+        trace_mb = os.path.getsize(os.path.join(tmp, "cli_trace",
+                                                "trace.json")) / 1e6
+    scene = build(TEXTURED)
+    size = (scene.options.yres, scene.options.xres, 3)
+    for f, img in planes.items():
+        if img.shape != size or not np.isfinite(img).all():
+            raise AssertionError(f"{f}: shape {img.shape} or not finite")
+    log(f"[20] cli render: {wall:.4f} s in cli.main (build, two profiled "
+        f"passes, trace export, EXR writes), launches {launches}, trace "
+        f"{trace_mb:.1f} MB; {card}")
+
+    accel = tracemod.build(scene.geometry)
+    passes = []
+    for seed in (0, 7919):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        o = wavefront.render(scene, accel, seed=seed, tile_pixels=CLI_TILE)
+        torch.cuda.synchronize()
+        passes.append((o, time.perf_counter() - t1))
+    (a, ta), (b, tb) = passes
+    mean = ((a["RGBA"].double() + b["RGBA"].double()) / 2).float()
+    mean = mean.cpu().numpy()
+    half = np.spacing(np.abs(mean).astype(np.float16)).astype(np.float32)
+    err = np.abs(planes["cli.exr"] - mean)
+    log(f"[20] direct renders at seeds 0 and 7919: {ta:.4f} s and "
+        f"{tb:.4f} s; the CLI's RGBA against their float64 mean: max abs "
+        f"err {err.max():.3g}, pixels beyond one half-float spacing "
+        f"{int((err > half).sum())}")
+    if (err > half).any():
+        raise AssertionError("the CLI's beauty is not the mean of its "
+                             "passes")
+
+    # what cli render adds around render, on this run's planes
+    names = ["RGBA"] + CLI_AOVS
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    acc = {k: a[k].double() for k in names}
+    for k in names:
+        acc[k] += b[k]
+    host = {k: (v / 2).float().cpu().numpy() for k, v in acc.items()}
+    t_mean = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        for i in range(2):
+            exr.write_rgb(os.path.join(tmp, f"flush{i}.exr"),
+                          (acc["RGBA"] / (i + 1)).float().cpu().numpy())
+        for k, v in host.items():
+            exr.write_rgb(os.path.join(tmp, f"{k}.exr"), v)
+        t_exr = time.perf_counter() - t1
+    nbytes = sum(v.nbytes for v in host.values())
+    log(f"[20] around render: the float64 sum and mean of {len(names)} "
+        f"planes and their host copy ({nbytes} B) {t_mean * 1e3:.4f} ms; "
+        f"{len(names) + 2} EXR writes (two flushes) {t_exr * 1e3:.4f} ms; "
+        f"{card}")
+    log(f"[20] phase {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "golden": a["RGBA"].cpu().numpy()}
+
+
+def trace_set_phase() -> dict:
+    """Phase 21: both kernels held to the plain walk on every query of a
+    64x64, AA 3 frame of the textured scene rendered through each subset
+    accel of its trace set (inclusive, exclusive), and timed there."""
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.scene.build import build_text
+
+    t0 = time.perf_counter()
+    scene = build_text(trace_set_text(TEXTURED),
+                       base_dir=os.path.dirname(TEXTURED))
+    if scene.trace_set_names != ["setA"]:
+        raise AssertionError(f"trace sets {scene.trace_set_names}")
+    members = int(((scene.geometry.visibility & (1 << 8)) != 0).sum())
+    log(f"[21] trace set setA: {members} of {scene.geometry.v0.shape[0]} "
+        f"triangles, meshes {list(TRACE_SET_MESHES)}")
+    out = {}
+    for inclusive in (True, False):
+        tag = "inclusive" if inclusive else "exclusive"
+        accel = tracemod.build_trace_set(scene.geometry, 0, inclusive)
+        log(f"[21] {tag}: {accel.tree.tri_order.shape[0]} triangles, "
+            f"{accel.tree.first.shape[0]} nodes, {accel.packed.path} path")
+        out[tag] = check_shape("21", f"trace_sets_{tag}", scene, accel,
+                               TEXTURED_AA, TEXTURED_CHECK)
+    log(f"[21] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def suite_phase(golden_textured: np.ndarray) -> None:
+    """Phase 22: `cli test`, `list` and `display` on a suite written to a
+    temporary directory: 0001 the Disney spheres and 0002 the textured
+    scene, each with the port's own card render at seed 0 as its golden
+    (both pass), and 0003 the textured scene with the Disney golden (must
+    fail)."""
+    from rlshaders_tpu_torch import cli
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.io import exr
+    from rlshaders_tpu_torch.scene.build import build
+    from rlshaders_tpu_torch.scene.texture import decode_png
+
+    t0 = time.perf_counter()
+    scene = build(DISNEY)
+    o = wavefront.render(scene, tracemod.build(scene.geometry), seed=0,
+                         tile_pixels=CLI_TILE)
+    golden_disney = o["RGBA"].cpu().numpy()
+    del o, scene
+    cases = {"0001": (DISNEY, golden_disney, "disney spheres"),
+             "0002": (TEXTURED, golden_textured, "textured disk"),
+             "0003": (TEXTURED, golden_disney,
+                      "textured with the wrong golden")}
+    with tempfile.TemporaryDirectory() as tmp:
+        suite = os.path.join(tmp, "suite")
+        for case, (path, golden, desc) in cases.items():
+            if cli.main(["mkdir", "--suite", suite, "--desc", desc]) != 0:
+                raise AssertionError(f"cli mkdir failed for {case}")
+            data = os.path.join(suite, "mtoa", case, "data")
+            shutil.copy(path, data)
+            if path == TEXTURED:
+                shutil.copytree(os.path.join(os.path.dirname(TEXTURED),
+                                             "data"),
+                                os.path.join(data, "data"))
+            exr.write_rgb(os.path.join(suite, "mtoa", case, "ref",
+                                       "ref.exr"), golden)
+        listing = io.StringIO()
+        with contextlib.redirect_stdout(listing):
+            cli.main(["list", "--suite", suite])
+        want = [f"{c}  {d}" for c, (_, _, d) in cases.items()]
+        if listing.getvalue().splitlines() != want:
+            raise AssertionError(f"cli list printed {listing.getvalue()!r}")
+        report = os.path.join(tmp, "report.csv")
+        with contextlib.chdir(tmp):
+            rc = cli.main(["test", "--suite", suite, "--report", report,
+                           "--save"])
+        with open(report) as f:
+            rows = [r.split(",") for r in f.read().splitlines()[1:]]
+        log(f"[22] cli test rc {rc}: " + "; ".join(
+            f"{r[0]} {r[2]} masked rmse {r[3]} full {r[4]} {r[7]} s"
+            for r in rows))
+        status = [(r[0], r[2]) for r in rows]
+        if status != [("0001", "OK"), ("0002", "OK"), ("0003", "FAIL")]:
+            raise AssertionError(f"cli test reported {status}")
+        if rc != 1 or max(float(r[4]) for r in rows[:2]) >= 1e-3:
+            raise AssertionError("cli test: rc or rmse off")
+        for case in cases:
+            shutil.copy(os.path.join(tmp, "out", f"test_{case}.exr"),
+                        os.path.join(suite, "mtoa", case, "ref",
+                                     "test_tpu.exr"))
+        sheets = os.path.join(tmp, "display")
+        if cli.main(["display", "--suite", suite, "--outdir", sheets]) != 0:
+            raise AssertionError("cli display failed")
+        for case in cases:
+            with open(os.path.join(sheets, f"{case}.png"), "rb") as f:
+                img = decode_png(f.read())
+            h, w = golden_textured.shape[:2]
+            if img.shape != (h, 3 * w, 3) or not img.any():
+                raise AssertionError(f"display sheet {case}: {img.shape}")
+        log(f"[22] cli list, test and display: the listing, the three rows "
+            f"and three decodable {h}x{3 * w} sheets as expected")
+    log(f"[22] phase {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -1032,6 +1282,9 @@ def main() -> int:
     disney_step_phase(card)
     tex = scene_phases((17, 18, 19), TEXTURED, TEXTURED_AA, TEXTURED_CHECK,
                        TEXTURED_CPU, "textured", "direct_diffuse")
+    clirun = cli_phase(card)
+    tsets = trace_set_phase()
+    suite_phase(clirun["golden"])
 
     entries = []
     for k in REPLACES:
@@ -1050,6 +1303,9 @@ def main() -> int:
         shapes["disney"] = shape(dm, cm, pm, dsy["bounds"][k], nq)
         dm, cm, pm, _, nq = tex["times"][k]
         shapes["textured"] = shape(dm, cm, pm, tex["bounds"][k], nq)
+        for tag, (_, tt, tb) in tsets.items():
+            dm, cm, pm, _, nq = tt[k]
+            shapes[f"trace_sets_{tag}"] = shape(dm, cm, pm, tb[k], nq)
         for tag in jsets:
             dm, cm, pm, b = jwalk[(k, tag)]
             shapes[f"jwalk_{tag}"] = shape(dm, cm, pm, b, 1)
@@ -1058,10 +1314,11 @@ def main() -> int:
             "replaces": REPLACES[k],
             "launches": (demo_launches[k] + glass_launches[k]
                          + skin_launches[k] + dsy["launches"][k]
-                         + tex["launches"][k]),
+                         + tex["launches"][k] + clirun["launches"][k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
-                               dsy["compare"][k][2], tex["compare"][k][2]),
+                               dsy["compare"][k][2], tex["compare"][k][2],
+                               *(r[k][2] for r, _, _ in tsets.values())),
             "ms": times[k][1], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
@@ -1070,6 +1327,7 @@ def main() -> int:
             "launches_skin": skin_launches[k],
             "launches_disney": dsy["launches"][k],
             "launches_textured": tex["launches"][k],
+            "launches_cli": clirun["launches"][k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

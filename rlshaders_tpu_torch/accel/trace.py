@@ -49,12 +49,36 @@ def from_arrays(geometry, bbox_min, bbox_max, first, count, miss,
     return Accel(tree=tree, tris=tris, packed=kernels.pack(tree, tris))
 
 
-def build(geometry) -> Accel:
-    """Build the BVH on the host over the scene's triangles."""
-    arrays = bvhmod.build_arrays(geometry.v0.cpu().numpy(),
-                                 geometry.e1.cpu().numpy(),
-                                 geometry.e2.cpu().numpy())
-    return from_arrays(geometry, *arrays)
+def build(geometry, member: np.ndarray | None = None) -> Accel:
+    """Build the BVH on the host over the scene's triangles, or over the
+    subset `member` (a bool per triangle) of them. Hits report original
+    triangle ids either way: the builder's subset-local order is mapped
+    back, and the tables gather the geometry by it.
+
+    The JAX build strips its tables' power-of-two padding rows first; the
+    port's tables have none, so every row is a triangle. As in the JAX
+    package, a subset with no member is built over triangle 0; here that
+    is a real triangle, which the subset's queries can hit."""
+    idx = np.arange(geometry.v0.shape[0])
+    if member is not None:
+        idx = idx[np.asarray(member, bool)]
+        if idx.size == 0:
+            idx = np.zeros(1, np.int64)
+    arrays = bvhmod.build_arrays(geometry.v0.cpu().numpy()[idx],
+                                 geometry.e1.cpu().numpy()[idx],
+                                 geometry.e2.cpu().numpy()[idx])
+    return from_arrays(geometry, *arrays[:-1], idx[arrays[-1]])
+
+
+def build_trace_set(geometry, set_bit: int, inclusive: bool) -> Accel:
+    """Accel over one trace set (Arnold's AiShaderGlobalsSet/UnsetTraceSet):
+    `inclusive` keeps the set's members, else everything but them. Set
+    `set_bit` is the set's index in `Scene.trace_set_names`; membership is
+    visibility bit 8 + set_bit. Its queries behave as the full scene's do
+    (original ids, the same visibility gating)."""
+    vis = geometry.visibility.cpu().numpy()
+    mem = (vis & (1 << (8 + set_bit))) != 0
+    return build(geometry, member=mem if inclusive else ~mem)
 
 
 def _no_path(o: torch.Tensor):

@@ -4,7 +4,9 @@ Counterpart of rlshaders_tpu/bsdf/ggx.py (anisotropic GGX NDF, Smith G1,
 exact dielectric Fresnel with TIR, Heitz & d'Eon slope-space VNDF sampling,
 the Walter Eq.20 reflection term, rough refraction: the Eq.21 refraction
 term, the Eq.40 refracted direction and the Eq.41 sample weight, and the
-view-averaged Fresnel of rlSkin's layering).
+view-averaged Fresnel of rlSkin's layering), and the debug surface the
+JAX package's tests and `cli patterns` use: `sample_slope`, `sample_ndf`,
+`ndf_pdf`, `eval_brdf` and `fresnel_avg_normal`.
 
 Local shading frame: the normal is +z, the alpha_x axis is +x; directions
 point away from the surface and are channel-split `V3` triples.
@@ -144,6 +146,13 @@ def sample_slope_tan(tan_theta, near_normal, rx, ry):
     )
 
 
+def sample_slope(theta, rx, ry):
+    """Angle-parameterized wrapper of `sample_slope_tan` (reference
+    parity in tests)."""
+    tan_theta = torch.tan(torch.clamp(theta, 0.0, math.pi / 2 - 1e-4))
+    return sample_slope_tan(tan_theta, theta < EPS, rx, ry)
+
+
 def sample_vndf(wo: V3, alpha_x, alpha_y, rx, ry) -> V3:
     """Sample a visible microfacet normal (VNDFKernel::evalSample,
     rlGgx.cpp:63-99): stretch, sample slopes, rotate, unstretch."""
@@ -177,6 +186,24 @@ def vndf_pdf(params: GGXParams, wo: V3, m: V3) -> torch.Tensor:
     return torch.where(m.z > 0.0, torch.clamp_min(pdf, EPS), EPS)
 
 
+def sample_ndf(alpha_x, alpha_y, rx, ry) -> V3:
+    """Sample the full (not visible) NDF, Burley Eq.14 (rlGgx.h:33-41)."""
+    g = torch.sqrt(rx / torch.clamp_min(1.0 - rx, 1e-12))
+    phi = TWO_PI * ry
+    return vec3.normalize(V3(g * alpha_x * torch.cos(phi),
+                             g * alpha_y * torch.sin(phi),
+                             torch.ones_like(phi)))
+
+
+def ndf_pdf(params: GGXParams, wo: V3, m: V3) -> torch.Tensor:
+    """Reflection pdf of plain-NDF sampling, Walter Eq.38
+    (rlGgx.h:44-50)."""
+    idotm = torch.abs(vec3.dot(wo, m))
+    mdotn = torch.abs(m.z)
+    return (d_ggx_aniso(m, params.alpha_x, params.alpha_y) * mdotn * 0.25
+            / torch.clamp_min(idotm, 1e-12))
+
+
 def reflection_parts(params: GGXParams, wo: V3, wi: V3):
     """(fresnel, G*D/(4 |l.n||v.n|)) of Walter Eq.20."""
     sign = torch.sign(wo.z)
@@ -194,6 +221,16 @@ def reflection_term(params: GGXParams, wo: V3, wi: V3) -> torch.Tensor:
     """Scalar reflection BRDF value, Walter Eq.20 (rlGgx.h:304-313)."""
     f, gd = reflection_parts(params, wo, wi)
     return f * gd
+
+
+def eval_brdf(params: GGXParams, wo: V3, wi: V3, spec_color: V3) -> V3:
+    """Reflectance times cos(theta_i) (GgxSamplerT::evalBrdf ->
+    evalReflectance, rlGgx.h:110-119, 158-165); 0 for a zero `wi`. The
+    JAX package's `spec_color` is a field of its params; here it is an
+    argument."""
+    valid = vec3.dot(wi, wi) > 1e-12
+    refl = reflection_term(params, wo, wi) * wi.z
+    return spec_color * torch.where(valid, refl, 0.0)
 
 
 def refraction_term(params: GGXParams, wo: V3, wi: V3) -> torch.Tensor:
@@ -280,3 +317,9 @@ def sample_refract(params: GGXParams, wo: V3, rx, ry):
     wi_refr, tir = refract_direction(m, wo, params.ior_in, params.ior_out)
     wi = vec3.where(tir, vec3.reflect(wo, m), wi_refr)
     return wi, bsdf_sample_weight(params, wo, wi, m), tir
+
+
+def fresnel_avg_normal(params: GGXParams) -> torch.Tensor:
+    """Fresnel at normal incidence: F0 = ((eta-1)/(eta+1))^2."""
+    eta = params.ior_out / params.ior_in
+    return ((eta - 1.0) / (eta + 1.0)) ** 2

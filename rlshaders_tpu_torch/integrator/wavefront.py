@@ -42,11 +42,15 @@ both MIS count scales 1, faceforward by the shading normal, Owen-Sobol
 streams at camera hits, a march of 4 hits (RLS_SHADOW_HITS), a level of
 detail bias of -0.5 (RLS_LOD_BIAS) and a footprint inflation exponent of
 0.5 (RLS_TEX_ANISO_ALPHA). Russian roulette (RLS_RR_START) is `render`'s
-`rr_refr_start`.
+`rr_refr_start`, and the per-stage timers (RLS_PROFILE) its `profile`.
+
+`render_progressive` averages independently seeded passes and can flush
+the running mean of the beauty to an EXR after each pass.
 """
 from __future__ import annotations
 
 import math
+import time
 from functools import partial
 from typing import NamedTuple
 
@@ -979,10 +983,15 @@ def _tile(sc, static, conf, origin, direction, pixel, start, key):
 class TileRenderer:
     """Renders tiles of camera rays of one scene. `stats` counts the rays
     handed to each query (and the calls), and the shadow segments that
-    marched (their steps are nearest queries)."""
+    marched (their steps are nearest queries). With `profile`, each call
+    of the "tile" and "sss" stages is timed on the host clock between two
+    synchronizations of the card (on a CUDA scene), into
+    stats["t_<stage>"] (seconds) and stats["n_<stage>"] (calls)."""
 
     def __init__(self, scene: Scene, accel: tracemod.Accel, aa_samples: int,
-                 rr_refr_start: int = 99, xres: int | None = None):
+                 rr_refr_start: int = 99, xres: int | None = None,
+                 profile: bool = False):
+        self.profile = profile
         self.static = SceneStatic.of(scene)
         self.stats = {"nearest_rays": 0, "nearest_calls": 0,
                       "shadow_rays": 0, "shadow_calls": 0,
@@ -1018,17 +1027,34 @@ class TileRenderer:
                        tile_rays: int, key):
         self.stats["tiles"] += 1
         sl = slice(start, start + tile_rays)
-        rgb, aovs, sss_in = _tile(
-            self.sc, self.static, self.conf, rays.origin[sl],
+        rgb, aovs, sss_in = self._run(
+            "tile", _tile, self.sc, self.static, self.conf, rays.origin[sl],
             rays.direction[sl], rays.pixel[sl], start, key)
         if self.static.has_skin and self.conf.gi_sss_samples > 0:
             from . import sss as sssmod
 
-            c = sssmod.sss_stage(self.sc, self.static, self.conf, sss_in,
-                                 rng.fold(key, 4))
+            c = self._run("sss", sssmod.sss_stage, self.sc, self.static,
+                          self.conf, sss_in, rng.fold(key, 4))
             aovs["sss"] = c
             rgb = rgb + c
         return rgb, aovs
+
+    def _run(self, name: str, fn, *args):
+        if not self.profile:
+            return fn(*args)
+        _sync(self.sc.geometry.v0.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(self.sc.geometry.v0.device)
+        dt = time.perf_counter() - t0
+        self.stats[f"t_{name}"] = self.stats.get(f"t_{name}", 0.0) + dt
+        self.stats[f"n_{name}"] = self.stats.get(f"n_{name}", 0) + 1
+        return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _pad_rays(rays: cameramod.CameraRays, pad: int) -> cameramod.CameraRays:
@@ -1048,12 +1074,13 @@ def _pad_rays(rays: cameramod.CameraRays, pad: int) -> cameramod.CameraRays:
 def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
            tile_pixels: int = 16384, aa_samples: int | None = None,
            xres: int | None = None, yres: int | None = None,
-           rr_refr_start: int = 99) -> dict:
+           rr_refr_start: int = 99, profile: bool = False) -> dict:
     """Render the frame on the scene's device, where the accel must live
     too. `rr_refr_start` turns on Russian roulette on the refraction chain
-    from that refraction depth (99 = off). Returns {"RGBA": (H, W, 3),
-    aov_name: (H, W, 3), ..., "__stats__": dict}, the planes as float32
-    tensors on the scene's device."""
+    from that refraction depth (99 = off); `profile` times each stage call
+    (`TileRenderer`). Returns {"RGBA": (H, W, 3), aov_name: (H, W, 3), ...,
+    "__stats__": dict}, the planes as float32 tensors on the scene's
+    device."""
     device = scene.device
     if accel.tree.bbox_min.device != device:
         raise ValueError(f"accel is on {accel.tree.bbox_min.device}, the "
@@ -1067,7 +1094,8 @@ def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
 
     key = rng.stream(opts.aa_seed + seed)
     rays = cameramod.generate(scene.camera, rng.fold(key, 77), aa, xres, yres)
-    tr = TileRenderer(scene, accel, aa, rr_refr_start, xres=xres)
+    tr = TileRenderer(scene, accel, aa, rr_refr_start, xres=xres,
+                      profile=profile)
 
     n_rays = n_pix * n_sub
     tile_rays = min(tile_pixels * n_sub, n_rays)
@@ -1092,3 +1120,41 @@ def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
     out = {name: p.reshape(yres, xres, 3) for name, p in planes.items()}
     out["__stats__"] = dict(tr.stats)
     return out
+
+
+def render_progressive(scene: Scene, accel: tracemod.Accel, passes: int,
+                       seed: int = 0, tile_pixels: int = 16384,
+                       aa_samples: int | None = None, xres: int | None = None,
+                       yres: int | None = None, flush_path: str | None = None,
+                       verbose: bool = True, profile: bool = False) -> dict:
+    """The mean of `passes` renders, pass p seeded `seed + 7919 p`: a
+    running float64 sum per plane on the scene's device. After each pass
+    the running mean of the beauty is written to `flush_path` (an EXR),
+    so a long render always leaves a usable frame on disk; `verbose`
+    prints each pass's seconds. Returns the planes as float32 numpy arrays
+    and the `__stats__` of the last pass."""
+    from ..io import exr as exrmod
+
+    acc = stats = None
+    for p in range(passes):
+        t0 = time.perf_counter()
+        out = render(scene, accel, seed=seed + p * 7919,
+                     tile_pixels=tile_pixels, aa_samples=aa_samples,
+                     xres=xres, yres=yres, profile=profile)
+        stats = out.pop("__stats__")
+        if acc is None:
+            acc = {k: v.double() for k, v in out.items()}
+        else:
+            for k in acc:
+                acc[k] += out[k]
+        _sync(scene.device)
+        dt = time.perf_counter() - t0
+        if flush_path is not None:
+            exrmod.write_rgb(flush_path, (acc["RGBA"] / (p + 1)).float()
+                             .cpu().numpy())
+        if verbose:
+            print(f"[rls] pass {p + 1}/{passes} done in {dt:.4f}s",
+                  flush=True)
+    result = {k: (v / passes).float().cpu().numpy() for k, v in acc.items()}
+    result["__stats__"] = stats
+    return result

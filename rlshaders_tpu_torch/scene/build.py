@@ -11,7 +11,10 @@ Differences from the JAX build, all deliberate:
 
 * no power-of-two padding of the per-triangle tables (it existed to share
   TPU compiles);
-* trace sets raise NotImplementedError: no integrator path reads them yet;
+* trace sets fold into visibility bits 8 and up, as in the JAX build
+  (`Scene.trace_set_names` holds the names by bit); no integrator path
+  reads them, and `accel.trace.build_trace_set` builds a query structure
+  over one set;
 * images are decoded by the port's own PNG decoder (scene/texture.py); a
   JPEG or other format raises. As in the JAX build, a texture file that is
   not found is no texture (id -1), silently;
@@ -211,6 +214,7 @@ class Scene:
     options: RenderOptions
     mesh_names: list = field(default_factory=list)
     material_names: list = field(default_factory=list)
+    trace_set_names: list = field(default_factory=list)
 
     @property
     def device(self) -> torch.device:
@@ -560,12 +564,10 @@ def build(path_or_nodes, device="cuda", base_dir: str | None = None
     V0, E1, E2, N0, N1, N2, UV0, UV1, UV2 = ([] for _ in range(9))
     MATID, MESHID, VIS, OPQ, RCV = ([] for _ in range(5))
     mesh_names = []
+    trace_set_names: list[str] = []
     for n in nodes:
         if n.type != "polymesh":
             continue
-        if n.get("trace_sets"):
-            raise NotImplementedError(
-                f"polymesh {n.name!r}: trace sets are not ported yet")
         mid = len(mesh_names)
         mesh_names.append(n.name)
         m = np.asarray(n.get("matrix", np.eye(4, dtype=np.float32)),
@@ -610,7 +612,18 @@ def build(path_or_nodes, device="cuda", base_dir: str | None = None
         UV0.append(u0); UV1.append(u1); UV2.append(u2)
         MATID.append(np.full(t, mat, np.int32))
         MESHID.append(np.full(t, mid, np.int32))
-        VIS.append(np.full(t, int(n.get("visibility", 255)), np.int32))
+        # trace sets (Arnold's AiShaderGlobalsSetTraceSet): a mesh's set
+        # names fold into visibility bits 8.. (the ray-visibility bits all
+        # fit in 0..7), so every reader masks before it compares
+        ts = n.get("trace_sets")
+        set_bits = 0
+        if ts:
+            for name in ([ts] if isinstance(ts, str) else list(ts)):
+                if name not in trace_set_names:
+                    trace_set_names.append(name)
+                set_bits |= 1 << (8 + trace_set_names.index(name))
+        VIS.append(np.full(
+            t, int(n.get("visibility", 255)) | set_bits, np.int32))
         OPQ.append(np.full(t, bool(n.get("opaque", True))))
         RCV.append(np.full(t, bool(n.get("receive_shadows", True))))
 
@@ -754,6 +767,7 @@ def build(path_or_nodes, device="cuda", base_dir: str | None = None
         disk_lights=disk_lights, sky=sky, camera=camera,
         textures=TextureStack.build(tex_images, device), options=opts,
         mesh_names=mesh_names, material_names=material_names,
+        trace_set_names=trace_set_names,
     )
 
 

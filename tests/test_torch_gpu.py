@@ -18,8 +18,12 @@ The CUDA renders (the demo, the glass sphere, the skin close-up with its
 SSS probe stage, the Disney spheres and the textured scene with its disk
 lights) are held to the CPU renders with chip_smoke.py's tolerance, and
 material dispatch, its texture lookups and the bump map queue no
-device-to-host copy.
+device-to-host copy. `cli render` writes the same EXRs on the card as on
+the CPU within that tolerance, and the trace-set accels of
+`build_trace_set` have the same tables on both and the kernels the same
+hits as the CPU walk.
 """
+import os
 import types
 
 import numpy as np
@@ -376,3 +380,66 @@ def test_dispatch_makes_no_host_copy(cuda_device):
     for o in outs:
         t = o.aos() if isinstance(o, V3) else o
         assert bool(torch.isfinite(t).all())
+
+
+@pytest.mark.gpu
+def test_cli_render_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """`cli render` of scenes/skin_closeup.ass at 8x8, AA 1 on the card and
+    on the CPU: every EXR within chip_smoke.py's tolerance (half-float
+    files)."""
+    from rlshaders_tpu_torch import cli
+    from rlshaders_tpu_torch.io import exr
+
+    for dev in ("cuda", "cpu"):
+        os.makedirs(tmp_path / dev)
+        assert cli.main(["render", "scenes/skin_closeup.ass", "-o",
+                         str(tmp_path / dev / "out.exr"), "--res", "8",
+                         "--aa", "1", "--aovs", "--device", dev]) == 0
+    names = sorted(os.listdir(tmp_path / "cpu"))
+    assert names == sorted(os.listdir(tmp_path / "cuda"))
+    assert "out.sss.exr" in names
+    for name in names:
+        a = exr.read_rgb(str(tmp_path / "cuda" / name))
+        b = exr.read_rgb(str(tmp_path / "cpu" / name))
+        assert a.shape == b.shape == (8, 8, 3)
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98, name
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean()) + 1e-6, name
+
+
+@pytest.mark.gpu
+def test_trace_set_accels_on_the_card_match_the_cpu(cuda_device):
+    """build_trace_set over CUDA tensors: the same tables as over CPU
+    tensors, and the kernels' hits equal the CPU walk's on random rays."""
+    from rlshaders_tpu_torch.scene.build import build_text
+
+    with open("scenes/textured_disk.ass") as f:
+        src = f.read()
+    for name in ("floor", "inv_panel", "bump_ball", "dsy_ball"):
+        head = f"polymesh\n{{\n name {name}\n"
+        assert head in src
+        src = src.replace(head, head + ' trace_sets "setA"\n')
+    scenes = {dev: build_text(src, device=dev, base_dir="scenes")
+              for dev in ("cuda", "cpu")}
+    assert scenes["cpu"].trace_set_names == ["setA"]
+    for inclusive in (True, False):
+        acc = {dev: trace.build_trace_set(s.geometry, 0, inclusive)
+               for dev, s in scenes.items()}
+        for a, b in zip(acc["cuda"].tree, acc["cpu"].tree):
+            assert torch.equal(a.cpu(), b)
+        args = _rays("cpu", 20_000, seed=5 + inclusive,
+                     n_tris=scenes["cpu"].geometry.v0.shape[0])
+        args[0] = args[0] * 4.0
+        for vis_mask in (1, 2, 0xFF):
+            hk = trace.nearest(acc["cuda"], *(a.to(cuda_device)
+                                              for a in args[:2]), vis_mask,
+                               args[3].to(cuda_device), t_max=args[2].to(
+                                   cuda_device))
+            hp = trace.nearest(acc["cpu"], args[0], args[1], vis_mask,
+                               args[3], t_max=args[2])
+            for x, y in zip(hk, hp):
+                assert torch.equal(x.cpu(), y)
+            ok = trace.occluded(acc["cuda"], *(a.to(cuda_device)
+                                               for a in args[:3]), vis_mask,
+                                args[3].to(cuda_device))
+            op = trace.occluded(acc["cpu"], *args[:3], vis_mask, args[3])
+            assert torch.equal(ok.cpu(), op)

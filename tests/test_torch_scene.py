@@ -132,14 +132,21 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Trace sets and image formats other than PNG raise."""
+    """Image formats other than PNG raise. Trace sets build: the floor's
+    triangles carry the set's bit 8, the others none."""
     from PIL import Image
 
     src = _jax_demo(skin=False)
-    with pytest.raises(NotImplementedError, match="trace sets"):
-        tbuild.build_text(src.replace(' name floor\n',
-                                      ' name floor\n trace_sets "a"\n', 1),
-                          device="cpu")
+    scene = tbuild.build_text(src.replace(' name floor\n',
+                                          ' name floor\n trace_sets "a"\n',
+                                          1), device="cpu")
+    assert scene.trace_set_names == ["a"]
+    floor = scene.mesh_names.index("floor")
+    vis = scene.geometry.visibility
+    on_floor = scene.geometry.mesh_id == floor
+    assert on_floor.any()
+    assert ((vis[on_floor] & (1 << 8)) != 0).all()
+    assert ((vis[~on_floor] & ~0xFF) == 0).all()
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "t.jpg")
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
@@ -253,6 +260,11 @@ def test_port_imports_no_jax():
         "rlshaders_tpu_torch." + os.path.relpath(p, PORT)[:-3]
         .replace(os.sep, ".").replace(".__init__", "")
         for p in files if p.startswith(PORT))
+    assert {"rlshaders_tpu_torch.cli", "rlshaders_tpu_torch.io.exr",
+            "rlshaders_tpu_torch.io.png", "rlshaders_tpu_torch.models.dcc",
+            "rlshaders_tpu_torch.models.registry",
+            "rlshaders_tpu_torch.utils.sample_writer",
+            "rlshaders_tpu_torch.utils.watermark"} <= set(mods)
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "assert 'jax' not in sys.modules, 'jax imported'\n"
             + "assert not [m for m in sys.modules if m.startswith("
