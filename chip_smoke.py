@@ -105,7 +105,29 @@ nonzero):
    temporary directory: the Disney and textured scenes with the port's own
    card renders as goldens (both pass, rmse under 1e-3) and the textured
    scene with the Disney golden (fails); checks the listing, the report's
-   rows and that every sheet decodes.
+   rows and that every sheet decodes;
+23. `parallel/mesh.py::render_sharded` at world size 1 over NCCL in this
+   process (a FileStore group, destroyed after): the demo frame of phase 4
+   through the kernels (counts reset, plain walk barred), every plane held
+   to `render`'s frame on the card by the CUDA vs CPU tolerance (the
+   splat's atomics move the last bits of both), the ray counts equal;
+   both frames timed in three interleaved pairs; bench.py's 1080p Disney
+   step through `sharded_shade_step` on the (1,) mesh, held to
+   `shade_step` and timed (Gsamples/s as phase 16 counts them);
+24. world size 2 over gloo, two processes on cuda:0 (`launch(...,
+   backend="gloo", same_device=True)`): demo_scene() with its rlSkin blob
+   at 256x256, AA 2 through `render_sharded` at tile_pixels 16384 (two
+   tiles a rank) and 24576 (three tiles padded to four), each held to the
+   single-process frame at its tile size by the same tolerance; both
+   kernels launched on every rank; the ranks' summed ray counts equal to
+   the single process's plus the padding tile's; `sharded_shade_step` on
+   the (1, 2) and (2,) meshes over the 1080p batch, SPP 8, within 1e-5 of
+   the same arithmetic by `shade_step` in one process;
+25. the committed scenes/data/grid.jpg and logo.jpg decoded without PIL
+   and held to the SHA-256 of PIL's decode; scenes/textured_disk.ass with
+   its images named .jpg rendered at its own options through the kernels
+   (counts reset, plain walk barred), and at 32x32 on the card and on the
+   CPU, compared.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -120,9 +142,11 @@ frame's queries, the measure the key has always had; a comparison of
 device times reads `shapes[...]["device_ms"]`.
 
 The last three lines of the output are: a JSON object with one entry per
-kernel (with, per shape, its launches, device_ms and call_ms); the card's
-name and power limit as nvidia-smi prints them; and {"ok": true,
-"device": {...}}.
+kernel (with, per shape, its launches, device_ms and call_ms; and the
+launches of each main-path run, `launches_demo` ... `launches_cli`,
+`launches_mesh` for phases 23-24, `launches_jpeg` for phase 25, whose sum
+is `launches`); the card's name and power limit as nvidia-smi prints
+them; and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -171,6 +195,18 @@ TRACE_SET_MESHES = ("floor", "inv_panel", "bump_ball", "dsy_ball")
 # pixel (each a specular and a diffuse BSDF sample)
 STEP_W, STEP_H, STEP_SPP = 1920, 1080, 8
 JWALK_RAYS = 262144
+# phase 24's tile sizes at world size 2: 4 tiles (2 a rank), and 3 tiles
+# padded to 4 (a padding tile, traced and dropped)
+MESH_TILES = (16384, 24576)
+MESH_TIMEOUT_S = 300    # a launch of phase 24: ends a hung rank
+# SHA-256 of PIL's RGB decode of the committed JPEG textures (pinned by
+# tests/test_torch_jpeg.py)
+JPEG_DIGESTS = {
+    "scenes/data/grid.jpg":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/logo.jpg":
+        "6ca72db18beca40ae8d32c3fe2421a339667c534ed778bf6106a07b9db5df803",
+}
 SOUP = 12000       # triangles: tables too large for shared memory
 REPLACES = {
     "rls_nearest": "rlshaders_tpu/ops/intersect_pallas.py:342",
@@ -480,8 +516,9 @@ def path_launches(kernels) -> dict:
     return {k: n for k, n in kernels.PATH_LAUNCHES.items() if n}
 
 
-def barred_render(wavefront, bvh, scene, accel, **kw):
-    """One timed render with the plain walk barred: (output, seconds)."""
+def barred_render(render, bvh, scene, accel, **kw):
+    """One timed call of render (`wavefront.render` or a sharded render)
+    with the plain walk barred: (output, seconds)."""
     def barred(*args, **kwargs):
         raise AssertionError("the plain BVH walk was called on the card")
 
@@ -490,11 +527,17 @@ def barred_render(wavefront, bvh, scene, accel, **kw):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = wavefront.render(scene, accel, seed=SEED, **kw)
+        out = render(scene, accel, seed=SEED, **kw)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
     finally:
         bvh.intersect, bvh.occluded = real
+
+
+def check_launched(launches: dict, what: str) -> None:
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched by {what}")
 
 
 def check_planes(out, size) -> None:
@@ -509,24 +552,36 @@ def check_planes(out, size) -> None:
         raise AssertionError("black frame")
 
 
-def cuda_vs_cpu(wavefront, tag, scenes, tol, **kw):
-    """Render on the card and on the CPU and compare every plane."""
+def host_planes(out: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in out.items() if k != "__stats__"}
+
+
+def frames_agree(tag: str, got: dict, ref: dict, names=("cuda", "cpu"),
+                 tol=(PIX_TOL, PIX_FRAC, MEAN_RTOL)) -> None:
+    """Every plane of two frames (numpy planes by name): the share of
+    pixels within pix_tol and the relative difference of the means."""
     pix_tol, pix_frac, mean_rtol = tol
-    small = {}
-    for dev, (sc, ac) in scenes.items():
-        o = wavefront.render(sc, ac, seed=SEED, **kw)
-        small[dev] = {k: v.cpu().numpy() for k, v in o.items()
-                      if k != "__stats__"}
-    for k in small["cpu"]:
-        a, b = small["cuda"][k], small["cpu"][k]
+    for k in ref:
+        a, b = got[k], ref[k]
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"[{tag}] {k}: shape {a.shape} or not "
+                                 f"finite")
         within = float((np.abs(a - b).max(-1) <= pix_tol).mean())
         mean_err = abs(float(a.mean()) - float(b.mean())) / max(
             abs(float(b.mean())), 1e-6)
         log(f"[{tag}] {k}: share of pixels within {pix_tol}: {within:.4f}, "
-            f"mean cuda {a.mean():.6f} cpu {b.mean():.6f} (rel "
+            f"mean {names[0]} {a.mean():.6f} {names[1]} {b.mean():.6f} (rel "
             f"{mean_err:.3g})")
         if within < pix_frac or mean_err > mean_rtol:
-            raise AssertionError(f"{k}: CUDA and CPU frames disagree")
+            raise AssertionError(f"[{tag}] {k}: the {names[0]} and "
+                                 f"{names[1]} frames disagree")
+
+
+def cuda_vs_cpu(wavefront, tag, scenes, tol, **kw):
+    """Render on the card and on the CPU and compare every plane."""
+    small = {dev: host_planes(wavefront.render(sc, ac, seed=SEED, **kw))
+             for dev, (sc, ac) in scenes.items()}
+    frames_agree(tag, small["cuda"], small["cpu"], tol=tol)
 
 
 def profile_frame(wavefront, tag, scene, accel, **kw) -> None:
@@ -707,14 +762,11 @@ def scene_phases(tags, path: str, aa: int, check: int, cpu_size: int,
     # ---- the path: the scene at its own options ----
     t0 = time.perf_counter()
     reset(kernels)
-    out, dt = barred_render(wavefront, bvh, scene, accel)
+    out, dt = barred_render(wavefront.render, bvh, scene, accel)
     launches = dict(kernels.LAUNCHES)
     o = scene.options
     check_planes(out, o.xres)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched by the {shape} "
-                                 f"render")
+    check_launched(launches, f"the {shape} render")
     if not float(out[lit_plane].mean()) > 0.0:
         raise AssertionError(f"the {lit_plane} AOV is black")
     tex = scene.textures
@@ -821,9 +873,7 @@ def cli_phase(card: str) -> dict:
         launches = dict(kernels.LAUNCHES)
         if rc != 0:
             raise AssertionError(f"cli render returned {rc}")
-        for k, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"{k} was not launched by cli render")
+        check_launched(launches, "cli render")
         files = sorted(f for f in os.listdir(tmp) if f.endswith(".exr"))
         want = ["cli.exr"] + [f"cli.{n}.exr" for n in CLI_AOVS]
         if files != sorted(want):
@@ -988,6 +1038,273 @@ def suite_phase(golden_textured: np.ndarray) -> None:
     log(f"[22] phase {time.perf_counter() - t0:.1f} s")
 
 
+def padding_stats(wavefront, rng, cameramod, scene, accel, world: int,
+                  tile_pixels: int) -> dict:
+    """The ray counts of the tiles that pad the demo frame's tiles to a
+    multiple of `world`, rendered alone at their global indices."""
+    n_rays = SIZE * SIZE * AA * AA
+    tile_rays = min(tile_pixels * AA * AA, n_rays)
+    n_tiles = -(-n_rays // tile_rays)
+    n_tiles_p = -(-n_tiles // world) * world
+    key = rng.stream(scene.options.aa_seed + SEED)
+    rays = cameramod.generate(scene.camera, rng.fold(key, 77), AA, SIZE,
+                              SIZE)
+    rays = wavefront._pad_rays(rays, n_tiles_p * tile_rays - n_rays)
+    tr = wavefront.TileRenderer(scene, accel, AA, xres=SIZE)
+    for gt in range(n_tiles, n_tiles_p):
+        tr.render_tile_at(rays, gt * tile_rays, tile_rays,
+                          rng.fold(key, 1000 + gt))
+    return tr.stats
+
+
+def mesh_world1_phase(card: str) -> dict:
+    """Phase 23: `render_sharded` at world size 1 over NCCL in this
+    process, the demo frame of phase 4 through the kernels (counts reset,
+    plain walk barred), held to `render`'s frame; both frames timed in
+    three interleaved pairs; the Disney step of phase 16 through
+    `sharded_shade_step` on the (1,) mesh. Returns the launches."""
+    import torch.distributed as dist
+
+    from rlshaders_tpu_torch.accel import bvh
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    scene, accel = mesh.demo_scene(skin=False)
+    kw = dict(aa_samples=AA, xres=SIZE, yres=SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            m = mesh.make_mesh()
+            sharded = partial(mesh.render_sharded, mesh=m)
+            reset(kernels)
+            out, dt = barred_render(sharded, bvh, scene, accel, **kw)
+            launches = dict(kernels.LAUNCHES)
+            check_planes(out, SIZE)
+            check_launched(launches, "render_sharded at world size 1")
+            ref = wavefront.render(scene, accel, seed=SEED, **kw)
+            if out["__stats__"] != ref["__stats__"]:
+                raise AssertionError(f"[23] ray counts {out['__stats__']} "
+                                     f"against render's {ref['__stats__']}")
+            frames_agree("23", host_planes(out), host_planes(ref),
+                         ("render_sharded", "render"))
+            log(f"[23] render_sharded over NCCL, world size 1, mesh "
+                f"{m.mesh_dim_names} {tuple(m.shape)} ({m.device_type}), "
+                f"demo {SIZE}x{SIZE} AA {AA}: {dt:.4f} s, launches "
+                f"{launches}, stats {out['__stats__']}; {card}")
+            pairs = []
+            for _ in range(3):
+                pair_s = []
+                for fn in (wavefront.render, sharded):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fn(scene, accel, seed=SEED, **kw)
+                    torch.cuda.synchronize()
+                    pair_s.append(time.perf_counter() - t1)
+                pairs.append(tuple(pair_s))
+            log(f"[23] seconds a frame, (render, render_sharded) in turns: "
+                + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in pairs))
+            del out, ref
+
+            params, wo = mesh.demo_batch(STEP_W * STEP_H)
+            key = rng.stream(0)
+            est = mesh.sharded_shade_step(m, params, wo, key, STEP_SPP)
+            plain = mesh.shade_step(params, wo, key, STEP_SPP)
+            err = float((est - plain).abs().max())
+            if not bool(torch.isfinite(est).all()) or err > 1e-5:
+                raise AssertionError(f"[23] sharded_shade_step: max abs err "
+                                     f"{err} against shade_step")
+            keys = iter(range(1, 100))
+            ms = events_ms(lambda: mesh.sharded_shade_step(
+                m, params, wo, rng.fold(key, next(keys)), STEP_SPP), 3)
+            rate = STEP_W * STEP_H * STEP_SPP * 2 / (ms / 1e3) / 1e9
+            log(f"[23] sharded_shade_step over (1,), demo_batch("
+                f"{STEP_W}*{STEP_H}) SPP {STEP_SPP}: {ms:.4f} ms a step, "
+                f"{rate:.4f} Gsamples/s (counted as phase 16), max abs err "
+                f"against shade_step {err:.3g}; {card}")
+            del params, wo, est, plain
+        finally:
+            dist.destroy_process_group()
+    log(f"[23] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def mesh_rank(rank: int) -> dict:
+    """Phase 24 on one of two ranks (gloo, both on cuda:0): the demo with
+    its rlSkin blob through `render_sharded` at each tile size of
+    MESH_TILES (counts reset, plain walk barred), then `sharded_shade_step`
+    on the (1, 2) and (2,) meshes. Returns rank 0's planes and estimates
+    and every rank's launches, ray counts and seconds."""
+    import torch.distributed as dist
+
+    from rlshaders_tpu_torch.accel import bvh
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.parallel import mesh
+
+    kernels.build()
+    scene, accel = mesh.demo_scene()
+    m = mesh.make_mesh()
+    planes, mine = {}, {}
+    for tile in MESH_TILES:
+        reset(kernels)
+        out, dt = barred_render(partial(mesh.render_sharded, mesh=m), bvh,
+                                scene, accel, aa_samples=AA, xres=SIZE,
+                                yres=SIZE, tile_pixels=tile)
+        mine[tile] = {"launches": dict(kernels.LAUNCHES),
+                      "stats": out.pop("__stats__"), "seconds": dt}
+        planes[tile] = host_planes(out)
+    params, wo = mesh.demo_batch(STEP_W * STEP_H)
+    shade = {}
+    for sp in (2, 1):
+        mm = mesh.make_mesh(sp=sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = mesh.sharded_shade_step(mm, params, wo, rng.stream(0),
+                                      STEP_SPP)
+        torch.cuda.synchronize()
+        shade[sp] = (est.cpu().numpy(), time.perf_counter() - t0)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {"planes": planes, "ranks": ranks, "shade": shade,
+            "mesh": (m.mesh_dim_names, tuple(m.shape), m.device_type)}
+
+
+def mesh_world2_phase(card: str) -> dict:
+    """Phase 24: `mesh_rank` on two ranks over gloo on the one card; each
+    tile size's frame held to `render`'s, every rank's launches above 0,
+    the ranks' ray counts to the single process's plus the padding tile's,
+    the Disney step to `shade_step`'s arithmetic in one process. Returns
+    the launches of both ranks and both frames."""
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.integrator import camera as cameramod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = mesh.launch(mesh_rank, 2, backend="gloo", same_device=True,
+                      timeout_s=MESH_TIMEOUT_S)
+    t_launch = time.perf_counter() - t0
+    log(f"[24] two ranks over gloo on cuda:0, mesh {res['mesh']}: the "
+        f"launch took {t_launch:.1f} s (process start, CUDA context, both "
+        f"frames, both steps); {card}")
+    scene, accel = mesh.demo_scene()
+    # a warm-up frame, so that the timed frames below pay no first calls
+    wavefront.render(scene, accel, seed=SEED, aa_samples=AA, xres=SIZE,
+                     yres=SIZE)
+    launches = dict.fromkeys(REPLACES, 0)
+    for tile in MESH_TILES:
+        per = [r[tile] for r in res["ranks"]]
+        for i, r in enumerate(per):
+            check_launched(r["launches"], f"rank {i} at tile {tile}")
+            for k, n in r["launches"].items():
+                launches[k] += n
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = wavefront.render(scene, accel, seed=SEED, aa_samples=AA,
+                               xres=SIZE, yres=SIZE, tile_pixels=tile)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t1
+        frames_agree(f"24 tile {tile}", res["planes"][tile], host_planes(ref),
+                     ("render_sharded", "render"))
+        pad = padding_stats(wavefront, rng, cameramod, scene, accel, 2, tile)
+        total = {k: sum(r["stats"][k] for r in per) for k in per[0]["stats"]}
+        want = {k: v + pad[k] for k, v in ref["__stats__"].items()}
+        if total != want:
+            raise AssertionError(f"[24] tile {tile}: the ranks' ray counts "
+                                 f"{total}, expected {want}")
+        log(f"[24] tile_pixels {tile}: " + "; ".join(
+            f"rank {i} {r['seconds']:.4f} s, {r['stats']['tiles']} tiles, "
+            f"launches {r['launches']}" for i, r in enumerate(per))
+            + f"; render in one process {t_ref:.4f} s; the ranks' rays = "
+            f"render's + the padding tiles' {pad}")
+    params, wo = mesh.demo_batch(STEP_W * STEP_H)
+    key = rng.stream(0)
+    half = STEP_SPP // 2
+    ref = {2: (mesh.shade_step(params, wo, rng.fold_in(key, 0), half)
+               + mesh.shade_step(params, wo, rng.fold_in(key, 1), half)) / 2}
+    n = STEP_W * STEP_H
+    ref[1] = torch.cat([mesh.shade_step(mesh._rows(params, rows), wo[rows],
+                                        key, STEP_SPP)
+                        for rows in (slice(0, n // 2), slice(n // 2, n))])
+    for sp, (est, dt) in res["shade"].items():
+        err = float(np.abs(est - ref[sp].cpu().numpy()).max())
+        log(f"[24] sharded_shade_step over {('(2,)', '(1, 2)')[sp - 1]}, "
+            f"demo_batch({STEP_W}*{STEP_H}) SPP {STEP_SPP}: {dt:.4f} s on "
+            f"rank 0 (first call), max abs err against shade_step in one "
+            f"process {err:.3g}")
+        if not np.isfinite(est).all() or err > 1e-5:
+            raise AssertionError(f"[24] sharded_shade_step sp {sp} is off")
+    log(f"[24] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def jpeg_phase(card: str) -> dict:
+    """Phase 25: the committed JPEGs decoded without PIL and held to the
+    pinned digests; scenes/textured_disk.ass with its images named .jpg at
+    its own options through the kernels (counts reset, plain walk barred);
+    its 32x32 frame on the card and on the CPU. Returns the launches."""
+    import hashlib
+
+    from rlshaders_tpu_torch.accel import bvh
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build_text
+    from rlshaders_tpu_torch.scene.jpeg import decode_jpeg
+
+    t0 = time.perf_counter()
+    for path, digest in JPEG_DIGESTS.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        px = decode_jpeg(data)
+        dt = time.perf_counter() - t1
+        got = hashlib.sha256(px.tobytes()).hexdigest()
+        log(f"[25] {path}: {len(data)} B -> {px.shape} in {dt * 1e3:.2f} ms "
+            f"(host), sha256 {got[:16]}...")
+        if got != digest:
+            raise AssertionError(f"[25] {path} decodes to {got}, PIL's "
+                                 f"decode is {digest}")
+    if "PIL" in sys.modules:
+        raise AssertionError("[25] PIL was imported")
+    with open(TEXTURED) as f:
+        src = f.read()
+    if src.count(".png") != 3:
+        raise AssertionError(f"{TEXTURED} names {src.count('.png')} PNGs")
+    src = src.replace(".png", ".jpg")
+    base = os.path.dirname(TEXTURED)
+    t1 = time.perf_counter()
+    scene = build_text(src, base_dir=base)
+    log(f"[25] built the JPEG-textured scene in {time.perf_counter() - t1:.2f}"
+        f" s; texture table {texture_bytes(scene.textures)} B")
+    accel = tracemod.build(scene.geometry)
+    reset(kernels)
+    out, dt = barred_render(wavefront.render, bvh, scene, accel)
+    launches = dict(kernels.LAUNCHES)
+    o = scene.options
+    check_planes(out, o.xres)
+    check_launched(launches, "the JPEG-textured render")
+    stats = out["__stats__"]
+    log(f"[25] JPEG-textured {o.xres}x{o.yres} AA {o.aa_samples}: "
+        f"{dt:.4f} s/frame, mean RGB {float(out['RGBA'].mean()):.6f}, "
+        f"launches {launches}, nearest rays {stats['nearest_rays']}, shadow "
+        f"rays {stats['shadow_rays']}; {card}")
+    del out
+    cscene = build_text(src, device="cpu", base_dir=base)
+    cuda_vs_cpu(wavefront, "25", {
+        "cuda": (scene, accel),
+        "cpu": (cscene, tracemod.build(cscene.geometry))},
+        (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=TEXTURED_CPU,
+        yres=TEXTURED_CPU)
+    log(f"[25] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -1060,13 +1377,11 @@ def main() -> int:
 
     # ---- the demo path: a timed 256x256 frame through the kernels ----
     reset(kernels)
-    out, dt = barred_render(wavefront, bvh, scene, accel, aa_samples=AA,
-                            xres=SIZE, yres=SIZE)
+    out, dt = barred_render(wavefront.render, bvh, scene, accel,
+                            aa_samples=AA, xres=SIZE, yres=SIZE)
     demo_launches = dict(kernels.LAUNCHES)
     check_planes(out, SIZE)
-    for k, n in demo_launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched by the demo render")
+    check_launched(demo_launches, "the demo render")
     stats = out["__stats__"]
     rays = stats["nearest_rays"] + stats["shadow_rays"]
     log(f"[4] {SIZE}x{SIZE} AA {AA}: {dt:.4f} s/frame, mean RGB "
@@ -1137,7 +1452,7 @@ def main() -> int:
 
     # ---- the glass path: a timed 256x256, AA 3 frame ----
     reset(kernels)
-    gout, gdt = barred_render(wavefront, bvh, gscene, gaccel,
+    gout, gdt = barred_render(wavefront.render, bvh, gscene, gaccel,
                               aa_samples=GLASS_AA, xres=SIZE, yres=SIZE)
     glass_launches = dict(kernels.LAUNCHES)
     check_planes(gout, SIZE)
@@ -1244,13 +1559,11 @@ def main() -> int:
     # ---- the skin path: skin_closeup.ass at its own options ----
     t0 = time.perf_counter()
     reset(kernels)
-    sout, sdt = barred_render(wavefront, bvh, sscene, saccel)
+    sout, sdt = barred_render(wavefront.render, bvh, sscene, saccel)
     skin_launches = dict(kernels.LAUNCHES)
     so = sscene.options
     check_planes(sout, so.xres)
-    for k, n in skin_launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched by the skin render")
+    check_launched(skin_launches, "the skin render")
     sss = float(sout["sss"].mean())
     if not sss > 0.0:
         raise AssertionError("the sss AOV is black")
@@ -1285,6 +1598,9 @@ def main() -> int:
     clirun = cli_phase(card)
     tsets = trace_set_phase()
     suite_phase(clirun["golden"])
+    mesh1 = mesh_world1_phase(card)
+    mesh2 = mesh_world2_phase(card)
+    jpeg_launches = jpeg_phase(card)
 
     entries = []
     for k in REPLACES:
@@ -1314,7 +1630,8 @@ def main() -> int:
             "replaces": REPLACES[k],
             "launches": (demo_launches[k] + glass_launches[k]
                          + skin_launches[k] + dsy["launches"][k]
-                         + tex["launches"][k] + clirun["launches"][k]),
+                         + tex["launches"][k] + clirun["launches"][k]
+                         + mesh1[k] + mesh2[k] + jpeg_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -1328,6 +1645,8 @@ def main() -> int:
             "launches_disney": dsy["launches"][k],
             "launches_textured": tex["launches"][k],
             "launches_cli": clirun["launches"][k],
+            "launches_mesh": mesh1[k] + mesh2[k],
+            "launches_jpeg": jpeg_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

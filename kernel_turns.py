@@ -21,9 +21,10 @@ shape, in turns (parent, this tree, this tree, parent):
 - call_ms: the same queries as eager wrapper calls, timed with CUDA events;
 - torch.profiler's sum of the kernel's launches over one eager pass.
 
-Then the demo (256x256, AA 2), glass (256x256, AA 3) and skin close-up
-(256x256, AA 2) frames, each rendered twice by each package's own
-render(), in turns. Prints the
+Then the demo (256x256, AA 2), glass (256x256, AA 3), skin close-up
+(256x256, AA 2), Disney spheres and textured (256x256, AA 3, their own
+options) frames, each rendered twice by each package's own render(), in
+turns. Prints the
 card and writes everything to results.json (by default
 out/kernel_turns.json).
 """
@@ -164,6 +165,16 @@ def main(root: str, results: str) -> int:
     pskin = sub(PARENT, "scene.build").build(cs.SKIN)
     ptrace = sub(PARENT, "accel.trace")
     sscene = build(cs.SKIN)
+
+    def both(path):
+        out = {}
+        for ver, pkg, tr in (("parent", PARENT, ptrace),
+                             ("this", "rlshaders_tpu_torch", tracemod)):
+            sc = sub(pkg, "scene.build").build(path)
+            out[ver] = (sub(pkg, "integrator.wavefront"), sc,
+                        tr.build(sc.geometry))
+        return out
+
     frames = {
         "demo": {"parent": (sub(PARENT, "integrator.wavefront"),
                             *sub(PARENT, "scene.demo").demo_scene(
@@ -178,8 +189,11 @@ def main(root: str, results: str) -> int:
                             ptrace.build(pskin.geometry)),
                  "this": (sub("rlshaders_tpu_torch", "integrator.wavefront"),
                           sscene, tracemod.build(sscene.geometry))},
+        "disney": both(cs.DISNEY),
+        "textured": both(cs.TEXTURED),
     }
-    aa = {"demo": cs.AA, "glass": cs.GLASS_AA, "skin": cs.AA}
+    aa = {"demo": cs.AA, "glass": cs.GLASS_AA, "skin": cs.AA,
+          "disney": cs.DISNEY_AA, "textured": cs.TEXTURED_AA}
     for shape, vers in frames.items():
         secs = {"parent": [], "this": []}
         for ver in ("parent", "this", "this", "parent") * 2:

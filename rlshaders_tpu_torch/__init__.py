@@ -2,15 +2,18 @@
 
 The JAX package `rlshaders_tpu` stays the reference; this package mirrors
 its layout (core, scene, accel, ops, bsdf, models, integrator, io, utils,
-cli) and function names, imports torch and numpy, and never jax or
-rlshaders_tpu.
+parallel, cli) and function names, imports torch and numpy, and never jax
+or rlshaders_tpu.
 
 The ported slices render scenes of rlGgx, rlDisney, rlSkin and `standard`
 materials under quad and disk lights and a dome: rough refraction and
 transparent shadows, subsurface scattering by probe rays, and MayaFile
-textures, planar projections and bump3d maps (PNG images; JPEG is not
-decoded yet). Meshes' trace sets fold into visibility bits 8 and up, and
-`accel.trace.build_trace_set` builds the query structure of one set.
+textures, planar projections and bump3d maps (PNG and sequential JPEG
+images, decoded by the port itself). Meshes' trace sets fold into
+visibility bits 8 and up, and `accel.trace.build_trace_set` builds the
+query structure of one set. `parallel.mesh.render_sharded` splits a frame's
+tiles over the ranks of a torch.distributed process group (one process a
+GPU, started by `parallel.mesh.launch`) and all-reduces the framebuffer.
 `python -m rlshaders_tpu_torch.cli render scene.ass -o out.exr` renders to
 EXR (`cli` also runs a golden-image testsuite); from Python,
 `scene.demo.demo_scene()` or `scene.build.build(path)`, then

@@ -106,6 +106,17 @@ def make_params(base_color: V3, subsurface=0.0, metallic=0.0, specular=0.0,
 # Lobe terms
 # ---------------------------------------------------------------------------
 
+def expand_sample_axis(params: DisneyParams) -> DisneyParams:
+    """Insert a broadcast sample axis after the batch axis on every field,
+    each channel of a colour (scalar fields pass through: they broadcast
+    already)."""
+    def f(a: torch.Tensor) -> torch.Tensor:
+        return a if a.ndim == 0 else a.unsqueeze(1)
+
+    return DisneyParams(*(V3(*map(f, a)) if isinstance(a, V3) else f(a)
+                          for a in params))
+
+
 def _schlick5(x: torch.Tensor) -> torch.Tensor:
     s = torch.clamp(1.0 - x, 0.0, 1.0)
     s2 = s * s

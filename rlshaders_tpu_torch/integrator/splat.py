@@ -16,11 +16,12 @@ import torch
 ALPHA = 1.0
 
 
-def _splat(vals: torch.Tensor, pixel: torch.Tensor, sub_xy: torch.Tensor,
-           xres: int, yres: int, filter_width: float):
+def splat(vals: torch.Tensor, pixel: torch.Tensor, sub_xy: torch.Tensor,
+          xres: int, yres: int, filter_width: float):
     """Splat per-sample values (N, C) at flat pixels (N,) (-1 = padding)
-    and subpixel positions (N, 2). Returns (image (n_pix, C) weighted sums,
-    wsum (n_pix,)); divide by wsum to normalize."""
+    and subpixel positions (N, 2): one tile's partial framebuffer. Returns
+    (image (n_pix, C) weighted sums, wsum (n_pix,)); divide by wsum to
+    normalize."""
     n_pix = xres * yres
     radius = filter_width * 0.5
     gauss_floor = math.exp(-ALPHA * radius * radius)
@@ -56,7 +57,7 @@ def splat_accum(vals, pixel, sub_xy, image, wsum, xres: int, yres: int,
                 filter_width: float) -> None:
     """Splat one tile's samples and add them into the running framebuffer
     (in place)."""
-    img_t, ws_t = _splat(vals, pixel, sub_xy, xres, yres, filter_width)
+    img_t, ws_t = splat(vals, pixel, sub_xy, xres, yres, filter_width)
     image += img_t
     wsum += ws_t
 

@@ -44,8 +44,11 @@ detail bias of -0.5 (RLS_LOD_BIAS) and a footprint inflation exponent of
 0.5 (RLS_TEX_ANISO_ALPHA). Russian roulette (RLS_RR_START) is `render`'s
 `rr_refr_start`, and the per-stage timers (RLS_PROFILE) its `profile`.
 
-`render_progressive` averages independently seeded passes and can flush
-the running mean of the beauty to an EXR after each pass.
+`render` splats every tile of the frame through `render_tiles`, which
+renders one contiguous block of them into a `Framebuffer`: the sharded
+render of parallel/mesh.py gives each rank its block and adds the ranks'
+framebuffers. `render_progressive` averages independently seeded passes
+and can flush the running mean of the beauty to an EXR after each pass.
 """
 from __future__ import annotations
 
@@ -1071,16 +1074,38 @@ def _pad_rays(rays: cameramod.CameraRays, pad: int) -> cameramod.CameraRays:
     )
 
 
-def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
-           tile_pixels: int = 16384, aa_samples: int | None = None,
-           xres: int | None = None, yres: int | None = None,
-           rr_refr_start: int = 99, profile: bool = False) -> dict:
-    """Render the frame on the scene's device, where the accel must live
-    too. `rr_refr_start` turns on Russian roulette on the refraction chain
-    from that refraction depth (99 = off); `profile` times each stage call
-    (`TileRenderer`). Returns {"RGBA": (H, W, 3), aov_name: (H, W, 3), ...,
-    "__stats__": dict}, the planes as float32 tensors on the scene's
-    device."""
+class Framebuffer(NamedTuple):
+    """A frame's splatted samples, whole or partial: per pixel the
+    weighted sums of the packed RGB + AOV channels and of the weights."""
+
+    image: torch.Tensor    # (n_pix, C)
+    wsum: torch.Tensor     # (n_pix,)
+    names: list            # the AOVs packed after RGB (splat.pack_aovs)
+    xres: int
+    yres: int
+    stats: dict            # the rays of the tiles splatted here
+
+    def planes(self) -> dict:
+        """{"RGBA": (H, W, 3), aov_name: (H, W, 3), ..., "__stats__"}."""
+        norm = torch.clamp_min(self.wsum, 1e-12)[:, None]
+        planes = splatmod.unpack_aovs(self.image / norm, self.names)
+        out = {name: p.reshape(self.yres, self.xres, 3)
+               for name, p in planes.items()}
+        out["__stats__"] = dict(self.stats)
+        return out
+
+
+def render_tiles(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
+                 tile_pixels: int = 16384, aa_samples: int | None = None,
+                 xres: int | None = None, yres: int | None = None,
+                 rr_refr_start: int = 99, profile: bool = False,
+                 parts: int = 1, part: int = 0) -> Framebuffer:
+    """Render part `part` of `parts` of the frame's tiles into one
+    Framebuffer on the scene's device. The tiles, padded to a multiple of
+    `parts` with tiles of padding rays (traced, then dropped by the
+    splat), are split into `parts` contiguous blocks; a tile keeps its
+    global index in its key and its rays' offset in the frame, so the
+    parts' framebuffers add up to the whole frame's."""
     device = scene.device
     if accel.tree.bbox_min.device != device:
         raise ValueError(f"accel is on {accel.tree.bbox_min.device}, the "
@@ -1100,10 +1125,12 @@ def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
     n_rays = n_pix * n_sub
     tile_rays = min(tile_pixels * n_sub, n_rays)
     n_tiles = (n_rays + tile_rays - 1) // tile_rays
+    n_tiles = (n_tiles + parts - 1) // parts * parts
     rays = _pad_rays(rays, n_tiles * tile_rays - n_rays)
 
+    per = n_tiles // parts
     image = wsum = names = None
-    for ti in range(n_tiles):
+    for ti in range(part * per, (part + 1) * per):
         start = ti * tile_rays
         rgb, aovs = tr.render_tile_at(rays, start, tile_rays,
                                       rng.fold(key, 1000 + ti))
@@ -1114,12 +1141,23 @@ def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
         sl = slice(start, start + tile_rays)
         splatmod.splat_accum(vals, rays.pixel[sl], rays.sub_xy[sl], image,
                              wsum, xres, yres, float(opts.filter_width))
+    return Framebuffer(image, wsum, names, xres, yres, tr.stats)
 
-    norm = torch.clamp_min(wsum, 1e-12)[:, None]
-    planes = splatmod.unpack_aovs(image / norm, names)
-    out = {name: p.reshape(yres, xres, 3) for name, p in planes.items()}
-    out["__stats__"] = dict(tr.stats)
-    return out
+
+def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
+           tile_pixels: int = 16384, aa_samples: int | None = None,
+           xres: int | None = None, yres: int | None = None,
+           rr_refr_start: int = 99, profile: bool = False) -> dict:
+    """Render the frame on the scene's device, where the accel must live
+    too. `rr_refr_start` turns on Russian roulette on the refraction chain
+    from that refraction depth (99 = off); `profile` times each stage call
+    (`TileRenderer`). Returns {"RGBA": (H, W, 3), aov_name: (H, W, 3), ...,
+    "__stats__": dict}, the planes as float32 tensors on the scene's
+    device."""
+    return render_tiles(scene, accel, seed=seed, tile_pixels=tile_pixels,
+                        aa_samples=aa_samples, xres=xres, yres=yres,
+                        rr_refr_start=rr_refr_start,
+                        profile=profile).planes()
 
 
 def render_progressive(scene: Scene, accel: tracemod.Accel, passes: int,

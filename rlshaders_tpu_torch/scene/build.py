@@ -15,9 +15,10 @@ Differences from the JAX build, all deliberate:
   (`Scene.trace_set_names` holds the names by bit); no integrator path
   reads them, and `accel.trace.build_trace_set` builds a query structure
   over one set;
-* images are decoded by the port's own PNG decoder (scene/texture.py); a
-  JPEG or other format raises. As in the JAX build, a texture file that is
-  not found is no texture (id -1), silently;
+* images are decoded by the port's own PNG and JPEG decoders
+  (scene/texture.py, scene/jpeg.py); any other format raises. As in the
+  JAX build, a texture file that is not found is no texture (id -1),
+  silently;
 * a texture file is looked for relative to `base_dir` only. The JAX build
   also searches the directories above it (`..`, `../..`, `../../data`,
   `../../../data`), the testsuite's layout; the port reads nothing outside

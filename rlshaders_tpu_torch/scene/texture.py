@@ -10,9 +10,10 @@ package's analogue of Arnold's `smart_bicubic` MayaFile filter: a level of
 detail from the ray footprint, Mitchell bicubic taps on the finer level
 blended linearly with a bilinear tap on the coarser one, wrap addressing.
 
-The JAX package decodes with PIL; the port decodes PNG itself (zlib and
-numpy: 8-bit RGB or RGBA, no interlace, the five row filters) and raises
-on any other format, naming it. JPEG decoding is still to port.
+The JAX package decodes with PIL; the port decodes PNG (zlib and numpy:
+8-bit RGB or RGBA, no interlace, the five row filters) and sequential
+Huffman JPEG (scene/jpeg.py, equal to PIL's decode) itself, and raises on
+any other format, naming it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
+from .jpeg import decode_jpeg
 
 MAX_LEVELS = 12
 # texel centres sit at (i + TEX_SHIFT) / size (OIIO and Arnold; the JAX
@@ -32,9 +34,10 @@ MAX_LEVELS = 12
 TEX_SHIFT = 0.5
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_MAGICS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-           (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-           (b"\x76\x2f\x31\x01", "OpenEXR"))
+_JPEG_MAGIC = b"\xff\xd8\xff"
+# formats that raise
+_MAGICS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
+           (b"MM\x00*", "TIFF"), (b"\x76\x2f\x31\x01", "OpenEXR"))
 
 
 def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
@@ -108,15 +111,20 @@ def decode_png(data: bytes) -> np.ndarray:
 def load_image(path: str) -> np.ndarray:
     """Decode an image file to (H, W, 3) float32 in storage space: the
     8-bit values over 255 (texture_gamma is applied after filtering). PNG
-    only; any other format raises."""
+    and JPEG; any other format raises."""
     with open(path, "rb") as f:
         data = f.read()
-    if not data.startswith(_PNG_MAGIC):
+    if data.startswith(_PNG_MAGIC):
+        px = decode_png(data)
+    elif data.startswith(_JPEG_MAGIC):
+        px = decode_jpeg(data)
+    else:
         kind = next((k for m, k in _MAGICS if data.startswith(m)),
                     "an unknown format")
         raise NotImplementedError(
-            f"{path}: {kind} images are not decoded by the port (PNG only)")
-    return decode_png(data).astype(np.float32) / 255.0
+            f"{path}: {kind} images are not decoded by the port (PNG and "
+            f"JPEG only)")
+    return px.astype(np.float32) / 255.0
 
 
 def _downsample2(im: np.ndarray) -> np.ndarray:

@@ -443,3 +443,61 @@ def test_trace_set_accels_on_the_card_match_the_cpu(cuda_device):
                                 args[3].to(cuda_device))
             op = trace.occluded(acc["cpu"], *args[:3], vis_mask, args[3])
             assert torch.equal(ok.cpu(), op)
+
+
+# SHA-256 of PIL's RGB decode of the committed JPEG textures
+# (tools/make_jpeg_textures.py; tests/test_torch_jpeg.py checks them
+# against PIL)
+JPEG_DIGESTS = {
+    "scenes/data/grid.jpg":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/logo.jpg":
+        "6ca72db18beca40ae8d32c3fe2421a339667c534ed778bf6106a07b9db5df803",
+}
+
+
+@pytest.mark.gpu
+def test_render_sharded_over_nccl_matches_render(cuda_device, tmp_path):
+    """render_sharded at world size 1 over NCCL in this process (one rank's
+    all-reduce, the collective a multi-GPU run makes) against render on
+    the card: the demo at 32x32, AA 2, four tiles. The splat's atomics
+    move the last bits of both frames, so they are held to chip_smoke.py's
+    tolerance; the ray counts are equal."""
+    import torch.distributed as dist
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.parallel import mesh
+
+    scene, accel = mesh.demo_scene(skin=False, device=cuda_device)
+    kw = dict(tile_pixels=256, aa_samples=2, xres=32, yres=32)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        m = mesh.make_mesh()
+        assert m.device_type == "cuda"
+        out = mesh.render_sharded(scene, accel, m, **kw)
+    finally:
+        dist.destroy_process_group()
+    ref = wavefront.render(scene, accel, **kw)
+    assert out["__stats__"] == ref["__stats__"]
+    assert out["__stats__"]["tiles"] == 4
+    for name, b in ref.items():
+        if name == "__stats__":
+            continue
+        a, b = out[name].cpu().numpy(), b.cpu().numpy()
+        assert np.isfinite(a).all(), name
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98, name
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean()) + 1e-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(JPEG_DIGESTS))
+def test_committed_jpegs_decode_to_their_digests(cuda_device, path):
+    """The decoder on the card's machine, which has no PIL: the committed
+    JPEGs decode to the digests of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.jpeg import decode_jpeg
+
+    with open(path, "rb") as f:
+        px = decode_jpeg(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == JPEG_DIGESTS[path]

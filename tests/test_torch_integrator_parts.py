@@ -135,10 +135,10 @@ def test_splat_and_aov_packing():
     vals = rs.random((n, 6)).astype(np.float32)
     pixel = rs.integers(-1, xres * yres, n).astype(np.int32)
     sub_xy = rs.random((n, 2)).astype(np.float32)
-    ti, tw = tsplat._splat(torch.tensor(vals), torch.tensor(pixel),
-                           torch.tensor(sub_xy), xres, yres, 2.0)
-    ji, jw = jsplat._splat(jnp.asarray(vals), jnp.asarray(pixel),
-                           jnp.asarray(sub_xy), xres, yres, 2.0, 1.0)
+    ti, tw = tsplat.splat(torch.tensor(vals), torch.tensor(pixel),
+                          torch.tensor(sub_xy), xres, yres, 2.0)
+    ji, jw = jsplat.splat(jnp.asarray(vals), jnp.asarray(pixel),
+                          jnp.asarray(sub_xy), xres, yres, 2.0, 1.0)
     close(ti, ji, rtol=1e-5, atol=1e-5)
     close(tw, jw, rtol=1e-5, atol=1e-5)
     assert math.isclose(tsplat.ALPHA, jsplat.ALPHA)

@@ -132,8 +132,9 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Image formats other than PNG raise. Trace sets build: the floor's
-    triangles carry the set's bit 8, the others none."""
+    """Image formats other than PNG and sequential JPEG raise (a GIF, a
+    progressive JPEG); a baseline JPEG builds. Trace sets build: the
+    floor's triangles carry the set's bit 8, the others none."""
     from PIL import Image
 
     src = _jax_demo(skin=False)
@@ -147,12 +148,20 @@ def test_still_unported_raise(tmp_path):
     assert on_floor.any()
     assert ((vis[on_floor] & (1 << 8)) != 0).all()
     assert ((vis[~on_floor] & ~0xFF) == 0).all()
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "t.jpg")
+    img = Image.fromarray(np.full((4, 4, 3), 200, np.uint8))
+    img.save(tmp_path / "t.jpg")
+    img.save(tmp_path / "p.jpg", progressive=True)
+    img.save(tmp_path / "t.gif")
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
-           'MayaFile\n{\n name tex\n filename "t.jpg"\n}\n')
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tbuild.build_text(src, device="cpu", base_dir=str(tmp_path))
+           'MayaFile\n{\n name tex\n filename "%s"\n}\n')
+    scene = tbuild.build_text(src % "t.jpg", device="cpu",
+                              base_dir=str(tmp_path))
+    assert scene.textures.data.shape == (16 + 4 + 1, 3)
+    for name, what in (("p.jpg", "progressive"), ("t.gif", "GIF")):
+        with pytest.raises(NotImplementedError, match=what):
+            tbuild.build_text(src % name, device="cpu",
+                              base_dir=str(tmp_path))
 
 
 def test_unported_materials_raise_in_gather():
@@ -263,6 +272,8 @@ def test_port_imports_no_jax():
     assert {"rlshaders_tpu_torch.cli", "rlshaders_tpu_torch.io.exr",
             "rlshaders_tpu_torch.io.png", "rlshaders_tpu_torch.models.dcc",
             "rlshaders_tpu_torch.models.registry",
+            "rlshaders_tpu_torch.parallel.mesh",
+            "rlshaders_tpu_torch.scene.jpeg",
             "rlshaders_tpu_torch.utils.sample_writer",
             "rlshaders_tpu_torch.utils.watermark"} <= set(mods)
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)

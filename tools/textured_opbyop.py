@@ -2,16 +2,19 @@
 tests/test_torch_textured_render.py renders: 16x16, AA 1, one diffuse and
 one glossy sample a hit), jitted and op by op (jax.disable_jit), and the
 pixels where the two differ by more than 1e-5, with the op-by-op values.
+With --jpeg, the scene names its images .jpg (tests/test_torch_jpeg.py's
+copy).
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/textured_opbyop.py
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/textured_opbyop.py [--jpeg]
 
-The test holds the port to the op-by-op values at those pixels. The op-by-op
-render takes about a minute and a half on a CPU.
+The tests hold the port to the op-by-op values at those pixels. The
+op-by-op render takes about a minute and a half on a CPU.
 """
 from __future__ import annotations
 
 import os
 import re
+import sys
 import tempfile
 
 import jax
@@ -30,6 +33,8 @@ def main() -> None:
         src = f.read()
     for k in ("GI_diffuse_samples", "GI_glossy_samples"):
         src = re.sub(rf"^ {k} \d+$", f" {k} 1", src, flags=re.M)
+    if "--jpeg" in sys.argv[1:]:
+        src = src.replace(".png", ".jpg")
     with tempfile.TemporaryDirectory() as d:
         os.symlink(os.path.join(REPO, "scenes", "data"),
                    os.path.join(d, "data"))
