@@ -127,11 +127,33 @@ nonzero):
    and held to the SHA-256 of PIL's decode; scenes/textured_disk.ass with
    its images named .jpg rendered at its own options through the kernels
    (counts reset, plain walk barred), and at 32x32 on the card and on the
-   CPU, compared.
+   CPU, compared;
+26. the dense Disney scene (tools/make_dense_disney.py: the six balls at
+   512 x 256 quads, 1,572,866 triangles) built on the card through
+   `build(nodes)` and `trace.build`, whose native builder (accel/native.py)
+   is compiled first: the triangle and node counts, the table bytes and
+   the table path (it must be "global"), and the seconds of the node list,
+   the scene build, the accel, the native BVH build alone and `pack`
+   alone; the tree's boxes and links checked exact; on a 64 x 32-quad copy
+   (24,578 triangles) and on one full ball, the plain builder
+   (accel/bvh.py) held to the native one compiled without fused
+   multiply-adds (five arrays equal, every leaf the same set of
+   triangles), the path's native tree checked exact and compared, both
+   builders timed;
+27. both kernels held to the plain walk on every query of a 64x64, AA 3
+   frame of the dense scene, every launch on the global path, and timed
+   on those queries (the `dense` shape) beside the plain walk and the
+   bound;
+28. the dense scene at its own options (256x256, AA 3) through the kernels
+   (counts reset, plain walk barred); checks every plane, the
+   indirect_specular AOV above 0 and every launch on the global path;
+   prints seconds per frame, the rays, the launches per kernel and the
+   rate, and profiles one 128x128, AA 3 tile (the card's activity only);
+   then a 16x16, AA 1 frame on the card and on the CPU, compared.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
-the two trace-set frames', the two j_walk sets):
+the two trace-set frames', the dense Disney frame's, the two j_walk sets):
 `device_ms`, the shape's queries
 captured in one CUDA graph whose replays are timed with CUDA events (what
 the card spends; the wrappers' host time is paid once, at capture), and
@@ -144,9 +166,10 @@ device times reads `shapes[...]["device_ms"]`.
 The last three lines of the output are: a JSON object with one entry per
 kernel (with, per shape, its launches, device_ms and call_ms; and the
 launches of each main-path run, `launches_demo` ... `launches_cli`,
-`launches_mesh` for phases 23-24, `launches_jpeg` for phase 25, whose sum
-is `launches`); the card's name and power limit as nvidia-smi prints
-them; and {"ok": true, "device": {...}}.
+`launches_mesh` for phases 23-24, `launches_jpeg` for phase 25,
+`launches_dense` for phase 28, whose sum is `launches`); the card's name
+and power limit as nvidia-smi prints them; and {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -207,6 +230,13 @@ JPEG_DIGESTS = {
     "scenes/data/logo.jpg":
         "6ca72db18beca40ae8d32c3fe2421a339667c534ed778bf6106a07b9db5df803",
 }
+# the dense Disney scene (phases 26-28): quads round each ball, and the
+# copy on which the plain builder is held to the native one
+DENSE_AROUND = 512
+DENSE_SMALL = 64
+DENSE_AA = 3
+DENSE_CHECK = 64    # width and height of the dense frame held to the walk
+DENSE_CPU = 16      # width and height of the dense CUDA vs CPU frames, AA 1
 SOUP = 12000       # triangles: tables too large for shared memory
 REPLACES = {
     "rls_nearest": "rlshaders_tpu/ops/intersect_pallas.py:342",
@@ -228,7 +258,10 @@ MEAN_RTOL = 2e-3      # frame mean, relative
 # Bytes: each output written once (nearest: t, tri, u, v, 16 B; occluded:
 # 1 B); each live ray's o, d, t_max and exclude (32 B) read once, but only
 # the 4 B of t_max of a dead lane (t_max <= 0), since the kernels read the
-# rest inside `if (tm > 0)`; and the tree and triangle tables read once.
+# rest inside `if (tm > 0)`; and each tree node and triangle slot that
+# the walk tests read once (the plain walk marks them, accel/bvh.py
+# `counts`: what these rays need, not the whole tables, which on the
+# global path a launch never reads whole).
 # The live count is the plain walk's (`counts["rays"]`). Operations: the
 # slab tests and triangle
 # tests the plain walk makes for these rays (accel/bvh.py `counts`), times
@@ -417,11 +450,24 @@ def table_bytes(accel) -> int:
     return p.nodes.numel() * 4 + p.tris.numel() * 4
 
 
+def seen(counts: dict, key: str) -> int:
+    """How many records the plain walk marked in counts[key]."""
+    return int(counts[key].sum()) if key in counts else 0
+
+
+def walk_counts(counts: dict) -> dict:
+    """The plain walk's counts for a log line: its work, and the nodes and
+    triangle slots it tested."""
+    out = {k: v for k, v in counts.items() if not torch.is_tensor(v)}
+    out.update(nodes=seen(counts, "node_seen"),
+               slots=seen(counts, "slot_seen"))
+    return out
+
+
 def bound(name: str, rays: int, counts: dict, accel) -> dict:
     """The kernel's bound for `rays` rays whose walk did `counts`."""
-    n_nodes = accel.tree.first.shape[0]
-    n_tris = accel.tree.tri_order.shape[0]
-    table_bytes = n_nodes * (24 + 12) + n_tris * (36 + 4 + 4 + 1)
+    table_bytes = (seen(counts, "node_seen") * (24 + 12)
+                   + seen(counts, "slot_seen") * (36 + 4 + 4 + 1))
     live = counts["rays"]
     nbytes = (live * (32 + OUT_BYTES[name])
               + (rays - live) * (4 + OUT_BYTES[name]) + table_bytes)
@@ -726,9 +772,9 @@ def check_shape(t_check: str, shape: str, scene, accel, aa: int,
         log(f"[{t_check}] {k}: all {r} rays of the {shape} frame's "
             f"{len(mine)} queries: device {dm:.4f} ms, call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
-            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk {walks}, the "
-            f"longest walk of a launch with a live lane "
-            f"{walks['steps'] / max(working, 1):.2f} on average; "
+            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk "
+            f"{walk_counts(walks)}, the longest walk of a launch with a "
+            f"live lane {walks['steps'] / max(working, 1):.2f} on average; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")
@@ -1305,6 +1351,182 @@ def jpeg_phase(card: str) -> dict:
     return launches
 
 
+def same_nodes_and_leaves(a, b) -> bool:
+    """Whether two builders' arrays (bbox_min, bbox_max, first, count,
+    miss, order) have the same nodes and every leaf the same set of
+    triangles (the order inside a leaf may differ)."""
+    if not all(np.array_equal(x, y) for x, y in zip(a[:5], b[:5])):
+        return False
+    leaf = a[2] >= 0
+    return all(set(a[5][f:f + c].tolist()) == set(b[5][f:f + c].tolist())
+               for f, c in zip(a[2][leaf], a[3][leaf]))
+
+
+def tree_bounds_exact(arrays, tris) -> bool:
+    """Whether a builder's arrays (bbox_min, bbox_max, first, count, miss,
+    order) over triangles (v0, e1, e2) form a skip-link tree whose boxes
+    are exact: `order` a permutation, the leaves (1-4 triangles) covering
+    it in DFS order, each leaf's box the bound of its triangles, each inner
+    node's the bound of its children (i + 1 and miss[i + 1]), and each
+    miss link the node after the subtree."""
+    bmin, bmax, first, count, miss, order = arrays
+    v0, e1, e2 = tris
+    n, t = first.shape[0], order.shape[0]
+    if not np.array_equal(np.sort(order), np.arange(t)):
+        return False
+    leaf = np.flatnonzero(first >= 0)
+    inner = np.flatnonzero(first < 0)
+    starts = np.concatenate([[0], np.cumsum(count[leaf])[:-1]])
+    if (not np.array_equal(first[leaf], starts) or count[leaf].sum() != t
+            or count[leaf].min() < 1 or count[leaf].max() > 4):
+        return False
+    p = np.stack([v0, v0 + e1, v0 + e2])[:, order]
+    right = miss[inner + 1]
+    return bool(
+        np.array_equal(np.minimum.reduceat(p.min(0), starts), bmin[leaf])
+        and np.array_equal(np.maximum.reduceat(p.max(0), starts),
+                           bmax[leaf])
+        and np.array_equal(np.minimum(bmin[inner + 1], bmin[right]),
+                           bmin[inner])
+        and np.array_equal(np.maximum(bmax[inner + 1], bmax[right]),
+                           bmax[inner])
+        and np.array_equal(miss[leaf], leaf + 1)
+        and np.array_equal(miss[inner], miss[right]) and miss[0] == n)
+
+
+def dense_phases(card: str) -> dict:
+    """Phases 26-28 on the dense Disney scene: the build, timed by stage,
+    its tree checked exact, and the plain builder held to the native one
+    built without fused multiply-adds; both kernels held to
+    the plain walk on every query of a 64x64, AA 3 frame on the global
+    path, and timed there (the `dense` shape); the frame at its own
+    options through the kernels, one profiled tile, and a 16x16 frame on
+    the card and on the CPU. Returns what the JSON line reads: per kernel
+    the compare results, the times and bound of the shape, and the frame's
+    launches."""
+    from rlshaders_tpu_torch.accel import bvh, native
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build
+    from tools.make_dense_disney import dense_nodes
+
+    # ---- phase 26: the build ----
+    t0 = time.perf_counter()
+    lib = native.build()
+    t1 = time.perf_counter()
+    nodes = dense_nodes(DENSE_AROUND)
+    t2 = time.perf_counter()
+    scene = build(nodes)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    accel = tracemod.build(scene.geometry)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    g = scene.geometry
+    host = [x.cpu().numpy() for x in (g.v0, g.e1, g.e2)]
+    t5 = time.perf_counter()
+    arrays = native.build_arrays(*host)
+    t6 = time.perf_counter()
+    kernels.pack(accel.tree, accel.tris)
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    for f, a in zip(bvh.BVH._fields, arrays):
+        if not np.array_equal(getattr(accel.tree, f).cpu().numpy(), a):
+            raise AssertionError(f"[26] the accel's {f} is not the native "
+                                 f"builder's")
+    if not tree_bounds_exact(arrays, host):
+        raise AssertionError("[26] the dense tree's boxes or links are wrong")
+    n_tris, n_nodes = accel.tree.tri_order.shape[0], accel.tree.first.shape[0]
+    log(f"[26] dense Disney scene: {n_tris} triangles, {n_nodes} nodes, "
+        f"tables {table_bytes(accel)} B ({accel.packed.path} path; room "
+        f"{kernels.TABLE_ROOM} B)")
+    log(f"[26] seconds: native builder compiled {t1 - t0:.3f} ({lib}), "
+        f"node list {t2 - t1:.3f}, scene build on {g.v0.device} "
+        f"{t3 - t2:.3f}, trace.build {t4 - t3:.3f} (of which: host copy "
+        f"{t5 - t4:.3f}, native BVH build {t6 - t5:.3f}, pack "
+        f"{t7 - t6:.3f}, measured again alone)")
+    if accel.packed.path != "global":
+        raise AssertionError(f"the dense scene took {accel.packed.path}, "
+                             f"expected the global path")
+    # the plain builder equals the native one compiled without fused
+    # multiply-adds (EXACT_FLAGS); the path's library (the JAX module's
+    # flags) may fuse the SAH cost and move near-tied splits
+    small = build(dense_nodes(DENSE_SMALL), device="cpu").geometry
+    ball = (g.mesh_id == scene.mesh_names.index("ball_default")).cpu()
+    for tag, tris in (
+            (f"{DENSE_SMALL} x {DENSE_SMALL // 2}-quad copy",
+             [x.numpy() for x in (small.v0, small.e1, small.e2)]),
+            ("ball_default", [h[ball.numpy()] for h in host])):
+        t1 = time.perf_counter()
+        nat = native.build_arrays(*tris)
+        t2 = time.perf_counter()
+        plain = bvh.build_arrays(*tris)
+        t3 = time.perf_counter()
+        exact = native.build_arrays(*tris, flags=native.EXACT_FLAGS)
+        log(f"[26] {tag}: {tris[0].shape[0]} triangles; native "
+            f"{t2 - t1:.3f} s, plain {t3 - t2:.3f} s "
+            f"({(t3 - t2) / (t2 - t1):.0f}x; host); nodes: native "
+            f"{nat[0].shape[0]}, without fused multiply-adds "
+            f"{exact[0].shape[0]}, plain {plain[0].shape[0]}; the native "
+            f"tree's nodes and leaf sets equal the plain one's: "
+            f"{same_nodes_and_leaves(nat, plain)}; the leaf orders of the "
+            f"tree without fused multiply-adds and the plain one differ at "
+            f"{int((exact[5] != plain[5]).sum())} of {plain[5].size} "
+            f"positions")
+        if not same_nodes_and_leaves(exact, plain):
+            raise AssertionError(f"[26] the plain tree of the {tag} is not "
+                                 f"the native builder's without fused "
+                                 f"multiply-adds")
+        if not tree_bounds_exact(nat, tris):
+            raise AssertionError(f"[26] the native tree of the {tag} has "
+                                 f"wrong boxes or links")
+    del small, host, arrays
+    log(f"[26] phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 27: every query of a 64x64, AA 3 frame ----
+    res, times, bounds = check_shape("27", "dense", scene, accel, DENSE_AA,
+                                     DENSE_CHECK)
+    took = path_launches(kernels)
+    if set(took) != {"global"}:
+        raise AssertionError(f"the dense frame's launches took {took}")
+
+    # ---- phase 28: the frame at its own options ----
+    t0 = time.perf_counter()
+    reset(kernels)
+    out, dt = barred_render(wavefront.render, bvh, scene, accel)
+    launches = dict(kernels.LAUNCHES)
+    took = path_launches(kernels)
+    o = scene.options
+    check_planes(out, o.xres)
+    check_launched(launches, "the dense render")
+    if set(took) != {"global"}:
+        raise AssertionError(f"the dense frame's launches took {took}")
+    if not float(out["indirect_specular"].mean()) > 0.0:
+        raise AssertionError("the indirect_specular AOV is black")
+    stats = out["__stats__"]
+    rays = stats["nearest_rays"] + stats["shadow_rays"]
+    log(f"[28] dense {o.xres}x{o.yres} AA {o.aa_samples}: {dt:.4f} s/frame, "
+        f"mean RGB {float(out['RGBA'].mean()):.6f}, all planes finite, "
+        f"launches {launches}, by table path {took}, nearest rays "
+        f"{stats['nearest_rays']}, shadow rays {stats['shadow_rays']}, "
+        f"{rays / dt / 1e6:.3f} Mrays/s (nearest+shadow); {card}")
+    del out
+    profile_frame(wavefront, "28", scene, accel, aa_samples=DENSE_AA,
+                  xres=PROFILE_SIZE, yres=PROFILE_SIZE)
+    t1 = time.perf_counter()
+    cscene = build(nodes, device="cpu")
+    cpu = (cscene, tracemod.build(cscene.geometry))
+    log(f"[28] the CPU scene and accel built in "
+        f"{time.perf_counter() - t1:.1f} s")
+    cuda_vs_cpu(wavefront, "28", {"cuda": (scene, accel), "cpu": cpu},
+                (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=1, xres=DENSE_CPU,
+                yres=DENSE_CPU)
+    log(f"[28] phase {time.perf_counter() - t0:.1f} s")
+    return {"compare": res, "times": times, "bounds": bounds,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -1369,8 +1591,9 @@ def main() -> int:
         log(f"[3] {k}: all {r} rays of the frame's {n} queries: device "
             f"{dm:.4f} ms, call {cm:.4f} ms ({dm / n * 1e3:.2f} / "
             f"{cm / n * 1e3:.2f} us per launch), plain {pm:.4f} ms; walk "
-            f"{frame[k][3]}; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-            f"(bytes {b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), "
+            f"{walk_counts(frame[k][3])}; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} (bytes {b['byte_ms']:.4f} ms, operations "
+            f"{b['op_ms']:.4f} ms), "
             f"share of device time {b['bound_ms'] / dm:.4f}")
     del calls
     log(f"[3] phase {time.perf_counter() - t0:.1f} s")
@@ -1438,7 +1661,7 @@ def main() -> int:
             f"queries: device {dm:.4f} ms (torch.profiler's sum of the "
             f"kernel's launches {prof:.4f} ms), call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us per "
-            f"launch); walk {walks}: per live ray "
+            f"launch); walk {walk_counts(walks)}: per live ray "
             f"{walks['boxes'] / walks['rays']:.2f} slab tests, the longest "
             f"walk of a launch with a live lane "
             f"{walks['steps'] / working:.2f} on average; "
@@ -1492,7 +1715,7 @@ def main() -> int:
             jwalk[(k, tag)] = (dm, cm, pms, b)
             log(f"[8] j_walk {tag} {k}: device {dm:.4f} ms "
                 f"({n / dm / 1e3:.1f} Mrays/s), call {cm:.4f} ms, plain "
-                f"{pms:.4f} ms; walk {counts}; byte bound "
+                f"{pms:.4f} ms; walk {walk_counts(counts)}; byte bound "
                 f"{b['byte_ms']:.4f} ms, operation bound {b['op_ms']:.4f} "
                 f"ms, share of the larger ({b['bound_by']}) of device time "
                 f"{b['bound_ms'] / dm:.4f}")
@@ -1549,7 +1772,8 @@ def main() -> int:
         log(f"[10] {k}: all {r} rays of the skin frame's {len(mine)} "
             f"queries: device {dm:.4f} ms, call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
-            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk {skin[k][3]}; "
+            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk "
+            f"{walk_counts(skin[k][3])}; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")
@@ -1601,6 +1825,7 @@ def main() -> int:
     mesh1 = mesh_world1_phase(card)
     mesh2 = mesh_world2_phase(card)
     jpeg_launches = jpeg_phase(card)
+    dense = dense_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -1619,6 +1844,8 @@ def main() -> int:
         shapes["disney"] = shape(dm, cm, pm, dsy["bounds"][k], nq)
         dm, cm, pm, _, nq = tex["times"][k]
         shapes["textured"] = shape(dm, cm, pm, tex["bounds"][k], nq)
+        dm, cm, pm, _, nq = dense["times"][k]
+        shapes["dense"] = shape(dm, cm, pm, dense["bounds"][k], nq)
         for tag, (_, tt, tb) in tsets.items():
             dm, cm, pm, _, nq = tt[k]
             shapes[f"trace_sets_{tag}"] = shape(dm, cm, pm, tb[k], nq)
@@ -1631,10 +1858,12 @@ def main() -> int:
             "launches": (demo_launches[k] + glass_launches[k]
                          + skin_launches[k] + dsy["launches"][k]
                          + tex["launches"][k] + clirun["launches"][k]
-                         + mesh1[k] + mesh2[k] + jpeg_launches[k]),
+                         + mesh1[k] + mesh2[k] + jpeg_launches[k]
+                         + dense["launches"][k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
+                               dense["compare"][k][2],
                                *(r[k][2] for r, _, _ in tsets.values())),
             "ms": times[k][1], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
@@ -1647,6 +1876,7 @@ def main() -> int:
             "launches_cli": clirun["launches"][k],
             "launches_mesh": mesh1[k] + mesh2[k],
             "launches_jpeg": jpeg_launches[k],
+            "launches_dense": dense["launches"][k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -18,7 +18,10 @@ rule; the TPU kernel instead keeps the largest triangle id).
 Both walks take an optional `counts` dict and add to it the work they did:
 "rays" (live rays), "boxes" (slab tests), "tris" (triangle tests of
 leaves whose box was hit) and "steps" (lockstep steps: the slab tests of
-the call's longest walk). The kernels do the same tests, except that the
+the call's longest walk); and they mark in "node_seen" and "slot_seen"
+(bool masks over the nodes and triangle slots) the records they tested,
+so that the records a set of queries reads can be counted once. The
+kernels do the same tests, except that the
 any-hit kernel stops inside a leaf at its first blocker where the plain walk
 tests the whole leaf. Counting synchronises with the device at every step,
 so a timing of the walk must not pass `counts`: count in a separate call.
@@ -68,7 +71,9 @@ class Hit(NamedTuple):
 def build_arrays(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
     """Binned-SAH build over triangles (v0, v0+e1, v0+e2); returns the
     numpy arrays (bbox_min, bbox_max, first, count, miss, order). A port
-    of the NumPy builder of rlshaders_tpu/accel/bvh.py."""
+    of the NumPy builder of rlshaders_tpu/accel/bvh.py, and the plain
+    version of `accel.native.build_arrays`, which builds every tree of the
+    port: the tests hold the two to the same nodes and leaf sets."""
     v0 = np.asarray(v0, np.float32)
     p1 = v0 + np.asarray(e1, np.float32)
     p2 = v0 + np.asarray(e2, np.float32)
@@ -211,6 +216,12 @@ def _count(counts, key: str, n) -> None:
         counts[key] = counts.get(key, 0) + int(n)
 
 
+def _mark(counts, key: str, idx: torch.Tensor, size: int) -> None:
+    if key not in counts:
+        counts[key] = torch.zeros(size, dtype=torch.bool, device=idx.device)
+    counts[key][idx] = True
+
+
 def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
               t_max: torch.Tensor, exclude_tri: torch.Tensor, vis_mask: int,
               t_eps: float = 1e-4, counts: dict | None = None) -> Hit:
@@ -242,8 +253,11 @@ def intersect(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
             _count(counts, "boxes", ray.numel())
             _count(counts, "tris", torch.where(leaf, cnt, 0).sum())
             _count(counts, "steps", 1)
+            _mark(counts, "node_seen", node, n_nodes)
         for k in range(LEAF_SIZE):
             ti = torch.clamp(first + k, 0, n_slots - 1)
+            if counts is not None:
+                _mark(counts, "slot_seen", ti[leaf & (k < cnt)], n_slots)
             ok, t, u, v = tri_test(tris.v0[ti], tris.e1[ti], tris.e2[ti],
                                    o, d, t_eps, t_best)
             orig = tree.tri_order[ti]
@@ -296,9 +310,12 @@ def occluded(tree: BVH, tris: Tris, o: torch.Tensor, d: torch.Tensor,
             _count(counts, "boxes", ray.numel())
             _count(counts, "tris", torch.where(leaf, cnt, 0).sum())
             _count(counts, "steps", 1)
+            _mark(counts, "node_seen", node, n_nodes)
         blocked = torch.zeros_like(leaf)
         for k in range(LEAF_SIZE):
             ti = torch.clamp(first + k, 0, n_slots - 1)
+            if counts is not None:
+                _mark(counts, "slot_seen", ti[leaf & (k < cnt)], n_slots)
             ok, _, _, _ = tri_test(tris.v0[ti], tris.e1[ti], tris.e2[ti],
                                    o, d, t_eps, tmax)
             blocked |= (ok & leaf & (k < cnt)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from . import bvh as bvhmod
+from . import native
 from ..ops import intersect as kernels
 
 
@@ -50,7 +51,8 @@ def from_arrays(geometry, bbox_min, bbox_max, first, count, miss,
 
 
 def build(geometry, member: np.ndarray | None = None) -> Accel:
-    """Build the BVH on the host over the scene's triangles, or over the
+    """Build the BVH on the host with the native builder (`accel.native`;
+    a failed compile raises) over the scene's triangles, or over the
     subset `member` (a bool per triangle) of them. Hits report original
     triangle ids either way: the builder's subset-local order is mapped
     back, and the tables gather the geometry by it.
@@ -64,7 +66,7 @@ def build(geometry, member: np.ndarray | None = None) -> Accel:
         idx = idx[np.asarray(member, bool)]
         if idx.size == 0:
             idx = np.zeros(1, np.int64)
-    arrays = bvhmod.build_arrays(geometry.v0.cpu().numpy()[idx],
+    arrays = native.build_arrays(geometry.v0.cpu().numpy()[idx],
                                  geometry.e1.cpu().numpy()[idx],
                                  geometry.e2.cpu().numpy()[idx])
     return from_arrays(geometry, *arrays[:-1], idx[arrays[-1]])

@@ -9,6 +9,10 @@ compute the same Moller-Trumbore expressions, but XLA may contract a
 multiply and an add into one fused operation where torch rounds twice, so
 a few ulps (atol 1e-5 at the scene's unit scale) are allowed.
 
+The port builds its own trees with the native builder, which is the JAX
+package's default: on its own tree the port's walk meets the triangles in
+the JAX walk's order, so every hit, ties included, is the same triangle.
+
 The CUDA kernels cannot run here; tests/test_torch_gpu.py holds them to
 this plain walk on a card (marker `gpu`), and chip_smoke.py does the same
 on every query of a 256x256 frame.
@@ -25,6 +29,7 @@ from rlshaders_tpu.accel import native as jnative
 from rlshaders_tpu_torch.accel import bvh as TB
 from rlshaders_tpu_torch.accel import trace as ttrace
 from rlshaders_tpu_torch.core import cpu_math
+from test_torch_native_bvh import load_jax_native
 
 cpu_math.settle()
 
@@ -106,6 +111,28 @@ def test_plain_nearest_matches_jax_bvh(t, r, seed):
     th = ttrace.nearest(acc, torch.tensor(o), torch.tensor(d), vis_mask=255)
     assert _assert_hits_agree(th, jh) == 0
     assert (th.tri.numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("t,r,seed", [(600, 800, 0), (900, 700, 3),
+                                      (50, 300, 9)])
+def test_own_tree_hits_equal_jax_default_tree(t, r, seed):
+    load_jax_native()
+    v0, e1, e2 = _soup(t, seed)
+    jt = JB.build(v0, e1, e2)
+    geom = types.SimpleNamespace(
+        v0=torch.tensor(v0), e1=torch.tensor(e1), e2=torch.tensor(e2),
+        visibility=torch.full((t,), 255, dtype=torch.int32),
+        opaque=torch.ones(t, dtype=torch.bool))
+    acc = ttrace.build(geom)
+    for f in JB.BVH._fields:
+        np.testing.assert_array_equal(getattr(acc.tree, f).numpy(),
+                                      np.asarray(getattr(jt, f)), err_msg=f)
+    o, d = _rays(r, seed + 1)
+    jh = JB.intersect(jt, jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
+                      jnp.asarray(o), jnp.asarray(d))
+    th = ttrace.nearest(acc, torch.tensor(o), torch.tensor(d), vis_mask=255)
+    assert _assert_hits_agree(th, jh) == 0
+    np.testing.assert_array_equal(th.tri.numpy(), np.asarray(jh.tri))
 
 
 def test_plain_walk_matches_brute_force_on_own_tree():

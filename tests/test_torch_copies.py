@@ -1,6 +1,8 @@
 """The port's verbatim copies of jax-free JAX modules, held equal to their
-originals: models/registry.py, models/dcc.py and utils/watermark.py with
-its pinned mask utils/wm_mask_256.bits (byte for byte).
+originals: models/registry.py, models/dcc.py, utils/watermark.py with
+its pinned mask utils/wm_mask_256.bits (byte for byte), and the native BVH
+builder's source accel/csrc/accel.cpp (the port compiles its own copy with
+the JAX module's flags, so the two packages build the same trees).
 
 The copies differ from the originals only by the note that says why they
 are copies. No import line differs: each original imports only relative
@@ -28,15 +30,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("rel", ["models/registry.py", "models/dcc.py",
-                                 "utils/watermark.py"])
+                                 "utils/watermark.py",
+                                 "accel/csrc/accel.cpp"])
 def test_copy_is_verbatim(rel):
     with open(os.path.join(REPO, "rlshaders_tpu", rel)) as f:
         orig = f.read()
     with open(os.path.join(REPO, "rlshaders_tpu_torch", rel)) as f:
         copy = f.read()
-    note = ("\n\nCopied verbatim from rlshaders_tpu/%s: importing any\n"
-            "module of rlshaders_tpu imports jax, which the torch port must "
-            "not need." % rel)
+    if rel.endswith(".cpp"):
+        note = ("//\n// Copied verbatim from rlshaders_tpu/%s: the torch "
+                "port\n// may neither import nor read the JAX package, so it "
+                "builds its own copy.\n" % rel)
+    else:
+        note = ("\n\nCopied verbatim from rlshaders_tpu/%s: importing any\n"
+                "module of rlshaders_tpu imports jax, which the torch port "
+                "must not need." % rel)
     assert note in copy
     assert copy.replace(note, "") == orig
 

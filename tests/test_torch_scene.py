@@ -260,6 +260,7 @@ def test_port_imports_no_jax():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    files.append(os.path.join(REPO, "tools", "make_dense_disney.py"))
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -269,7 +270,8 @@ def test_port_imports_no_jax():
         "rlshaders_tpu_torch." + os.path.relpath(p, PORT)[:-3]
         .replace(os.sep, ".").replace(".__init__", "")
         for p in files if p.startswith(PORT))
-    assert {"rlshaders_tpu_torch.cli", "rlshaders_tpu_torch.io.exr",
+    assert {"rlshaders_tpu_torch.accel.native",
+            "rlshaders_tpu_torch.cli", "rlshaders_tpu_torch.io.exr",
             "rlshaders_tpu_torch.io.png", "rlshaders_tpu_torch.models.dcc",
             "rlshaders_tpu_torch.models.registry",
             "rlshaders_tpu_torch.parallel.mesh",

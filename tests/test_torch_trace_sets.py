@@ -2,8 +2,12 @@
 bits and set names, and the subset accels of `build_trace_set`.
 
 The scene is tests/test_accel.py's two planes (the upper one in "setA")
-with a third plane in two sets. BVH arrays are compared exactly with the
-JAX package's NumPy builder (its native C++ one switched off, as
+with a third plane in two sets, and the dense Disney scene at 64 x 32
+quads a ball with three of its balls in "setA". The subset accels' BVH
+arrays are compared exactly with the JAX package's default trees (both
+packages build with the same native C++ builder; the subset-local order
+is the native builder's), and the port's plain builder over a subset with
+the JAX package's NumPy builder (its native one switched off, as
 tests/test_torch_accel.py does); hits on random rays within 1e-5 in t, u
 and v (the port's walk against the JAX package's jitted walk, as
 tests/test_torch_accel.py measures), the same triangle but at exact ties.
@@ -17,9 +21,12 @@ from rlshaders_tpu.accel import bvh as JB
 from rlshaders_tpu.accel import native as jnative
 from rlshaders_tpu.accel import trace as jtrace
 from rlshaders_tpu.scene import build as jbuild
+from rlshaders_tpu_torch.accel import bvh as TB
 from rlshaders_tpu_torch.accel import trace as ttrace
 from rlshaders_tpu_torch.core import cpu_math
 from rlshaders_tpu_torch.scene import build as tbuild
+from test_torch_native_bvh import load_jax_native
+from tools.make_dense_disney import dense_nodes
 
 cpu_math.settle()
 
@@ -102,8 +109,9 @@ def test_build_folds_sets_into_visibility(scenes):
 @pytest.mark.parametrize("set_bit,inclusive", [(0, True), (0, False),
                                                (1, True), (1, False)])
 def test_subset_accel_equals_jax(scenes, set_bit, inclusive):
+    load_jax_native()
     js, ts = scenes
-    jacc = _jax_numpy_accel(js.geometry, set_bit, inclusive)
+    jacc = jtrace.build_trace_set(js.geometry, set_bit, inclusive)
     tacc = ttrace.build_trace_set(ts.geometry, set_bit, inclusive)
     for f in JB.BVH._fields:
         np.testing.assert_array_equal(getattr(tacc.tree, f).numpy(),
@@ -144,6 +152,53 @@ def test_subset_accel_equals_jax(scenes, set_bit, inclusive):
     to = ttrace.occluded(tacc, torch.tensor(o), torch.tensor(d),
                          torch.tensor(t_max), vis_mask=0xFF)
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+
+
+@pytest.mark.parametrize("set_bit,inclusive", [(0, True), (0, False),
+                                               (1, True), (1, False)])
+def test_subset_plain_builder_equals_jax_numpy(scenes, set_bit, inclusive):
+    js, ts = scenes
+    jacc = _jax_numpy_accel(js.geometry, set_bit, inclusive)
+    mem = (ts.geometry.visibility.numpy() & 1 << (8 + set_bit)) != 0
+    idx = np.flatnonzero(mem if inclusive else ~mem)
+    g = ts.geometry
+    arrays = TB.build_arrays(g.v0.numpy()[idx], g.e1.numpy()[idx],
+                             g.e2.numpy()[idx])
+    for f, a in zip(JB.BVH._fields, (*arrays[:-1], idx[arrays[-1]])):
+        np.testing.assert_array_equal(a, np.asarray(getattr(jacc.tree, f)),
+                                      err_msg=f)
+
+
+DENSE_SET = ("ball_default", "ball_metal", "ball_coat")
+
+
+@pytest.fixture(scope="module")
+def dense_scenes():
+    nodes = dense_nodes(64)
+    for n in nodes:
+        if n.name in DENSE_SET:
+            n.params["trace_sets"] = "setA"
+    return jbuild.build(nodes), tbuild.build(nodes, device="cpu")
+
+
+@pytest.mark.parametrize("inclusive", [True, False])
+def test_dense_subset_accel_equals_jax(dense_scenes, inclusive):
+    """Subsets of thousands of triangles: the native builder's
+    subset-local order, mapped back to original ids, is the JAX
+    package's."""
+    load_jax_native()
+    js, ts = dense_scenes
+    jacc = jtrace.build_trace_set(js.geometry, 0, inclusive)
+    tacc = ttrace.build_trace_set(ts.geometry, 0, inclusive)
+    for f in JB.BVH._fields:
+        np.testing.assert_array_equal(getattr(tacc.tree, f).numpy(),
+                                      np.asarray(getattr(jacc.tree, f)),
+                                      err_msg=f)
+    mesh = ts.geometry.mesh_id.numpy()
+    mem = np.isin(mesh, [ts.mesh_names.index(b) for b in DENSE_SET])
+    want = np.flatnonzero(mem if inclusive else ~mem)
+    assert want.size >= 8192
+    assert sorted(tacc.tree.tri_order.tolist()) == want.tolist()
 
 
 def test_subset_queries_skip_non_members(scenes):
