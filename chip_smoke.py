@@ -149,7 +149,19 @@ nonzero):
    indirect_specular AOV above 0 and every launch on the global path;
    prints seconds per frame, the rays, the launches per kernel and the
    rate, and profiles one 128x128, AA 3 tile (the card's activity only);
-   then a 16x16, AA 1 frame on the card and on the CPU, compared.
+   then a 16x16, AA 1 frame on the card and on the CPU, compared;
+29. every committed file of scenes/data/modes/ (tools/make_image_modes.py:
+   PNG of every colour type, depth and Adam7, progressive, CMYK and
+   RGB-coded JPEG, TIFF, BMP and GIF, and a 2048x2048 progressive JPEG)
+   decoded without PIL through `texture.decode_image` and held to the
+   SHA-256 of PIL's decode; its bytes, shape and host milliseconds;
+30. scenes/textured_disk.ass at its own options (256x256, AA 3, 3x3 GI
+   samples) with its three images replaced, through the kernels (counts
+   reset, plain walk barred): frame A the 2048x2048 progressive JPEG, an
+   LZW TIFF with predictor 2 and an Adam7 palette PNG, frame B a GIF, a
+   4-bit BMP and a CMYK JPEG; each frame must launch 16 nearest and 60
+   any-hit queries, prints its build seconds, texture-table bytes and
+   seconds per frame, and is compared at 32x32 on the card and the CPU.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -167,7 +179,8 @@ The last three lines of the output are: a JSON object with one entry per
 kernel (with, per shape, its launches, device_ms and call_ms; and the
 launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_mesh` for phases 23-24, `launches_jpeg` for phase 25,
-`launches_dense` for phase 28, whose sum is `launches`); the card's name
+`launches_dense` for phase 28, `launches_images` for phase 30, whose sum
+is `launches`); the card's name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -230,6 +243,73 @@ JPEG_DIGESTS = {
     "scenes/data/logo.jpg":
         "6ca72db18beca40ae8d32c3fe2421a339667c534ed778bf6106a07b9db5df803",
 }
+# SHA-256 of PIL's RGB decode of every file of scenes/data/modes (printed
+# by tools/make_image_modes.py; pinned by tests/test_torch_gpu.py too)
+MODE_DIGESTS = {
+    "scenes/data/modes/grid.gif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_8bit_topdown_v5.bmp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_grey16.png":
+        "c1f7d702a80ae5e7dc52d62ef2577cbbb25c045d6dda3a49a872130518f48cc0",
+    "scenes/data/modes/grid_grey1_adam7.png":
+        "363cb8b7a0c1362aad878f833388374ba3cda6a58460528ef537cfcf74ecbe8b",
+    "scenes/data/modes/grid_grey4.png":
+        "240bf383fa47ede915297c2869089a394e4105c00ed50916a793c4a13608361f",
+    "scenes/data/modes/grid_minwhite1.tif":
+        "363cb8b7a0c1362aad878f833388374ba3cda6a58460528ef537cfcf74ecbe8b",
+    "scenes/data/modes/grid_os2_1bit.bmp":
+        "65bd463b46b3fa067437a411131c777912210f14c48fa231d4cb863dc1650a5a",
+    "scenes/data/modes/grid_palette_packbits.tif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_progressive.jpg":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/modes/grid_rgb.jpg":
+        "e16ee891b5d66530e8d707cb424ae0a13ba198a67660c2bfc84eb3014c2e912d",
+    "scenes/data/modes/grid_rgb16.png":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_rgb16_lzw_pred2_mm.tif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_rle8.bmp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_tiles_deflate_planar2_mm.tif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/logo_4bit.bmp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_565_bitfields.bmp":
+        "4b38b26737b78000b0c0b48a24e452e82394331479f703e4709c00030f6a9aaa",
+    "scenes/data/modes/logo_cmyk.jpg":
+        "9c0106c01f67da1ffe90ee2e00ed6d2eee3ac2a30a694e1fe4484dcb80d63db1",
+    "scenes/data/modes/logo_cmyk_deflate.tif":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_greyalpha8.png":
+        "ab4446635cd496cfa7a2c79898d822b09c77ef0c63426e1f36201878179ff0bc",
+    "scenes/data/modes/logo_interlaced_local.gif":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_lzw_pred2.tif":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_offset87a.gif":
+        "4e925c96023fa6014bc64dccff150cb5dcf5eefcc56043fb9741c3edeb3879e6",
+    "scenes/data/modes/logo_palette_adam7.png":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_progressive.jpg":
+        "6ca72db18beca40ae8d32c3fe2421a339667c534ed778bf6106a07b9db5df803",
+    "scenes/data/modes/logo_rgba16_adam7.png":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_rle4.bmp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/texture_2048.jpg":
+        "8fe53ffcd38d108910a6da2c19e7b8e85defd7a95fcb9711d8e961c91d2c8024",
+}
+# phase 30: the images put in the textured scene's three MayaFile slots
+# (the grid, the logo, the inverted logo)
+IMAGE_FRAMES = {
+    "A": ("modes/texture_2048.jpg", "modes/logo_lzw_pred2.tif",
+          "modes/logo_palette_adam7.png"),
+    "B": ("modes/grid.gif", "modes/logo_4bit.bmp", "modes/logo_cmyk.jpg"),
+}
+# each frame's launches at the scene's own options (phase 25's)
+IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
 # copy on which the plain builder is held to the native one
 DENSE_AROUND = 512
@@ -1351,6 +1431,97 @@ def jpeg_phase(card: str) -> dict:
     return launches
 
 
+def with_images(src: str, images) -> str:
+    """The textured scene's source with its three image names (the grid,
+    the logo, the inverted logo) replaced in order by `images`."""
+    slots = ('"data/grid.png"', '"data/logo.png"', '"data/logo.png"')
+    for old, new in zip(slots, images):
+        if old not in src:
+            raise AssertionError(f"{TEXTURED} does not name {old}")
+        src = src.replace(old, f'"data/{new}"', 1)
+    return src
+
+
+def image_phases(card: str) -> dict:
+    """Phases 29-30: every file of scenes/data/modes decoded without PIL
+    and held to its pinned digest; the textured scene with frames A's and
+    B's images through the kernels (counts reset, plain walk barred), 16
+    + 60 launches each, and its 32x32 frame on the card and the CPU.
+    Returns the launches of both frames."""
+    import hashlib
+
+    from rlshaders_tpu_torch.accel import bvh
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build_text
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    t0 = time.perf_counter()
+    names = sorted(os.listdir("scenes/data/modes"))
+    paths = [f"scenes/data/modes/{n}" for n in names]
+    if sorted(paths) != sorted(MODE_DIGESTS):
+        raise AssertionError(f"[29] scenes/data/modes holds {names}, the "
+                             f"digests name {sorted(MODE_DIGESTS)}")
+    total_ms = 0.0
+    for path in paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        px = decode_image(data)
+        dt = (time.perf_counter() - t1) * 1e3
+        total_ms += dt
+        got = hashlib.sha256(px.tobytes()).hexdigest()
+        log(f"[29] {path}: {len(data)} B -> {px.shape} in {dt:.2f} ms "
+            f"(host), sha256 {got[:16]}...")
+        if got != MODE_DIGESTS[path]:
+            raise AssertionError(f"[29] {path} decodes to {got}, PIL's "
+                                 f"decode is {MODE_DIGESTS[path]}")
+    if "PIL" in sys.modules:
+        raise AssertionError("[29] PIL was imported")
+    log(f"[29] {len(paths)} files decoded in {total_ms:.2f} ms (host); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with open(TEXTURED) as f:
+        base_src = f.read()
+    base = os.path.dirname(TEXTURED)
+    launches = {k: 0 for k in IMAGE_LAUNCHES}
+    for tag, images in IMAGE_FRAMES.items():
+        src = with_images(base_src, images)
+        t1 = time.perf_counter()
+        scene = build_text(src, base_dir=base)
+        log(f"[30] frame {tag} {images}: built in "
+            f"{time.perf_counter() - t1:.2f} s; texture table "
+            f"{texture_bytes(scene.textures)} B")
+        accel = tracemod.build(scene.geometry)
+        reset(kernels)
+        out, dt = barred_render(wavefront.render, bvh, scene, accel)
+        got = dict(kernels.LAUNCHES)
+        o = scene.options
+        check_planes(out, o.xres)
+        stats = out["__stats__"]
+        log(f"[30] frame {tag} {o.xres}x{o.yres} AA {o.aa_samples}: "
+            f"{dt:.4f} s/frame, mean RGB {float(out['RGBA'].mean()):.6f}, "
+            f"launches {got}, nearest rays {stats['nearest_rays']}, shadow "
+            f"rays {stats['shadow_rays']}; {card}")
+        if got != IMAGE_LAUNCHES:
+            raise AssertionError(f"[30] frame {tag} launched {got}, "
+                                 f"expected {IMAGE_LAUNCHES}")
+        for k in launches:
+            launches[k] += got[k]
+        del out
+        cscene = build_text(src, device="cpu", base_dir=base)
+        cuda_vs_cpu(wavefront, f"30{tag}", {
+            "cuda": (scene, accel),
+            "cpu": (cscene, tracemod.build(cscene.geometry))},
+            (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA,
+            xres=TEXTURED_CPU, yres=TEXTURED_CPU)
+        del scene, accel, cscene
+    log(f"[30] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def same_nodes_and_leaves(a, b) -> bool:
     """Whether two builders' arrays (bbox_min, bbox_max, first, count,
     miss, order) have the same nodes and every leaf the same set of
@@ -1826,6 +1997,7 @@ def main() -> int:
     mesh2 = mesh_world2_phase(card)
     jpeg_launches = jpeg_phase(card)
     dense = dense_phases(card)
+    image_launches = image_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -1859,7 +2031,7 @@ def main() -> int:
                          + skin_launches[k] + dsy["launches"][k]
                          + tex["launches"][k] + clirun["launches"][k]
                          + mesh1[k] + mesh2[k] + jpeg_launches[k]
-                         + dense["launches"][k]),
+                         + dense["launches"][k] + image_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -1877,6 +2049,7 @@ def main() -> int:
             "launches_mesh": mesh1[k] + mesh2[k],
             "launches_jpeg": jpeg_launches[k],
             "launches_dense": dense["launches"][k],
+            "launches_images": image_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

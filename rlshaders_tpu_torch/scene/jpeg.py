@@ -1,4 +1,4 @@
-"""Sequential Huffman JPEG decoding in numpy, equal to PIL's decode.
+"""Huffman-coded JPEG decoding in numpy, equal to PIL's decode.
 
 The JAX package decodes textures with PIL (rlshaders_tpu/scene/texture.py);
 the card's image has no PIL, so the port decodes JPEG itself. It follows
@@ -13,16 +13,28 @@ the bytes of `np.asarray(Image.open(path).convert("RGB"))`:
   row and column of a component stand in for their missing neighbours,
   never the MCU padding; components two samples wide or narrower are
   replicated instead, as libjpeg-turbo does);
-* the fixed-point YCbCr to RGB conversion of jdcolor.c (SCALEBITS 16).
+* the fixed-point YCbCr to RGB conversion of jdcolor.c (SCALEBITS 16);
+* libjpeg's colour-space guess (jdapimin.c): three components are RGB
+  under an Adobe marker with transform 0 and no JFIF marker, or with the
+  component ids 'R', 'G', 'B', else YCbCr; four are CMYK (Adobe transform
+  0 or no Adobe marker) or YCCK (turned into CMYK as 255 minus its YCbCr
+  to RGB conversion); PIL reads four components as inverted CMYK
+  ("CMYK;I") and converts them as (255 - C)(255 - K) / 255, rounded as
+  Pillow's MULDIV255.
 
-Decoded: baseline and extended sequential Huffman frames (SOF0, SOF1) of
-8-bit samples, 8- and 16-bit quantisation tables, restart intervals, one
-component (grey, replicated to RGB as PIL's convert("RGB") does) or three
-(YCbCr) with chroma sampled 1x1, 2x1, 1x2 or 2x2 against the largest
-factors, interleaved or one scan per component, any width and height.
-Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-samples, four components and RGB-coded components raise
-NotImplementedError naming the mode; malformed data raises ValueError.
+Decoded: baseline, extended sequential and progressive Huffman frames
+(SOF0, SOF1, SOF2) of 8-bit samples, 8- and 16-bit quantisation tables,
+restart intervals, one, three or four components with chroma sampled
+1x1, 2x1, 1x2 or 2x2 against the largest factors, interleaved or one
+scan per component, any width and height. A progressive file keeps
+whole-image coefficient planes across its scans (jdphuff.c: DC first, DC
+refinement, AC first with end-of-band runs, AC refinement with its
+correction bits; each scan reads its own Huffman tables, a component's
+quantisation table is latched at its first scan). Lossless, hierarchical
+and arithmetic-coded files, 12-bit samples, and progressive files whose
+scans leave the low AC coefficients unrefined (libjpeg then smooths the
+blocks, `do_block_smoothing`) raise NotImplementedError naming the mode;
+malformed data raises ValueError.
 
 The Huffman decode is sequential Python over a 16-bit lookahead table; the
 IDCT, upsampling and colour conversion are numpy over all blocks at once.
@@ -41,7 +53,7 @@ ZIGZAG = (
 
 # frame markers that start a mode the port does not decode
 _MODES = {
-    0xC2: "progressive", 0xC3: "lossless",
+    0xC3: "lossless",
     0xC5: "differential sequential (hierarchical)",
     0xC6: "differential progressive (hierarchical)",
     0xC7: "differential lossless (hierarchical)",
@@ -200,6 +212,9 @@ class _Component:
         self.coef = None      # flat list of (rows * cols * 64) coefficients
         self.rows = self.cols = 0     # block grid, MCU-padded
         self.height = self.width = 0  # real samples
+        # progressive: the approximation bit each zig-zag coefficient was
+        # last sent at, -1 before its first scan (libjpeg's coef_bits)
+        self.bits = [-1] * 64
 
 
 def _scan_segments(data: bytes, pos: int):
@@ -224,13 +239,24 @@ def _scan_segments(data: bytes, pos: int):
         return segs, i
 
 
-def _decode_segment(raw: bytes, blocks, dc_luts, ac_luts, outs) -> None:
-    """Huffman-decode one restart interval: `blocks` lists, in stream order,
-    (component slot, coefficient offset) of every block; coefficients are
-    written in natural order into outs[slot]."""
+def _windows(raw: bytes) -> list:
+    """The 32 bits from every byte of `raw` on (zeros past its end): the
+    bits from bit position p are read as win[p >> 3] << (p & 7)."""
     buf = np.frombuffer(raw + bytes(8), np.uint8).astype(np.int64)
-    win = (buf[:-3] << 24 | buf[1:-2] << 16 | buf[2:-1] << 8
-           | buf[3:]).tolist()
+    return (buf[:-3] << 24 | buf[1:-2] << 16 | buf[2:-1] << 8
+            | buf[3:]).tolist()
+
+
+def _bad_code():
+    return ValueError("JPEG data holds an invalid Huffman code")
+
+
+def _sequential(raw: bytes, blocks, dc_luts, ac_luts, outs) -> int:
+    """Huffman-decode one restart interval of a sequential scan: `blocks`
+    lists, in stream order, (component slot, coefficient offset) of every
+    block; coefficients are written in natural order into outs[slot].
+    Returns the bits read."""
+    win = _windows(raw)
     zz = ZIGZAG
     pred = [0] * len(outs)
     p = 0
@@ -238,7 +264,7 @@ def _decode_segment(raw: bytes, blocks, dc_luts, ac_luts, outs) -> None:
         out, dc, ac = outs[slot], dc_luts[slot], ac_luts[slot]
         e = dc[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
         if not e:
-            raise ValueError("JPEG data holds an invalid Huffman code")
+            raise _bad_code()
         p += e >> 8
         s = e & 0xFF
         if s:
@@ -252,7 +278,7 @@ def _decode_segment(raw: bytes, blocks, dc_luts, ac_luts, outs) -> None:
         while k < 64:
             e = ac[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
             if not e:
-                raise ValueError("JPEG data holds an invalid Huffman code")
+                raise _bad_code()
             p += e >> 8
             s = e & 15
             if s:
@@ -269,12 +295,153 @@ def _decode_segment(raw: bytes, blocks, dc_luts, ac_luts, outs) -> None:
                 break
         if k > 64:
             raise ValueError("JPEG block with more than 64 coefficients")
-    if p > 8 * len(raw):
+    return p
+
+
+def _dc_first(raw: bytes, blocks, dc_luts, outs, al: int) -> int:
+    """A progressive scan's first DC bits (jdphuff.c decode_mcu_DC_first):
+    each block's DC difference, its running sum shifted up by `al`."""
+    win = _windows(raw)
+    pred = [0] * len(outs)
+    p = 0
+    for slot, base in blocks:
+        e = dc_luts[slot][(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+        if not e:
+            raise _bad_code()
+        p += e >> 8
+        s = e & 0xFF
+        if s:
+            x = (win[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+            p += s
+            if x < 1 << (s - 1):
+                x += 1 - (1 << s)
+            pred[slot] += x
+        outs[slot][base] = pred[slot] << al
+    return p
+
+
+def _dc_refine(raw: bytes, blocks, outs, al: int) -> int:
+    """A DC refinement scan (decode_mcu_DC_refine): one raw bit a block,
+    or'ed in at bit `al`."""
+    bits = np.unpackbits(np.frombuffer(raw, np.uint8)).tolist()
+    if len(blocks) > len(bits):
         raise ValueError("JPEG scan data ends early")
+    one = 1 << al
+    for (slot, base), b in zip(blocks, bits):
+        if b:
+            outs[slot][base] |= one
+    return len(blocks)
+
+
+def _ac_first(raw: bytes, blocks, ac, out, ss: int, se: int,
+              al: int) -> int:
+    """A progressive scan's first bits of AC coefficients ss..se of one
+    component (decode_mcu_AC_first), with end-of-band runs that span
+    blocks."""
+    win = _windows(raw)
+    zz = ZIGZAG
+    p = 0
+    eobrun = 0
+    for _, base in blocks:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            e = ac[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+            if not e:
+                raise _bad_code()
+            p += e >> 8
+            s = e & 15
+            r = (e >> 4) & 15
+            if s:
+                k += r
+                x = (win[p >> 3] >> (32 - (p & 7) - s)) & ((1 << s) - 1)
+                p += s
+                if x < 1 << (s - 1):
+                    x += 1 - (1 << s)
+                out[base + zz[k]] = x << al
+                k += 1
+            elif r == 15:
+                k += 16
+            else:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[p >> 3] >> (32 - (p & 7) - r)) & (
+                        (1 << r) - 1)
+                    p += r
+                eobrun -= 1
+                break
+    return p
+
+
+def _ac_refine(raw: bytes, blocks, ac, out, ss: int, se: int,
+               al: int) -> int:
+    """An AC refinement scan of one component (decode_mcu_AC_refine): a
+    correction bit for every coefficient of ss..se already nonzero, read
+    as the walk passes it, and the coefficients that become nonzero at
+    bit `al`, each placed after a run of still-zero ones."""
+    win = _windows(raw)
+    zz = ZIGZAG
+    p1, m1 = 1 << al, -1 << al
+    p = 0
+    eobrun = 0
+    for _, base in blocks:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = ac[(win[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise _bad_code()
+                p += e >> 8
+                s = e & 15
+                r = (e >> 4) & 15
+                if s:
+                    if s != 1:
+                        raise ValueError("JPEG refinement of a new "
+                                         "coefficient by more than one bit")
+                    s = p1 if (win[p >> 3] >> (31 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (32 - (p & 7) - r)) & (
+                            (1 << r) - 1)
+                        p += r
+                    break
+                # pass the nonzero coefficients (a correction bit each)
+                # and r zero ones; stop on the zero that s lands on
+                while k <= se:
+                    i = base + zz[k]
+                    c = out[i]
+                    if c:
+                        if (win[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                            out[i] = c + p1 if c >= 0 else c + m1
+                        p += 1
+                    elif r:
+                        r -= 1
+                    else:
+                        break
+                    k += 1
+                if s:
+                    out[base + zz[k]] = s
+                k += 1
+        if eobrun:
+            # the rest of the band: correction bits only
+            while k <= se:
+                i = base + zz[k]
+                c = out[i]
+                if c:
+                    if (win[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                        out[i] = c + p1 if c >= 0 else c + m1
+                    p += 1
+                k += 1
+            eobrun -= 1
+    return p
 
 
 def _scan(data: bytes, pos: int, seg: bytes, comps, huff, restart: int,
-          mcus: tuple) -> int:
+          mcus: tuple, progressive: bool) -> int:
     """Decode the scan whose header is `seg`; returns the position after
     its entropy-coded data."""
     ns = seg[0]
@@ -286,16 +453,29 @@ def _scan(data: bytes, pos: int, seg: bytes, comps, huff, restart: int,
             raise ValueError(f"JPEG scan names unknown component {cid}")
         chosen.append((comp, tables >> 4, tables & 15))
     ss, se, a = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-    if (ss, se, a) != (0, 63, 0):
+    ah, al = a >> 4, a & 15
+    if not progressive and (ss, se, a) != (0, 63, 0):
         raise ValueError(f"sequential JPEG scan with spectral selection "
                          f"{ss}-{se} and approximation {a}")
-    dc_luts, ac_luts, outs = [], [], []
+    if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                        or (ss and ns != 1) or al > 13):
+        raise ValueError(f"progressive JPEG scan of {ns} components with "
+                         f"spectral selection {ss}-{se}, approximation "
+                         f"{ah}/{al}")
+    outs, luts = [], []
     for comp, td, ta in chosen:
-        if ("dc", td) not in huff or ("ac", ta) not in huff:
+        if not progressive:
+            need = [("dc", td), ("ac", ta)]
+        elif ss:
+            need = [("ac", ta)]
+        else:                   # a DC refinement reads no Huffman code
+            need = [] if ah else [("dc", td)]
+        if any(t not in huff for t in need):
             raise ValueError("JPEG scan uses an undefined Huffman table")
-        dc_luts.append(huff[("dc", td)])
-        ac_luts.append(huff[("ac", ta)])
+        luts.append([huff[t] for t in need])
         outs.append(comp.coef)
+        for k in range(ss, se + 1):
+            comp.bits[k] = al
 
     # every block of the scan in stream order, grouped by MCU
     units = []
@@ -317,6 +497,22 @@ def _scan(data: bytes, pos: int, seg: bytes, comps, huff, restart: int,
                     unit += [(s, base + o) for s, o in offs[slot]]
                 units.append(unit)
 
+    if not progressive:
+        def run(raw, blocks):
+            return _sequential(raw, blocks, [t[0] for t in luts],
+                               [t[1] for t in luts], outs)
+    elif ss == 0 and ah == 0:
+        def run(raw, blocks):
+            return _dc_first(raw, blocks, [t[0] for t in luts], outs, al)
+    elif ss == 0:
+        def run(raw, blocks):
+            return _dc_refine(raw, blocks, outs, al)
+    else:
+        decode = _ac_refine if ah else _ac_first
+
+        def run(raw, blocks):
+            return decode(raw, blocks, luts[0][0], outs[0], ss, se, al)
+
     segments, end = _scan_segments(data, pos)
     per = restart or len(units)
     if len(segments) < -(-len(units) // per):
@@ -324,18 +520,50 @@ def _scan(data: bytes, pos: int, seg: bytes, comps, huff, restart: int,
                          "its MCUs need")
     for i, raw in enumerate(segments[:-(-len(units) // per)]):
         blocks = [b for unit in units[i * per:(i + 1) * per] for b in unit]
-        _decode_segment(raw, blocks, dc_luts, ac_luts, outs)
+        if run(raw, blocks) > 8 * len(raw):
+            raise ValueError("JPEG scan data ends early")
     return end
 
 
+def muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a * b / 255 rounded as Pillow's MULDIV255 rounds it."""
+    t = a.astype(np.int32) * b.astype(np.int32) + 128
+    return ((t >> 8) + t) >> 8
+
+
+def _colour(planes: list, jfif: bool, adobe) -> np.ndarray:
+    """(h, w, 3) uint8 of the component planes, converted as libjpeg's
+    colour-space guess (jdapimin.c default_decompress_parms) and PIL's
+    mode for the component count convert them."""
+    if len(planes) == 1:
+        return np.repeat(planes[0][0][..., None], 3, axis=2)
+    if len(planes) == 3:
+        cids = [p[1] for p in planes]
+        rgb = not jfif and (adobe == 0 or (adobe is None
+                                           and cids == [82, 71, 66]))
+        planes = [p[0] for p in planes]
+        return np.stack(planes, -1) if rgb else ycc_to_rgb(*planes)
+    # four components: CMYK (Adobe transform 0, or no Adobe marker) or
+    # YCCK (any other transform), which libjpeg turns into CMYK as
+    # 255 - its YCbCr to RGB conversion, K passed on; PIL reads the
+    # samples as inverted ("CMYK;I") and converts CMYK to RGB as
+    # (255 - C)(255 - K) / 255, so each channel is sample * K / 255
+    c, m, y, k = (p[0] for p in planes)
+    if adobe not in (None, 0):
+        c, m, y = np.moveaxis(255 - ycc_to_rgb(c, m, y).astype(np.int32),
+                              -1, 0)
+    return np.stack([muldiv255(v, k) for v in (c, m, y)],
+                    -1).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 of a sequential Huffman JPEG, PIL's
-    `convert("RGB")` of it byte for byte."""
+    """(H, W, 3) uint8 of a Huffman-coded JPEG (sequential or
+    progressive), PIL's `convert("RGB")` of it byte for byte."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG file")
     pos = 2
     qts, huff, restart = {}, {}, 0
-    comps, size, mcus = None, None, None
+    comps, size, mcus, progressive = None, None, None, False
     jfif, adobe = False, None
     while True:
         if pos >= len(data) or data[pos] != 0xFF:
@@ -357,8 +585,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         pos += length
         if m in _MODES:
             raise NotImplementedError(
-                f"{_MODES[m]} JPEG is not decoded by the port (sequential "
-                f"Huffman only)")
+                f"{_MODES[m]} JPEG is not decoded by the port (Huffman-"
+                f"coded sequential and progressive only)")
         if m == 0xDB:                                   # DQT
             i = 0
             while i < len(seg):
@@ -381,19 +609,20 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 i += 17 + n
         elif m == 0xDD:                                 # DRI
             restart = seg[0] << 8 | seg[1]
-        elif m in (0xC0, 0xC1):                         # SOF0, SOF1
+        elif m in (0xC0, 0xC1, 0xC2):                   # SOF0, SOF1, SOF2
             bits, h, w, nf = seg[0], seg[1] << 8 | seg[2], \
                 seg[3] << 8 | seg[4], seg[5]
             if bits != 8:
                 raise NotImplementedError(
                     f"JPEG with {bits}-bit samples is not decoded by the "
                     f"port (8-bit only)")
-            if nf not in (1, 3):
+            if nf not in (1, 3, 4):
                 raise NotImplementedError(
-                    f"{nf}-component JPEG (CMYK or YCCK) is not decoded by "
-                    f"the port (grey or YCbCr only)")
+                    f"{nf}-component JPEG is not decoded by the port (1, 3 "
+                    f"or 4 components)")
             if h == 0 or w == 0:
                 raise ValueError(f"JPEG frame of {w}x{h} samples")
+            progressive = m == 0xC2
             comps = [_Component(seg[6 + 3 * j], seg[7 + 3 * j] >> 4,
                                 seg[7 + 3 * j] & 15, seg[8 + 3 * j])
                      for j in range(nf)]
@@ -424,7 +653,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                          "quantisation table")
                     c.qt = qts[c.tq]
             try:
-                pos = _scan(data, pos, seg, comps, huff, restart, mcus)
+                pos = _scan(data, pos, seg, comps, huff, restart, mcus,
+                            progressive)
             except IndexError as e:
                 raise ValueError("corrupt JPEG scan data") from e
         elif m == 0xE0 and seg.startswith(b"JFIF\x00"):
@@ -435,11 +665,15 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("JPEG without a frame header")
     if any(c.qt is None for c in comps):
         raise ValueError("JPEG component without a scan")
-    if len(comps) == 3 and not jfif and (
-            adobe == 0 or (adobe is None
-                           and [c.cid for c in comps] == [82, 71, 66])):
-        raise NotImplementedError("JPEG with RGB-coded components is not "
-                                  "decoded by the port (YCbCr only)")
+    if progressive and all(c.bits[0] >= 0 for c in comps) and any(
+            b != 0 for c in comps for b in c.bits[1:10]):
+        # libjpeg's default do_block_smoothing (jdcoefct.c smoothing_ok)
+        # then estimates the missing low AC coefficients from the
+        # neighbouring blocks' DC values
+        raise NotImplementedError(
+            "progressive JPEG whose scans leave low AC coefficients "
+            "unrefined (decoded with libjpeg's block smoothing) is not "
+            "decoded by the port")
 
     h, w = size
     hmax = max(c.h for c in comps)
@@ -450,7 +684,6 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                             c.qt)
         plane = blocks.reshape(c.rows, c.cols, 8, 8).transpose(0, 2, 1, 3)
         plane = plane.reshape(c.rows * 8, c.cols * 8)[:c.height, :c.width]
-        planes.append(upsample(plane, hmax // c.h, vmax // c.v)[:h, :w])
-    if len(planes) == 1:
-        return np.repeat(planes[0][..., None], 3, axis=2)
-    return ycc_to_rgb(*planes)
+        planes.append((upsample(plane, hmax // c.h, vmax // c.v)[:h, :w],
+                       c.cid))
+    return _colour(planes, jfif, adobe)

@@ -10,15 +10,18 @@ package's analogue of Arnold's `smart_bicubic` MayaFile filter: a level of
 detail from the ray footprint, Mitchell bicubic taps on the finer level
 blended linearly with a bilinear tap on the coarser one, wrap addressing.
 
-The JAX package decodes with PIL; the port decodes PNG (zlib and numpy:
-8-bit RGB or RGBA, no interlace, the five row filters) and sequential
-Huffman JPEG (scene/jpeg.py, equal to PIL's decode) itself, and raises on
-any other format, naming it.
+The JAX package decodes with PIL (`Image.open(path).convert("RGB")`); the
+port decodes every texture it renders itself, with no PIL: `load_image`
+names the format by the file's first bytes, as PIL's `open` does (never
+by its extension), and hands it to scene/png.py, jpeg.py, tiff.py, bmp.py
+or gif.py, each equal to PIL's decode byte for byte. A format PIL opens
+and the port does not decode (WebP, JPEG 2000, TGA, PNM, DDS, PSD, QOI,
+AVIF and the rest of PIL's plugins) raises NotImplementedError naming it;
+data that no PIL plugin accepts raises it as an unknown format.
 """
 from __future__ import annotations
 
 import struct
-import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -26,105 +29,134 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
+from . import bmp, gif, png, tiff
 from .jpeg import decode_jpeg
+from .png import decode_png
 
 MAX_LEVELS = 12
 # texel centres sit at (i + TEX_SHIFT) / size (OIIO and Arnold; the JAX
 # package's RLS_TEX_SHIFT default)
 TEX_SHIFT = 0.5
 
-_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_JPEG_MAGIC = b"\xff\xd8\xff"
-# formats that raise
-_MAGICS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"),
-           (b"MM\x00*", "TIFF"), (b"\x76\x2f\x31\x01", "OpenEXR"))
+
+def _tga(d: bytes) -> bool:
+    """PIL's TgaImagePlugin header checks (TGA has no signature)."""
+    return (len(d) >= 18 and d[1] in (0, 1) and d[2] in (1, 2, 3, 9, 10, 11)
+            and 0 not in struct.unpack_from("<HH", d, 12)
+            and d[16] in (1, 8, 16, 24, 32))
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of h
-    scanlines of w pixels of bpp bytes, each led by its filter byte.
-
-    A pixel's predictor reads its left, upper and upper-left neighbours,
-    so the pixels of one anti-diagonal (x + y constant) are independent:
-    the loop runs over the h + w - 1 diagonals, each one numpy step over
-    its pixels and their bpp channels, with each row's own filter."""
-    rows = np.frombuffer(raw, np.uint8)
-    if rows.size != h * (w * bpp + 1):
-        raise ValueError(f"PNG data holds {rows.size} bytes, expected "
-                         f"{h * (w * bpp + 1)}")
-    rows = rows.reshape(h, w * bpp + 1)
-    ftype = rows[:, 0].astype(np.int64)
-    if (ftype > 4).any():
-        y = int(np.argmax(ftype > 4))
-        raise ValueError(f"PNG row {y} has filter type {ftype[y]}")
-    data = rows[:, 1:].reshape(h, w, bpp).astype(np.int32)
-    # a zero row above and a zero column left of the image: the neighbours
-    # that PNG reads as 0
-    out = np.zeros((h + 1, w + 1, bpp), np.int32)
-    for d in range(h + w - 1):
-        y = np.arange(max(0, d - w + 1), min(h, d + 1))
-        x = d - y
-        a = out[y + 1, x]
-        b = out[y, x + 1]
-        c = out[y, x]
-        f = ftype[y][:, None]
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a,
-                         np.where(pb <= pc, b, c))
-        pred = np.select([f == 1, f == 2, f == 3, f == 4],
-                         [a, b, (a + b) >> 1, paeth], 0)
-        out[y + 1, x + 1] = (data[y, x] + pred) & 0xFF
-    return out[1:, 1:].astype(np.uint8).reshape(h, w * bpp)
+def _spider(d: bytes) -> bool:
+    """PIL's SpiderImagePlugin header checks (integral label fields and a
+    known file type), in either byte order."""
+    for e in "<>":
+        if len(d) < 92:
+            return False
+        h = (99.0,) + struct.unpack_from(e + "23f", d)
+        if all(h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)) and \
+                int(h[5]) in (1, 3, -11, -12, -21, -22) and \
+                h[22] == h[13] * h[23]:
+            return True
+    return False
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 of an 8-bit RGB or RGBA, non-interlaced PNG (the
-    alpha channel is dropped, as PIL's convert("RGB") drops it)."""
-    if not data.startswith(_PNG_MAGIC):
-        raise ValueError("not a PNG file")
-    pos = len(_PNG_MAGIC)
-    header, idat = None, []
-    while pos + 8 <= len(data):
-        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if ctype == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype == b"IEND":
-            break
-    if header is None:
-        raise ValueError("PNG without an IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    channels = {2: 3, 6: 4}.get(color)
-    if depth != 8 or channels is None or interlace != 0:
-        raise ValueError(
-            f"PNG with bit depth {depth}, colour type {color}, interlace "
-            f"{interlace}: only 8-bit RGB or RGBA without interlace is "
-            f"decoded")
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, channels)
-    return px.reshape(h, w, channels)[..., :3]
+def _u32(d: bytes, e: str = "<") -> int:
+    return struct.unpack_from(e + "I", d.ljust(4, b"\x00"))[0]
+
+
+# the formats of PIL's plugins that the port does not decode, by the test
+# each plugin's `_accept` (or `_open`) makes of a file's first bytes (an
+# icon or cursor file lists at least one image)
+_OTHERS = (
+    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1",
+                                                 b"msf1"), "AVIF"),
+    (lambda d: d.startswith(b"Image type:"), "IM"),
+    (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
+    (lambda d: _u32(d) in (12, 40, 52, 56, 64, 108, 124),
+     "DIB (BMP without its file header)"),
+    (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
+    (lambda d: d.startswith(b"\x00\x00\x02\x00") and d[4:6] != b"\x00\x00",
+     "CUR"),
+    (lambda d: len(d) > 1 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
+    (lambda d: _u32(d) == 987654321, "DCX"),
+    (lambda d: d.startswith(b"DDS "), "DDS"),
+    (lambda d: d.startswith(b"%!PS") or _u32(d) == 0xC6D3D0C5, "EPS"),
+    (lambda d: d.startswith(b"SIMPLE"), "FITS"),
+    (lambda d: len(d) > 5 and struct.unpack_from("<H", d, 4)[0] in (
+        0xAF11, 0xAF12), "FLI"),
+    (lambda d: d.startswith(b"FTEX"), "FTEX"),
+    (lambda d: len(d) >= 8 and _u32(d, ">") >= 20
+     and _u32(d[4:], ">") in (1, 2), "GBR"),
+    (lambda d: d.startswith(b"GRIB") and len(d) > 7 and d[7] == 1, "GRIB"),
+    (lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), "HDF5"),
+    (lambda d: d.startswith((b"\xff\x4f\xff\x51",
+                             b"\x00\x00\x00\x0cjP  \r\n\x87\n")),
+     "JPEG 2000"),
+    (lambda d: d.startswith(b"icns"), "ICNS"),
+    (lambda d: d.startswith(b"\x00\x00\x01\x00") and d[4:6] != b"\x00\x00",
+     "ICO"),
+    (lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+     "McIdas"),
+    (lambda d: d.startswith(b"\x00\x00\x01\xb3"), "MPEG"),
+    (lambda d: d[:4] in (b"DanM", b"LinS"), "MSP"),
+    (lambda d: d[2048:2052] == b"PCD_", "PhotoCD"),
+    (lambda d: d.startswith(b"\x80\xe8\x00\x00"), "PIXAR"),
+    (lambda d: len(d) > 1 and d[0] == ord("P") and d[1] in b"0123456fy",
+     "PNM (PBM, PGM, PPM, PAM or PFM)"),
+    (lambda d: d.startswith(b"8BPS"), "PSD"),
+    (lambda d: d.startswith(b"qoif"), "QOI"),
+    (lambda d: d.startswith(b"\x01\xda"), "SGI"),
+    (_spider, "SPIDER"),
+    (lambda d: _u32(d, ">") == 0x59A66A95, "Sun raster"),
+    (_tga, "TGA"),
+    (lambda d: d.startswith(b"RIFF") and d[8:12] == b"WEBP", "WebP"),
+    (lambda d: d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
+        d.startswith(b"\x01\x00\x00\x00") and d[40:44] == b" EMF"),
+     "WMF/EMF"),
+    (lambda d: d.lstrip().startswith(b"#define"), "XBM"),
+    (lambda d: d.startswith(b"/* XPM */"), "XPM"),
+    (lambda d: d.startswith(b"P7 332"), "XV thumbnail"),
+    (lambda d: d.startswith(b"\x76\x2f\x31\x01"),
+     "OpenEXR (which PIL does not open either)"),
+)
+# the formats the port decodes: (signatures, name, decoder)
+_DECODERS = ((png.MAGIC, "PNG", decode_png),
+             (b"\xff\xd8\xff", "JPEG", decode_jpeg),
+             (gif.MAGICS, "GIF", gif.decode_gif),
+             (bmp.MAGIC, "BMP", bmp.decode_bmp),
+             (tiff.MAGICS + tiff.BIGTIFF, "TIFF", tiff.decode_tiff))
+
+
+def image_format(data: bytes) -> str:
+    """The name of the format of an image file's bytes: one the port
+    decodes (PNG, JPEG, GIF, BMP, TIFF), another of PIL's, or "an unknown
+    format"."""
+    for magic, name, _ in _DECODERS:
+        if data.startswith(magic):
+            return name
+    return next((name for test, name in _OTHERS if test(data)),
+                "an unknown format")
+
+
+def decode_image(data: bytes, name: str = "image") -> np.ndarray:
+    """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
+    them: PNG, JPEG, GIF, BMP and TIFF; any other format raises
+    NotImplementedError (naming it and `name`), malformed data
+    ValueError."""
+    for magic, _, decode in _DECODERS:
+        if data.startswith(magic):
+            return decode(data)
+    raise NotImplementedError(
+        f"{name}: {image_format(data)} images are not decoded by the port "
+        f"(PNG, JPEG, GIF, BMP and TIFF only)")
 
 
 def load_image(path: str) -> np.ndarray:
     """Decode an image file to (H, W, 3) float32 in storage space: the
-    8-bit values over 255 (texture_gamma is applied after filtering). PNG
-    and JPEG; any other format raises."""
+    8-bit values over 255 (texture_gamma is applied after filtering)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_PNG_MAGIC):
-        px = decode_png(data)
-    elif data.startswith(_JPEG_MAGIC):
-        px = decode_jpeg(data)
-    else:
-        kind = next((k for m, k in _MAGICS if data.startswith(m)),
-                    "an unknown format")
-        raise NotImplementedError(
-            f"{path}: {kind} images are not decoded by the port (PNG and "
-            f"JPEG only)")
-    return px.astype(np.float32) / 255.0
+    return decode_image(data, path).astype(np.float32) / 255.0
 
 
 def _downsample2(im: np.ndarray) -> np.ndarray:

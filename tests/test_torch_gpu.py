@@ -501,3 +501,78 @@ def test_committed_jpegs_decode_to_their_digests(cuda_device, path):
     with open(path, "rb") as f:
         px = decode_jpeg(f.read())
     assert hashlib.sha256(px.tobytes()).hexdigest() == JPEG_DIGESTS[path]
+
+
+# SHA-256 of PIL's RGB decode of every file of scenes/data/modes
+# (tools/make_image_modes.py prints them; tests/test_torch_image_modes.py
+# checks them against PIL and chip_smoke.py's copy)
+MODE_DIGESTS = {
+    "scenes/data/modes/grid.gif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_8bit_topdown_v5.bmp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_grey16.png":
+        "c1f7d702a80ae5e7dc52d62ef2577cbbb25c045d6dda3a49a872130518f48cc0",
+    "scenes/data/modes/grid_grey1_adam7.png":
+        "363cb8b7a0c1362aad878f833388374ba3cda6a58460528ef537cfcf74ecbe8b",
+    "scenes/data/modes/grid_grey4.png":
+        "240bf383fa47ede915297c2869089a394e4105c00ed50916a793c4a13608361f",
+    "scenes/data/modes/grid_minwhite1.tif":
+        "363cb8b7a0c1362aad878f833388374ba3cda6a58460528ef537cfcf74ecbe8b",
+    "scenes/data/modes/grid_os2_1bit.bmp":
+        "65bd463b46b3fa067437a411131c777912210f14c48fa231d4cb863dc1650a5a",
+    "scenes/data/modes/grid_palette_packbits.tif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_progressive.jpg":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/modes/grid_rgb.jpg":
+        "e16ee891b5d66530e8d707cb424ae0a13ba198a67660c2bfc84eb3014c2e912d",
+    "scenes/data/modes/grid_rgb16.png":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_rgb16_lzw_pred2_mm.tif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_rle8.bmp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/grid_tiles_deflate_planar2_mm.tif":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/modes/logo_4bit.bmp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_565_bitfields.bmp":
+        "4b38b26737b78000b0c0b48a24e452e82394331479f703e4709c00030f6a9aaa",
+    "scenes/data/modes/logo_cmyk.jpg":
+        "9c0106c01f67da1ffe90ee2e00ed6d2eee3ac2a30a694e1fe4484dcb80d63db1",
+    "scenes/data/modes/logo_cmyk_deflate.tif":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_greyalpha8.png":
+        "ab4446635cd496cfa7a2c79898d822b09c77ef0c63426e1f36201878179ff0bc",
+    "scenes/data/modes/logo_interlaced_local.gif":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_lzw_pred2.tif":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_offset87a.gif":
+        "4e925c96023fa6014bc64dccff150cb5dcf5eefcc56043fb9741c3edeb3879e6",
+    "scenes/data/modes/logo_palette_adam7.png":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_progressive.jpg":
+        "6ca72db18beca40ae8d32c3fe2421a339667c534ed778bf6106a07b9db5df803",
+    "scenes/data/modes/logo_rgba16_adam7.png":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/logo_rle4.bmp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/modes/texture_2048.jpg":
+        "8fe53ffcd38d108910a6da2c19e7b8e85defd7a95fcb9711d8e961c91d2c8024",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(MODE_DIGESTS))
+def test_committed_image_modes_decode_to_their_digests(cuda_device, path):
+    """The decoders on the card's machine, which has no PIL: every
+    committed image mode decodes to the digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == MODE_DIGESTS[path]

@@ -13,6 +13,10 @@ difference to state. The committed scenes/data/grid.jpg and logo.jpg
 (tools/make_jpeg_textures.py) decode to the SHA-256 digests pinned in
 tests/test_torch_gpu.py (which runs on the card without jax), as PIL's
 decode does; chip_smoke.py holds the card's decode to the same digests.
+The modes that still raise (arithmetic-coded, lossless, hierarchical and
+12-bit files, made by rewriting a PIL file's frame header) raise
+NotImplementedError naming the mode; the progressive, CMYK, YCCK and
+RGB-coded files that decode are in tests/test_torch_image_jpeg.py.
 
 The frame: tests/test_torch_textured_render.py's reduced copy of
 scenes/textured_disk.ass (16x16, AA 1, one diffuse and one glossy sample)
@@ -22,7 +26,8 @@ four pixels around (7, 13), where the JAX package's jitted frame rounds
 one glossy lane the other way, as with the PNGs; there the port is held
 to the JAX package's op-by-op values of the JPEG frame (OPBYOP, printed
 by `tools/textured_opbyop.py --jpeg`) within OPBYOP_ATOL (measured
-2.3e-8).
+2.3e-8). The same frame with the progressive copies of the JPEGs
+(scenes/data/modes) equals it bit for bit.
 """
 import hashlib
 import io
@@ -30,6 +35,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from rlshaders_tpu.accel import trace as jtrace
@@ -149,13 +155,38 @@ def test_committed_textures(path):
     assert np.array_equal(img, got.astype(np.float32) / 255.0)
 
 
-@pytest.mark.parametrize("mode,kw,what", [
-    ("RGB", {"progressive": True}, "progressive"),
-    ("CMYK", {}, "4-component"),
+def _frame_marker(data: bytes, sof: int = None, bits: int = None) -> bytes:
+    """The file with its frame header's marker set to `sof` or its sample
+    precision to `bits`: the header of a mode PIL's encoder does not write."""
+    i = next(i for i in range(len(data) - 1) if data[i] == 0xFF
+             and data[i + 1] in (0xC0, 0xC1, 0xC2))
+    out = bytearray(data)
+    if sof is not None:
+        out[i + 1] = sof
+    if bits is not None:
+        out[i + 4] = bits
+    return bytes(out)
+
+
+# the modes that still raise (progressive and 4-component files, which
+# these cases pinned before, now decode: tests/test_torch_image_jpeg.py):
+# each made from a PIL file by rewriting its frame header
+@pytest.mark.parametrize("mode,kw,rewrite,what", [
+    pytest.param("RGB", {"progressive": True}, {"sof": 0xCA},
+                 "arithmetic-coded progressive", id="RGB-kw0-progressive"),
+    pytest.param("CMYK", {}, {"sof": 0xC3}, "lossless",
+                 id="CMYK-kw1-4-component"),
+    pytest.param("RGB", {}, {"sof": 0xC9}, "arithmetic-coded sequential",
+                 id="arithmetic"),
+    pytest.param("L", {}, {"sof": 0xC3}, "lossless", id="lossless"),
+    pytest.param("RGB", {}, {"bits": 12}, "12-bit", id="12-bit"),
+    pytest.param("RGB", {}, {"sof": 0xC5}, "hierarchical",
+                 id="hierarchical"),
 ])
-def test_unsupported_modes_raise(tmp_path, mode, kw, what):
+def test_unsupported_modes_raise(tmp_path, mode, kw, rewrite, what):
     path = tmp_path / "x.jpg"
-    path.write_bytes(_jpeg(_image(9, 7), mode=mode, quality=75, **kw))
+    path.write_bytes(_frame_marker(_jpeg(_image(9, 7), mode=mode,
+                                         quality=75, **kw), **rewrite))
     with pytest.raises(NotImplementedError, match=what):
         ttex.load_image(str(path))
 
@@ -234,3 +265,32 @@ def test_jpeg_textures_were_read(frames):
         assert tuple(tex.sizes[i, 0].tolist()) == (h, w)
         assert np.array_equal(tex.data[off:off + h * w].numpy(),
                               img.reshape(-1, 3))
+
+
+def test_progressive_frame_equals_baseline_frame(tmp_path, frames):
+    """The frame with the progressive copies of the JPEGs (the same
+    quantised coefficients in another order, tools/make_image_modes.py)
+    equals the baseline-JPEG frame bit for bit; the JAX package's
+    textures of the two sets are equal too, so the frame is held to the
+    JAX frame above."""
+    from rlshaders_tpu.scene import texture as jtex
+
+    _, baseline, _ = frames
+    for name in ("grid", "logo"):
+        assert np.array_equal(
+            jtex.load_image(f"scenes/data/modes/{name}_progressive.jpg",
+                            1.0),
+            jtex.load_image(f"scenes/data/{name}.jpg", 1.0))
+    (tmp_path / "data").symlink_to(os.path.abspath("scenes/data"))
+    path = textured_copy(tmp_path / "t.ass", **REDUCED)
+    with open(path) as f:
+        src = f.read().replace("data/grid.png",
+                               "data/modes/grid_progressive.jpg")
+    with open(path, "w") as f:
+        f.write(src.replace("data/logo.png",
+                            "data/modes/logo_progressive.jpg"))
+    ts = tbuild.build(path, device="cpu")
+    own = twave.render(ts, ttrace.build(ts.geometry), **KW)
+    for name in PLANES:
+        assert torch.equal(own[name], baseline[name]), name
+    assert own["__stats__"] == baseline["__stats__"]

@@ -132,9 +132,10 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Image formats other than PNG and sequential JPEG raise (a GIF, a
-    progressive JPEG); a baseline JPEG builds. Trace sets build: the
-    floor's triangles carry the set's bit 8, the others none."""
+    """Image formats the port does not decode raise (a WebP, a TGA); a
+    baseline JPEG, a progressive JPEG and a GIF build, each to the same
+    texels. Trace sets build: the floor's triangles carry the set's bit
+    8, the others none."""
     from PIL import Image
 
     src = _jax_demo(skin=False)
@@ -152,13 +153,19 @@ def test_still_unported_raise(tmp_path):
     img.save(tmp_path / "t.jpg")
     img.save(tmp_path / "p.jpg", progressive=True)
     img.save(tmp_path / "t.gif")
+    img.save(tmp_path / "t.webp")
+    img.save(tmp_path / "t.tga")
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
            'MayaFile\n{\n name tex\n filename "%s"\n}\n')
     scene = tbuild.build_text(src % "t.jpg", device="cpu",
                               base_dir=str(tmp_path))
     assert scene.textures.data.shape == (16 + 4 + 1, 3)
-    for name, what in (("p.jpg", "progressive"), ("t.gif", "GIF")):
+    for name in ("p.jpg", "t.gif"):
+        other = tbuild.build_text(src % name, device="cpu",
+                                  base_dir=str(tmp_path))
+        assert torch.equal(other.textures.data, scene.textures.data), name
+    for name, what in (("t.webp", "WebP"), ("t.tga", "TGA")):
         with pytest.raises(NotImplementedError, match=what):
             tbuild.build_text(src % name, device="cpu",
                               base_dir=str(tmp_path))
@@ -261,6 +268,7 @@ def test_port_imports_no_jax():
              if f.endswith(".py")]
     files.append(os.path.join(REPO, "chip_smoke.py"))
     files.append(os.path.join(REPO, "tools", "make_dense_disney.py"))
+    files.append(os.path.join(REPO, "tools", "make_image_modes.py"))
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -275,11 +283,14 @@ def test_port_imports_no_jax():
             "rlshaders_tpu_torch.io.png", "rlshaders_tpu_torch.models.dcc",
             "rlshaders_tpu_torch.models.registry",
             "rlshaders_tpu_torch.parallel.mesh",
-            "rlshaders_tpu_torch.scene.jpeg",
+            "rlshaders_tpu_torch.scene.bmp", "rlshaders_tpu_torch.scene.gif",
+            "rlshaders_tpu_torch.scene.jpeg", "rlshaders_tpu_torch.scene.lzw",
+            "rlshaders_tpu_torch.scene.png", "rlshaders_tpu_torch.scene.tiff",
             "rlshaders_tpu_torch.utils.sample_writer",
             "rlshaders_tpu_torch.utils.watermark"} <= set(mods)
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "assert 'jax' not in sys.modules, 'jax imported'\n"
+            + "assert 'PIL' not in sys.modules, 'PIL imported'\n"
             + "assert not [m for m in sys.modules if m.startswith("
               "'rlshaders_tpu.') or m == 'rlshaders_tpu']\n")
     env = dict(os.environ, PYTHONPATH=REPO)

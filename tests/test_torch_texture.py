@@ -54,7 +54,8 @@ TIGHT_SHARE = 0.99
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE = os.path.join(REPO, "scenes", "textured_disk.ass")
 IMAGES = [os.path.join(REPO, "scenes", "data", f)
-          for f in sorted(os.listdir(os.path.join(REPO, "scenes", "data")))]
+          for f in sorted(os.listdir(os.path.join(REPO, "scenes", "data")))
+          if f.endswith((".png", ".jpg"))]
 
 
 def _np(x):
@@ -265,14 +266,21 @@ def test_png_filters(tmp_path, filt, channels):
 
 
 def test_other_formats_raise(tmp_path):
-    gif = tmp_path / "x.gif"
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(gif)
-    with pytest.raises(NotImplementedError, match="GIF"):
-        ttex.load_image(str(gif))
-    grey = tmp_path / "g.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8)).save(grey)
-    with pytest.raises(ValueError, match="colour type 0"):
-        ttex.load_image(str(grey))
+    """A GIF and a grey PNG, refused before the image modes were ported,
+    now decode as PIL does; a WebP and a TGA, which PIL opens and the port
+    does not decode, raise NotImplementedError naming their format."""
+    img = Image.fromarray(np.random.default_rng(3).integers(
+        0, 256, (4, 4, 3), dtype=np.uint8))
+    for name, save in (("x.gif", img), ("g.png", img.convert("L"))):
+        save.save(tmp_path / name)
+        assert np.array_equal(ttex.load_image(str(tmp_path / name)),
+                              jtex.load_image(str(tmp_path / name), 1.0))
+    for name, fmt, what in (("x.webp", "WEBP", "WebP"),
+                            ("x.tga", "TGA", "TGA")):
+        img.save(tmp_path / name, fmt)
+        assert Image.open(tmp_path / name).format == fmt
+        with pytest.raises(NotImplementedError, match=what):
+            ttex.load_image(str(tmp_path / name))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,12 @@ the jitted frame with those four pixels of indirect_specular and RGBA (the
 planes the lane feeds) set to their op-by-op values (OPBYOP, printed by
 tools/textured_opbyop.py), held to OPBYOP_ATOL there; every pixel of every
 plane is held to PIX_ATOL, the refraction slice's per-pixel tolerance.
+
+The same frame with chip_smoke.py phase 30's lossless image files (an
+LZW TIFF with predictor 2 and an Adam7 palette PNG in the logo slots,
+grid.png kept in place of the 2048x2048 JPEG) equals the PNG frame bit
+for bit in the port, and is held to the JAX package's frame of the same
+files at the same tolerances.
 """
 import math
 import os
@@ -24,6 +30,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from rlshaders_tpu.accel import trace as jtrace
 from rlshaders_tpu.integrator import wavefront as jwave
@@ -154,3 +161,59 @@ def test_pixel_spread_follows_the_render_width(frames):
     for xres in (None, RES, 64):
         tr = twave.TileRenderer(scene, accel, 1, xres=xres)
         assert tr.conf.pix_spread == want / (xres or scene.camera.xres)
+
+
+# ---------------------------------------------------------------------------
+# the same frame with other image modes of the same pixels
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 30's frame A, with scenes/data/grid.png in place of
+# its 2048x2048 JPEG: every image a lossless re-encoding of the PNG its
+# slot names (tools/make_image_modes.py)
+LOSSLESS_IMAGES = ("grid.png", "modes/logo_lzw_pred2.tif",
+                   "modes/logo_palette_adam7.png")
+
+
+@pytest.fixture(scope="module")
+def lossless_frames(tmp_path_factory, frames):
+    """The reduced frame with LOSSLESS_IMAGES, by the JAX package (which
+    decodes them with PIL) and by the port: the JAX package's textures
+    equal those of the PNGs they re-encode, and its jitted renderer runs
+    the tables of the PNG frame's shapes again."""
+    import chip_smoke
+    from rlshaders_tpu.scene import texture as jtex
+
+    for name, png in zip(LOSSLESS_IMAGES, ("grid.png", "logo.png",
+                                           "logo.png")):
+        assert np.array_equal(jtex.load_image(f"scenes/data/{name}", 1.0),
+                              jtex.load_image(f"scenes/data/{png}", 1.0))
+    d = tmp_path_factory.mktemp("textured_modes")
+    (d / "data").symlink_to(os.path.abspath("scenes/data"))
+    path = textured_copy(d / "t.ass", **REDUCED)
+    with open(path) as f:
+        src = chip_smoke.with_images(f.read(), LOSSLESS_IMAGES)
+    with open(path, "w") as f:
+        f.write(src)
+    js = jbuild.build(path)
+    jout = jwave.render(js, jtrace.build(js.geometry), **KW)
+    ts = tbuild.build(path, device="cpu")
+    own = twave.render(ts, ttrace.build(ts.geometry), **KW)
+    return jout, own, ts
+
+
+def test_lossless_modes_frame_equals_png_frame(frames, lossless_frames):
+    """The port's frame with a TIFF (LZW, predictor 2) and an Adam7
+    palette PNG in the logo slots equals its PNG frame bit for bit."""
+    _, png_frame, _, _, _ = frames
+    _, own, scene = lossless_frames
+    assert scene.textures.n_levels.shape == (3,)
+    assert set(own) == set(png_frame)
+    for name in PLANES:
+        assert torch.equal(own[name], png_frame[name]), name
+    assert own["__stats__"] == png_frame["__stats__"]
+
+
+@pytest.mark.parametrize("name", PLANES)
+def test_lossless_modes_frame_matches_jax(lossless_frames, name):
+    jout, own, _ = lossless_frames
+    _agree(own, jout, name)
