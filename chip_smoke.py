@@ -161,7 +161,14 @@ nonzero):
    LZW TIFF with predictor 2 and an Adam7 palette PNG, frame B a GIF, a
    4-bit BMP and a CMYK JPEG; each frame must launch 16 nearest and 60
    any-hit queries, prints its build seconds, texture-table bytes and
-   seconds per frame, and is compared at 32x32 on the card and the CPU.
+   seconds per frame, and is compared at 32x32 on the card and the CPU;
+31. every committed file of scenes/data/formats/
+   (tools/make_image_formats.py: JPEG- and CCITT-compressed TIFF, DIB,
+   TGA, PNM and PFM, DDS, SGI, PCX, QOI, and a 2048x2048 DXT1 DDS)
+   decoded without PIL and held to the SHA-256 of PIL's decode, as in 29;
+32. the textured scene as in 30 with frame C (the 2048x2048 DXT1 DDS, a
+   run-length TGA, a JPEG-compressed TIFF) and frame D (a QOI, a palette
+   PCX, a Group 4 TIFF); phases 31-32 must take 60 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -179,8 +186,8 @@ The last three lines of the output are: a JSON object with one entry per
 kernel (with, per shape, its launches, device_ms and call_ms; and the
 launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_mesh` for phases 23-24, `launches_jpeg` for phase 25,
-`launches_dense` for phase 28, `launches_images` for phase 30, whose sum
-is `launches`); the card's name
+`launches_dense` for phase 28, `launches_images` for phase 30,
+`launches_formats` for phase 32, whose sum is `launches`); the card's name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -301,6 +308,60 @@ MODE_DIGESTS = {
     "scenes/data/modes/texture_2048.jpg":
         "8fe53ffcd38d108910a6da2c19e7b8e85defd7a95fcb9711d8e961c91d2c8024",
 }
+# SHA-256 of PIL's RGB decode of every file of scenes/data/formats (printed
+# by tools/make_image_formats.py; pinned by tests/test_torch_gpu.py too)
+FORMAT_DIGESTS = {
+    "scenes/data/formats/grid.qoi":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_ascii.ppm":
+        "cee47d398d8d24c381acdefa62aff5d47e010e4a55a253500f2c9ce6de337654",
+    "scenes/data/formats/grid_bc5_half.dds":
+        "e47b86a56cc1f89bc39bee7b6930e179e04774da9f954a078e8a5de5b77ee404",
+    "scenes/data/formats/grid_bits.pbm":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats/grid_cmap16_mirrored_rle.tga":
+        "798f61bc94ec20227730dac0f42b86a04f2353b70f545b0367dcf54c1b07e245",
+    "scenes/data/formats/grid_grey_topdown.tga":
+        "973b2927b32f358ee132eee66d6f2433bff570be78cbbaef95998d2ac2892080",
+    "scenes/data/formats/grid_group3_2d_fill_lsb_minwhite.tif":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats/grid_planes4.pcx":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_rgb.pcx":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_rle.sgi":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_ycbcr420_tiles_jpeg.tif":
+        "1dc73c34e3f3f96984b3ce545abc78efd68f83d972b671f230bafd49c9a558b7",
+    "scenes/data/formats/logo.pfm":
+        "8bdfe77adc3ef8b0636ef081b0627110319d08e628d3cb239fa3e8b9c951ef29",
+    "scenes/data/formats/logo_bgr15_half.tga":
+        "8d36750d3294b929296629048437c870098f8f2c9af5185b41ce876493ea03df",
+    "scenes/data/formats/logo_dxt5.dds":
+        "e6eb01bd1e8a05a45104aeffb554e32da4f6c1a35a33ed959c749730f8ace3e6",
+    "scenes/data/formats/logo_group4.tif":
+        "ec2d15d962e2cd0028f779f0fd7acbd77742ad4ee6196eef0f945da94574b402",
+    "scenes/data/formats/logo_jpeg.tif":
+        "9c0106c01f67da1ffe90ee2e00ed6d2eee3ac2a30a694e1fe4484dcb80d63db1",
+    "scenes/data/formats/logo_mh_strips.tif":
+        "ec2d15d962e2cd0028f779f0fd7acbd77742ad4ee6196eef0f945da94574b402",
+    "scenes/data/formats/logo_palette.dib":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/logo_palette.pcx":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/logo_rgb12.ppm":
+        "62c78e652dc843de1ee8a10bffc27ed34425f7febdc7246d1f2ce2942ce2e6b0",
+    "scenes/data/formats/logo_rgb_half.dds":
+        "9fc2c55bb8bb6e1a2acbb39e637d6c878d1e0517cfdc0d2a7da288aca51095f9",
+    "scenes/data/formats/logo_rgba.qoi":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/logo_rgba_half.sgi":
+        "9fc2c55bb8bb6e1a2acbb39e637d6c878d1e0517cfdc0d2a7da288aca51095f9",
+    "scenes/data/formats/logo_rle.tga":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/texture_2048_dxt1.dds":
+        "992f0a6d348f20ada83c65a356bdc76941940433c0e250fcc29937bb8d6db00e",
+}
 # phase 30: the images put in the textured scene's three MayaFile slots
 # (the grid, the logo, the inverted logo)
 IMAGE_FRAMES = {
@@ -308,6 +369,14 @@ IMAGE_FRAMES = {
           "modes/logo_palette_adam7.png"),
     "B": ("modes/grid.gif", "modes/logo_4bit.bmp", "modes/logo_cmyk.jpg"),
 }
+# phase 32: the same slots filled from scenes/data/formats
+FORMAT_FRAMES = {
+    "C": ("formats/texture_2048_dxt1.dds", "formats/logo_rle.tga",
+          "formats/logo_jpeg.tif"),
+    "D": ("formats/grid.qoi", "formats/logo_palette.pcx",
+          "formats/logo_group4.tif"),
+}
+FORMAT_PHASES_S = 60.0  # phases 31-32 together
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -1442,12 +1511,15 @@ def with_images(src: str, images) -> str:
     return src
 
 
-def image_phases(card: str) -> dict:
-    """Phases 29-30: every file of scenes/data/modes decoded without PIL
-    and held to its pinned digest; the textured scene with frames A's and
-    B's images through the kernels (counts reset, plain walk barred), 16
-    + 60 launches each, and its 32x32 frame on the card and the CPU.
-    Returns the launches of both frames."""
+def image_phases(card: str, folder: str = "modes",
+                 digests: dict = MODE_DIGESTS, frames: dict = IMAGE_FRAMES,
+                 phases=(29, 30)) -> dict:
+    """Phases 29-30 (or 31-32 of scenes/data/formats): every file of
+    scenes/data/<folder> decoded without PIL and held to its pinned
+    digest; the textured scene with each frame's images through the
+    kernels (counts reset, plain walk barred), 16 + 60 launches each, and
+    its 32x32 frame on the card and the CPU. Returns the launches of the
+    frames."""
     import hashlib
 
     from rlshaders_tpu_torch.accel import bvh
@@ -1457,12 +1529,13 @@ def image_phases(card: str) -> dict:
     from rlshaders_tpu_torch.scene.build import build_text
     from rlshaders_tpu_torch.scene.texture import decode_image
 
+    pa, pb = phases
     t0 = time.perf_counter()
-    names = sorted(os.listdir("scenes/data/modes"))
-    paths = [f"scenes/data/modes/{n}" for n in names]
-    if sorted(paths) != sorted(MODE_DIGESTS):
-        raise AssertionError(f"[29] scenes/data/modes holds {names}, the "
-                             f"digests name {sorted(MODE_DIGESTS)}")
+    names = sorted(os.listdir(f"scenes/data/{folder}"))
+    paths = [f"scenes/data/{folder}/{n}" for n in names]
+    if sorted(paths) != sorted(digests):
+        raise AssertionError(f"[{pa}] scenes/data/{folder} holds {names}, "
+                             f"the digests name {sorted(digests)}")
     total_ms = 0.0
     for path in paths:
         with open(path, "rb") as f:
@@ -1472,14 +1545,14 @@ def image_phases(card: str) -> dict:
         dt = (time.perf_counter() - t1) * 1e3
         total_ms += dt
         got = hashlib.sha256(px.tobytes()).hexdigest()
-        log(f"[29] {path}: {len(data)} B -> {px.shape} in {dt:.2f} ms "
+        log(f"[{pa}] {path}: {len(data)} B -> {px.shape} in {dt:.2f} ms "
             f"(host), sha256 {got[:16]}...")
-        if got != MODE_DIGESTS[path]:
-            raise AssertionError(f"[29] {path} decodes to {got}, PIL's "
-                                 f"decode is {MODE_DIGESTS[path]}")
+        if got != digests[path]:
+            raise AssertionError(f"[{pa}] {path} decodes to {got}, PIL's "
+                                 f"decode is {digests[path]}")
     if "PIL" in sys.modules:
-        raise AssertionError("[29] PIL was imported")
-    log(f"[29] {len(paths)} files decoded in {total_ms:.2f} ms (host); "
+        raise AssertionError(f"[{pa}] PIL was imported")
+    log(f"[{pa}] {len(paths)} files decoded in {total_ms:.2f} ms (host); "
         f"phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1487,11 +1560,11 @@ def image_phases(card: str) -> dict:
         base_src = f.read()
     base = os.path.dirname(TEXTURED)
     launches = {k: 0 for k in IMAGE_LAUNCHES}
-    for tag, images in IMAGE_FRAMES.items():
+    for tag, images in frames.items():
         src = with_images(base_src, images)
         t1 = time.perf_counter()
         scene = build_text(src, base_dir=base)
-        log(f"[30] frame {tag} {images}: built in "
+        log(f"[{pb}] frame {tag} {images}: built in "
             f"{time.perf_counter() - t1:.2f} s; texture table "
             f"{texture_bytes(scene.textures)} B")
         accel = tracemod.build(scene.geometry)
@@ -1501,24 +1574,38 @@ def image_phases(card: str) -> dict:
         o = scene.options
         check_planes(out, o.xres)
         stats = out["__stats__"]
-        log(f"[30] frame {tag} {o.xres}x{o.yres} AA {o.aa_samples}: "
+        log(f"[{pb}] frame {tag} {o.xres}x{o.yres} AA {o.aa_samples}: "
             f"{dt:.4f} s/frame, mean RGB {float(out['RGBA'].mean()):.6f}, "
             f"launches {got}, nearest rays {stats['nearest_rays']}, shadow "
             f"rays {stats['shadow_rays']}; {card}")
         if got != IMAGE_LAUNCHES:
-            raise AssertionError(f"[30] frame {tag} launched {got}, "
+            raise AssertionError(f"[{pb}] frame {tag} launched {got}, "
                                  f"expected {IMAGE_LAUNCHES}")
         for k in launches:
             launches[k] += got[k]
         del out
         cscene = build_text(src, device="cpu", base_dir=base)
-        cuda_vs_cpu(wavefront, f"30{tag}", {
+        cuda_vs_cpu(wavefront, f"{pb}{tag}", {
             "cuda": (scene, accel),
             "cpu": (cscene, tracemod.build(cscene.geometry))},
             (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA,
             xres=TEXTURED_CPU, yres=TEXTURED_CPU)
         del scene, accel, cscene
-    log(f"[30] phase {time.perf_counter() - t0:.1f} s")
+    log(f"[{pb}] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def format_phases(card: str) -> dict:
+    """Phases 31-32: image_phases over scenes/data/formats with frames C
+    and D, within FORMAT_PHASES_S. Returns the launches of both frames."""
+    t0 = time.perf_counter()
+    launches = image_phases(card, "formats", FORMAT_DIGESTS, FORMAT_FRAMES,
+                            (31, 32))
+    took = time.perf_counter() - t0
+    log(f"[32] phases 31-32 {took:.1f} s (at most {FORMAT_PHASES_S} s)")
+    if took > FORMAT_PHASES_S:
+        raise AssertionError(f"[32] phases 31-32 took {took:.1f} s, more "
+                             f"than {FORMAT_PHASES_S} s")
     return launches
 
 
@@ -1998,6 +2085,7 @@ def main() -> int:
     jpeg_launches = jpeg_phase(card)
     dense = dense_phases(card)
     image_launches = image_phases(card)
+    format_launches = format_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2031,7 +2119,8 @@ def main() -> int:
                          + skin_launches[k] + dsy["launches"][k]
                          + tex["launches"][k] + clirun["launches"][k]
                          + mesh1[k] + mesh2[k] + jpeg_launches[k]
-                         + dense["launches"][k] + image_launches[k]),
+                         + dense["launches"][k] + image_launches[k]
+                         + format_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2050,6 +2139,7 @@ def main() -> int:
             "launches_jpeg": jpeg_launches[k],
             "launches_dense": dense["launches"][k],
             "launches_images": image_launches[k],
+            "launches_formats": format_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

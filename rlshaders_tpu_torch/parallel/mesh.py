@@ -113,8 +113,11 @@ def launch(fn, world_size: int, *args, backend: str | None = None,
             p.start()
         deadline = time.monotonic() + timeout_s
         while True:
-            failed = [(r, p.exitcode) for r, p in enumerate(procs)
-                      if p.exitcode not in (None, 0)]
+            # one read of every exit code a pass: a rank that ends between
+            # two reads would be counted neither failed nor alive
+            codes = [p.exitcode for p in procs]
+            failed = [(r, c) for r, c in enumerate(codes)
+                      if c not in (None, 0)]
             if failed:
                 r, code = failed[0]
                 tb = ""
@@ -123,7 +126,7 @@ def launch(fn, world_size: int, *args, backend: str | None = None,
                         tb = f.read()
                 raise RuntimeError(f"rank {r} of {world_size} failed (exit "
                                    f"code {code}):\n{tb}")
-            alive = [p for p in procs if p.exitcode is None]
+            alive = [p for p, c in zip(procs, codes) if c is None]
             if not alive:
                 break
             left = deadline - time.monotonic()

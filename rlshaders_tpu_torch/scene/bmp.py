@@ -6,6 +6,8 @@ opens:
 
 * OS/2 1.x headers (12 bytes) and BITMAPINFOHEADER (40) with its V2-V5
   extensions (52, 56, 108, 124) and the OS/2 2.x size (64);
+* a DIB, the same bitmap without its 14-byte file header
+  (`decode_dib`);
 * 1, 4 and 8 bits through a palette, 16 (5-5-5, or 5-6-5 by bitfields),
   24 and 32 bits; BI_RGB, RLE8, RLE4 and BI_BITFIELDS with the masks PIL
   knows; bottom-up rows, or top-down ones (a negative height), each
@@ -19,10 +21,10 @@ that points at the palette is moved past it; and the RLE reader is
 PIL's: a delta escape takes its offsets from the two bytes after its own
 two, an odd RLE4 absolute run reads one pixel fewer than it counts, and
 a bitmap that fills fewer pixels than it has raises. A valid file of a
-kind PIL does not open (other bit depths and masks, JPEG or PNG inside)
-or reads in another layout (a grey palette whose mode "1" or "L" does
-not match the pixels' depth) raises NotImplementedError naming it;
-malformed data raises ValueError.
+kind PIL does not open (other bit depths, 2 bits among them, other masks,
+JPEG or PNG inside) or reads in another layout (a grey palette whose mode
+"1" or "L" does not match the pixels' depth) raises NotImplementedError
+naming it; malformed data raises ValueError.
 """
 from __future__ import annotations
 
@@ -103,6 +105,44 @@ def _rle(data: bytes, pos: int, w: int, h: int, rle4: bool) -> bytes:
     return bytes(out[:w * h])
 
 
+DIB_SIZES = (12, 40, 52, 56, 64, 108, 124)
+
+
+def dib_accept(data: bytes) -> bool:
+    """PIL's test for a DIB (a bitmap without its file header): the first
+    four bytes are a header size it knows."""
+    return len(data) >= 4 and _u32(data, 0) in DIB_SIZES
+
+
+def decode_dib(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of a DIB (a BMP without its 14-byte file header),
+    PIL's `convert("RGB")` of it byte for byte. PIL's DibImageFile reads
+    the pixels right after what its header reader took: the header, the
+    three bitfield masks of a 40-byte header, and the palette of a 1-, 4-
+    or 8-bit bitmap."""
+    if not dib_accept(data) or len(data) < 16:
+        raise ValueError("not a DIB (BMP without its file header)")
+    hsize = _u32(data, 0)
+    pos = hsize
+    if hsize == 12:
+        bits, compression, colors, pad = _u16(data, 10), 0, 0, 3
+    else:
+        if len(data) < 36:
+            raise ValueError("DIB header runs past the end of the data")
+        bits, compression, colors, pad = (_u16(data, 14), _u32(data, 16),
+                                          _u32(data, 32), 4)
+        if compression == 3 and hsize == 40:
+            pos += 12
+    if bits <= 8:
+        pos += pad * (colors or 1 << bits)
+    head = MAGIC + struct.pack("<IHHI", 14 + len(data), 0, 0, 14 + pos)
+    try:
+        return decode_bmp(head + data)
+    except NotImplementedError as err:
+        raise NotImplementedError(f"DIB (BMP without its file header): "
+                                  f"{err}") from None
+
+
 def decode_bmp(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 of a BMP file, PIL's `convert("RGB")` of it byte
     for byte."""
@@ -141,8 +181,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
     if bits not in (1, 4, 8, 16, 24, 32):
-        raise NotImplementedError(f"{bits}-bit BMP is not decoded by the "
-                                  f"port")
+        raise NotImplementedError(f"{bits}-bit BMP (which PIL does not open "
+                                  f"either) is not decoded by the port")
     if compression in _COMPRESSIONS or compression > 3:
         name = _COMPRESSIONS.get(compression, f"compression {compression}")
         raise NotImplementedError(f"BMP with {name} data is not decoded by "

@@ -15,14 +15,15 @@ Differences from the JAX build, all deliberate:
   (`Scene.trace_set_names` holds the names by bit); no integrator path
   reads them, and `accel.trace.build_trace_set` builds a query structure
   over one set;
-* images are decoded by the port's own PNG and JPEG decoders
-  (scene/texture.py, scene/jpeg.py); any other format raises. As in the
-  JAX build, a texture file that is not found is no texture (id -1),
+* images are decoded by the port's own decoders (scene/texture.py's
+  `decode_image`, equal to PIL's decode byte for byte): PNG, JPEG, GIF,
+  BMP and DIB, TIFF (none, LZW, PackBits, Deflate, JPEG and CCITT
+  compression), PNM and PFM, PCX, DDS (uncompressed, BC1, BC2, BC3, BC5),
+  QOI, SGI and TGA; any other format raises NotImplementedError naming
+  it. As in the JAX build, a texture file is looked for in `base_dir`,
+  then in `..`, `../..`, `../../../data` and `../../data` of it (the
+  testsuite's layout), and one found nowhere is no texture (id -1),
   silently;
-* a texture file is looked for relative to `base_dir` only. The JAX build
-  also searches the directories above it (`..`, `../..`, `../../data`,
-  `../../../data`), the testsuite's layout; the port reads nothing outside
-  the directory it is given;
 * the material table holds the fields the ported shading reads, under the
   JAX names: those of rlGgx, `standard` with its Ksss lobe, rlDisney and
   rlSkin, and the texture, projection and bump columns.
@@ -267,8 +268,9 @@ def build(path_or_nodes, device="cuda", base_dir: str | None = None
           ) -> Scene:
     """Assemble a Scene from an .ass path or a pre-parsed node list, with
     every table on `device` (the card by default; "cpu" for the CPU).
-    Texture file names are relative to `base_dir`: by default the scene
-    file's directory, or "." for a node list."""
+    Texture file names are relative to `base_dir` (or to the directories
+    above it that the JAX build searches too): by default the scene file's
+    directory, or "." for a node list."""
     if torch.device(device).type == "cpu":
         cpu_math.settle()
     if isinstance(path_or_nodes, str):
@@ -329,17 +331,26 @@ def build(path_or_nodes, device="cuda", base_dir: str | None = None
     }
 
     def load_texture_slot(fname: str) -> int:
-        """The texture id of `fname`, relative to `base_dir` only; -1 where
-        it is not found (no texture, as in the JAX build)."""
-        p = os.path.abspath(os.path.join(base_dir, fname))
-        if not os.path.exists(p):
-            return -1
-        if p not in tex_paths:
-            tex_paths.append(p)
-            # storage space: texture_gamma is applied after the filter taps
-            # (models/dispatch._degamma)
-            tex_images.append(load_image(p))
-        return tex_paths.index(p)
+        """The texture id of `fname`, looked for as the JAX build looks:
+        in `base_dir`, then `..`, `../..`, `../../../data` and
+        `../../data` of it (the testsuite's layout); the first path that
+        exists, made absolute; -1 where it is in none of them (no
+        texture, as in the JAX build)."""
+        for root in (base_dir, os.path.join(base_dir, ".."),
+                     os.path.join(base_dir, "..", ".."),
+                     os.path.join(base_dir, "..", "..", "..", "data"),
+                     os.path.join(base_dir, "..", "..", "data")):
+            p = os.path.join(root, fname)
+            if not os.path.exists(p):
+                continue
+            p = os.path.abspath(p)
+            if p not in tex_paths:
+                tex_paths.append(p)
+                # storage space: texture_gamma is applied after the filter
+                # taps (models/dispatch._degamma)
+                tex_images.append(load_image(p))
+            return tex_paths.index(p)
+        return -1
 
     def resolve_tex_input(node_or_name) -> dict:
         """A MayaFile or MayaProjection link as a texture descriptor: the
@@ -775,8 +786,8 @@ def build(path_or_nodes, device="cuda", base_dir: str | None = None
 def build_text(text: str, device="cuda", base_dir: str | None = None
                ) -> Scene:
     """Build from .ass source text (a temporary file feeds the parser);
-    texture file names are relative to `base_dir` (by default the temporary
-    file's directory)."""
+    texture file names are relative to `base_dir`, as in `build` (by
+    default the temporary file's directory)."""
     import tempfile
 
     fd, path = tempfile.mkstemp(suffix=".ass")

@@ -556,15 +556,22 @@ def _colour(planes: list, jfif: bool, adobe) -> np.ndarray:
                     -1).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 of a Huffman-coded JPEG (sequential or
-    progressive), PIL's `convert("RGB")` of it byte for byte."""
+class _Stream:
+    """What the markers of a JPEG stream (and of the tables stream before
+    it, where there is one) have set."""
+
+    def __init__(self):
+        self.qts, self.huff, self.restart = {}, {}, 0
+        self.comps = self.size = self.mcus = None
+        self.progressive, self.jfif, self.adobe = False, False, None
+
+
+def _markers(data: bytes, st: _Stream) -> None:
+    """Read the markers of one stream (SOI to EOI) into `st`, decoding its
+    scans."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG file")
     pos = 2
-    qts, huff, restart = {}, {}, 0
-    comps, size, mcus, progressive = None, None, None, False
-    jfif, adobe = False, None
     while True:
         if pos >= len(data) or data[pos] != 0xFF:
             raise ValueError(f"JPEG marker expected at byte {pos}")
@@ -575,7 +582,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         m = data[pos]
         pos += 1
         if m == 0xD9:
-            break
+            return
         if m == 0x01 or 0xD0 <= m <= 0xD7:
             continue
         if pos + 2 > len(data):
@@ -596,7 +603,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                                      ">u2" if wide else np.uint8)
                 qt = np.zeros(64, np.int64)
                 qt[list(ZIGZAG)] = vals
-                qts[tq] = qt
+                st.qts[tq] = qt
                 i += 1 + n
         elif m == 0xC4:                                 # DHT
             i = 0
@@ -604,11 +611,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 tc, th = seg[i] >> 4, seg[i] & 15
                 counts = seg[i + 1:i + 17]
                 n = sum(counts)
-                huff[("ac" if tc else "dc", th)] = _huffman_lut(
+                st.huff[("ac" if tc else "dc", th)] = _huffman_lut(
                     counts, seg[i + 17:i + 17 + n])
                 i += 17 + n
         elif m == 0xDD:                                 # DRI
-            restart = seg[0] << 8 | seg[1]
+            st.restart = seg[0] << 8 | seg[1]
         elif m in (0xC0, 0xC1, 0xC2):                   # SOF0, SOF1, SOF2
             bits, h, w, nf = seg[0], seg[1] << 8 | seg[2], \
                 seg[3] << 8 | seg[4], seg[5]
@@ -616,13 +623,13 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 raise NotImplementedError(
                     f"JPEG with {bits}-bit samples is not decoded by the "
                     f"port (8-bit only)")
-            if nf not in (1, 3, 4):
+            if nf not in (1, 2, 3, 4):
                 raise NotImplementedError(
                     f"{nf}-component JPEG is not decoded by the port (1, 3 "
                     f"or 4 components)")
             if h == 0 or w == 0:
                 raise ValueError(f"JPEG frame of {w}x{h} samples")
-            progressive = m == 0xC2
+            st.progressive = m == 0xC2
             comps = [_Component(seg[6 + 3 * j], seg[7 + 3 * j] >> 4,
                                 seg[7 + 3 * j] & 15, seg[8 + 3 * j])
                      for j in range(nf)]
@@ -630,42 +637,57 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 comps[0].h = comps[0].v = 1
             hmax = max(c.h for c in comps)
             vmax = max(c.v for c in comps)
-            mcus = (-(-h // (8 * vmax)), -(-w // (8 * hmax)))
+            st.mcus = (-(-h // (8 * vmax)), -(-w // (8 * hmax)))
             for c in comps:
                 if hmax % c.h or vmax % c.v or hmax // c.h > 2 \
                         or vmax // c.v > 2:
                     raise NotImplementedError(
                         f"JPEG chroma sampling {c.h}x{c.v} against "
                         f"{hmax}x{vmax} is not decoded by the port")
-                c.rows, c.cols = mcus[0] * c.v, mcus[1] * c.h
+                c.rows, c.cols = st.mcus[0] * c.v, st.mcus[1] * c.h
                 c.height = -(-h * c.v // vmax)
                 c.width = -(-w * c.h // hmax)
                 c.coef = [0] * (c.rows * c.cols * 64)
-            size = (h, w)
+            st.comps, st.size = comps, (h, w)
         elif m == 0xDA:                                 # SOS
-            if comps is None:
+            if st.comps is None:
                 raise ValueError("JPEG scan before its frame header")
             for j in range(seg[0]):
-                c = next((c for c in comps if c.cid == seg[1 + 2 * j]), None)
+                c = next((c for c in st.comps if c.cid == seg[1 + 2 * j]),
+                         None)
                 if c is not None and c.qt is None:
-                    if c.tq not in qts:
+                    if c.tq not in st.qts:
                         raise ValueError("JPEG component uses an undefined "
                                          "quantisation table")
-                    c.qt = qts[c.tq]
+                    c.qt = st.qts[c.tq]
             try:
-                pos = _scan(data, pos, seg, comps, huff, restart, mcus,
-                            progressive)
+                pos = _scan(data, pos, seg, st.comps, st.huff, st.restart,
+                            st.mcus, st.progressive)
             except IndexError as e:
                 raise ValueError("corrupt JPEG scan data") from e
         elif m == 0xE0 and seg.startswith(b"JFIF\x00"):
-            jfif = True
+            st.jfif = True
         elif m == 0xEE and seg.startswith(b"Adobe") and len(seg) >= 12:
-            adobe = seg[11]
+            st.adobe = seg[11]
+
+
+def decode_planes(data: bytes, tables: bytes = b"") -> tuple:
+    """The decoded component planes of a JPEG stream, before any colour
+    conversion: ([((H, W) int array, component id), ...], JFIF marker seen,
+    Adobe transform or None). Each plane is upsampled to the frame's size
+    as libjpeg upsamples it. `tables` is a stream of tables only (the
+    JPEGTables of a JPEG-compressed TIFF), read before `data`, which may
+    then be an abbreviated stream."""
+    st = _Stream()
+    if tables:
+        _markers(tables, st)
+    _markers(data, st)
+    comps = st.comps
     if comps is None:
         raise ValueError("JPEG without a frame header")
     if any(c.qt is None for c in comps):
         raise ValueError("JPEG component without a scan")
-    if progressive and all(c.bits[0] >= 0 for c in comps) and any(
+    if st.progressive and all(c.bits[0] >= 0 for c in comps) and any(
             b != 0 for c in comps for b in c.bits[1:10]):
         # libjpeg's default do_block_smoothing (jdcoefct.c smoothing_ok)
         # then estimates the missing low AC coefficients from the
@@ -675,7 +697,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             "unrefined (decoded with libjpeg's block smoothing) is not "
             "decoded by the port")
 
-    h, w = size
+    h, w = st.size
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     planes = []
@@ -686,4 +708,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         plane = plane.reshape(c.rows * 8, c.cols * 8)[:c.height, :c.width]
         planes.append((upsample(plane, hmax // c.h, vmax // c.v)[:h, :w],
                        c.cid))
+    return planes, st.jfif, st.adobe
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of a Huffman-coded JPEG (sequential or
+    progressive), PIL's `convert("RGB")` of it byte for byte."""
+    planes, jfif, adobe = decode_planes(data)
+    if len(planes) == 2:
+        raise NotImplementedError("2-component JPEG is not decoded by the "
+                                  "port (1, 3 or 4 components)")
     return _colour(planes, jfif, adobe)

@@ -12,12 +12,15 @@ blended linearly with a bilinear tap on the coarser one, wrap addressing.
 
 The JAX package decodes with PIL (`Image.open(path).convert("RGB")`); the
 port decodes every texture it renders itself, with no PIL: `load_image`
-names the format by the file's first bytes, as PIL's `open` does (never
-by its extension), and hands it to scene/png.py, jpeg.py, tiff.py, bmp.py
-or gif.py, each equal to PIL's decode byte for byte. A format PIL opens
-and the port does not decode (WebP, JPEG 2000, TGA, PNM, DDS, PSD, QOI,
-AVIF and the rest of PIL's plugins) raises NotImplementedError naming it;
-data that no PIL plugin accepts raises it as an unknown format.
+names the format by the file's bytes, as PIL's `open` does (never by its
+extension), and hands it to the port's decoder of it, each equal to PIL's
+decode byte for byte: PNG (scene/png.py), JPEG (jpeg.py), GIF (gif.py),
+BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py and ccitt.py),
+PNM and PFM (pnm.py), PCX (pcx.py), DDS (dds.py), QOI (qoi.py), SGI
+(sgi.py) and TGA (tga.py). A format PIL opens and the port does not
+decode (WebP, JPEG 2000, ICNS, IM, ICO, AVIF and the rest of PIL's
+plugins) raises NotImplementedError naming it; data that no PIL plugin
+accepts raises it as an unknown format.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
-from . import bmp, gif, png, tiff
+from . import bmp, dds, gif, pcx, png, pnm, qoi, sgi, tga, tiff
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -37,13 +40,6 @@ MAX_LEVELS = 12
 # texel centres sit at (i + TEX_SHIFT) / size (OIIO and Arnold; the JAX
 # package's RLS_TEX_SHIFT default)
 TEX_SHIFT = 0.5
-
-
-def _tga(d: bytes) -> bool:
-    """PIL's TgaImagePlugin header checks (TGA has no signature)."""
-    return (len(d) >= 18 and d[1] in (0, 1) and d[2] in (1, 2, 3, 9, 10, 11)
-            and 0 not in struct.unpack_from("<HH", d, 12)
-            and d[16] in (1, 8, 16, 24, 32))
 
 
 def _spider(d: bytes) -> bool:
@@ -64,91 +60,108 @@ def _u32(d: bytes, e: str = "<") -> int:
     return struct.unpack_from(e + "I", d.ljust(4, b"\x00"))[0]
 
 
-# the formats of PIL's plugins that the port does not decode, by the test
-# each plugin's `_accept` (or `_open`) makes of a file's first bytes (an
-# icon or cursor file lists at least one image)
-_OTHERS = (
-    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1",
-                                                 b"msf1"), "AVIF"),
-    (lambda d: d.startswith(b"Image type:"), "IM"),
-    (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
-    (lambda d: _u32(d) in (12, 40, 52, 56, 64, 108, 124),
-     "DIB (BMP without its file header)"),
-    (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
-    (lambda d: d.startswith(b"\x00\x00\x02\x00") and d[4:6] != b"\x00\x00",
-     "CUR"),
-    (lambda d: len(d) > 1 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
-    (lambda d: _u32(d) == 987654321, "DCX"),
-    (lambda d: d.startswith(b"DDS "), "DDS"),
-    (lambda d: d.startswith(b"%!PS") or _u32(d) == 0xC6D3D0C5, "EPS"),
-    (lambda d: d.startswith(b"SIMPLE"), "FITS"),
-    (lambda d: len(d) > 5 and struct.unpack_from("<H", d, 4)[0] in (
-        0xAF11, 0xAF12), "FLI"),
-    (lambda d: d.startswith(b"FTEX"), "FTEX"),
-    (lambda d: len(d) >= 8 and _u32(d, ">") >= 20
-     and _u32(d[4:], ">") in (1, 2), "GBR"),
-    (lambda d: d.startswith(b"GRIB") and len(d) > 7 and d[7] == 1, "GRIB"),
-    (lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), "HDF5"),
-    (lambda d: d.startswith((b"\xff\x4f\xff\x51",
-                             b"\x00\x00\x00\x0cjP  \r\n\x87\n")),
-     "JPEG 2000"),
-    (lambda d: d.startswith(b"icns"), "ICNS"),
-    (lambda d: d.startswith(b"\x00\x00\x01\x00") and d[4:6] != b"\x00\x00",
-     "ICO"),
-    (lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
-     "McIdas"),
-    (lambda d: d.startswith(b"\x00\x00\x01\xb3"), "MPEG"),
-    (lambda d: d[:4] in (b"DanM", b"LinS"), "MSP"),
-    (lambda d: d[2048:2052] == b"PCD_", "PhotoCD"),
-    (lambda d: d.startswith(b"\x80\xe8\x00\x00"), "PIXAR"),
-    (lambda d: len(d) > 1 and d[0] == ord("P") and d[1] in b"0123456fy",
-     "PNM (PBM, PGM, PPM, PAM or PFM)"),
-    (lambda d: d.startswith(b"8BPS"), "PSD"),
-    (lambda d: d.startswith(b"qoif"), "QOI"),
-    (lambda d: d.startswith(b"\x01\xda"), "SGI"),
-    (_spider, "SPIDER"),
-    (lambda d: _u32(d, ">") == 0x59A66A95, "Sun raster"),
-    (_tga, "TGA"),
-    (lambda d: d.startswith(b"RIFF") and d[8:12] == b"WEBP", "WebP"),
-    (lambda d: d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
-        d.startswith(b"\x01\x00\x00\x00") and d[40:44] == b" EMF"),
-     "WMF/EMF"),
-    (lambda d: d.lstrip().startswith(b"#define"), "XBM"),
-    (lambda d: d.startswith(b"/* XPM */"), "XPM"),
-    (lambda d: d.startswith(b"P7 332"), "XV thumbnail"),
-    (lambda d: d.startswith(b"\x76\x2f\x31\x01"),
-     "OpenEXR (which PIL does not open either)"),
+def _gbr(d: bytes) -> bool:
+    """PIL's GbrImagePlugin checks (a GIMP brush header), which the first
+    bytes of other files (a QOI of width 1 or 2) can pass in part."""
+    if len(d) < 20:
+        return False
+    size, version, w, h, depth = struct.unpack_from(">5I", d)
+    return (size >= 20 and version in (1, 2) and w and h and depth in (1, 4)
+            and (version == 1 or d[20:24] == b"GIMP"))
+
+
+# PIL's plugins in the order its `open` tries them (Image.ID: BMP, DIB,
+# GIF, JPEG, PPM and PNG first, then the rest as PIL.__init__ lists
+# them): (name, the test of the file's bytes, the port's decoder or None).
+# A test is the plugin's `_accept`, and for the formats whose `_open`
+# may still refuse a file it accepted (PNM, PCX, TGA: PIL then tries the
+# next plugin), that check too. The name of a decoded format is PIL's
+# `format` for it; an icon or cursor file lists at least one image.
+_FORMATS = (
+    ("BMP", lambda d: d.startswith(bmp.MAGIC), bmp.decode_bmp),
+    ("DIB", bmp.dib_accept, bmp.decode_dib),
+    ("GIF", lambda d: d.startswith(gif.MAGICS), gif.decode_gif),
+    ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), decode_jpeg),
+    ("PPM", pnm.header_ok, pnm.decode_pnm),
+    ("PNG", lambda d: d.startswith(png.MAGIC), decode_png),
+    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (
+        b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), None),
+    ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
+    ("CUR", lambda d: d.startswith(b"\x00\x00\x02\x00")
+     and d[4:6] != b"\x00\x00", None),
+    ("PCX", pcx.header_ok, pcx.decode_pcx),
+    ("DCX", lambda d: _u32(d) == 987654321, None),
+    ("DDS", lambda d: d.startswith(dds.MAGIC), dds.decode_dds),
+    ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d) == 0xC6D3D0C5, None),
+    ("FITS", lambda d: d.startswith(b"SIMPLE"), None),
+    ("FLI", lambda d: len(d) > 5 and struct.unpack_from("<H", d, 4)[0] in (
+        0xAF11, 0xAF12), None),
+    ("FTEX", lambda d: d.startswith(b"FTEX"), None),
+    ("GBR", _gbr, None),
+    ("GRIB", lambda d: d.startswith(b"GRIB") and len(d) > 7 and d[7] == 1,
+     None),
+    ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
+    ("JPEG 2000", lambda d: d.startswith((
+        b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n")), None),
+    ("ICNS", lambda d: d.startswith(b"icns"), None),
+    ("ICO", lambda d: d.startswith(b"\x00\x00\x01\x00")
+     and d[4:6] != b"\x00\x00", None),
+    ("IM", lambda d: d.startswith(b"Image type:"), None),
+    ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
+     None),
+    ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3"), None),
+    ("TIFF", lambda d: d.startswith(tiff.MAGICS + tiff.BIGTIFF),
+     tiff.decode_tiff),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
+    ("PhotoCD", lambda d: d[2048:2052] == b"PCD_", None),
+    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\x00\x00"), None),
+    ("PSD", lambda d: d.startswith(b"8BPS"), None),
+    ("QOI", lambda d: d.startswith(qoi.MAGIC), qoi.decode_qoi),
+    ("SGI", sgi.accept, sgi.decode_sgi),
+    ("SPIDER", _spider, None),
+    ("Sun raster", lambda d: _u32(d, ">") == 0x59A66A95, None),
+    ("TGA", tga.header_ok, tga.decode_tga),
+    ("WebP", lambda d: d.startswith(b"RIFF") and d[8:12] == b"WEBP", None),
+    ("WMF/EMF", lambda d: d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
+        d.startswith(b"\x01\x00\x00\x00") and d[40:44] == b" EMF"), None),
+    ("XBM", lambda d: d.lstrip().startswith(b"#define"), None),
+    ("XPM", lambda d: d.startswith(b"/* XPM */"), None),
+    ("XV thumbnail", lambda d: d.startswith(b"P7 332"), None),
+    ("OpenEXR (which PIL does not open either)",
+     lambda d: d.startswith(b"\x76\x2f\x31\x01"), None),
+    ("PAM (which PIL does not open either)",
+     lambda d: d.startswith(b"P7") and d[2:3] in b"\n\r\t \x0b\x0c", None),
 )
-# the formats the port decodes: (signatures, name, decoder)
-_DECODERS = ((png.MAGIC, "PNG", decode_png),
-             (b"\xff\xd8\xff", "JPEG", decode_jpeg),
-             (gif.MAGICS, "GIF", gif.decode_gif),
-             (bmp.MAGIC, "BMP", bmp.decode_bmp),
-             (tiff.MAGICS + tiff.BIGTIFF, "TIFF", tiff.decode_tiff))
+# what the port decodes, named in its messages
+DECODED = ", ".join(name for name, _, dec in _FORMATS if dec is not None)
+
+
+def _format(data: bytes):
+    return next(((name, dec) for name, test, dec in _FORMATS if test(data)),
+                ("an unknown format", None))
 
 
 def image_format(data: bytes) -> str:
-    """The name of the format of an image file's bytes: one the port
-    decodes (PNG, JPEG, GIF, BMP, TIFF), another of PIL's, or "an unknown
-    format"."""
-    for magic, name, _ in _DECODERS:
-        if data.startswith(magic):
-            return name
-    return next((name for test, name in _OTHERS if test(data)),
-                "an unknown format")
+    """The name of the format of an image file's bytes, as PIL's `open`
+    picks it: PIL's own name (its `format`) for a format the port decodes,
+    a descriptive name for another of PIL's, or "an unknown format"."""
+    return _format(data)[0]
 
 
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
-    them: PNG, JPEG, GIF, BMP and TIFF; any other format raises
-    NotImplementedError (naming it and `name`), malformed data
+    them, for every format the port decodes (`DECODED`: PNG, JPEG, GIF,
+    BMP, DIB, TIFF, PNM and PFM, PCX, DDS, QOI, SGI and TGA); any other
+    format raises NotImplementedError (naming it and `name`), as does a
+    mode of a decoded format that is still left; malformed data raises
     ValueError."""
-    for magic, _, decode in _DECODERS:
-        if data.startswith(magic):
-            return decode(data)
-    raise NotImplementedError(
-        f"{name}: {image_format(data)} images are not decoded by the port "
-        f"(PNG, JPEG, GIF, BMP and TIFF only)")
+    fmt, decode = _format(data)
+    if decode is None:
+        raise NotImplementedError(
+            f"{name}: {fmt} images are not decoded by the port ({DECODED} "
+            f"only)")
+    return decode(data)
 
 
 def load_image(path: str) -> np.ndarray:

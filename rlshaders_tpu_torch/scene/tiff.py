@@ -1,5 +1,5 @@
-"""TIFF decoding in numpy (zlib and scene/lzw.py for the data), equal to
-PIL's decode.
+"""TIFF decoding in numpy (zlib, scene/lzw.py, scene/jpeg.py and
+scene/ccitt.py for the data), equal to PIL's decode.
 
 The JAX package decodes textures with `Image.open(path).convert("RGB")`;
 `decode_tiff` returns those bytes for the first image (IFD) of a TIFF, as
@@ -10,6 +10,15 @@ PIL's `open` reads it:
 * compression none, LZW (most significant bit first, the early width
   change), PackBits, Deflate and Adobe Deflate; predictor 1 and 2
   (horizontal differences at 8 and 16 bits);
+* JPEG compression (7) as libtiff hands it to PIL: each strip or tile a
+  JPEG stream read after the shared JPEGTables (tag 347), so it may be
+  abbreviated; under photometric YCbCr libjpeg converts it to RGB
+  (upsampling subsampled chroma as libjpeg does), under any other the
+  decoded components are the samples (grey, grey and alpha, RGB, RGBA,
+  CMYK), whatever markers the stream holds;
+* CCITT compression of bilevel images (scene/ccitt.py): modified Huffman
+  (2), Group 3 one- or two-dimensional with or without fill bits (3) and
+  Group 4 (4), fill order 1 or 2, MinIsWhite or MinIsBlack;
 * the sample layouts of PIL's TiffImagePlugin.OPEN_INFO for unsigned
   samples: MinIsWhite (0) and MinIsBlack (1) grey of 1, 2, 4, 8 and 16
   bits, grey and alpha, RGB of 8 and 16 bits with an alpha or unused
@@ -26,10 +35,11 @@ CMYK converts as Pillow's cmyk2rgb, (255 - C)(255 - K) / 255. EXIF
 orientation is not applied, as PIL's `open` does not apply it.
 
 A valid file of a layout or compression that PIL opens but the port does
-not (JPEG, CCITT, LZMA, ZSTD and WebP compression, fill order 2,
-orientations 5-8, uncompressed planar 16-bit data that PIL misreads) or
-that PIL cannot open raises NotImplementedError naming it; malformed data
-raises ValueError.
+not (old-style JPEG, LZMA, ZSTD and WebP compression, fill order 2 but
+under CCITT compression, planar or non-8-bit JPEG data, orientations 5-8,
+uncompressed planar 16-bit data that PIL misreads) or that PIL cannot
+open raises NotImplementedError naming it; malformed data raises
+ValueError.
 """
 from __future__ import annotations
 
@@ -38,27 +48,27 @@ import zlib
 
 import numpy as np
 
-from . import lzw
-from .jpeg import muldiv255
+from . import ccitt, lzw
+from .jpeg import decode_planes, muldiv255, ycc_to_rgb
 from .png import unpack_samples
 
 MAGICS = (b"II*\x00", b"MM\x00*", b"MM*\x00", b"II\x00*")
 BIGTIFF = (b"II+\x00", b"MM\x00+")
 
 _COMPRESSIONS = {
-    2: "CCITT modified Huffman", 3: "CCITT Group 3 fax",
-    4: "CCITT Group 4 fax", 6: "old-style JPEG", 7: "JPEG",
-    32771: "16-bit padded raw", 32809: "ThunderScan", 34676: "SGILog",
-    34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+    6: "old-style JPEG", 32771: "16-bit padded raw", 32809: "ThunderScan",
+    34676: "SGILog", 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD",
+    50001: "WebP",
 }
 _TAGS = {256: "width", 257: "height", 258: "bits", 259: "compression",
          262: "photometric", 266: "fill_order", 273: "strip_offsets",
          274: "orientation", 277: "samples", 278: "rows_per_strip",
          279: "strip_counts", 284: "planar", 317: "predictor",
-         320: "colormap", 322: "tile_width", 323: "tile_length",
-         324: "tile_offsets", 325: "tile_counts", 338: "extra",
-         339: "sample_format"}
-_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i"}
+         292: "t4options", 320: "colormap", 322: "tile_width",
+         323: "tile_length", 324: "tile_offsets", 325: "tile_counts",
+         338: "extra", 339: "sample_format", 347: "jpeg_tables"}
+_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i"}
+_CCITT = (2, 3, 4)
 
 
 def _layout(big: bool, photo: int, bits: tuple, extra: tuple):
@@ -151,7 +161,8 @@ def _ifd(data: bytes) -> dict:
             if len(raw) < size:
                 raise ValueError(f"TIFF tag {tag} runs past the end of "
                                  f"the file")
-        tags[_TAGS[tag]] = struct.unpack(e + _TYPES[typ] * n, raw)
+        tags[_TAGS[tag]] = (raw if typ == 7 else
+                            struct.unpack(e + _TYPES[typ] * n, raw))
     return tags
 
 
@@ -207,13 +218,14 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if compression in _COMPRESSIONS:
         raise NotImplementedError(f"TIFF with {_COMPRESSIONS[compression]} "
                                   f"compression is not decoded by the port")
-    if compression not in (1, 5, 8, 32773, 32946):
+    if compression not in (1, 2, 3, 4, 5, 7, 8, 32773, 32946):
         raise NotImplementedError(f"TIFF compression {compression} is not "
                                   f"decoded by the port")
-    if _one(tags, "fill_order", 1) != 1:
+    fill_order = _one(tags, "fill_order", 1)
+    if fill_order != 1 and compression not in _CCITT:
         raise NotImplementedError("TIFF with fill order 2 (least "
-                                  "significant bit first) is not decoded "
-                                  "by the port")
+                                  "significant bit first) is decoded by "
+                                  "the port under CCITT compression only")
     if _one(tags, "orientation", 1) in (5, 6, 7, 8):
         raise NotImplementedError("TIFF with a transposing orientation "
                                   "(5-8) is not decoded by the port")
@@ -230,6 +242,18 @@ def decode_tiff(data: bytes) -> np.ndarray:
         bits = bits * spp
     extra = tags.get("extra", ())
     layout = _layout(tags["big"], photo, bits, extra)
+    if compression == 7 and photo == 6 and bits == (8, 8, 8) \
+            and not extra and planar == 1:
+        layout = ("ycbcr", 8)          # libjpeg converts it to RGB
+    if compression in _CCITT and layout not in (("grey", 1),
+                                                ("grey_inv", 1)):
+        raise NotImplementedError(
+            f"CCITT-compressed TIFF of photometric {photo} and bits {bits} "
+            f"(not a bilevel image) is not decoded by the port")
+    if compression == 7 and (planar != 1 or bits[0] != 8):
+        raise NotImplementedError(
+            f"JPEG-compressed TIFF of {bits[0]}-bit samples in planar "
+            f"configuration {planar} is not decoded by the port")
     if layout is None or len(bits) != spp:
         raise NotImplementedError(
             f"TIFF with photometric {photo}, bits {bits} and extra samples "
@@ -276,8 +300,17 @@ def decode_tiff(data: bytes) -> np.ndarray:
             off = offsets[i]
             end = off + (need if compression == 1 or i >= len(counts)
                          else counts[i])
-            raw = _inflate(data[off:end], compression, need)
             i += 1
+            if compression == 7:
+                px[y:y + ch, x:x + cw] = _jpeg_cell(
+                    data[off:end], tags, cw, ch, spp)[:h - y, :w - x]
+                continue
+            if compression in _CCITT:
+                px[y:y + ch, x:x + cw, 0] = ccitt.decode(
+                    data[off:end], cw, ch, compression,
+                    _one(tags, "t4options", 0), fill_order)[:h - y, :w - x]
+                continue
+            raw = _inflate(data[off:end], compression, need)
             if len(raw) < need:
                 raise ValueError(f"TIFF strip or tile {i - 1} holds "
                                  f"{len(raw)} bytes, its rows need {need}")
@@ -288,6 +321,27 @@ def decode_tiff(data: bytes) -> np.ndarray:
                 s = np.cumsum(s, axis=1) & ((1 << depth) - 1)
             px[y:y + ch, x:x + cw][..., chans] = s[:h - y, :w - x]
     return _to_rgb(px, kind, depth, tags)
+
+
+def _jpeg_cell(stream: bytes, tags: dict, cw: int, ch: int,
+               spp: int) -> np.ndarray:
+    """(ch, cw, spp) int32 of one JPEG-compressed strip or tile, as
+    libtiff hands it to PIL: its JPEGTables read first; under photometric
+    YCbCr libjpeg's conversion to RGB (upsampled as libjpeg upsamples),
+    under any other the decoded components as they are."""
+    planes, _, _ = decode_planes(stream, tags.get("jpeg_tables", b""))
+    if len(planes) != spp:
+        raise ValueError(f"TIFF JPEG strip or tile of {len(planes)} "
+                         f"components, the image has {spp} samples")
+    jh, jw = planes[0][0].shape
+    if jh < ch or jw < cw:
+        raise ValueError(f"TIFF JPEG strip or tile of {jw}x{jh} samples, "
+                         f"its cell is {cw}x{ch}")
+    if _one(tags, "photometric") == 6:
+        out = ycc_to_rgb(*(p for p, _ in planes))
+    else:
+        out = np.stack([p for p, _ in planes], -1)
+    return out[:ch, :cw].astype(np.int32)
 
 
 def _to_rgb(px: np.ndarray, kind: str, depth: int, tags: dict):
@@ -308,6 +362,8 @@ def _to_rgb(px: np.ndarray, kind: str, depth: int, tags: dict):
     if kind == "grey16":
         g = np.minimum(px[..., 0], 255)
         return np.repeat(g[..., None], 3, axis=2).astype(np.uint8)
+    if kind == "ycbcr":
+        return px.astype(np.uint8)
     if depth == 16:
         px = px >> 8
     if kind == "cmyk":

@@ -21,7 +21,11 @@ material dispatch, its texture lookups and the bump map queue no
 device-to-host copy. `cli render` writes the same EXRs on the card as on
 the CPU within that tolerance, and the trace-set accels of
 `build_trace_set` have the same tables on both and the kernels the same
-hits as the CPU walk.
+hits as the CPU walk. The committed image files (scenes/data/modes and
+scenes/data/formats) decode on the card's machine, which has no PIL, to
+the digests of PIL's decode, and chip_smoke.py phase 32's frames (a DDS,
+a TGA and a JPEG TIFF; a QOI, a PCX and a Group 4 TIFF) render on the
+card as on the CPU.
 """
 import os
 import types
@@ -576,3 +580,119 @@ def test_committed_image_modes_decode_to_their_digests(cuda_device, path):
     with open(path, "rb") as f:
         px = decode_image(f.read())
     assert hashlib.sha256(px.tobytes()).hexdigest() == MODE_DIGESTS[path]
+
+
+# SHA-256 of PIL's RGB decode of every file of scenes/data/formats (printed
+# by tools/make_image_formats.py; pinned by chip_smoke.py too)
+FORMAT_DIGESTS = {
+    "scenes/data/formats/grid.qoi":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_ascii.ppm":
+        "cee47d398d8d24c381acdefa62aff5d47e010e4a55a253500f2c9ce6de337654",
+    "scenes/data/formats/grid_bc5_half.dds":
+        "e47b86a56cc1f89bc39bee7b6930e179e04774da9f954a078e8a5de5b77ee404",
+    "scenes/data/formats/grid_bits.pbm":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats/grid_cmap16_mirrored_rle.tga":
+        "798f61bc94ec20227730dac0f42b86a04f2353b70f545b0367dcf54c1b07e245",
+    "scenes/data/formats/grid_grey_topdown.tga":
+        "973b2927b32f358ee132eee66d6f2433bff570be78cbbaef95998d2ac2892080",
+    "scenes/data/formats/grid_group3_2d_fill_lsb_minwhite.tif":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats/grid_planes4.pcx":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_rgb.pcx":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_rle.sgi":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats/grid_ycbcr420_tiles_jpeg.tif":
+        "1dc73c34e3f3f96984b3ce545abc78efd68f83d972b671f230bafd49c9a558b7",
+    "scenes/data/formats/logo.pfm":
+        "8bdfe77adc3ef8b0636ef081b0627110319d08e628d3cb239fa3e8b9c951ef29",
+    "scenes/data/formats/logo_bgr15_half.tga":
+        "8d36750d3294b929296629048437c870098f8f2c9af5185b41ce876493ea03df",
+    "scenes/data/formats/logo_dxt5.dds":
+        "e6eb01bd1e8a05a45104aeffb554e32da4f6c1a35a33ed959c749730f8ace3e6",
+    "scenes/data/formats/logo_group4.tif":
+        "ec2d15d962e2cd0028f779f0fd7acbd77742ad4ee6196eef0f945da94574b402",
+    "scenes/data/formats/logo_jpeg.tif":
+        "9c0106c01f67da1ffe90ee2e00ed6d2eee3ac2a30a694e1fe4484dcb80d63db1",
+    "scenes/data/formats/logo_mh_strips.tif":
+        "ec2d15d962e2cd0028f779f0fd7acbd77742ad4ee6196eef0f945da94574b402",
+    "scenes/data/formats/logo_palette.dib":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/logo_palette.pcx":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/logo_rgb12.ppm":
+        "62c78e652dc843de1ee8a10bffc27ed34425f7febdc7246d1f2ce2942ce2e6b0",
+    "scenes/data/formats/logo_rgb_half.dds":
+        "9fc2c55bb8bb6e1a2acbb39e637d6c878d1e0517cfdc0d2a7da288aca51095f9",
+    "scenes/data/formats/logo_rgba.qoi":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/logo_rgba_half.sgi":
+        "9fc2c55bb8bb6e1a2acbb39e637d6c878d1e0517cfdc0d2a7da288aca51095f9",
+    "scenes/data/formats/logo_rle.tga":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats/texture_2048_dxt1.dds":
+        "992f0a6d348f20ada83c65a356bdc76941940433c0e250fcc29937bb8d6db00e",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_DIGESTS))
+def test_committed_image_formats_decode_to_their_digests(cuda_device, path):
+    """The decoders of the formats on the card's machine, which has no PIL:
+    every committed file decodes to the digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_DIGESTS[path]
+
+
+# chip_smoke.py phase 32's frames: the images of the textured scene's three
+# MayaFile slots (the grid, the logo, the inverted logo)
+FORMAT_FRAMES = {
+    "C": ("formats/texture_2048_dxt1.dds", "formats/logo_rle.tga",
+          "formats/logo_jpeg.tif"),
+    "D": ("formats/grid.qoi", "formats/logo_palette.pcx",
+          "formats/logo_group4.tif"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_FRAMES))
+def test_format_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 32's frame (scenes/textured_disk.ass with a
+    DDS, a TGA and a JPEG TIFF, or a QOI, a PCX and a Group 4 TIFF in its
+    texture slots) at 8x8 and its own AA 3 and GI samples: through both
+    kernels on the card, held to the CPU render with chip_smoke.py's
+    tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build_text
+
+    with open("scenes/textured_disk.ass") as f:
+        src = f.read()
+    for old, new in zip(('"data/grid.png"', '"data/logo.png"',
+                         '"data/logo.png"'), FORMAT_FRAMES[tag]):
+        src = src.replace(old, f'"data/{new}"', 1)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build_text(src, device=dev, base_dir="scenes")
+        assert scene.textures.n_levels.shape == (3,)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, xres=8, yres=8)
+        if dev != "cpu":
+            assert all(n > 0 for n in kernels.LAUNCHES.values())
+    for name in ("RGBA", "direct_diffuse", "indirect_diffuse",
+                 "indirect_specular"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]

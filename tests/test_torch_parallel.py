@@ -28,6 +28,8 @@ Every launch has a time limit (TIMEOUT_S), so a hung rank fails one test.
 import functools
 import math
 import operator
+import os
+import pickle
 import time
 
 import jax
@@ -220,3 +222,51 @@ def test_a_failing_rank_fails_the_launch():
                      device="cpu", timeout_s=TIMEOUT_S)
     assert "ZeroDivisionError" in str(err.value)
     assert time.monotonic() - t0 < TIMEOUT_S
+
+
+class _StubProcess:
+    """A rank whose exit code is read from a script: each read of
+    `exitcode` takes the next value and the last one stays. Rank 0 of a
+    script that starts with exit code 0 has written its result."""
+
+    def __init__(self, codes, target, args):
+        self.codes = list(codes)
+        self.tmp = args[3]
+        self.rank = args[1]
+        self.sentinel = None
+
+    def start(self):
+        if self.rank == 0 and self.codes[0] == 0:
+            with open(os.path.join(self.tmp, "result"), "wb") as f:
+                pickle.dump("rank 0's result", f)
+
+    @property
+    def exitcode(self):
+        return self.codes.pop(0) if len(self.codes) > 1 else self.codes[0]
+
+    def is_alive(self):
+        return False
+
+
+@pytest.mark.parametrize("scripts,failing", [
+    (((None, 1), (0,)), 0),     # rank 0 fails between two reads
+    (((0,), (None, 1)), 1),     # rank 0 returned; rank 1 fails then
+])
+def test_a_rank_failing_between_two_reads_fails_the_launch(
+        monkeypatch, scripts, failing):
+    """The wait loop decides `failed` and `alive` from one read of every
+    exit code: a rank whose exit code turns non-zero between two reads
+    fails the call (and no result file that was never written is
+    opened, nor rank 0's result returned)."""
+    it = iter(scripts)
+
+    class Ctx:
+        def Process(self, target, args):
+            return _StubProcess(next(it), target, args)
+
+    monkeypatch.setattr(tmesh.multiprocessing, "get_context",
+                        lambda method: Ctx())
+    monkeypatch.setattr(tmesh.multiprocessing.connection, "wait",
+                        lambda objs, timeout=None: [])
+    with pytest.raises(RuntimeError, match=f"rank {failing} of 2 failed"):
+        tmesh.launch(operator.neg, 2, device="cpu", timeout_s=TIMEOUT_S)

@@ -109,6 +109,14 @@ def test_interop_round_trip():
     assert s2.options == scene.options
 
 
+def _nested(tmp_path) -> str:
+    """A directory three levels below tmp_path: the build's texture search
+    (up to `../../../data`) then stays inside tmp_path."""
+    d = tmp_path / "a" / "b" / "c"
+    d.mkdir(parents=True)
+    return str(d)
+
+
 @pytest.mark.parametrize("snippet,what", [
     ('standard\n{\n name m\n Kd_color "tex"\n}\n'
      'MayaFile\n{\n name tex\n filename "x.png"\n}\n', "texture"),
@@ -121,7 +129,7 @@ def test_unported_features_raise(snippet, what, tmp_path):
     texture (id -1, silently), a disk light is a row of the disk table."""
     src = _jax_demo(skin=False).replace('shader "mat_floor"', 'shader "m"',
                                         1) + snippet
-    scene = tbuild.build_text(src, device="cpu", base_dir=str(tmp_path))
+    scene = tbuild.build_text(src, device="cpu", base_dir=_nested(tmp_path))
     m = scene.materials
     if what == "texture":
         assert (m.kd_tex == -1).all() and scene.textures.data.shape == (1, 3)
@@ -132,11 +140,13 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Image formats the port does not decode raise (a WebP, a TGA); a
-    baseline JPEG, a progressive JPEG and a GIF build, each to the same
-    texels. Trace sets build: the floor's triangles carry the set's bit
-    8, the others none."""
+    """Image formats the port does not decode raise (a WebP, an IM); a
+    baseline JPEG, a progressive JPEG, a GIF and a TGA build, each to the
+    same texels. Trace sets build: the floor's triangles carry the set's
+    bit 8, the others none."""
     from PIL import Image
+
+    base = _nested(tmp_path)
 
     src = _jax_demo(skin=False)
     scene = tbuild.build_text(src.replace(' name floor\n',
@@ -150,25 +160,61 @@ def test_still_unported_raise(tmp_path):
     assert ((vis[on_floor] & (1 << 8)) != 0).all()
     assert ((vis[~on_floor] & ~0xFF) == 0).all()
     img = Image.fromarray(np.full((4, 4, 3), 200, np.uint8))
-    img.save(tmp_path / "t.jpg")
-    img.save(tmp_path / "p.jpg", progressive=True)
-    img.save(tmp_path / "t.gif")
-    img.save(tmp_path / "t.webp")
-    img.save(tmp_path / "t.tga")
+    for name, kw in (("t.jpg", {}), ("p.jpg", {"progressive": True}),
+                     ("t.gif", {}), ("t.webp", {}), ("t.tga", {}),
+                     ("t.im", {})):
+        img.save(os.path.join(base, name), **kw)
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
            'MayaFile\n{\n name tex\n filename "%s"\n}\n')
-    scene = tbuild.build_text(src % "t.jpg", device="cpu",
-                              base_dir=str(tmp_path))
+    scene = tbuild.build_text(src % "t.jpg", device="cpu", base_dir=base)
     assert scene.textures.data.shape == (16 + 4 + 1, 3)
     for name in ("p.jpg", "t.gif"):
-        other = tbuild.build_text(src % name, device="cpu",
-                                  base_dir=str(tmp_path))
+        other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data, scene.textures.data), name
-    for name, what in (("t.webp", "WebP"), ("t.tga", "TGA")):
+    tga = tbuild.build_text(src % "t.tga", device="cpu", base_dir=base)
+    assert torch.equal(tga.textures.data, torch.full((21, 3), 200 / 255))
+    for name, what in (("t.webp", "WebP"), ("t.im", "IM")):
         with pytest.raises(NotImplementedError, match=what):
-            tbuild.build_text(src % name, device="cpu",
-                              base_dir=str(tmp_path))
+            tbuild.build_text(src % name, device="cpu", base_dir=base)
+
+
+@pytest.mark.parametrize("where", ["suite/data", "nowhere"])
+def test_textures_are_found_in_the_testsuite_layout(tmp_path, where,
+                                                    monkeypatch):
+    """A scene at suite/mtoa/0001/data/scene.ass whose texture lies only in
+    suite/data (the testsuite's layout, which `cli test` renders): the
+    port's build finds the file the JAX build finds, by the same path,
+    to the same texture table; with the file nowhere both give -1."""
+    case = tmp_path / "suite" / "mtoa" / "0001" / "data"
+    case.mkdir(parents=True)
+    (tmp_path / "suite" / "data").mkdir()
+    if where != "nowhere":
+        with open(os.path.join(REPO, "scenes", "data", "grid.png"),
+                  "rb") as f:
+            (tmp_path / where / "grid.png").write_bytes(f.read())
+    src = (_jax_demo(skin=False).replace('shader "mat_floor"', 'shader "m"',
+                                         1)
+           + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
+           'MayaFile\n{\n name tex\n filename "grid.png"\n}\n')
+    path = case / "scene.ass"
+    path.write_text(src)
+    read = {"jax": [], "port": []}
+    for mod, key in ((jbuild, "jax"), (tbuild, "port")):
+        def load(p, *args, _load=mod.load_image, _key=key):
+            read[_key].append(p)
+            return _load(p, *args)
+        monkeypatch.setattr(mod, "load_image", load)
+    js = jbuild.build(str(path))
+    ts = tbuild.build(str(path), device="cpu")
+    assert read["port"] == read["jax"] == (
+        [] if where == "nowhere" else [str(tmp_path / where / "grid.png")])
+    kd = ts.materials.kd_tex.numpy()
+    assert np.array_equal(np.asarray(js.materials.kd_tex)[:len(kd)], kd)
+    assert (kd.max() == -1) == (where == "nowhere")
+    for f in ts.textures._fields:
+        assert np.array_equal(np.asarray(getattr(js.textures, f)),
+                              getattr(ts.textures, f).numpy()), f
 
 
 def test_unported_materials_raise_in_gather():

@@ -266,17 +266,18 @@ def test_png_filters(tmp_path, filt, channels):
 
 
 def test_other_formats_raise(tmp_path):
-    """A GIF and a grey PNG, refused before the image modes were ported,
-    now decode as PIL does; a WebP and a TGA, which PIL opens and the port
-    does not decode, raise NotImplementedError naming their format."""
+    """A GIF, a grey PNG and a TGA, refused before their slices, now decode
+    as PIL does; a WebP and an IM, which PIL opens and the port does not
+    decode, raise NotImplementedError naming their format."""
     img = Image.fromarray(np.random.default_rng(3).integers(
         0, 256, (4, 4, 3), dtype=np.uint8))
-    for name, save in (("x.gif", img), ("g.png", img.convert("L"))):
+    for name, save in (("x.gif", img), ("g.png", img.convert("L")),
+                       ("x.tga", img)):
         save.save(tmp_path / name)
         assert np.array_equal(ttex.load_image(str(tmp_path / name)),
                               jtex.load_image(str(tmp_path / name), 1.0))
     for name, fmt, what in (("x.webp", "WEBP", "WebP"),
-                            ("x.tga", "TGA", "TGA")):
+                            ("x.im", "IM", "IM")):
         img.save(tmp_path / name, fmt)
         assert Image.open(tmp_path / name).format == fmt
         with pytest.raises(NotImplementedError, match=what):
@@ -411,11 +412,12 @@ def test_texture_links_build_as_jax(tmp_path, shader, tg):
     texture gamma) and on, chained gains, a linked Ks (read as 0) and Ksn,
     bump3d through a shading engine and on a file, texture links on rlGgx
     and rlDisney."""
-    (tmp_path / "data").mkdir()
+    base = tmp_path / "a" / "b" / "c"      # the search stays in tmp_path
+    (base / "data").mkdir(parents=True)
     for f in ("grid.png", "logo.png"):
-        (tmp_path / "data" / f).write_bytes(
+        (base / "data" / f).write_bytes(
             open(os.path.join(REPO, "scenes", "data", f), "rb").read())
-    path = tmp_path / "s.ass"
+    path = base / "s.ass"
     path.write_text(PLANE % {"tg": tg, "shader": shader} + NODES)
     js = jbuild.build(str(path))
     ts = tbuild.build(str(path), device="cpu")

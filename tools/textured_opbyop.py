@@ -3,9 +3,12 @@ tests/test_torch_textured_render.py renders: 16x16, AA 1, one diffuse and
 one glossy sample a hit), jitted and op by op (jax.disable_jit), and the
 pixels where the two differ by more than 1e-5, with the op-by-op values.
 With --jpeg, the scene names its images .jpg (tests/test_torch_jpeg.py's
-copy).
+copy); with --images G,L,I, its three MayaFile slots (the grid, the logo,
+the inverted logo) name those files of scenes/data instead
+(tests/test_torch_format_render.py's frames, chip_smoke.FORMAT_FRAMES).
 
-    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/textured_opbyop.py [--jpeg]
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/textured_opbyop.py \
+        [--jpeg | --images G,L,I]
 
 The tests hold the port to the op-by-op values at those pixels. The
 op-by-op render takes about a minute and a half on a CPU.
@@ -33,8 +36,15 @@ def main() -> None:
         src = f.read()
     for k in ("GI_diffuse_samples", "GI_glossy_samples"):
         src = re.sub(rf"^ {k} \d+$", f" {k} 1", src, flags=re.M)
-    if "--jpeg" in sys.argv[1:]:
+    args = sys.argv[1:]
+    if "--jpeg" in args:
         src = src.replace(".png", ".jpg")
+    if "--images" in args:
+        images = args[args.index("--images") + 1].split(",")
+        for old, new in zip(("data/grid.png", "data/logo.png",
+                             "data/logo.png"), images):
+            assert f'"{old}"' in src, old
+            src = src.replace(f'"{old}"', f'"data/{new}"', 1)
     with tempfile.TemporaryDirectory() as d:
         os.symlink(os.path.join(REPO, "scenes", "data"),
                    os.path.join(d, "data"))
