@@ -168,7 +168,18 @@ nonzero):
    decoded without PIL and held to the SHA-256 of PIL's decode, as in 29;
 32. the textured scene as in 30 with frame C (the 2048x2048 DXT1 DDS, a
    run-length TGA, a JPEG-compressed TIFF) and frame D (a QOI, a palette
-   PCX, a Group 4 TIFF); phases 31-32 must take 60 s at most.
+   PCX, a Group 4 TIFF); phases 31-32 must take 60 s at most;
+33. every committed file of scenes/data/formats_b/
+   (`tools/make_image_formats.py formats_b`: BC4, BC6H and BC7 DDS, BLP1
+   and BLP2, ICO, CUR, ICNS, IM, MSP and XBM, and a 2048x2048 BC7 DDS in
+   which every mode and partition occurs) decoded without PIL and held to
+   the SHA-256 of PIL's decode, as in 29, with each file's milliseconds;
+34. the textured scene as in 30 with frame E (the 2048x2048 BC7 DDS, a
+   BC6H SF16 DDS, a BLP2 DXT3) and frame F (an ICO whose largest entry is
+   a 32-bit BMP, an it32 run-length ICNS, a palette IM), each also held
+   to the plain walk on every query of a 32x32 frame at the scene's own
+   AA 3 and GI samples (0 mismatches for both kernels); phases 33-34 must
+   take 60 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -187,7 +198,8 @@ kernel (with, per shape, its launches, device_ms and call_ms; and the
 launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_mesh` for phases 23-24, `launches_jpeg` for phase 25,
 `launches_dense` for phase 28, `launches_images` for phase 30,
-`launches_formats` for phase 32, whose sum is `launches`); the card's name
+`launches_formats` for phase 32, `launches_formats_b` for phase 34, whose
+sum is `launches`); the card's name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -362,6 +374,59 @@ FORMAT_DIGESTS = {
     "scenes/data/formats/texture_2048_dxt1.dds":
         "992f0a6d348f20ada83c65a356bdc76941940433c0e250fcc29937bb8d6db00e",
 }
+# SHA-256 of PIL's RGB decode of every file of scenes/data/formats_b
+# (printed by `tools/make_image_formats.py formats_b`; pinned by
+# tests/test_torch_gpu.py too)
+FORMAT_B_DIGESTS = {
+    "scenes/data/formats_b/grid.msp":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats_b/grid.xbm":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats_b/grid_bc4_ati1.dds":
+        "e69093b2cc964a3a14d0533a22a1891b8426805c6fe817a802eebaa1445dc540",
+    "scenes/data/formats_b/grid_bc6h_uf16.dds":
+        "24816b19d2ec58fa1ec2b138cddd1d97b7149bcfb2c1277044d58c26e967e1d9",
+    "scenes/data/formats_b/grid_bmp32.ico":
+        "e482778d49d9cdf65d05c2114c91775e119b3216fc817dc14c690dc391e7c1eb",
+    "scenes/data/formats_b/grid_dxt1.blp":
+        "cc4f280c86efa2aeb94bbd57783c3c2078c19900975e8ebf0fcccf05975e46a3",
+    "scenes/data/formats_b/grid_palette.blp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_b/grid_png.icns":
+        "e482778d49d9cdf65d05c2114c91775e119b3216fc817dc14c690dc391e7c1eb",
+    "scenes/data/formats_b/grid_rgb.im":
+        "e482778d49d9cdf65d05c2114c91775e119b3216fc817dc14c690dc391e7c1eb",
+    "scenes/data/formats_b/logo.cur":
+        "9fc2c55bb8bb6e1a2acbb39e637d6c878d1e0517cfdc0d2a7da288aca51095f9",
+    "scenes/data/formats_b/logo_bc4_odd.dds":
+        "14a218dd10b398eebe1770b66d185afb0e7f94811b6714cf29f6d7abc12c0fcc",
+    "scenes/data/formats_b/logo_bc6h_sf16.dds":
+        "419b2b263acbbe191b196d681d57d0bf40fe4de2e048d154025407415f7a7ec4",
+    "scenes/data/formats_b/logo_bc7_srgb.dds":
+        "e31fa5d65f786ea8b846811fe3eb0242c6c059692b3454a3f6d642546be6e3e9",
+    "scenes/data/formats_b/logo_dxt3.blp":
+        "b1cf3cbff4b7ea8f4ef718f15c185a445f9039d2e0787eec4ae5e2b650698a47",
+    "scenes/data/formats_b/logo_dxt5_odd.blp":
+        "c2e61035b3cd6a203462a786889965b2a70a5beaed7340cafa6a8bcdaba335d6",
+    "scenes/data/formats_b/logo_f32.im":
+        "f61fef78ebe981ba385947fdc0ab941a05b3684e8b63dc3c782fb7dba7ead5b9",
+    "scenes/data/formats_b/logo_it32.icns":
+        "c25a95c9d9c5ff3c17407a81803655855065f51c2de740ee2887d3fa0a29a4bc",
+    "scenes/data/formats_b/logo_jpeg.blp":
+        "5a76a7d2fd3c89c1c35d296581cc81371e03b87ed399f2f3f16afca706e802e2",
+    "scenes/data/formats_b/logo_palette.blp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_b/logo_palette.im":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_b/logo_png.ico":
+        "e0413348d4143c8414c640bc2b475f10e1bf3bd261c5d20026e6d9e1b84b3ed6",
+    "scenes/data/formats_b/logo_rle.msp":
+        "9279e2093299d64288501876af0686003254afa383d805f7b3ab8f6bbf8bb6da",
+    "scenes/data/formats_b/logo_ycc.im":
+        "f3c0e0eceb403b11caeddb7aceb9ca7e1b4f752e58f014c1c68be276830e9f1a",
+    "scenes/data/formats_b/texture_2048_bc7.dds":
+        "4a463dc0bef814d02a20c3ae3f197c55c75cb5b5cd1b0c6ffb5935c12d42fd46",
+}
 # phase 30: the images put in the textured scene's three MayaFile slots
 # (the grid, the logo, the inverted logo)
 IMAGE_FRAMES = {
@@ -376,7 +441,15 @@ FORMAT_FRAMES = {
     "D": ("formats/grid.qoi", "formats/logo_palette.pcx",
           "formats/logo_group4.tif"),
 }
-FORMAT_PHASES_S = 60.0  # phases 31-32 together
+# phase 34: the same slots filled from scenes/data/formats_b
+FORMAT_B_FRAMES = {
+    "E": ("formats_b/texture_2048_bc7.dds", "formats_b/logo_bc6h_sf16.dds",
+          "formats_b/logo_dxt3.blp"),
+    "F": ("formats_b/grid_bmp32.ico", "formats_b/logo_it32.icns",
+          "formats_b/logo_palette.im"),
+}
+FORMAT_B_CHECK = 32     # width and height of frames E and F held to the walk
+FORMAT_PHASES_S = 60.0  # phases 31-32 together, and phases 33-34
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -1513,12 +1586,14 @@ def with_images(src: str, images) -> str:
 
 def image_phases(card: str, folder: str = "modes",
                  digests: dict = MODE_DIGESTS, frames: dict = IMAGE_FRAMES,
-                 phases=(29, 30)) -> dict:
-    """Phases 29-30 (or 31-32 of scenes/data/formats): every file of
-    scenes/data/<folder> decoded without PIL and held to its pinned
-    digest; the textured scene with each frame's images through the
-    kernels (counts reset, plain walk barred), 16 + 60 launches each, and
-    its 32x32 frame on the card and the CPU. Returns the launches of the
+                 phases=(29, 30), check: int = 0) -> dict:
+    """Phases 29-30 (or 31-32 of scenes/data/formats, 33-34 of formats_b):
+    every file of scenes/data/<folder> decoded without PIL and held to its
+    pinned digest; the textured scene with each frame's images through the
+    kernels (counts reset, plain walk barred), 16 + 60 launches each, both
+    kernels held to the plain walk on every query of a check x check frame
+    at the scene's own AA and GI samples where `check` is given, and its
+    32x32 frame on the card and the CPU. Returns the launches of the
     frames."""
     import hashlib
 
@@ -1536,14 +1611,14 @@ def image_phases(card: str, folder: str = "modes",
     if sorted(paths) != sorted(digests):
         raise AssertionError(f"[{pa}] scenes/data/{folder} holds {names}, "
                              f"the digests name {sorted(digests)}")
-    total_ms = 0.0
+    decode_ms = {}
     for path in paths:
         with open(path, "rb") as f:
             data = f.read()
         t1 = time.perf_counter()
         px = decode_image(data)
         dt = (time.perf_counter() - t1) * 1e3
-        total_ms += dt
+        decode_ms[path] = dt
         got = hashlib.sha256(px.tobytes()).hexdigest()
         log(f"[{pa}] {path}: {len(data)} B -> {px.shape} in {dt:.2f} ms "
             f"(host), sha256 {got[:16]}...")
@@ -1552,8 +1627,9 @@ def image_phases(card: str, folder: str = "modes",
                                  f"decode is {digests[path]}")
     if "PIL" in sys.modules:
         raise AssertionError(f"[{pa}] PIL was imported")
-    log(f"[{pa}] {len(paths)} files decoded in {total_ms:.2f} ms (host); "
-        f"phase {time.perf_counter() - t0:.1f} s")
+    log(f"[{pa}] {len(paths)} files decoded in "
+        f"{sum(decode_ms.values()):.2f} ms (host); phase "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     with open(TEXTURED) as f:
@@ -1564,9 +1640,13 @@ def image_phases(card: str, folder: str = "modes",
         src = with_images(base_src, images)
         t1 = time.perf_counter()
         scene = build_text(src, base_dir=base)
+        decoded = ", ".join(
+            f"{n} {decode_ms[f'scenes/data/{n}']:.2f} ms" for n in images
+            if f"scenes/data/{n}" in decode_ms)
         log(f"[{pb}] frame {tag} {images}: built in "
             f"{time.perf_counter() - t1:.2f} s; texture table "
-            f"{texture_bytes(scene.textures)} B")
+            f"{texture_bytes(scene.textures)} B; decoded in phase {pa}: "
+            f"{decoded or '-'}")
         accel = tracemod.build(scene.geometry)
         reset(kernels)
         out, dt = barred_render(wavefront.render, bvh, scene, accel)
@@ -1584,6 +1664,20 @@ def image_phases(card: str, folder: str = "modes",
         for k in launches:
             launches[k] += got[k]
         del out
+        if check:
+            t1 = time.perf_counter()
+            res = compare(accel, capture_queries(
+                scene, accel, wavefront, tracemod, xres=check, yres=check),
+                bvh, kernels)
+            for k, (bad, rays, err, _) in res.items():
+                log(f"[{pb}] frame {tag} {check}x{check} AA "
+                    f"{o.aa_samples}: {k} {rays} rays, {bad} mismatches "
+                    f"against the plain walk, max abs err {err:.3g}")
+                if bad:
+                    raise AssertionError(f"[{pb}] frame {tag}: {k} "
+                                         f"disagrees with its plain version")
+            log(f"[{pb}] frame {tag} checked in "
+                f"{time.perf_counter() - t1:.1f} s")
         cscene = build_text(src, device="cpu", base_dir=base)
         cuda_vs_cpu(wavefront, f"{pb}{tag}", {
             "cuda": (scene, accel),
@@ -1595,18 +1689,31 @@ def image_phases(card: str, folder: str = "modes",
     return launches
 
 
-def format_phases(card: str) -> dict:
-    """Phases 31-32: image_phases over scenes/data/formats with frames C
-    and D, within FORMAT_PHASES_S. Returns the launches of both frames."""
+def format_phases(card: str, folder: str = "formats",
+                  digests: dict = FORMAT_DIGESTS,
+                  frames: dict = FORMAT_FRAMES, phases=(31, 32),
+                  check: int = 0) -> dict:
+    """Phases 31-32 (or 33-34 of scenes/data/formats_b): image_phases over
+    the folder with its frames, within FORMAT_PHASES_S. Returns the
+    launches of both frames."""
+    pa, pb = phases
     t0 = time.perf_counter()
-    launches = image_phases(card, "formats", FORMAT_DIGESTS, FORMAT_FRAMES,
-                            (31, 32))
+    launches = image_phases(card, folder, digests, frames, phases, check)
     took = time.perf_counter() - t0
-    log(f"[32] phases 31-32 {took:.1f} s (at most {FORMAT_PHASES_S} s)")
+    log(f"[{pb}] phases {pa}-{pb} {took:.1f} s (at most {FORMAT_PHASES_S} "
+        f"s)")
     if took > FORMAT_PHASES_S:
-        raise AssertionError(f"[32] phases 31-32 took {took:.1f} s, more "
-                             f"than {FORMAT_PHASES_S} s")
+        raise AssertionError(f"[{pb}] phases {pa}-{pb} took {took:.1f} s, "
+                             f"more than {FORMAT_PHASES_S} s")
     return launches
+
+
+def format_b_phases(card: str) -> dict:
+    """Phases 33-34: format_phases over scenes/data/formats_b with frames
+    E and F, each held to the plain walk on every query of a
+    FORMAT_B_CHECK frame."""
+    return format_phases(card, "formats_b", FORMAT_B_DIGESTS,
+                         FORMAT_B_FRAMES, (33, 34), FORMAT_B_CHECK)
 
 
 def same_nodes_and_leaves(a, b) -> bool:
@@ -2086,6 +2193,7 @@ def main() -> int:
     dense = dense_phases(card)
     image_launches = image_phases(card)
     format_launches = format_phases(card)
+    format_b_launches = format_b_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2120,7 +2228,7 @@ def main() -> int:
                          + tex["launches"][k] + clirun["launches"][k]
                          + mesh1[k] + mesh2[k] + jpeg_launches[k]
                          + dense["launches"][k] + image_launches[k]
-                         + format_launches[k]),
+                         + format_launches[k] + format_b_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2140,6 +2248,7 @@ def main() -> int:
             "launches_dense": dense["launches"][k],
             "launches_images": image_launches[k],
             "launches_formats": format_launches[k],
+            "launches_formats_b": format_b_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

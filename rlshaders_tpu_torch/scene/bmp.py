@@ -114,12 +114,10 @@ def dib_accept(data: bytes) -> bool:
     return len(data) >= 4 and _u32(data, 0) in DIB_SIZES
 
 
-def decode_dib(data: bytes) -> np.ndarray:
-    """(H, W, 3) uint8 of a DIB (a BMP without its 14-byte file header),
-    PIL's `convert("RGB")` of it byte for byte. PIL's DibImageFile reads
-    the pixels right after what its header reader took: the header, the
-    three bitfield masks of a 40-byte header, and the palette of a 1-, 4-
-    or 8-bit bitmap."""
+def dib_pixels(data: bytes) -> int:
+    """Where PIL's DibImageFile reads a DIB's pixels: right after what its
+    header reader took (the header, the three bitfield masks of a 40-byte
+    header, and the palette of a 1-, 4- or 8-bit bitmap)."""
     if not dib_accept(data) or len(data) < 16:
         raise ValueError("not a DIB (BMP without its file header)")
     hsize = _u32(data, 0)
@@ -135,6 +133,14 @@ def decode_dib(data: bytes) -> np.ndarray:
             pos += 12
     if bits <= 8:
         pos += pad * (colors or 1 << bits)
+    return pos
+
+
+def decode_dib(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of a DIB (a BMP without its 14-byte file header),
+    PIL's `convert("RGB")` of it byte for byte, its pixels read from
+    `dib_pixels`."""
+    pos = dib_pixels(data)
     head = MAGIC + struct.pack("<IHHI", 14 + len(data), 0, 0, 14 + pos)
     try:
         return decode_bmp(head + data)

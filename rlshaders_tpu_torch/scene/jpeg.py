@@ -531,10 +531,13 @@ def muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((t >> 8) + t) >> 8
 
 
-def _colour(planes: list, jfif: bool, adobe) -> np.ndarray:
+def _colour(planes: list, jfif: bool, adobe,
+            ycck: bool = True) -> np.ndarray:
     """(h, w, 3) uint8 of the component planes, converted as libjpeg's
     colour-space guess (jdapimin.c default_decompress_parms) and PIL's
-    mode for the component count convert them."""
+    mode for the component count convert them. Where `ycck` is False,
+    four components are CMYK whatever the Adobe marker says (PIL's BLP
+    plugin asks libjpeg for a CMYK stream)."""
     if len(planes) == 1:
         return np.repeat(planes[0][0][..., None], 3, axis=2)
     if len(planes) == 3:
@@ -549,7 +552,7 @@ def _colour(planes: list, jfif: bool, adobe) -> np.ndarray:
     # samples as inverted ("CMYK;I") and converts CMYK to RGB as
     # (255 - C)(255 - K) / 255, so each channel is sample * K / 255
     c, m, y, k = (p[0] for p in planes)
-    if adobe not in (None, 0):
+    if adobe not in (None, 0) and ycck:
         c, m, y = np.moveaxis(255 - ycc_to_rgb(c, m, y).astype(np.int32),
                               -1, 0)
     return np.stack([muldiv255(v, k) for v in (c, m, y)],
@@ -711,11 +714,13 @@ def decode_planes(data: bytes, tables: bytes = b"") -> tuple:
     return planes, st.jfif, st.adobe
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, ycck: bool = True) -> np.ndarray:
     """(H, W, 3) uint8 of a Huffman-coded JPEG (sequential or
-    progressive), PIL's `convert("RGB")` of it byte for byte."""
+    progressive), PIL's `convert("RGB")` of it byte for byte (four
+    components taken as CMYK whatever the Adobe marker says where `ycck`
+    is False)."""
     planes, jfif, adobe = decode_planes(data)
     if len(planes) == 2:
         raise NotImplementedError("2-component JPEG is not decoded by the "
                                   "port (1, 3 or 4 components)")
-    return _colour(planes, jfif, adobe)
+    return _colour(planes, jfif, adobe, ycck)

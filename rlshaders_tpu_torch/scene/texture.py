@@ -16,11 +16,12 @@ names the format by the file's bytes, as PIL's `open` does (never by its
 extension), and hands it to the port's decoder of it, each equal to PIL's
 decode byte for byte: PNG (scene/png.py), JPEG (jpeg.py), GIF (gif.py),
 BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py and ccitt.py),
-PNM and PFM (pnm.py), PCX (pcx.py), DDS (dds.py), QOI (qoi.py), SGI
-(sgi.py) and TGA (tga.py). A format PIL opens and the port does not
-decode (WebP, JPEG 2000, ICNS, IM, ICO, AVIF and the rest of PIL's
-plugins) raises NotImplementedError naming it; data that no PIL plugin
-accepts raises it as an unknown format.
+PNM and PFM (pnm.py), PCX (pcx.py), DDS with BC1-BC7 blocks (dds.py),
+BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
+(msp.py), QOI (qoi.py), SGI (sgi.py), TGA (tga.py) and XBM (xbm.py). A
+format PIL opens and the port does not decode (WebP, JPEG 2000, SPIDER,
+AVIF and the rest of PIL's plugins) raises NotImplementedError naming
+it; data that no PIL plugin accepts raises it as an unknown format.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
-from . import bmp, dds, gif, pcx, png, pnm, qoi, sgi, tga, tiff
+from . import (blp, bmp, dds, gif, icns, ico, im, msp, pcx, png, pnm, qoi,
+               sgi, tga, tiff, xbm)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -74,9 +76,10 @@ def _gbr(d: bytes) -> bool:
 # GIF, JPEG, PPM and PNG first, then the rest as PIL.__init__ lists
 # them): (name, the test of the file's bytes, the port's decoder or None).
 # A test is the plugin's `_accept`, and for the formats whose `_open`
-# may still refuse a file it accepted (PNM, PCX, TGA: PIL then tries the
-# next plugin), that check too. The name of a decoded format is PIL's
-# `format` for it; an icon or cursor file lists at least one image.
+# may still refuse a file it accepted (PNM, PCX, TGA, ICO, CUR, MSP: PIL
+# then tries the next plugin), that check too; IM has no prefix test, so
+# its header reader decides. The name of a decoded format is PIL's
+# `format` for it.
 _FORMATS = (
     ("BMP", lambda d: d.startswith(bmp.MAGIC), bmp.decode_bmp),
     ("DIB", bmp.dib_accept, bmp.decode_dib),
@@ -86,10 +89,9 @@ _FORMATS = (
     ("PNG", lambda d: d.startswith(png.MAGIC), decode_png),
     ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (
         b"avif", b"avis", b"mif1", b"msf1"), None),
-    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), None),
+    ("BLP", lambda d: d[:4] in blp.MAGICS, blp.decode_blp),
     ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
-    ("CUR", lambda d: d.startswith(b"\x00\x00\x02\x00")
-     and d[4:6] != b"\x00\x00", None),
+    ("CUR", lambda d: ico.accept(d, ico.CUR_MAGIC), ico.decode_cur),
     ("PCX", pcx.header_ok, pcx.decode_pcx),
     ("DCX", lambda d: _u32(d) == 987654321, None),
     ("DDS", lambda d: d.startswith(dds.MAGIC), dds.decode_dds),
@@ -104,16 +106,15 @@ _FORMATS = (
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG 2000", lambda d: d.startswith((
         b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n")), None),
-    ("ICNS", lambda d: d.startswith(b"icns"), None),
-    ("ICO", lambda d: d.startswith(b"\x00\x00\x01\x00")
-     and d[4:6] != b"\x00\x00", None),
-    ("IM", lambda d: d.startswith(b"Image type:"), None),
+    ("ICNS", lambda d: d.startswith(icns.MAGIC), icns.decode_icns),
+    ("ICO", lambda d: ico.accept(d, ico.ICO_MAGIC), ico.decode_ico),
+    ("IM", im.accept, im.decode_im),
     ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
      None),
     ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3"), None),
     ("TIFF", lambda d: d.startswith(tiff.MAGICS + tiff.BIGTIFF),
      tiff.decode_tiff),
-    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), None),
+    ("MSP", msp.accept, msp.decode_msp),
     ("PhotoCD", lambda d: d[2048:2052] == b"PCD_", None),
     ("PIXAR", lambda d: d.startswith(b"\x80\xe8\x00\x00"), None),
     ("PSD", lambda d: d.startswith(b"8BPS"), None),
@@ -125,7 +126,7 @@ _FORMATS = (
     ("WebP", lambda d: d.startswith(b"RIFF") and d[8:12] == b"WEBP", None),
     ("WMF/EMF", lambda d: d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
         d.startswith(b"\x01\x00\x00\x00") and d[40:44] == b" EMF"), None),
-    ("XBM", lambda d: d.lstrip().startswith(b"#define"), None),
+    ("XBM", xbm.accept, xbm.decode_xbm),
     ("XPM", lambda d: d.startswith(b"/* XPM */"), None),
     ("XV thumbnail", lambda d: d.startswith(b"P7 332"), None),
     ("OpenEXR (which PIL does not open either)",
@@ -151,11 +152,11 @@ def image_format(data: bytes) -> str:
 
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
-    them, for every format the port decodes (`DECODED`: PNG, JPEG, GIF,
-    BMP, DIB, TIFF, PNM and PFM, PCX, DDS, QOI, SGI and TGA); any other
-    format raises NotImplementedError (naming it and `name`), as does a
-    mode of a decoded format that is still left; malformed data raises
-    ValueError."""
+    them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
+    JPEG, PNM and PFM, PNG, BLP, CUR, PCX, DDS, ICNS, ICO, IM, TIFF, MSP,
+    QOI, SGI, TGA and XBM); any other format raises NotImplementedError
+    (naming it and `name`), as does a mode of a decoded format that is
+    still left; malformed data raises ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

@@ -1,7 +1,8 @@
-"""chip_smoke.py phase 32's frames at the reduced size of
+"""chip_smoke.py phase 32's and phase 34's frames at the reduced size of
 tests/test_torch_textured_render.py (16x16, AA 1, one diffuse and one
 glossy sample): scenes/textured_disk.ass with its three MayaFile slots
-filled from scenes/data/formats, rendered by the JAX package (which
+filled from scenes/data/formats or formats_b, rendered by the JAX
+package (which
 decodes the images with PIL) and by the port on the CPU (its own
 decoders), every plane held to that file's PIX_ATOL; at the four pixels
 around (7, 13), where the JAX package's jitted frame rounds one glossy
@@ -11,9 +12,12 @@ is the JAX package's op-by-op value of the same frame (OPBYOP, printed by
 
 Frame C: the 2048x2048 DXT1 DDS in the grid slot, a run-length TGA as the
 logo and a JPEG-compressed TIFF as the inverted logo. Frame D: a QOI grid,
-a palette PCX logo and a Group 4 TIFF. Measured: every pixel of every
-plane within 2.1e-7 (C) and 2.8e-7 (D) of the JAX frame but the four
-around (7, 13), which are within 1.5e-8 of the op-by-op values.
+a palette PCX logo and a Group 4 TIFF. Frame E: the 2048x2048 BC7 DDS, a
+BC6H SF16 DDS and a DXT3 BLP. Frame F: an ICO whose largest entry is a
+32-bit BMP, an it32 run-length ICNS and a palette IM. Measured: every
+pixel of every plane within 2.1e-7 (C), 2.8e-7 (D), 2.7e-7 (E) and
+2.9e-7 (F) of the JAX frame but the four around (7, 13), which are
+within 1.5e-8 (C, E) and 2.3e-8 (F) of the op-by-op values.
 """
 import os
 
@@ -25,7 +29,7 @@ from rlshaders_tpu.accel import trace as jtrace
 from rlshaders_tpu.integrator import wavefront as jwave
 from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu.scene import texture as jtex
-from test_torch_gpu import FORMAT_FRAMES
+from test_torch_gpu import FORMAT_B_FRAMES, FORMAT_FRAMES
 from test_torch_textured_render import (KW, OPBYOP_ATOL, PIX_ATOL, PLANES,
                                         REDUCED, RES, textured_copy)
 from rlshaders_tpu_torch.accel import trace as ttrace
@@ -99,14 +103,78 @@ OPBYOP = {
                       0.12026291340589523),
         },
     },
+    "E": {
+        "indirect_specular": {
+            (6, 13): (0.00034946290543302894,
+                      0.0006367731257341802,
+                      0.0004315561964176595),
+            (6, 14): (0.0028880243189632893,
+                      0.0035681684967130423,
+                      0.004310387186706066),
+            (7, 13): (0.001091569080017507,
+                      0.001989000476896763,
+                      0.0013479925692081451),
+            (7, 14): (0.0025808296632021666,
+                      0.0034572093281894922,
+                      0.003733965801075101),
+        },
+        "RGBA": {
+            (6, 13): (0.008173111826181412,
+                      0.010223816148936749,
+                      0.016798950731754303),
+            (6, 14): (0.07630208134651184,
+                      0.08986224979162216,
+                      0.13504676520824432),
+            (7, 13): (0.025686118751764297,
+                      0.03050980716943741,
+                      0.04494917765259743),
+            (7, 14): (0.06112447753548622,
+                      0.07330381125211716,
+                      0.12097515165805817),
+        },
+    },
+    "F": {
+        "indirect_specular": {
+            (6, 13): (0.000721348391380161,
+                      0.0008930732728913426,
+                      0.0011662835022434592),
+            (6, 14): (0.002899603685364127,
+                      0.0035761487670242786,
+                      0.004333264194428921),
+            (7, 13): (0.002253176411613822,
+                      0.002789569552987814,
+                      0.0036429590545594692),
+            (7, 14): (0.0030765451956540346,
+                      0.003798851976171136,
+                      0.004713341128081083),
+        },
+        "RGBA": {
+            (6, 13): (0.009920653887093067,
+                      0.011375450529158115,
+                      0.016796603798866272),
+            (6, 14): (0.07296986132860184,
+                      0.07834748923778534,
+                      0.09973826259374619),
+            (7, 13): (0.04294465482234955,
+                      0.04377703368663788,
+                      0.05394909903407097),
+            (7, 14): (0.06558763980865479,
+                      0.07382132112979889,
+                      0.10365106910467148),
+        },
+    },
 }
 
 
-@pytest.fixture(scope="module", params=sorted(FORMAT_FRAMES))
+FRAMES = {**FORMAT_FRAMES, **FORMAT_B_FRAMES}
+
+
+@pytest.fixture(scope="module", params=sorted(FRAMES))
 def frame(request, tmp_path_factory):
     tag = request.param
-    images = FORMAT_FRAMES[tag]
-    assert chip_smoke.FORMAT_FRAMES[tag] == images
+    images = FRAMES[tag]
+    assert {**chip_smoke.FORMAT_FRAMES,
+            **chip_smoke.FORMAT_B_FRAMES}[tag] == images
     d = tmp_path_factory.mktemp(f"formats_{tag}") / "a" / "b"
     d.mkdir(parents=True)
     (d / "data").symlink_to(os.path.abspath("scenes/data"))

@@ -696,3 +696,117 @@ def test_format_frames_on_the_card_match_the_cpu(cuda_device, tag):
         assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
     assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
     assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+FORMAT_B_DIGESTS = {
+    "scenes/data/formats_b/grid.msp":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats_b/grid.xbm":
+        "42ca3c9a0b2a8ec3ed6115a060f696ee8be84efa7c3ecb4157e90c9cc060b5e6",
+    "scenes/data/formats_b/grid_bc4_ati1.dds":
+        "e69093b2cc964a3a14d0533a22a1891b8426805c6fe817a802eebaa1445dc540",
+    "scenes/data/formats_b/grid_bc6h_uf16.dds":
+        "24816b19d2ec58fa1ec2b138cddd1d97b7149bcfb2c1277044d58c26e967e1d9",
+    "scenes/data/formats_b/grid_bmp32.ico":
+        "e482778d49d9cdf65d05c2114c91775e119b3216fc817dc14c690dc391e7c1eb",
+    "scenes/data/formats_b/grid_dxt1.blp":
+        "cc4f280c86efa2aeb94bbd57783c3c2078c19900975e8ebf0fcccf05975e46a3",
+    "scenes/data/formats_b/grid_palette.blp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_b/grid_png.icns":
+        "e482778d49d9cdf65d05c2114c91775e119b3216fc817dc14c690dc391e7c1eb",
+    "scenes/data/formats_b/grid_rgb.im":
+        "e482778d49d9cdf65d05c2114c91775e119b3216fc817dc14c690dc391e7c1eb",
+    "scenes/data/formats_b/logo.cur":
+        "9fc2c55bb8bb6e1a2acbb39e637d6c878d1e0517cfdc0d2a7da288aca51095f9",
+    "scenes/data/formats_b/logo_bc4_odd.dds":
+        "14a218dd10b398eebe1770b66d185afb0e7f94811b6714cf29f6d7abc12c0fcc",
+    "scenes/data/formats_b/logo_bc6h_sf16.dds":
+        "419b2b263acbbe191b196d681d57d0bf40fe4de2e048d154025407415f7a7ec4",
+    "scenes/data/formats_b/logo_bc7_srgb.dds":
+        "e31fa5d65f786ea8b846811fe3eb0242c6c059692b3454a3f6d642546be6e3e9",
+    "scenes/data/formats_b/logo_dxt3.blp":
+        "b1cf3cbff4b7ea8f4ef718f15c185a445f9039d2e0787eec4ae5e2b650698a47",
+    "scenes/data/formats_b/logo_dxt5_odd.blp":
+        "c2e61035b3cd6a203462a786889965b2a70a5beaed7340cafa6a8bcdaba335d6",
+    "scenes/data/formats_b/logo_f32.im":
+        "f61fef78ebe981ba385947fdc0ab941a05b3684e8b63dc3c782fb7dba7ead5b9",
+    "scenes/data/formats_b/logo_it32.icns":
+        "c25a95c9d9c5ff3c17407a81803655855065f51c2de740ee2887d3fa0a29a4bc",
+    "scenes/data/formats_b/logo_jpeg.blp":
+        "5a76a7d2fd3c89c1c35d296581cc81371e03b87ed399f2f3f16afca706e802e2",
+    "scenes/data/formats_b/logo_palette.blp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_b/logo_palette.im":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_b/logo_png.ico":
+        "e0413348d4143c8414c640bc2b475f10e1bf3bd261c5d20026e6d9e1b84b3ed6",
+    "scenes/data/formats_b/logo_rle.msp":
+        "9279e2093299d64288501876af0686003254afa383d805f7b3ab8f6bbf8bb6da",
+    "scenes/data/formats_b/logo_ycc.im":
+        "f3c0e0eceb403b11caeddb7aceb9ca7e1b4f752e58f014c1c68be276830e9f1a",
+    "scenes/data/formats_b/texture_2048_bc7.dds":
+        "4a463dc0bef814d02a20c3ae3f197c55c75cb5b5cd1b0c6ffb5935c12d42fd46",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_B_DIGESTS))
+def test_committed_image_formats_b_decode_to_their_digests(cuda_device,
+                                                           path):
+    """The decoders of the game-texture and icon formats on the card's
+    machine, which has no PIL: every committed file of
+    scenes/data/formats_b decodes to the digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_B_DIGESTS[path]
+
+
+# chip_smoke.py phase 34's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_B_FRAMES = {
+    "E": ("formats_b/texture_2048_bc7.dds", "formats_b/logo_bc6h_sf16.dds",
+          "formats_b/logo_dxt3.blp"),
+    "F": ("formats_b/grid_bmp32.ico", "formats_b/logo_it32.icns",
+          "formats_b/logo_palette.im"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_B_FRAMES))
+def test_format_b_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 34's frame (scenes/textured_disk.ass with a BC7
+    DDS, a BC6H DDS and a DXT3 BLP, or an ICO, an ICNS and an IM in its
+    texture slots) at 8x8 and its own AA 3 and GI samples: through both
+    kernels on the card, held to the CPU render with chip_smoke.py's
+    tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build_text
+
+    with open("scenes/textured_disk.ass") as f:
+        src = f.read()
+    for old, new in zip(('"data/grid.png"', '"data/logo.png"',
+                         '"data/logo.png"'), FORMAT_B_FRAMES[tag]):
+        src = src.replace(old, f'"data/{new}"', 1)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build_text(src, device=dev, base_dir="scenes")
+        assert scene.textures.n_levels.shape == (3,)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, xres=8, yres=8)
+        if dev != "cpu":
+            assert all(n > 0 for n in kernels.LAUNCHES.values())
+    for name in ("RGBA", "direct_diffuse", "indirect_diffuse",
+                 "indirect_specular"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]

@@ -447,9 +447,9 @@ def _dx10(dxgi: int) -> bytes:
 
 
 @pytest.mark.parametrize("data,fmt,what", [
-    (_dx10(98), "DDS", "BC7"), (_dx10(95), "DDS", "BC6H"),
-    (_dx10(80), "DDS", "BC4"),
-    (fm.dds_bytes(8, 8, bytes(64), 0x4, b"ATI1"), "DDS", "BC4"),
+    (_dx10(2), "DDS", "DXGI format 2"), (_dx10(94), "DDS", "BC6H"),
+    (_dx10(81), "DDS", "BC4"),
+    (fm.dds_bytes(8, 8, bytes(64), 0x4, b"BC4S"), "DDS", "BC4"),
     (fm.dds_bytes(4, 4, bytes(32), 0x20000, bitcount=16), "DDS",
      "luminance of 16 bits"),
     (fm.tga_bytes(np.zeros((2, 9), np.int64), 11, 1), "TGA", "1-bit"),
@@ -460,13 +460,16 @@ def _dx10(dxgi: int) -> bytes:
                      palette=[(1, 2, 3)] * 4)[14:], "DIB", "2-bit BMP"),
     (fm.sgi_bytes(np.zeros((2, 2, 2), np.int64), rle=False), "SGI",
      "2 channels"),
-], ids=["bc7", "bc6h", "bc4-dx10", "bc4", "dds-l16", "tga-rle1", "tga-map32",
+], ids=["dxgi-2", "bc6h", "bc4-dx10", "bc4", "dds-l16", "tga-rle1",
+        "tga-map32",
         "pnm-ext",
         "dib-2bit", "sgi-2ch"])
 def test_modes_still_left_raise(data, fmt, what):
     """A valid file of a mode the port does not decode raises
     NotImplementedError naming the format and the mode; PIL takes it for
-    the same format (and opens it, or refuses the mode too)."""
+    the same format (and opens it, or refuses the mode too). The DDS
+    cases are formats PIL refuses as well: a float DXGI format, BC6H
+    TYPELESS and BC4 SNORM (DXGI 81, FourCC BC4S)."""
     assert ttex.image_format(data) == fmt
     try:
         assert Image.open(io.BytesIO(data)).format == fmt

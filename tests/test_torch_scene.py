@@ -140,10 +140,10 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Image formats the port does not decode raise (a WebP, an IM); a
-    baseline JPEG, a progressive JPEG, a GIF and a TGA build, each to the
-    same texels. Trace sets build: the floor's triangles carry the set's
-    bit 8, the others none."""
+    """Image formats the port does not decode raise (a WebP, a JPEG 2000);
+    a baseline JPEG, a progressive JPEG, a GIF, a TGA and an IM build,
+    each to the same texels. Trace sets build: the floor's triangles
+    carry the set's bit 8, the others none."""
     from PIL import Image
 
     base = _nested(tmp_path)
@@ -162,7 +162,7 @@ def test_still_unported_raise(tmp_path):
     img = Image.fromarray(np.full((4, 4, 3), 200, np.uint8))
     for name, kw in (("t.jpg", {}), ("p.jpg", {"progressive": True}),
                      ("t.gif", {}), ("t.webp", {}), ("t.tga", {}),
-                     ("t.im", {})):
+                     ("t.im", {}), ("t.jp2", {})):
         img.save(os.path.join(base, name), **kw)
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
@@ -172,9 +172,11 @@ def test_still_unported_raise(tmp_path):
     for name in ("p.jpg", "t.gif"):
         other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data, scene.textures.data), name
-    tga = tbuild.build_text(src % "t.tga", device="cpu", base_dir=base)
-    assert torch.equal(tga.textures.data, torch.full((21, 3), 200 / 255))
-    for name, what in (("t.webp", "WebP"), ("t.im", "IM")):
+    for name in ("t.tga", "t.im"):
+        other = tbuild.build_text(src % name, device="cpu", base_dir=base)
+        assert torch.equal(other.textures.data,
+                           torch.full((21, 3), 200 / 255)), name
+    for name, what in (("t.webp", "WebP"), ("t.jp2", "JPEG 2000")):
         with pytest.raises(NotImplementedError, match=what):
             tbuild.build_text(src % name, device="cpu", base_dir=base)
 
@@ -315,6 +317,7 @@ def test_port_imports_no_jax():
     files.append(os.path.join(REPO, "chip_smoke.py"))
     files.append(os.path.join(REPO, "tools", "make_dense_disney.py"))
     files.append(os.path.join(REPO, "tools", "make_image_modes.py"))
+    files.append(os.path.join(REPO, "tools", "make_image_formats.py"))
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):
@@ -339,6 +342,34 @@ def test_port_imports_no_jax():
             + "assert 'PIL' not in sys.modules, 'PIL imported'\n"
             + "assert not [m for m in sys.modules if m.startswith("
               "'rlshaders_tpu.') or m == 'rlshaders_tpu']\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_never_imports_pil():
+    """No module of the port imports PIL (the card's machine has none),
+    and decoding a file of every format of scenes/data/formats_b, with
+    PIL's import barred, imports none either."""
+    for d, _, names in os.walk(PORT):
+        for n in names:
+            if n.endswith(".py"):
+                for mod in _imports(os.path.join(d, n)):
+                    assert mod.split(".")[0] != "PIL", (n, mod)
+    code = (
+        "import os, sys\n"
+        "class Bar:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'PIL':\n"
+        "            raise ImportError('PIL is barred')\n"
+        "sys.meta_path.insert(0, Bar())\n"
+        "from rlshaders_tpu_torch.scene.texture import decode_image\n"
+        "d = 'scenes/data/formats_b'\n"
+        "for n in sorted(os.listdir(d)):\n"
+        "    if not n.startswith('texture_2048'):\n"
+        "        decode_image(open(os.path.join(d, n), 'rb').read())\n"
+        "assert 'PIL' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

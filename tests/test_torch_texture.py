@@ -266,18 +266,19 @@ def test_png_filters(tmp_path, filt, channels):
 
 
 def test_other_formats_raise(tmp_path):
-    """A GIF, a grey PNG and a TGA, refused before their slices, now decode
-    as PIL does; a WebP and an IM, which PIL opens and the port does not
-    decode, raise NotImplementedError naming their format."""
+    """A GIF, a grey PNG, a TGA and an IM, refused before their slices,
+    now decode as PIL does; a WebP and a JPEG 2000, which PIL opens and
+    the port does not decode, raise NotImplementedError naming their
+    format."""
     img = Image.fromarray(np.random.default_rng(3).integers(
         0, 256, (4, 4, 3), dtype=np.uint8))
     for name, save in (("x.gif", img), ("g.png", img.convert("L")),
-                       ("x.tga", img)):
+                       ("x.tga", img), ("x.im", img)):
         save.save(tmp_path / name)
         assert np.array_equal(ttex.load_image(str(tmp_path / name)),
                               jtex.load_image(str(tmp_path / name), 1.0))
     for name, fmt, what in (("x.webp", "WEBP", "WebP"),
-                            ("x.im", "IM", "IM")):
+                            ("x.jp2", "JPEG2000", "JPEG 2000")):
         img.save(tmp_path / name, fmt)
         assert Image.open(tmp_path / name).format == fmt
         with pytest.raises(NotImplementedError, match=what):

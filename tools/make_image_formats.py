@@ -371,6 +371,442 @@ def dds_bytes(w: int, h: int, body: bytes, pfflags: int, fourcc: bytes =
 
 
 # ---------------------------------------------------------------------------
+# BC4, BC7 and BC6H blocks: bit packers over the D3D layouts (the port's
+# tables in rlshaders_tpu_torch/scene/dds.py), not quality compressors:
+# each subset's end points are its pixels' per-channel extremes and each
+# pixel takes the nearest of the interpolated values
+# ---------------------------------------------------------------------------
+
+def texel_blocks(px: np.ndarray) -> np.ndarray:
+    """(n, 16, c) of an (h, w, c) image's 4x4 blocks in row-major order,
+    the edges padded by repeating the last row and column."""
+    h, w, c = px.shape
+    px = np.pad(px, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge")
+    bh, bw = px.shape[0] // 4, px.shape[1] // 4
+    return px.reshape(bh, 4, bw, 4, c).transpose(0, 2, 1, 3, 4).reshape(
+        bh * bw, 16, c)
+
+
+def _put(bits: np.ndarray, pos: int, vals, n: int) -> int:
+    """Write the n low bits of `vals` ((k,) ints) at bit pos of each row
+    of `bits`, least significant first; returns pos + n."""
+    v = np.asarray(vals, np.int64)
+    for j in range(n):
+        bits[:, pos + j] = (v >> j) & 1
+    return pos + n
+
+
+def _put_indices(bits: np.ndarray, pos: int, idx: np.ndarray,
+                 widths: np.ndarray) -> int:
+    """Write (k, 16) indices at per-pixel widths from bit pos (the anchors
+    one bit narrower); returns the end."""
+    widths = np.broadcast_to(widths, idx.shape)
+    starts = pos + np.cumsum(widths, 1) - widths
+    rows = np.arange(len(idx))[:, None]
+    for j in range(int(widths.max())):
+        on = j < widths
+        bits[np.broadcast_to(rows, idx.shape)[on], (starts + j)[on]] = (
+            (idx >> j) & 1)[on]
+    return pos + int(widths[0].sum())
+
+
+def _nearest(px: np.ndarray, pal: np.ndarray) -> np.ndarray:
+    """(k, 16) index of the nearest of pal ((k, 16, m, c)) to each of px
+    ((k, 16, c))."""
+    d = ((pal - px[:, :, None, :].astype(np.int64)) ** 2).sum(-1)
+    return d.argmin(-1)
+
+
+def _pack(bits: np.ndarray) -> np.ndarray:
+    return np.packbits(bits.astype(np.uint8), axis=1, bitorder="little")
+
+
+def bc4_blocks(grey: np.ndarray) -> bytes:
+    """BC4 blocks of an (h, w) uint8 image: the block's extremes as the
+    two end points (the eight-value mode) and the nearest value a pixel."""
+    v = texel_blocks(grey[..., None])[..., 0].astype(np.int64)
+    a0, a1 = v.max(1), v.min(1)
+    k = np.arange(1, 7)
+    pal = np.concatenate([a0[:, None], a1[:, None],
+                          ((7 - k) * a0[:, None] + k * a1[:, None]) // 7], 1)
+    idx = np.abs(v[:, :, None] - pal[:, None, :]).argmin(-1)
+    bits = np.zeros((len(v), 64), np.uint8)
+    _put(bits, 0, a0, 8)
+    _put(bits, 8, a1, 8)
+    for i in range(16):
+        _put(bits, 16 + 3 * i, idx[:, i], 3)
+    return _pack(bits).tobytes()
+
+
+def _swap_for_anchors(ep, idx, subset, anchors, top):
+    """Swap a subset's end points (ep (k, n_ep, c)) where its anchor's
+    index has its top bit set, and invert that subset's indices."""
+    for s in range(ep.shape[1] // 2):
+        at = (subset == s) & anchors
+        flip = ((idx >= (top + 1) // 2) & at).any(1)
+        ep[flip, 2 * s], ep[flip, 2 * s + 1] = (ep[flip, 2 * s + 1].copy(),
+                                                ep[flip, 2 * s].copy())
+        inv = flip[:, None] & (subset == s)
+        idx[inv] = top - idx[inv]
+    return ep, idx
+
+
+def _bc7_mode_blocks(px: np.ndarray, m: int, part: np.ndarray,
+                     rotation: np.ndarray, selector: np.ndarray) -> np.ndarray:
+    """(k, 128) bits of mode-m BC7 blocks of (k, 16, 4) RGBA texels."""
+    from rlshaders_tpu_torch.scene import dds
+
+    info = dds.BC7_MODES[m]
+    k, ns = len(px), info.subsets
+    px = px.astype(np.int64).copy()
+    for r in (1, 2, 3):                  # the decoder swaps these back
+        sw = rotation == r
+        px[sw, :, r - 1], px[sw, :, 3] = px[sw, :, 3], px[sw, :, r - 1]
+    subset = dds.subset_map(ns)[part]
+    anchors = dds.anchor_map(ns)[part]
+    n_ep = 2 * ns
+    has_a = info.alpha_bits > 0
+    pb = info.endpoint_pbits or info.shared_pbits
+    # each subset's per-channel extremes, quantized to the stored bits
+    big = np.where((subset[..., None] == np.arange(ns))[..., None],
+                   px[:, :, None, :], -1)                   # (k, 16, ns, 4)
+    small = np.where(big < 0, 256, big)
+    hi, lo = big.max(1), small.min(1)                       # (k, ns, 4)
+    lo = np.where(lo > 255, 0, lo)
+    hi = np.where(hi < 0, 0, hi)
+    ends = np.stack([lo, hi], 2).reshape(k, n_ep, 4)        # (k, n_ep, 4)
+    cbits = [info.colour_bits] * 3 + [info.alpha_bits]
+    total = [c + pb for c in cbits]
+    q = np.zeros((k, n_ep, 4), np.int64)
+    for c in range(4 if has_a else 3):
+        top = (1 << total[c]) - 1
+        q[..., c] = (ends[..., c] * top + 127) // 255
+    if pb:                               # the p-bit from red's low bit
+        p = q[..., 0] & 1
+        if info.shared_pbits:
+            p = np.repeat(p[:, ::2], 2, 1)
+        for c in range(4 if has_a else 3):
+            q[..., c] = (q[..., c] >> 1 << 1) | p
+    ep = np.full((k, n_ep, 4), 255, np.int64)
+    for c in range(4 if has_a else 3):
+        ep[..., c] = dds._expand(q[..., c], total[c])
+
+    def lerp(e, w):              # e (k, n_ep, c), w (m,) -> (k, 16, m, c)
+        e0 = np.take_along_axis(e, (2 * subset)[..., None], 1)
+        e1 = np.take_along_axis(e, (2 * subset + 1)[..., None], 1)
+        w = np.asarray(w)[None, None, :, None]
+        return ((64 - w) * e0[:, :, None] + w * e1[:, :, None] + 32) >> 6
+
+    ib, ib2 = info.index_bits, info.index2_bits
+    if ib2:
+        # two index sets, each anchored at pixel 0: the ib-bit set drives
+        # the colour (alpha where the selector is 1), the ib2-bit set the
+        # other
+        wa, wb = dds._WEIGHTS[ib], dds._WEIGHTS[ib2]
+        sel = (selector == 1)[:, None]
+        i0 = np.where(sel, _nearest(px[..., 3:], lerp(ep[..., 3:], wa)),
+                      _nearest(px[..., :3], lerp(ep[..., :3], wa)))
+        i1 = np.where(sel, _nearest(px[..., :3], lerp(ep[..., :3], wb)),
+                      _nearest(px[..., 3:], lerp(ep[..., 3:], wb)))
+        for idx, top, colour in ((i0, (1 << ib) - 1, selector == 0),
+                                 (i1, (1 << ib2) - 1, selector == 1)):
+            flip = idx[:, 0] > top // 2
+            for chans, who in ((slice(0, 3), colour),
+                               (slice(3, 4), ~colour)):
+                f = flip & who
+                q[f, :, chans] = q[f, ::-1, chans]
+            idx[flip] = top - idx[flip]
+    else:
+        e = ep if has_a else ep[..., :3]
+        i0 = _nearest(px if has_a else px[..., :3],
+                      lerp(e, dds._WEIGHTS[ib]))
+        q, i0 = _swap_for_anchors(q, i0, subset, anchors, (1 << ib) - 1)
+    bits = np.zeros((k, 128), np.uint8)
+    pos = _put(bits, 0, np.full(k, 1 << m), m + 1)
+    pos = _put(bits, pos, part, info.partition_bits)
+    pos = _put(bits, pos, rotation, info.rotation_bits)
+    pos = _put(bits, pos, selector, info.selector_bits)
+    for c in range(4 if has_a else 3):
+        for e in range(n_ep):
+            pos = _put(bits, pos, q[:, e, c] >> pb, cbits[c])
+    if info.endpoint_pbits:
+        for e in range(n_ep):
+            pos = _put(bits, pos, q[:, e, 0] & 1, 1)
+    elif info.shared_pbits:
+        for s in range(ns):
+            pos = _put(bits, pos, q[:, 2 * s, 0] & 1, 1)
+    end = _put_indices(bits, pos, i0, ib - anchors)
+    if ib2:
+        first = np.zeros((1, 16), np.int64)
+        first[0, 0] = 1
+        _put_indices(bits, end, i1, ib2 - first)
+    return bits
+
+
+def bc7_blocks(rgba: np.ndarray, modes: np.ndarray, parts: np.ndarray,
+               rotations: np.ndarray, selectors: np.ndarray) -> bytes:
+    """BC7 blocks of an (h, w, 4) uint8 image, block i in mode modes[i]
+    with partition parts[i] (taken modulo the mode's count), rotation and
+    index selector (modes 4 and 5)."""
+    from rlshaders_tpu_torch.scene import dds
+
+    px = texel_blocks(rgba)
+    out = np.zeros((len(px), 16), np.uint8)
+    for m in range(8):
+        sel = modes == m
+        if not sel.any():
+            continue
+        info = dds.BC7_MODES[m]
+        out[sel] = _pack(_bc7_mode_blocks(
+            px[sel], m, parts[sel] % (1 << info.partition_bits),
+            rotations[sel] % (1 << info.rotation_bits),
+            selectors[sel] % (1 << info.selector_bits)))
+    return out.tobytes()
+
+
+def _bc6_target(rgb: np.ndarray, signed: bool) -> np.ndarray:
+    """The interpolated value BcnDecode.c turns into each 8-bit sample's
+    half float: half * 64 / 31 unsigned, half * 32 / 31 signed."""
+    half = (rgb.astype(np.float32) / 255).astype(np.float16).view(
+        np.uint16).astype(np.int64)
+    return -(-half * (32 if signed else 64) // 31)
+
+
+def _bc6_quantize(u: np.ndarray, prec: int, signed: bool) -> np.ndarray:
+    """The prec-bit end point nearest to unquantized value u (>= 0)."""
+    if prec >= (16 if signed else 15):
+        return np.minimum(u, 0x7FFF if signed else 0xFFFF)
+    if signed:
+        return np.minimum((u * (1 << (prec - 1)) + 16384) >> 15,
+                          (1 << (prec - 1)) - 1)
+    return np.minimum((u << prec) >> 16, (1 << prec) - 1)
+
+
+def _bc6_mode_blocks(px: np.ndarray, m: int, part: np.ndarray,
+                     signed: bool) -> np.ndarray:
+    """(k, 128) bits of mode-m BC6H blocks of (k, 16, 3) RGB texels."""
+    from rlshaders_tpu_torch.scene import dds
+
+    info = dds.BC6_MODES[m]
+    k, ns = len(px), info.subsets
+    prec = info.endpoint_bits
+    u = _bc6_target(px, signed)
+    subset = dds.subset_map(ns, 32)[part]
+    anchors = dds.anchor_map(ns, 32)[part]
+    inside = (subset[..., None] == np.arange(ns))[..., None]
+    hi = np.where(inside, u[:, :, None], -1).max(1)
+    lo = np.where(inside, u[:, :, None], 1 << 20).min(1)
+    ends = _bc6_quantize(np.stack([lo, hi], 2).reshape(k, 2 * ns, 3), prec,
+                         signed)
+    # each subset's low end first: an anchor's index is then mostly small
+    # (and clamped below its top bit where not)
+    e = ends.reshape(k, 6 * ns)
+    stored = e.copy()
+    mask = (1 << prec) - 1
+    if info.transformed:
+        deltas = np.tile(info.delta_bits, 2 * ns - 1)
+        d = np.clip(e[:, 3:] - np.tile(e[:, :3], 2 * ns - 1),
+                    -(1 << (deltas - 1)), (1 << (deltas - 1)) - 1)
+        stored[:, 3:] = d & ((1 << deltas) - 1)
+        e[:, 3:] = (np.tile(e[:, :3], 2 * ns - 1) + d) & mask
+    stored[:, :3] &= mask
+    ue = dds._bc6_unquantize(e, prec, signed).reshape(k, 2 * ns, 3)
+    e0 = np.take_along_axis(ue, (2 * subset)[..., None], 1)
+    e1 = np.take_along_axis(ue, (2 * subset + 1)[..., None], 1)
+    ib = 3 if ns == 2 else 4
+    w = np.asarray(dds._WEIGHTS[ib])
+    pal = (e0[:, :, None] * (64 - w[:, None]) + e1[:, :, None] * w[:, None]
+           ) >> 6
+    idx = _nearest(u, pal)
+    idx = np.where(anchors, np.minimum(idx, (1 << (ib - 1)) - 1), idx)
+    bits = np.zeros((k, 128), np.uint8)
+    mode = m if m < 2 else ((m - 2) << 2 | 2 if m < 10 else (m - 10) << 2 | 3)
+    pos = _put(bits, 0, np.full(k, mode), 2 if m < 2 else 5)
+    for i, (value, bit) in enumerate(dds.bc6_layout(info.layout)):
+        bits[:, pos + i] = (stored[:, value] >> bit) & 1
+    pos += len(dds.bc6_layout(info.layout))
+    pos = _put(bits, pos, part, info.partition_bits)
+    _put_indices(bits, pos, idx, ib - anchors)
+    return bits
+
+
+def bc6h_blocks(rgb: np.ndarray, modes: np.ndarray, parts: np.ndarray,
+                signed: bool) -> bytes:
+    """BC6H blocks of an (h, w, 3) uint8 image (its values over 255 as
+    half floats), block i in mode modes[i] (0-13, BcnDecode.c's order)
+    with partition parts[i] (modulo 32)."""
+    px = texel_blocks(rgb)
+    out = np.zeros((len(px), 16), np.uint8)
+    for m in range(14):
+        sel = modes == m
+        if sel.any():
+            out[sel] = _pack(_bc6_mode_blocks(px[sel], m, parts[sel] % 32,
+                                              signed))
+    return out.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# BLP, ICO and CUR, ICNS, MSP
+# ---------------------------------------------------------------------------
+
+def blp_bytes(version: bytes, w: int, h: int, body: bytes, *,
+              compression: int = 1, encoding: int = 1, alpha: int = 0,
+              alpha_encoding: int = 0, palette=None,
+              jpeg_header: bytes = b"") -> bytes:
+    """A BLP1 or BLP2 file of one mip level, `body` its data: palette
+    indices (BLP1 encoding 5, BLP2 encoding 1; `palette` (n, 4) RGBA),
+    the JPEG stream after `jpeg_header` (BLP1 compression 0) or DXT
+    blocks (BLP2 encoding 2, alpha encoding 0, 1 or 7)."""
+    if version == b"BLP1":
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h,
+                                     encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding,
+                                     alpha, alpha_encoding, 0, w, h)
+    table_at = len(head)
+    extra = b""
+    if version == b"BLP1" and compression == 0:
+        extra = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    else:
+        pal = np.zeros((256, 4), np.uint8)
+        if palette is not None:
+            pal[:len(palette)] = np.asarray(palette, np.uint8)
+        extra = pal[:, [2, 1, 0, 3]].tobytes()
+    data_at = table_at + 128 + len(extra)
+    table = struct.pack("<16I", data_at, *([0] * 15)) + struct.pack(
+        "<16I", len(body), *([0] * 15))
+    return head + table + extra + body
+
+
+def blp_jpeg(rgb: np.ndarray, quality: int = 90, mode: str = "RGB") -> bytes:
+    """A BLP1 file of JPEG data: PIL's JPEG of the image with red and blue
+    swapped (BLP stores BGR), its stream split before the scan into the
+    shared header and the level's data."""
+    jpeg = _pil(np.ascontiguousarray(rgb[..., ::-1]), mode, "JPEG",
+                quality=quality)
+    sos = jpeg.index(b"\xff\xda")
+    h, w = rgb.shape[:2]
+    return blp_bytes(b"BLP1", w, h, jpeg[sos:], compression=0,
+                     jpeg_header=jpeg[:sos])
+
+
+def blp_dxt(rgba: np.ndarray, kind: str, alpha: int = 1) -> bytes:
+    """A BLP2 file of DXT1, DXT3 or DXT5 blocks, taken from PIL's DDS
+    writer."""
+    dds = _pil(rgba, "RGBA", "DDS", pixel_format=kind)
+    h, w = rgba.shape[:2]
+    return blp_bytes(b"BLP2", w, h, dds[128:], encoding=2, alpha=alpha,
+                     alpha_encoding={"DXT1": 0, "DXT3": 1, "DXT5": 7}[kind])
+
+
+def icon_dib(px: np.ndarray, bits: int, palette=None,
+             and_mask: bool = True) -> bytes:
+    """An icon's bitmap: the DIB of make_image_modes.bmp_bytes with its
+    height doubled, then (unless 32-bit) an all-zero AND mask."""
+    h, w = px.shape[:2]
+    bmp = modes.bmp_bytes(px, bits, palette)
+    dib = bytearray(bmp[14:])
+    struct.pack_into("<i", dib, 8, 2 * h)
+    if and_mask:
+        dib += bytes((w + 31) // 32 * 4 * h)
+    return bytes(dib)
+
+
+def icon_bytes(entries: list, cursor: bool = False) -> bytes:
+    """An ICO (or CUR) file of `entries`: (width, height, colours, planes
+    or hotspot x, bit count or hotspot y, payload), in that order."""
+    head = struct.pack("<HHH", 0, 2 if cursor else 1, len(entries))
+    at = 6 + 16 * len(entries)
+    table, body = b"", b""
+    for w, h, colours, a, b, payload in entries:
+        table += struct.pack("<BBBBHHII", w % 256, h % 256, colours, 0, a, b,
+                             len(payload), at + len(body))
+        body += payload
+    return head + table + body
+
+
+def icns_rle(plane: np.ndarray) -> bytes:
+    """PIL's read_32 run-length scheme: repeats of 3 to 130 as a byte
+    n + 125 and the value, the rest as a byte n - 1 and n literal bytes
+    (n at most 128)."""
+    v = np.asarray(plane, np.uint8).reshape(-1).tobytes()
+    out, i, n = bytearray(), 0, len(v)
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and v[j] == v[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i + 125, v[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (
+                j + 2 < n and v[j] == v[j + 1] == v[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + v[i:j]
+        i = j
+    return bytes(out)
+
+
+def icns_bytes(entries: list) -> bytes:
+    """An ICNS file of (type, payload) entries."""
+    body = b"".join(t + struct.pack(">I", 8 + len(p)) + p for t, p in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(rgb: np.ndarray, rle: bool = True, it32: bool = False) -> bytes:
+    """A 24-bit RGB entry's payload: three run-length planes (or raw
+    interleaved RGB), after four zero bytes for it32."""
+    if rle:
+        data = b"".join(icns_rle(rgb[..., c]) for c in range(3))
+    else:
+        data = np.asarray(rgb, np.uint8).tobytes()
+    return (b"\x00" * 4 if it32 else b"") + data
+
+
+def msp2_bytes(bits: np.ndarray) -> bytes:
+    """A version 2 ("LinS") MSP file of (h, w) bits (1 white): each row
+    run-length coded (runs of 3 or more as 0, count, value; the rest as
+    count and literal bytes), an all-white row as a row of 0 bytes."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    coded = []
+    for row in rows:
+        r = row.tobytes()
+        if r == b"\xff" * len(r):
+            coded.append(b"")
+            continue
+        out, i, n = bytearray(), 0, len(r)
+        while i < n:
+            j = i
+            while j < n and j - i < 255 and r[j] == r[i]:
+                j += 1
+            if j - i >= 3:
+                out += bytes([0, j - i, r[i]])
+                i = j
+                continue
+            j = i
+            while j < n and j - i < 255 and not (j + 2 < n
+                                                  and r[j] == r[j + 1]
+                                                  == r[j + 2]):
+                j += 1
+            out += bytes([j - i]) + r[i:j]
+            i = j
+        coded.append(bytes(out))
+    head = [0] * 16
+    head[0], head[1] = struct.unpack("<HH", b"LinS")
+    head[2], head[3], head[8], head[9] = w, h, w, h
+    head[4:8] = [1, 1, 1, 1]
+    check = 0
+    for v in head:
+        check ^= v
+    head[12] = check
+    return (struct.pack("<16H", *head)
+            + struct.pack(f"<{h}H", *(len(c) for c in coded))
+            + b"".join(coded))
+
+
+# ---------------------------------------------------------------------------
 # the committed files
 # ---------------------------------------------------------------------------
 
@@ -448,13 +884,118 @@ def files() -> dict:
     }
 
 
-def main() -> None:
-    os.makedirs(FORMATS, exist_ok=True)
-    print("FORMAT_DIGESTS = {")
-    for name, data in sorted(files().items()):
-        with open(os.path.join(FORMATS, name), "wb") as f:
+def big_bc7() -> bytes:
+    """The 2048x2048 texture of make_image_modes in BC7 blocks, block i in
+    mode i % 8 with partition (i // 8) modulo the mode's count, rotation
+    i // 8 and index selector i // 32 (modes 4 and 5): every mode, every
+    partition of each mode and every rotation and selector occur."""
+    tex = modes.big_texture()
+    rgba = np.concatenate([tex, np.full(tex.shape[:2] + (1,), 255,
+                                        np.uint8)], -1)
+    i = np.arange((tex.shape[0] // 4) * (tex.shape[1] // 4))
+    body = bc7_blocks(rgba, i % 8, i // 8, i // 8, i // 32)
+    return dds_bytes(tex.shape[1], tex.shape[0], body, 0x4, b"DX10",
+                     dxgi=98)
+
+
+def _bc6h_dds(rgb: np.ndarray, signed: bool) -> bytes:
+    """BC6H blocks of rgb, block i in mode i % 14 with partition i // 14."""
+    i = np.arange(-(-rgb.shape[0] // 4) * -(-rgb.shape[1] // 4))
+    return dds_bytes(rgb.shape[1], rgb.shape[0],
+                     bc6h_blocks(rgb, i % 14, i // 14, signed), 0x4, b"DX10",
+                     dxgi=96 if signed else 95)
+
+
+def files_b() -> dict:
+    """{name in scenes/data/formats_b: bytes} of every committed file: the
+    game-texture and icon formats PIL opens beyond those of files()."""
+    from PIL import Image
+    grid, logo = modes._png_pixels("grid.png"), modes._png_pixels("logo.png")
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    ggrey = np.asarray(Image.fromarray(grid).convert("L"))
+    lgrey = np.asarray(Image.fromarray(logo).convert("L"))
+    gpal, gidx = modes._indexed(grid)
+    lpal, lidx = modes._indexed(logo)
+    g128 = grid[::2, ::2]
+    g128a = np.concatenate([g128, np.full((128, 128, 1), 255, np.uint8)], -1)
+    # the logo at ICNS's 128x128 (nearest sample)
+    l128 = logo[np.arange(128) * 200 // 128][:, np.arange(128) * 300 // 128]
+    l16 = logo[np.arange(16) * 200 // 16][:, np.arange(16) * 300 // 16]
+    return {
+        # frame E
+        "texture_2048_bc7.dds": big_bc7(),
+        "logo_bc6h_sf16.dds": _bc6h_dds(logo, True),
+        "logo_dxt3.blp": blp_dxt(lrgba, "DXT3"),
+        # frame F
+        "grid_bmp32.ico": icon_bytes([
+            (64, 64, 0, 1, 8, icon_dib(gidx[::4, ::4], 8, gpal)),
+            (128, 128, 0, 1, 32, icon_dib(g128a[..., :3], 32,
+                                          and_mask=False)),
+            (32, 32, 16, 1, 4, icon_dib(gidx[::8, ::8], 4, gpal)),
+            (16, 16, 2, 1, 1, icon_dib(gidx[::16, ::16] % 2, 1,
+                                       [(0, 0, 0), (255, 255, 255)]))]),
+        "logo_it32.icns": icns_bytes([
+            (b"is32", icns_rgb(l16)), (b"s8mk", bytes(256)),
+            (b"it32", icns_rgb(l128, it32=True)),
+            (b"t8mk", np.full(128 * 128, 255, np.uint8).tobytes())]),
+        "logo_palette.im": _pil(logo, "P", "IM"),
+        # DDS: BC4, BC6H, BC7
+        "grid_bc4_ati1.dds": dds_bytes(256, 256, bc4_blocks(ggrey), 0x4,
+                                       b"ATI1"),
+        "logo_bc4_odd.dds": dds_bytes(149, 99, bc4_blocks(
+            lgrey[1::2, 1::2][:99, :149]), 0x4, b"DX10", dxgi=80),
+        "grid_bc6h_uf16.dds": _bc6h_dds(g128, False),
+        "logo_bc7_srgb.dds": dds_bytes(
+            150, 100, bc7_blocks(lrgba[::2, ::2], np.arange(950) % 8,
+                                 np.arange(950) // 8, np.arange(950) // 8,
+                                 np.arange(950) // 32), 0x4, b"DX10",
+            dxgi=99),
+        # BLP
+        "logo_jpeg.blp": blp_jpeg(logo),
+        "logo_palette.blp": _pil(logo, "P", "BLP", blp_version="BLP1"),
+        "grid_palette.blp": _pil(grid, "P", "BLP"),
+        "grid_dxt1.blp": blp_dxt(np.concatenate(
+            [grid, np.full((256, 256, 1), 255, np.uint8)], -1), "DXT1", 0),
+        "logo_dxt5_odd.blp": blp_dxt(lrgba[::2, ::2][:, :149], "DXT5"),
+        # ICO, CUR, ICNS
+        "logo_png.ico": _pil(lrgba, "RGBA", "ICO"),
+        "logo.cur": icon_bytes([
+            (32, 32, 0, 3, 5, icon_dib(lidx[::6, ::9][:32, :32], 8, lpal)),
+            (150, 100, 0, 7, 9, icon_dib(logo[::2, ::2], 24)),
+            (100, 150, 0, 0, 0, icon_dib(logo[::2, ::2][:, :100].transpose(
+                1, 0, 2)[:150].copy(), 24))], cursor=True),
+        "grid_png.icns": icns_bytes([
+            (b"is32", icns_rgb(grid[::16, ::16], rle=False)),
+            (b"ic07", modes.png_bytes(g128, 8, 2))]),
+        # IM, MSP, XBM
+        "grid_rgb.im": _pil(g128, "RGB", "IM"),
+        "logo_ycc.im": _pil(logo[::2, ::2], "YCbCr", "IM"),
+        "logo_f32.im": _pil(lgrey[::2, ::2].astype(np.float32) * 1.3 - 20.0,
+                            "F", "IM"),
+        "grid.msp": _pil(ggrey, "1", "MSP"),
+        "logo_rle.msp": msp2_bytes(lgrey > 100),
+        "grid.xbm": _pil(ggrey, "1", "XBM"),
+    }
+
+
+# the sets of committed files: folder -> (its files, the digests' name)
+SETS = {"formats": (files, "FORMAT_DIGESTS"),
+        "formats_b": (files_b, "FORMAT_B_DIGESTS")}
+
+
+def main(argv=None) -> None:
+    """Write the folder named on the command line (scenes/data/formats by
+    default, or formats_b) and print its digests."""
+    argv = sys.argv[1:] if argv is None else argv
+    folder = argv[0] if argv else "formats"
+    make, label = SETS[folder]
+    out = os.path.join(modes.DATA, folder)
+    os.makedirs(out, exist_ok=True)
+    print(f"{label} = {{")
+    for name, data in sorted(make().items()):
+        with open(os.path.join(out, name), "wb") as f:
             f.write(data)
-        print(f'    "scenes/data/formats/{name}":\n'
+        print(f'    "scenes/data/{folder}/{name}":\n'
               f'        "{modes.digest(data)}",')
     print("}")
 
