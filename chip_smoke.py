@@ -22,10 +22,14 @@ nonzero):
    rate;
 5. renders the demo at 32x32 on the card and on the CPU (plain walk) and
    compares;
-6. holds both kernels to the plain walk on every query of a 64x64, AA 3
+6. holds both kernels to the plain walk on every query of a 48x48, AA 3
    frame of scenes/glass_sphere.ass at its own depths with Russian
    roulette from refraction depth 2 (march steps with finite t_max and
-   exclude = the previous hit, roulette-dead lanes with t_max 0); times the
+   exclude = the previous hit, roulette-dead lanes with t_max 0, launches
+   with no live lane: each kind is counted and must occur; the frame was
+   64x64 until the phase took 142-190 s of the script's 1,200, and 48x48
+   keeps every kind with 0.56x the camera rays, though the plain walk's
+   time follows its launches and their longest walks more); times the
    kernels (not the plain walk: one pass takes minutes; PERF.md has it),
    checks the kernels' device time against torch.profiler's sum of their
    launches, prints the dead lanes of those queries (launches with no live
@@ -179,7 +183,20 @@ nonzero):
    a 32-bit BMP, an it32 run-length ICNS, a palette IM), each also held
    to the plain walk on every query of a 32x32 frame at the scene's own
    AA 3 and GI samples (0 mismatches for both kernels); phases 33-34 must
-   take 60 s at most.
+   take 60 s at most;
+35. every committed file of scenes/data/formats_c/
+   (`tools/make_image_formats.py formats_c`: SPIDER from "F" and "L",
+   big-endian and a stack; lossless WebP with each VP8L transform and the
+   colour cache; lossy WebP at quality 5 to 100 and odd sizes, with the
+   simple filter, 8 partitions, sharpness, segments and filter deltas of
+   the tool's own VP8 writer; VP8X with alpha, an ICC profile and EXIF;
+   and a 2048x2048 lossy WebP, its host decode on a line of its own)
+   decoded without PIL and held to the SHA-256 of PIL's decode, as in 29;
+36. the textured scene as in 30 with frame G (the 2048x2048 lossy WebP, a
+   lossless RGBA WebP, a lossy WebP with alpha) and frame H (a SPIDER, a
+   palette lossless WebP, a quality-5 lossy WebP), each held to the plain
+   walk as in 34; phases 35-36 must take 90 s at most (the lossy
+   decoder's boolean decoding is a Python loop).
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -198,8 +215,9 @@ kernel (with, per shape, its launches, device_ms and call_ms; and the
 launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_mesh` for phases 23-24, `launches_jpeg` for phase 25,
 `launches_dense` for phase 28, `launches_images` for phase 30,
-`launches_formats` for phase 32, `launches_formats_b` for phase 34, whose
-sum is `launches`); the card's name
+`launches_formats` for phase 32, `launches_formats_b` for phase 34,
+`launches_formats_c` for phase 36, whose sum is `launches`); the card's
+name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -226,7 +244,7 @@ AA = 2
 SEED = 0
 GLASS = "scenes/glass_sphere.ass"
 GLASS_AA = 3
-GLASS_CHECK = 64    # width and height of the glass frame held to the walk
+GLASS_CHECK = 48    # width and height of the glass frame held to the walk
 GLASS_RR = 2        # roulette start of that frame (the JAX bench's)
 PROFILE_SIZE = 128  # the profiled frames: one full tile at AA 2 or 3
 GLASS_CPU = 12      # width and height of the glass CUDA vs CPU frames
@@ -427,6 +445,67 @@ FORMAT_B_DIGESTS = {
     "scenes/data/formats_b/texture_2048_bc7.dds":
         "4a463dc0bef814d02a20c3ae3f197c55c75cb5b5cd1b0c6ffb5935c12d42fd46",
 }
+# SHA-256 of PIL's RGB decode of every file of scenes/data/formats_c
+# (printed by `tools/make_image_formats.py formats_c`; pinned by
+# tests/test_torch_gpu.py too)
+FORMAT_C_DIGESTS = {
+    "scenes/data/formats_c/crop_12colours_lossless.webp":
+        "baf1c4f351aebc09af6065b70635f18f5e2bf5a271b953e1be73f01dba057141",
+    "scenes/data/formats_c/crop_17x33.webp":
+        "a35c28f0b9e23d207f1dd55356a05baa88dcf4bf8d1ebd8832dab799e670f55d",
+    "scenes/data/formats_c/crop_200colours_lossless.webp":
+        "a551c82465d61e288863fa7055092bd79e32ac2d705fbbf68874994385199078",
+    "scenes/data/formats_c/crop_lossless_m0.webp":
+        "d08ee73a38b5a124fc26f93e0557a0491e1bdb3da6f973e10e5b7f88d3be6146",
+    "scenes/data/formats_c/crop_lossless_m6.webp":
+        "d08ee73a38b5a124fc26f93e0557a0491e1bdb3da6f973e10e5b7f88d3be6146",
+    "scenes/data/formats_c/crop_q100.webp":
+        "d866221320c4e1069271eb4919696bf88c98d136d39e89071af3a229d517863f",
+    "scenes/data/formats_c/grid_big_endian.spider":
+        "ef8c72bb8c402cfad35ac5ca20cb502a6073cbcb19d254ba851cf9dff90d382a",
+    "scenes/data/formats_c/grid_half.spider":
+        "973b2927b32f358ee132eee66d6f2433bff570be78cbbaef95998d2ac2892080",
+    "scenes/data/formats_c/grid_icc.webp":
+        "3a122d0c539f20895c079307b011c776f74441c40869be273e134d5b450c62fe",
+    "scenes/data/formats_c/grid_lossless_m0.webp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_c/grid_lossless_m6.webp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_c/grid_q50.webp":
+        "f21d36aa0f12ca7b5229876e661c156077503ce5cf6746a18dbecced4931d297",
+    "scenes/data/formats_c/logo_alpha_exif.webp":
+        "df219bf266aad832943e276f53c887286e39442b55de9d2e7fff196f7eb60c6d",
+    "scenes/data/formats_c/logo_alpha_lossy.webp":
+        "59f14f0c0b152c96025fe9d8056221bbc62ec219ba772cfd37a725b4e0eeeec7",
+    "scenes/data/formats_c/logo_f32.spider":
+        "a1cfff658fb32ef964d5f1851ece5abd0be46a55c7a468446a7f1b76d713adf3",
+    "scenes/data/formats_c/logo_odd_q75.webp":
+        "0378e1f632c5e63c5c657019bd4606ce03f2af16e83dcc26ace981c8dbc6acd6",
+    "scenes/data/formats_c/logo_palette_lossless.webp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_c/logo_q5.webp":
+        "25d93a757d6756fd282063337e1aeab445a664f0fd95f754b7a5749bfdd8042e",
+    "scenes/data/formats_c/logo_rgba_lossless.webp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_c/logo_rgba_lossless_m0.webp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_c/logo_stack.spider":
+        "4ac3678960dee078bfb14cf91496e955161b4eaf5baa28150975dfb9317b3b44",
+    "scenes/data/formats_c/pixel_1x1.webp":
+        "723c5189b7cd4addbb16b3ccb29c50596084185751e9a866e00aac09afb463a2",
+    "scenes/data/formats_c/texture_2048.webp":
+        "84ebb4efeb0844264cb81c14df8982c28b71e24bb5a9786568921221ce0c33c6",
+    "scenes/data/formats_c/vp8_partitions8_sharp.webp":
+        "2868c421799e583721701a61daed1e4f3527e90f24b36179677d4e507ae5f759",
+    "scenes/data/formats_c/vp8_segments_deltas.webp":
+        "8cb1c1a071306fb18df04fc06570812a9c18670154af901a829c49cd3b98b256",
+    "scenes/data/formats_c/vp8_simple_filter.webp":
+        "3fa908da2f001f72d7b2dd1d0ce9e7c078509cc073bf9a71bd1fd8ae26784e74",
+    "scenes/data/formats_c/vp8l_all_predictors.webp":
+        "ec625d18ddabddeed03b2a415164eb9857b1a43eaf5d9d9e9130c5effe4d65a2",
+    "scenes/data/formats_c/vp8l_palette5_past.webp":
+        "59122175770d03434c67debbcf7123f957da58924aaa0cd185767da472404a17",
+}
 # phase 30: the images put in the textured scene's three MayaFile slots
 # (the grid, the logo, the inverted logo)
 IMAGE_FRAMES = {
@@ -448,8 +527,17 @@ FORMAT_B_FRAMES = {
     "F": ("formats_b/grid_bmp32.ico", "formats_b/logo_it32.icns",
           "formats_b/logo_palette.im"),
 }
-FORMAT_B_CHECK = 32     # width and height of frames E and F held to the walk
+# phase 36: the same slots filled from scenes/data/formats_c
+FORMAT_C_FRAMES = {
+    "G": ("formats_c/texture_2048.webp", "formats_c/logo_rgba_lossless.webp",
+          "formats_c/logo_alpha_lossy.webp"),
+    "H": ("formats_c/grid_half.spider",
+          "formats_c/logo_palette_lossless.webp", "formats_c/logo_q5.webp"),
+}
+FORMAT_B_CHECK = 32     # width and height of frames E to H held to the walk
 FORMAT_PHASES_S = 60.0  # phases 31-32 together, and phases 33-34
+# phases 35-36 together: the lossy WebP's boolean decoder is Python
+FORMAT_C_PHASES_S = 90.0
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -750,6 +838,20 @@ def query_mix(calls, name: str) -> str:
     excl = sum(int((c[4] >= 0).sum()) for c in mine)
     return (f"{len(mine)} queries ({dead} rays dead with t_max <= 0, "
             f"{finite} with a finite t_max, {excl} with an exclude)")
+
+
+def query_kinds(calls) -> dict:
+    """The query kinds of a frame's calls over both kernels: march steps
+    (a finite t_max and an exclude), dead lanes (t_max <= 0) and launches
+    with no live lane."""
+    out = {"march_steps": 0, "dead_lanes": 0, "no_live_launches": 0}
+    for c in calls:
+        tmax, ex = c[3], c[4]
+        out["march_steps"] += int(((tmax > 0) & (tmax < 1e29)
+                                   & (ex >= 0)).sum())
+        out["dead_lanes"] += int((tmax <= 0).sum())
+        out["no_live_launches"] += int(not bool((tmax > 0).any()))
+    return out
 
 
 def dead_lanes(calls, name: str) -> dict:
@@ -1625,6 +1727,10 @@ def image_phases(card: str, folder: str = "modes",
         if got != digests[path]:
             raise AssertionError(f"[{pa}] {path} decodes to {got}, PIL's "
                                  f"decode is {digests[path]}")
+    biggest = max(paths, key=os.path.getsize)
+    log(f"[{pa}] the largest file, {biggest} "
+        f"({os.path.getsize(biggest)} B): {decode_ms[biggest]:.2f} ms host "
+        f"decode; {card}")
     if "PIL" in sys.modules:
         raise AssertionError(f"[{pa}] PIL was imported")
     log(f"[{pa}] {len(paths)} files decoded in "
@@ -1692,19 +1798,18 @@ def image_phases(card: str, folder: str = "modes",
 def format_phases(card: str, folder: str = "formats",
                   digests: dict = FORMAT_DIGESTS,
                   frames: dict = FORMAT_FRAMES, phases=(31, 32),
-                  check: int = 0) -> dict:
-    """Phases 31-32 (or 33-34 of scenes/data/formats_b): image_phases over
-    the folder with its frames, within FORMAT_PHASES_S. Returns the
-    launches of both frames."""
+                  check: int = 0, limit: float = FORMAT_PHASES_S) -> dict:
+    """Phases 31-32 (or 33-34 of scenes/data/formats_b, 35-36 of
+    formats_c): image_phases over the folder with its frames, within
+    `limit` seconds. Returns the launches of both frames."""
     pa, pb = phases
     t0 = time.perf_counter()
     launches = image_phases(card, folder, digests, frames, phases, check)
     took = time.perf_counter() - t0
-    log(f"[{pb}] phases {pa}-{pb} {took:.1f} s (at most {FORMAT_PHASES_S} "
-        f"s)")
-    if took > FORMAT_PHASES_S:
+    log(f"[{pb}] phases {pa}-{pb} {took:.1f} s (at most {limit} s); {card}")
+    if took > limit:
         raise AssertionError(f"[{pb}] phases {pa}-{pb} took {took:.1f} s, "
-                             f"more than {FORMAT_PHASES_S} s")
+                             f"more than {limit} s")
     return launches
 
 
@@ -1714,6 +1819,15 @@ def format_b_phases(card: str) -> dict:
     FORMAT_B_CHECK frame."""
     return format_phases(card, "formats_b", FORMAT_B_DIGESTS,
                          FORMAT_B_FRAMES, (33, 34), FORMAT_B_CHECK)
+
+
+def format_c_phases(card: str) -> dict:
+    """Phases 35-36: format_phases over scenes/data/formats_c (SPIDER and
+    still WebP) with frames G and H, each held to the plain walk on every
+    query of a FORMAT_B_CHECK frame, within FORMAT_C_PHASES_S."""
+    return format_phases(card, "formats_c", FORMAT_C_DIGESTS,
+                         FORMAT_C_FRAMES, (35, 36), FORMAT_B_CHECK,
+                         FORMAT_C_PHASES_S)
 
 
 def same_nodes_and_leaves(a, b) -> bool:
@@ -2010,6 +2124,12 @@ def main() -> int:
             f"{dl['groups']} ({dl['live_groups'] / dl['groups']:.4f}), live "
             f"share inside them "
             f"{dl['live'] / max(32 * dl['live_groups'], 1):.4f}")
+    kinds = query_kinds(calls)
+    log(f"[6] {GLASS_CHECK}x{GLASS_CHECK} frame's query kinds (both "
+        f"kernels): {kinds}")
+    missing = [k for k, v in kinds.items() if not v]
+    if missing:
+        raise AssertionError(f"[6] the glass check frame holds no {missing}")
     gtimes, glass_bound = {}, {}
     for k in REPLACES:
         mine = [c[1:] for c in calls if c[0] == k]
@@ -2194,6 +2314,7 @@ def main() -> int:
     image_launches = image_phases(card)
     format_launches = format_phases(card)
     format_b_launches = format_b_phases(card)
+    format_c_launches = format_c_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2228,7 +2349,8 @@ def main() -> int:
                          + tex["launches"][k] + clirun["launches"][k]
                          + mesh1[k] + mesh2[k] + jpeg_launches[k]
                          + dense["launches"][k] + image_launches[k]
-                         + format_launches[k] + format_b_launches[k]),
+                         + format_launches[k] + format_b_launches[k]
+                         + format_c_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2249,6 +2371,7 @@ def main() -> int:
             "launches_images": image_launches[k],
             "launches_formats": format_launches[k],
             "launches_formats_b": format_b_launches[k],
+            "launches_formats_c": format_c_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -30,6 +30,7 @@ import re
 import numpy as np
 
 from .jpeg import muldiv255
+from .pnm import float_to_rgb
 
 _SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
 _TAGS = ("Comment", "Date", "Digitalization equipment",
@@ -179,10 +180,8 @@ def decode_im(data: bytes) -> np.ndarray:
     elif isinstance(layout, str):                # one wide sample a pixel
         v = rows.copy().view(layout)
         if mode == "F":
-            v = np.nan_to_num(v.astype(np.float64), nan=0.0)
-            g = np.trunc(np.clip(v, 0, 255)).astype(np.int64)
-        else:
-            g = np.clip(v.astype(np.int64), 0, 255)
+            return float_to_rgb(v)
+        g = np.clip(v.astype(np.int64), 0, 255)
     else:                                        # a row of each channel
         planes = rows.reshape(h, layout, w).transpose(0, 2, 1)
         if mode == "CMYK":

@@ -117,6 +117,16 @@ def _scale(v: np.ndarray, maxval: int, top: int) -> np.ndarray:
     return np.round(v.astype(np.float64) / maxval * top).astype(np.int64)
 
 
+def float_to_rgb(f: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 of (H, W) mode "F" samples as PIL's
+    `convert("RGB")` makes them: truncated toward zero and clamped to
+    0..255 (NaN 0, -inf 0, inf 255)."""
+    f = np.asarray(f, np.float64)
+    g = np.where(f >= 255.0, 255, np.where(
+        f > 0.0, np.trunc(np.nan_to_num(f)), 0)).astype(np.uint8)
+    return np.repeat(g[..., None], 3, axis=2)
+
+
 def decode_pnm(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 of a PNM or PFM file, PIL's `convert("RGB")` of it
     byte for byte."""
@@ -140,10 +150,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
         if len(raw) < 4 * w * h:
             raise ValueError("PFM pixel data ends early")
         f = np.frombuffer(raw, "<f4" if scale < 0 else ">f4").reshape(h, w)
-        f = f[::-1].astype(np.float64)
-        g = np.where(f >= 255.0, 255, np.where(
-            f > 0.0, np.trunc(np.nan_to_num(f)), 0)).astype(np.uint8)
-        return np.repeat(g[..., None], 3, axis=2)
+        return float_to_rgb(f[::-1])
     maxval = 1 if mode == "1" else rd.number()
     if not 0 < maxval < 65536:
         raise ValueError("PNM maxval must be greater than 0 and less than "

@@ -18,10 +18,12 @@ decode byte for byte: PNG (scene/png.py), JPEG (jpeg.py), GIF (gif.py),
 BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py and ccitt.py),
 PNM and PFM (pnm.py), PCX (pcx.py), DDS with BC1-BC7 blocks (dds.py),
 BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
-(msp.py), QOI (qoi.py), SGI (sgi.py), TGA (tga.py) and XBM (xbm.py). A
-format PIL opens and the port does not decode (WebP, JPEG 2000, SPIDER,
-AVIF and the rest of PIL's plugins) raises NotImplementedError naming
-it; data that no PIL plugin accepts raises it as an unknown format.
+(msp.py), QOI (qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py),
+still WebP (webp.py, with vp8l.py for lossless and vp8.py for lossy
+images) and XBM (xbm.py). A format PIL opens and the port does not
+decode (JPEG 2000, AVIF, animated WebP and the rest of PIL's plugins)
+raises NotImplementedError naming it; data that no PIL plugin accepts
+raises it as an unknown format.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch
 from ..core import vec3
 from ..core.vec3 import V3
 from . import (blp, bmp, dds, gif, icns, ico, im, msp, pcx, png, pnm, qoi,
-               sgi, tga, tiff, xbm)
+               sgi, spider, tga, tiff, webp, xbm)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -42,20 +44,6 @@ MAX_LEVELS = 12
 # texel centres sit at (i + TEX_SHIFT) / size (OIIO and Arnold; the JAX
 # package's RLS_TEX_SHIFT default)
 TEX_SHIFT = 0.5
-
-
-def _spider(d: bytes) -> bool:
-    """PIL's SpiderImagePlugin header checks (integral label fields and a
-    known file type), in either byte order."""
-    for e in "<>":
-        if len(d) < 92:
-            return False
-        h = (99.0,) + struct.unpack_from(e + "23f", d)
-        if all(h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)) and \
-                int(h[5]) in (1, 3, -11, -12, -21, -22) and \
-                h[22] == h[13] * h[23]:
-            return True
-    return False
 
 
 def _u32(d: bytes, e: str = "<") -> int:
@@ -120,10 +108,10 @@ _FORMATS = (
     ("PSD", lambda d: d.startswith(b"8BPS"), None),
     ("QOI", lambda d: d.startswith(qoi.MAGIC), qoi.decode_qoi),
     ("SGI", sgi.accept, sgi.decode_sgi),
-    ("SPIDER", _spider, None),
+    ("SPIDER", spider.accept, spider.decode_spider),
     ("Sun raster", lambda d: _u32(d, ">") == 0x59A66A95, None),
     ("TGA", tga.header_ok, tga.decode_tga),
-    ("WebP", lambda d: d.startswith(b"RIFF") and d[8:12] == b"WEBP", None),
+    ("WEBP", webp.accept, webp.decode_webp),
     ("WMF/EMF", lambda d: d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
         d.startswith(b"\x01\x00\x00\x00") and d[40:44] == b" EMF"), None),
     ("XBM", xbm.accept, xbm.decode_xbm),
@@ -154,9 +142,10 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
     them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
     JPEG, PNM and PFM, PNG, BLP, CUR, PCX, DDS, ICNS, ICO, IM, TIFF, MSP,
-    QOI, SGI, TGA and XBM); any other format raises NotImplementedError
-    (naming it and `name`), as does a mode of a decoded format that is
-    still left; malformed data raises ValueError."""
+    QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format raises
+    NotImplementedError (naming it and `name`), as does a mode of a
+    decoded format that is still left (an animated WebP); malformed data
+    raises ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

@@ -22,10 +22,13 @@ device-to-host copy. `cli render` writes the same EXRs on the card as on
 the CPU within that tolerance, and the trace-set accels of
 `build_trace_set` have the same tables on both and the kernels the same
 hits as the CPU walk. The committed image files (scenes/data/modes and
-scenes/data/formats) decode on the card's machine, which has no PIL, to
-the digests of PIL's decode, and chip_smoke.py phase 32's frames (a DDS,
-a TGA and a JPEG TIFF; a QOI, a PCX and a Group 4 TIFF) render on the
-card as on the CPU.
+scenes/data/formats, formats_b and formats_c) decode on the card's
+machine, which has no PIL, to the digests of PIL's decode, and
+chip_smoke.py's frames of phases 32, 34 and 36 (a DDS, a TGA and a JPEG
+TIFF; a QOI, a PCX and a Group 4 TIFF; a BC7 and a BC6H DDS and a BLP;
+an ICO, an ICNS and an IM; a 2048x2048 lossy WebP, a lossless WebP and a
+WebP with alpha; a SPIDER, a palette WebP and a quality-5 WebP) render
+on the card as on the CPU.
 """
 import os
 import types
@@ -792,6 +795,129 @@ def test_format_b_frames_on_the_card_match_the_cpu(cuda_device, tag):
         src = f.read()
     for old, new in zip(('"data/grid.png"', '"data/logo.png"',
                          '"data/logo.png"'), FORMAT_B_FRAMES[tag]):
+        src = src.replace(old, f'"data/{new}"', 1)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build_text(src, device=dev, base_dir="scenes")
+        assert scene.textures.n_levels.shape == (3,)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, xres=8, yres=8)
+        if dev != "cpu":
+            assert all(n > 0 for n in kernels.LAUNCHES.values())
+    for name in ("RGBA", "direct_diffuse", "indirect_diffuse",
+                 "indirect_specular"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+FORMAT_C_DIGESTS = {
+    "scenes/data/formats_c/crop_12colours_lossless.webp":
+        "baf1c4f351aebc09af6065b70635f18f5e2bf5a271b953e1be73f01dba057141",
+    "scenes/data/formats_c/crop_17x33.webp":
+        "a35c28f0b9e23d207f1dd55356a05baa88dcf4bf8d1ebd8832dab799e670f55d",
+    "scenes/data/formats_c/crop_200colours_lossless.webp":
+        "a551c82465d61e288863fa7055092bd79e32ac2d705fbbf68874994385199078",
+    "scenes/data/formats_c/crop_lossless_m0.webp":
+        "d08ee73a38b5a124fc26f93e0557a0491e1bdb3da6f973e10e5b7f88d3be6146",
+    "scenes/data/formats_c/crop_lossless_m6.webp":
+        "d08ee73a38b5a124fc26f93e0557a0491e1bdb3da6f973e10e5b7f88d3be6146",
+    "scenes/data/formats_c/crop_q100.webp":
+        "d866221320c4e1069271eb4919696bf88c98d136d39e89071af3a229d517863f",
+    "scenes/data/formats_c/grid_big_endian.spider":
+        "ef8c72bb8c402cfad35ac5ca20cb502a6073cbcb19d254ba851cf9dff90d382a",
+    "scenes/data/formats_c/grid_half.spider":
+        "973b2927b32f358ee132eee66d6f2433bff570be78cbbaef95998d2ac2892080",
+    "scenes/data/formats_c/grid_icc.webp":
+        "3a122d0c539f20895c079307b011c776f74441c40869be273e134d5b450c62fe",
+    "scenes/data/formats_c/grid_lossless_m0.webp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_c/grid_lossless_m6.webp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_c/grid_q50.webp":
+        "f21d36aa0f12ca7b5229876e661c156077503ce5cf6746a18dbecced4931d297",
+    "scenes/data/formats_c/logo_alpha_exif.webp":
+        "df219bf266aad832943e276f53c887286e39442b55de9d2e7fff196f7eb60c6d",
+    "scenes/data/formats_c/logo_alpha_lossy.webp":
+        "59f14f0c0b152c96025fe9d8056221bbc62ec219ba772cfd37a725b4e0eeeec7",
+    "scenes/data/formats_c/logo_f32.spider":
+        "a1cfff658fb32ef964d5f1851ece5abd0be46a55c7a468446a7f1b76d713adf3",
+    "scenes/data/formats_c/logo_odd_q75.webp":
+        "0378e1f632c5e63c5c657019bd4606ce03f2af16e83dcc26ace981c8dbc6acd6",
+    "scenes/data/formats_c/logo_palette_lossless.webp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_c/logo_q5.webp":
+        "25d93a757d6756fd282063337e1aeab445a664f0fd95f754b7a5749bfdd8042e",
+    "scenes/data/formats_c/logo_rgba_lossless.webp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_c/logo_rgba_lossless_m0.webp":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_c/logo_stack.spider":
+        "4ac3678960dee078bfb14cf91496e955161b4eaf5baa28150975dfb9317b3b44",
+    "scenes/data/formats_c/pixel_1x1.webp":
+        "723c5189b7cd4addbb16b3ccb29c50596084185751e9a866e00aac09afb463a2",
+    "scenes/data/formats_c/texture_2048.webp":
+        "84ebb4efeb0844264cb81c14df8982c28b71e24bb5a9786568921221ce0c33c6",
+    "scenes/data/formats_c/vp8_partitions8_sharp.webp":
+        "2868c421799e583721701a61daed1e4f3527e90f24b36179677d4e507ae5f759",
+    "scenes/data/formats_c/vp8_segments_deltas.webp":
+        "8cb1c1a071306fb18df04fc06570812a9c18670154af901a829c49cd3b98b256",
+    "scenes/data/formats_c/vp8_simple_filter.webp":
+        "3fa908da2f001f72d7b2dd1d0ce9e7c078509cc073bf9a71bd1fd8ae26784e74",
+    "scenes/data/formats_c/vp8l_all_predictors.webp":
+        "ec625d18ddabddeed03b2a415164eb9857b1a43eaf5d9d9e9130c5effe4d65a2",
+    "scenes/data/formats_c/vp8l_palette5_past.webp":
+        "59122175770d03434c67debbcf7123f957da58924aaa0cd185767da472404a17",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_C_DIGESTS))
+def test_committed_image_formats_c_decode_to_their_digests(cuda_device,
+                                                           path):
+    """The SPIDER and WebP decoders on the card's machine, which has no
+    PIL: every committed file of scenes/data/formats_c decodes to the
+    digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_C_DIGESTS[path]
+
+
+# chip_smoke.py phase 36's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_C_FRAMES = {
+    "G": ("formats_c/texture_2048.webp", "formats_c/logo_rgba_lossless.webp",
+          "formats_c/logo_alpha_lossy.webp"),
+    "H": ("formats_c/grid_half.spider",
+          "formats_c/logo_palette_lossless.webp", "formats_c/logo_q5.webp"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_C_FRAMES))
+def test_format_c_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 36's frame (scenes/textured_disk.ass with a
+    2048x2048 lossy WebP, a lossless RGBA WebP and a lossy WebP with
+    alpha, or a SPIDER, a palette lossless WebP and a quality-5 WebP in
+    its texture slots) at 8x8 and its own AA 3 and GI samples: through
+    both kernels on the card, held to the CPU render with chip_smoke.py's
+    tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build_text
+
+    with open("scenes/textured_disk.ass") as f:
+        src = f.read()
+    for old, new in zip(('"data/grid.png"', '"data/logo.png"',
+                         '"data/logo.png"'), FORMAT_C_FRAMES[tag]):
         src = src.replace(old, f'"data/{new}"', 1)
     out = {}
     for dev in (cuda_device, "cpu"):

@@ -1,17 +1,21 @@
-"""The port's BLP, IM, MSP and XBM decoders (scene/blp.py, im.py, msp.py,
-xbm.py, behind scene/texture.py::load_image) against PIL and the JAX
-package's `load_image(path, 1.0)`: array-equal, no tolerance.
+"""The port's BLP, IM, MSP, XBM and SPIDER decoders (scene/blp.py, im.py,
+msp.py, xbm.py, spider.py, behind scene/texture.py::load_image) against
+PIL and the JAX package's `load_image(path, 1.0)`: array-equal, no
+tolerance.
 
 PIL writes palette BLP1 and BLP2, IM of every mode its writer takes, MSP
-version 1 and XBM; tools/make_image_formats.py writes the rest: BLP1
-with JPEG data (`blp_jpeg`), BLP2 with DXT1, DXT3 and DXT5 blocks
-(`blp_dxt`, the blocks from PIL's DDS writer) and MSP version 2
-(`msp2_bytes`). Widths that are not multiples of 4 (or of 8) are among
-the sizes: PIL reads a BLP's DXT block rows as one pixel stream, so their
-padding pixels move into the next row, and the port keeps that. Images
-are seeded (numpy default_rng, the seed given in each test).
+version 1, XBM and SPIDER; tools/make_image_formats.py writes the rest:
+BLP1 with JPEG data (`blp_jpeg`), BLP2 with DXT1, DXT3 and DXT5 blocks
+(`blp_dxt`, the blocks from PIL's DDS writer), MSP version 2
+(`msp2_bytes`) and SPIDER in either byte order, of any file type and
+stack layout (`spider_bytes`). Widths that are not multiples of 4 (or
+of 8) are among the sizes: PIL reads a BLP's DXT block rows as one
+pixel stream, so their padding pixels move into the next row, and the
+port keeps that. Images are seeded (numpy default_rng, the seed given
+in each test).
 """
 import io
+import struct
 
 import numpy as np
 import pytest
@@ -264,3 +268,112 @@ def test_xbm_short_data_raises():
         Image.open(io.BytesIO(data)).convert("RGB")
     with pytest.raises(ValueError):
         ttex.decode_image(data)
+
+
+
+# ---------------------------------------------------------------------------
+# SPIDER
+# ---------------------------------------------------------------------------
+
+def _refused(data: bytes) -> None:
+    """PIL opens no image from the bytes."""
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).convert("RGB")
+
+
+@pytest.mark.parametrize("mode", ["L", "F"])
+@pytest.mark.parametrize("size", SIZES, ids=str)
+def test_spider_pil(tmp_path, size, mode):
+    """PIL's SPIDER writer (it writes mode "F" from "L" too; seed = width
+    + height); "F" samples past 0..255, negative and fractional: the RGB
+    conversion truncates toward zero and clamps."""
+    w, h = size
+    grey = _image(w, h, w + h, 1)[..., 0]
+    img = Image.fromarray(grey)
+    if mode == "F":
+        img = Image.fromarray(grey.astype(np.float32) * 2.37 - 100.5)
+    data = _pil(img, "SPIDER")
+    got = _same(tmp_path, data, "SPIDER")
+    if mode == "L":
+        assert np.array_equal(got[..., 0], grey)
+
+
+@pytest.mark.parametrize("order", ["<", ">"])
+def test_spider_byte_orders_and_values(tmp_path, order):
+    """Both byte orders (PIL tries big-endian first); NaN, infinities,
+    values at and around 0 and 255."""
+    px = np.array([[0.4, 1.6, -0.5, 255.9, 254.999, 256.0],
+                   [-3.0, 127.5, np.nan, np.inf, -np.inf, 1e30]], np.float32)
+    got = _same(tmp_path, fm.spider_bytes(px, order), "SPIDER")
+    assert got[..., 0].tolist() == [[0, 1, 0, 255, 254, 255],
+                                    [0, 127, 0, 255, 0, 255]]
+
+
+def test_spider_volume_stack_and_header_length(tmp_path):
+    """A volume of file type 1 (nslice 3) opens its first slice; a stack
+    its first image, after the stack's header and the image's own; a
+    header of more records than it needs (labrec 9)."""
+    px = _image(7, 5, 3, 1)[..., 0].astype(np.float32)
+    vol = fm.spider_bytes(np.concatenate([px, px + 50, px + 90]), nslice=3,
+                          fields={2: 5, 3: 5})
+    assert np.array_equal(_same(tmp_path, vol, "SPIDER")[..., 0], px)
+    stack = fm.spider_bytes(px, ">", stack=4)
+    assert np.array_equal(_same(tmp_path, stack, "SPIDER")[..., 0], px)
+    _same(tmp_path, fm.spider_bytes(px, labrec=9), "SPIDER")
+
+
+@pytest.mark.parametrize("iform", [3, -11, -12, -21, -22])
+def test_spider_kinds_pil_refuses(iform):
+    """A volume of file type 3 and the Fourier forms pass PIL's header
+    test and fail its reader (it opens 2D images only): the port names
+    and refuses them."""
+    data = fm.spider_bytes(np.zeros((4, 6), np.float32), iform=iform,
+                           nslice=2 if iform == 3 else 1)
+    _refused(data)
+    assert ttex.image_format(data) == "SPIDER"
+    with pytest.raises(NotImplementedError, match="SPIDER.*iform"):
+        ttex.decode_image(data)
+
+
+def test_spider_refusals():
+    """An image of a stack read alone (PIL's reader fails on it), an
+    inconsistent stack header, pixel data that ends early, a header of 0
+    bytes: refused as PIL refuses them."""
+    px = np.ones((4, 6), np.float32)
+    alone = fm.spider_bytes(px, imgnumber=2)
+    _refused(alone)
+    with pytest.raises(NotImplementedError, match="SPIDER image of a stack"):
+        ttex.decode_image(alone)
+    for data in (fm.spider_bytes(px, fields={24: 2, 27: 1}),
+                 fm.spider_bytes(px)[:-4]):
+        _refused(data)
+        with pytest.raises(ValueError):
+            ttex.decode_image(data)
+    zero = fm.spider_bytes(px, fields={13: 0, 22: 0})
+    _refused(zero)
+    assert ttex.image_format(zero) != "SPIDER"
+
+
+def test_spider_header_test_takes_any_floats():
+    """PIL's header test reads NaN and infinite label fields as not whole
+    numbers (no SPIDER file): the port's test too, where it used to raise
+    on them, so a file of another format whose first bytes read as such
+    floats (a WebP of RIFF size 33023, whose size bytes are an infinite
+    big-endian float) is still named and decoded."""
+    for v in (np.nan, np.inf, -np.inf):
+        data = fm.spider_bytes(np.ones((4, 6), np.float32), fields={1: v})
+        _refused(data)
+        assert ttex.image_format(data) == "an unknown format"
+    one = fm.riff_webp([(b"VP8L", _webp_1x1()[20:])])[12:]
+    pad = 33023 - 4 - len(one) - 8 - 1          # one byte left in the RIFF
+    webp = (b"RIFF" + struct.pack("<I", 33023) + b"WEBP" + one + b"ABCD"
+            + struct.pack("<I", pad) + bytes(pad + 1))
+    assert webp[4:8] == b"\xff\x80\x00\x00"
+    want = np.asarray(Image.open(io.BytesIO(webp)).convert("RGB"))
+    assert ttex.image_format(webp) == "WEBP"
+    assert np.array_equal(ttex.decode_image(webp), want)
+
+
+def _webp_1x1() -> bytes:
+    return _pil(Image.fromarray(np.full((1, 1, 3), 77, np.uint8)), "WEBP",
+                lossless=True)

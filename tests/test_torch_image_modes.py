@@ -146,16 +146,27 @@ def _dx10(dxgi: int) -> bytes:
 
 
 # the formats PIL can write that the port did not decode when this list was
-# made (and DDS files of block formats), and the name the port gives each;
-# NOW_DECODED are those it decodes since
+# made (and DDS files of block formats), and the name the port gives each
+# (PIL's own for a format it decodes: WebP's case keeps the id it had
+# when the port named it "WebP"); NOW_DECODED are those it decodes since
 OTHER_FORMATS = [("AVIF", "AVIF"), ("DDS BC7", "DDS"), ("ICO", "ICO"),
                  ("EPS", "EPS"), ("ICNS", "ICNS"), ("IM", "IM"),
                  ("JPEG2000", "JPEG 2000"), ("BLP", "BLP"), ("MSP", "MSP"),
                  ("DDS BC6H", "DDS"), ("XBM", "XBM"), ("SPIDER", "SPIDER"),
-                 ("DDS BC4", "DDS"), ("WEBP", "WebP")]
+                 ("DDS BC4", "DDS"),
+                 pytest.param("WEBP", "WEBP", id="WEBP-WebP")]
 _DXGI = {"DDS BC7": 98, "DDS BC6H": 95, "DDS BC4": 80}
 NOW_DECODED = {"DDS BC7", "ICO", "ICNS", "IM", "BLP", "MSP", "DDS BC6H",
-               "XBM", "DDS BC4"}
+               "XBM", "DDS BC4", "SPIDER", "WEBP"}
+
+
+def _animated_webp_head() -> bytes:
+    """The first 30 bytes of an animated WebP (a VP8X chunk with the
+    animation flag) whose RIFF size counts the 200 bytes that follow."""
+    vp8x = b"VP8X" + (10).to_bytes(4, "little") + bytes([0x02, 0, 0, 0]) \
+        + (15).to_bytes(3, "little") + (15).to_bytes(3, "little")
+    return b"RIFF" + (4 + len(vp8x) + 200).to_bytes(4, "little") + b"WEBP" \
+        + vp8x
 
 
 @pytest.mark.parametrize("fmt,name", OTHER_FORMATS)
@@ -189,7 +200,10 @@ def test_other_formats_are_named(tmp_path, fmt, name):
 
 @pytest.mark.parametrize("head,name", [
     (b"8BPS\x00\x01", "PSD"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (b"RIFF\x00\x00\x00\x00WEBPVP8L", "WebP"),
+    # was a bare "RIFF....WEBPVP8L" head, refused before still WebP was
+    # decoded; an animated WebP is still refused
+    pytest.param(_animated_webp_head(), "WebP",
+                 id="RIFF\x00\x00\x00\x00WEBPVP8L-WebP"),
     (b"v/1\x01\x02\x00\x00\x00", "OpenEXR"),
     (b"II+\x00\x08\x00\x00\x00", "BigTIFF"),
     (b"\x00\x01\x02\x03 not an image", "an unknown format")])

@@ -140,10 +140,11 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Image formats the port does not decode raise (a WebP, a JPEG 2000);
-    a baseline JPEG, a progressive JPEG, a GIF, a TGA and an IM build,
-    each to the same texels. Trace sets build: the floor's triangles
-    carry the set's bit 8, the others none."""
+    """Image formats the port does not decode raise (an animated WebP, a
+    JPEG 2000); a baseline JPEG, a progressive JPEG, a GIF, a TGA, an IM
+    and a lossless WebP build, each to the same texels. Trace sets
+    build: the floor's triangles carry the set's bit 8, the others
+    none."""
     from PIL import Image
 
     base = _nested(tmp_path)
@@ -161,8 +162,10 @@ def test_still_unported_raise(tmp_path):
     assert ((vis[~on_floor] & ~0xFF) == 0).all()
     img = Image.fromarray(np.full((4, 4, 3), 200, np.uint8))
     for name, kw in (("t.jpg", {}), ("p.jpg", {"progressive": True}),
-                     ("t.gif", {}), ("t.webp", {}), ("t.tga", {}),
-                     ("t.im", {}), ("t.jp2", {})):
+                     ("t.gif", {}), ("t.tga", {}), ("t.im", {}),
+                     ("t.jp2", {}), ("s.webp", {"lossless": True}),
+                     ("t.webp", {"save_all": True, "append_images": [
+                         Image.fromarray(np.full((4, 4, 3), 9, np.uint8))]})):
         img.save(os.path.join(base, name), **kw)
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
@@ -172,7 +175,7 @@ def test_still_unported_raise(tmp_path):
     for name in ("p.jpg", "t.gif"):
         other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data, scene.textures.data), name
-    for name in ("t.tga", "t.im"):
+    for name in ("t.tga", "t.im", "s.webp"):
         other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data,
                            torch.full((21, 3), 200 / 255)), name

@@ -807,6 +807,614 @@ def msp2_bytes(bits: np.ndarray) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# SPIDER and WebP
+# ---------------------------------------------------------------------------
+
+def spider_bytes(px: np.ndarray, order: str = "<", iform: int = 1,
+                 nslice: int = 1, stack: int = 0, imgnumber: int = 0,
+                 labrec=None, fields: dict = None) -> bytes:
+    """A SPIDER file of (h, w) float samples in byte order `order`:
+    PIL's header (labrec records of 4 * w bytes, at least 1024 bytes)
+    with the file type, slices, label fields given (counted from 1), or
+    a stack of `stack` images, the first `px` and image k all k."""
+    h, w = px.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt) if labrec is None else labrec
+    labbyt = labrec * lenbyt
+
+    def header(istack, maxim, img):
+        v = [0.0] * (labbyt // 4 + 1)
+        for i, x in {1: nslice, 2: h, 3: h, 5: iform, 12: w, 13: labrec,
+                     22: labbyt, 23: lenbyt, 24: istack, 26: maxim,
+                     27: img, **(fields or {})}.items():
+            v[i] = x
+        return struct.pack(f"{order}{len(v) - 1}f", *v[1:])
+
+    def body(a):
+        return np.asarray(a, np.float32).astype(order + "f4").tobytes()
+
+    if not stack:
+        return header(0, 0, imgnumber) + body(px)
+    return header(stack, stack, 0) + b"".join(
+        header(0, 0, k + 1) + body(px if k == 0 else np.full_like(px, k))
+        for k in range(stack))
+
+
+def riff_webp(chunks: list) -> bytes:
+    """A WebP file of (fourcc, payload) chunks, each padded to even."""
+    body = b"WEBP" + b"".join(
+        k + struct.pack("<I", len(p)) + p + b"\x00" * (len(p) & 1)
+        for k, p in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def vp8x_chunk(w: int, h: int, flags: int) -> bytes:
+    """A VP8X payload: the flags and the canvas size."""
+    return (bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+            + (h - 1).to_bytes(3, "little"))
+
+
+class BoolWriter:
+    """The boolean entropy encoder of RFC 6386, section 7.3."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self):
+        i = len(self.out) - 1
+        while i >= 0 and self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, prob: int, bit: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def literal(self, v: int, n: int) -> None:
+        for k in range(n - 1, -1, -1):
+            self.put(128, (v >> k) & 1)
+
+    def flagged(self, v: int, n: int) -> None:
+        """A signed n-bit value behind a flag bit (0: the flag alone)."""
+        self.put(128, v != 0)
+        if v:
+            self.literal(abs(v), n)
+            self.put(128, v < 0)
+
+    def finish(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out) + bytes(2)
+
+
+def _tree_paths(tree) -> dict:
+    """{leaf value: [(node, bit), ...]} of a token tree in libwebp's form
+    (node i's children at 2i and 2i + 1; a leaf is -value)."""
+    paths = {}
+
+    def walk(i, path):
+        for bit in (0, 1):
+            k = tree[2 * i + bit]
+            if k > 0:
+                walk(k, path + [(i, bit)])
+            else:
+                paths[-k] = path + [(i, bit)]
+
+    walk(0, [])
+    return paths
+
+
+def _put_coeff(bw: BoolWriter, p, v: int) -> None:
+    """The token of a non-zero coefficient v after its p[1] (not zero)
+    bit: one or more, the large-value tree, its extra bits, the sign."""
+    from rlshaders_tpu_torch.scene.vp8 import _CAT_PROBS
+    a = abs(v)
+    bw.put(p[2], a > 1)
+    if a > 1:
+        bw.put(p[3], a > 4)
+        if a <= 4:
+            bw.put(p[4], a > 2)
+            if a > 2:
+                bw.put(p[5], a - 3)
+        else:
+            bw.put(p[6], a > 10)
+            if a <= 10:
+                bw.put(p[7], a > 6)
+                if a <= 6:
+                    bw.put(159, a - 5)
+                else:
+                    bw.put(165, (a - 7) >> 1)
+                    bw.put(145, (a - 7) & 1)
+            else:
+                cat = next(c for c in (3, 2, 1, 0) if a >= 3 + (8 << c))
+                bw.put(p[8], cat >> 1)
+                bw.put(p[9 + (cat >> 1)], cat & 1)
+                extra = a - 3 - (8 << cat)
+                n = len(_CAT_PROBS[cat])
+                for k, prob in enumerate(_CAT_PROBS[cat]):
+                    bw.put(prob, (extra >> (n - 1 - k)) & 1)
+    bw.put(128, v < 0)
+
+
+def vp8_frame(w: int, h: int, seed: int, *, simple: bool = False,
+              level: int = 20, sharpness: int = 0, partitions: int = 1,
+              q: int = 40, segments: bool = False, deltas: bool = False,
+              skip: bool = True, updates: int = 8,
+              exact: bool = True) -> bytes:
+    """A VP8 key frame (a VP8 chunk's payload) of seeded modes and
+    coefficients, written with the boolean encoder: the loop filter
+    `simple` or normal at `level` and `sharpness`, `partitions` (1, 2, 4
+    or 8) token partitions, quantizer index q, optionally four segments
+    (a map, absolute quantizers and filter levels), reference and mode
+    filter deltas, skipped macroblocks and `updates` coefficient
+    probability updates; with `exact` False, coefficients past the range
+    where libwebp's transforms are exact (its SIMD code then decides). It
+    reaches what PIL's writer never sets; its decode is what libwebp
+    makes of it, held to PIL's by the tests."""
+    from rlshaders_tpu_torch.scene.vp8 import _BMODE_TREE, BANDS
+    from rlshaders_tpu_torch.scene.vp8_tables import (AC_TABLE, BMODE_PROBS,
+                                                      COEFF_PROBS,
+                                                      COEFF_UPDATE_PROBS,
+                                                      DC_TABLE)
+    rng = np.random.default_rng(seed)
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    bw = BoolWriter()
+    bw.literal(0, 2)                               # colour space, clamping
+    bw.put(128, segments)
+    seg_probs = (120, 80, 200)
+    if segments:
+        bw.put(128, 1)                             # update the map
+        bw.put(128, 1)                             # update the data
+        bw.put(128, 1)                             # absolute values
+        for v in (q, min(q + 17, 127), max(q - 23, 0), 127):
+            bw.flagged(v, 7)
+        for v in (level, 0, 63, level // 2):
+            bw.flagged(v, 6)
+        for p in seg_probs:
+            bw.put(128, 1)
+            bw.literal(p, 8)
+    bw.put(128, simple)
+    bw.literal(level, 6)
+    bw.literal(sharpness, 3)
+    bw.put(128, deltas)
+    if deltas:
+        bw.put(128, 1)
+        for v in (5, -3, 0, 2):                    # reference deltas
+            bw.flagged(v, 6)
+        for v in (-9, 4, 0, 1):                    # mode deltas
+            bw.flagged(v, 6)
+    bw.literal(partitions.bit_length() - 1, 2)
+    bw.literal(q, 7)
+    for v in (2, -3, 1, -1, 3):                    # the quantizer deltas
+        bw.flagged(v, 4)
+    # the largest level of each (segment, type, DC or AC) that keeps the
+    # dequantized value where libwebp's transforms are exact: 2047 for a
+    # block, 1023 for Y2 (its inverse WHT sums 16 of them over 8)
+    qs = (q, min(q + 17, 127), max(q - 23, 0), 127) if segments else (q,) * 4
+
+    def step(table, v, top=127):
+        return table[min(max(v, 0), top)]
+
+    limits = [{3: (2047 // step(DC_TABLE, s + 2), 2047 // step(AC_TABLE, s)),
+               0: (0, 2047 // step(AC_TABLE, s)),
+               1: (1023 // (2 * step(DC_TABLE, s - 3)),
+                   1023 // max((step(AC_TABLE, s + 1) * 101581) >> 16, 8)),
+               2: (2047 // step(DC_TABLE, s - 1, 117),
+                   2047 // step(AC_TABLE, s + 3))} for s in qs]
+    bw.put(128, 0)                                 # refresh entropy probs
+    probs = list(COEFF_PROBS)
+    chosen = set(rng.choice(len(probs), updates, replace=False).tolist())
+    for i, u in enumerate(COEFF_UPDATE_PROBS):
+        bw.put(u, i in chosen)
+        if i in chosen:
+            probs[i] = int(rng.integers(1, 256))
+            bw.literal(probs[i], 8)
+    skip_prob = 40
+    bw.put(128, skip)
+    if skip:
+        bw.literal(skip_prob, 8)
+    # the modes
+    bpaths = _tree_paths(_BMODE_TREE)
+    top = [0] * (4 * mbw)
+    mbs = []
+    for y in range(mbh):
+        left = [0] * 4
+        for x in range(mbw):
+            seg = int(rng.integers(0, 4)) if segments else 0
+            if segments:
+                bw.put(seg_probs[0], seg >= 2)
+                bw.put(seg_probs[1 + (seg >= 2)], seg & 1)
+            skipped = bool(skip and rng.random() < 0.2)
+            if skip:
+                bw.put(skip_prob, skipped)
+            is4 = bool(rng.random() < 0.5)
+            bw.put(145, not is4)
+            if is4:
+                for r in range(4):
+                    for c in range(4):
+                        m = int(rng.integers(0, 10))
+                        prob = BMODE_PROBS[(top[4 * x + c] * 10 + left[r])
+                                           * 9:][:9]
+                        for node, bit in bpaths[m]:
+                            bw.put(prob[node], bit)
+                        top[4 * x + c] = left[r] = m
+            else:
+                m = int(rng.integers(0, 4))        # DC, TM, V (2), H (3)
+                if m == 0:
+                    bits = ((156, 0), (163, 0))
+                elif m == 2:
+                    bits = ((156, 0), (163, 1))
+                else:
+                    bits = ((156, 1), (128, m == 1))
+                for prob, bit in bits:
+                    bw.put(prob, bit)
+                top[4 * x:4 * x + 4] = [m] * 4
+                left = [m] * 4
+            uv = int(rng.integers(0, 4))
+            bw.put(142, uv != 0)
+            if uv:
+                bw.put(114, uv != 2)
+                if uv != 2:
+                    bw.put(183, uv == 1)
+            mbs.append((y, x, is4, skipped, seg))
+    first = bw.finish()
+    # the tokens: each block's coefficients, mostly zero and small
+    parts = [BoolWriter() for _ in range(partitions)]
+    tops = [[0] * 9 for _ in range(mbw)]
+    lefts = [0] * 9
+    for y, x, is4, skipped, seg in mbs:
+        if x == 0:
+            lefts = [0] * 9
+        t = tops[x]
+        if skipped:
+            for k in range(9 if not is4 else 8):
+                t[k] = lefts[k] = 0
+            continue
+        pw = parts[y % partitions]
+        plan = ([(3, 0, k) for k in range(16)] if is4 else
+                [(1, 0, 24)] + [(0, 1, k) for k in range(16)])
+        plan += [(2, 0, 16 + k) for k in range(8)]
+        for typ, first_pos, blk in plan:
+            if blk == 24:
+                ta = la = 8
+            elif blk < 16:
+                ta, la = blk & 3, blk >> 2
+            else:
+                ch = 4 if blk < 20 else 6
+                ta, la = ch + ((blk - 16) & 1), ch + (((blk - 16) & 3) >> 1)
+            last = int(rng.integers(first_pos, 17))
+            coeffs = np.zeros(16, np.int64)
+            if last > first_pos:
+                mag = rng.choice([1, 1, 1, 2, 3, 5, 8, 12, 25, 70, 400]
+                                 + ([] if exact else [1500, 2100]),
+                                 last - first_pos)
+                zero = rng.random(last - first_pos) < 0.4
+                sign = rng.choice([-1, 1], last - first_pos)
+                coeffs[first_pos:last] = np.where(zero, 0, mag * sign)
+                if exact:
+                    dc_top, ac_top = limits[seg][typ]
+                    coeffs[1:] = np.clip(coeffs[1:], -ac_top, ac_top)
+                    coeffs[0] = np.clip(coeffs[0], -dc_top, dc_top)
+            nz = int(np.flatnonzero(coeffs)[-1]) + 1 if coeffs.any() else 0
+            ctx = t[ta] + lefts[la]
+            n = first_pos
+            prev_zero = False
+            while n < 16:
+                p = probs[((typ * 8 + BANDS[n]) * 3 + ctx) * 11:][:11]
+                if not prev_zero:
+                    pw.put(p[0], n < nz)
+                    if n >= nz:
+                        break
+                v = int(coeffs[n])
+                pw.put(p[1], v != 0)
+                if v == 0:
+                    prev_zero, ctx = True, 0
+                else:
+                    _put_coeff(pw, p, v)
+                    prev_zero, ctx = False, 1 if abs(v) == 1 else 2
+                n += 1
+            t[ta] = lefts[la] = int(nz > first_pos)
+    tail = [p.finish() for p in parts]
+    sizes = b"".join(len(p).to_bytes(3, "little") for p in tail[:-1])
+    tag = (len(first) << 5) | 0x10                 # key frame, shown
+    return (tag.to_bytes(3, "little") + b"\x9d\x01\x2a"
+            + struct.pack("<HH", w, h) + first + sizes + b"".join(tail))
+
+
+class BitWriterL:
+    """The LSB-first bit writer of the lossless (VP8L) bitstream."""
+
+    def __init__(self):
+        self.v, self.n = 0, 0
+
+    def put(self, value: int, bits: int) -> None:
+        self.v |= (value & ((1 << bits) - 1)) << self.n
+        self.n += bits
+
+    def code(self, codes: dict, symbol: int) -> None:
+        """A prefix-coded symbol: its canonical code, first bit first."""
+        code, n = codes[symbol]
+        self.put(int(f"{code:0{n}b}"[::-1], 2) if n else 0, n)
+
+    def finish(self) -> bytes:
+        return self.v.to_bytes((self.n + 7) // 8, "little")
+
+
+def _complete_lengths(used, size: int, rng) -> list:
+    """Code lengths over `size` symbols giving each used one a length and
+    forming a complete code (one used symbol: one of length 1)."""
+    used = sorted(set(used)) or [0]
+    lengths = [0] * size
+    if len(used) == 1:
+        lengths[used[0]] = 1
+        return lengths
+    top = (len(used) - 1).bit_length()
+    short = (1 << top) - len(used)        # at top - 1 bits, the rest at top
+    for k, sym in enumerate(rng.permutation(used).tolist()):
+        lengths[sym] = top - 1 if k < short else top
+    return lengths
+
+
+def _canonical(lengths: list) -> dict:
+    """{symbol: (code, length)} of a canonical code (one symbol: no bits)."""
+    syms = sorted((n, s) for s, n in enumerate(lengths) if n)
+    if len(syms) == 1:
+        return {syms[0][1]: (0, 0)}
+    out, code, prev = {}, 0, syms[0][0]
+    for n, s in syms:
+        code <<= n - prev
+        prev = n
+        out[s] = (code, n)
+        code += 1
+    return out
+
+
+def _put_lengths(bw: BitWriterL, lengths: list, rng) -> None:
+    """A prefix code's lengths in the normal form: runs as repeat codes
+    16 (the last non-zero length), 17 and 18 (zeros), a random
+    max_symbol where the tail allows it, through a code-length code."""
+    toks, i, prev = [], 0, 8
+    while i < len(lengths):
+        n = lengths[i]
+        run = 1
+        while i + run < len(lengths) and lengths[i + run] == n:
+            run += 1
+        if n == 0 and run >= 11:
+            r = min(run, 138)
+            toks.append((18, r - 11, 7))
+        elif n == 0 and run >= 3:
+            r = min(run, 10)
+            toks.append((17, r - 3, 3))
+        elif n == prev and run >= 3:
+            r = min(run, 6)
+            toks.append((16, r - 3, 2))
+        else:
+            r = 1
+            toks.append((n, 0, 0))
+        if n:
+            prev = n
+        i += r
+    # the trailing zeros past max_symbol need not be written
+    last = max(k for k, t in enumerate(toks) if t[0] not in (17, 18)
+               or k == 0)
+    cut = rng.random() < 0.5 and 2 <= last + 1 < len(toks)
+    if cut:
+        toks = toks[:last + 1]
+    cl = _complete_lengths([t[0] for t in toks], 19, rng)
+    codes = _canonical(cl)
+    order = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14,
+             15)
+    count = max(4, max(k for k, c in enumerate(order) if cl[c]) + 1)
+    bw.put(0, 1)                                 # the normal form
+    bw.put(count - 4, 4)
+    for c in order[:count]:
+        bw.put(cl[c], 3)
+    bw.put(cut, 1)
+    if cut:
+        m = len(toks) - 2
+        nbits = max(2, m.bit_length() + (m.bit_length() & 1))
+        bw.put((nbits - 2) // 2, 3)
+        bw.put(m, nbits)
+    for sym, extra, bits in toks:
+        bw.code(codes, sym)
+        if bits:
+            bw.put(extra, bits)
+
+
+def _put_code(bw: BitWriterL, used, size: int, rng) -> dict:
+    """A prefix code over the symbols used (the simple form where one or
+    two small ones are), written; returns its codes."""
+    used = sorted(set(used)) or [0]
+    if len(used) <= 2 and max(used) < 256 and rng.random() < 0.7:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        wide = used[0] > 1 or rng.random() < 0.5
+        bw.put(wide, 1)
+        bw.put(used[0], 8 if wide else 1)
+        if len(used) == 2:
+            bw.put(used[1], 8)
+        lengths = [0] * size
+        for u in used:
+            lengths[u] = 1
+        return _canonical(lengths)
+    lengths = _complete_lengths(used, size, rng)
+    _put_lengths(bw, lengths, rng)
+    return _canonical(lengths)
+
+
+def _prefix(v: int) -> tuple:
+    """(symbol, extra bits, their count) of an LZ77 length or distance."""
+    d = v - 1
+    if d < 4:
+        return d, 0, 0
+    hb = d.bit_length() - 1
+    second = (d >> (hb - 1)) & 1
+    return 2 * hb + second, d & ((1 << (hb - 1)) - 1), hb - 1
+
+
+def _put_image(bw: BitWriterL, w: int, h: int, px: list, rng,
+               main: bool) -> None:
+    """An entropy-coded image of packed ARGB `px`: a colour cache, meta
+    prefix codes (the main image) and LZ77 copies at random."""
+    from rlshaders_tpu_torch.scene.vp8l import CACHE_MULT, DISTANCE_MAP
+    cache_bits = int(rng.integers(1, 12)) if rng.random() < 0.5 else 0
+    bw.put(cache_bits > 0, 1)
+    if cache_bits:
+        bw.put(cache_bits, 4)
+    meta_bits, groups = 0, 1
+    if main and rng.random() < 0.5:
+        meta_bits = int(rng.integers(2, 5))
+        mw, mh = (w + (1 << meta_bits) - 1) >> meta_bits, \
+            (h + (1 << meta_bits) - 1) >> meta_bits
+        mpx = [m << 8 for m in rng.integers(0, 3, mw * mh).tolist()]
+        bw.put(1, 1)
+        bw.put(meta_bits - 2, 3)
+        _put_image(bw, mw, mh, mpx, rng, False)   # its copies change it
+        meta = [(m >> 8) & 0xFFFF for m in mpx]
+        groups = max(meta) + 1
+    elif main:
+        bw.put(0, 1)
+    # the ops: literals, copies and cache hits, as the decoder will see
+    ops, cache = [], {}
+    i = 0
+    while i < len(px):
+        y, x = divmod(i, w)
+        g = meta[(y >> meta_bits) * mw + (x >> meta_bits)] if meta_bits else 0
+        key = ((px[i] * CACHE_MULT) & 0xFFFFFFFF) >> (32 - cache_bits) \
+            if cache_bits else None
+        r = rng.random()
+        if i and r < 0.25:
+            length = int(min(len(px) - i, rng.integers(1, 40)))
+            if rng.random() < 0.5:
+                code = int(rng.integers(1, 121))
+                dx, dy = DISTANCE_MAP[code - 1]
+                dist = max(dx + dy * w, 1)
+            else:
+                dist = int(rng.integers(1, i + 1))
+                code = dist + 120
+            if dist <= i:
+                for k in range(length):
+                    px[i + k] = px[i + k - dist]
+                ops.append((g, "copy", length, code))
+                if cache_bits:
+                    for k in range(length):
+                        c = px[i + k]
+                        cache[((c * CACHE_MULT) & 0xFFFFFFFF)
+                              >> (32 - cache_bits)] = c
+                i += length
+                continue
+        if cache_bits and cache.get(key) == px[i] and r < 0.6:
+            ops.append((g, "cache", key))
+        else:
+            ops.append((g, "lit", px[i]))
+        if cache_bits:
+            cache[key] = px[i]
+        i += 1
+    # each group's codes over the symbols its ops use
+    sizes = (256 + 24 + ((1 << cache_bits) if cache_bits else 0), 256, 256,
+             256, 40)
+    used = [[[] for _ in range(5)] for _ in range(groups)]
+    for op in ops:
+        u = used[op[0]]
+        if op[1] == "lit":
+            a = op[2]
+            for k, s in enumerate(((a >> 8) & 255, (a >> 16) & 255,
+                                   a & 255, a >> 24)):
+                u[k].append(s)
+        elif op[1] == "cache":
+            u[0].append(280 + op[2])
+        else:
+            u[0].append(256 + _prefix(op[2])[0])
+            u[4].append(_prefix(op[3])[0])
+    codes = [[_put_code(bw, used[gi][k], sizes[k], rng) for k in range(5)]
+             for gi in range(groups)]
+    for op in ops:
+        c = codes[op[0]]
+        if op[1] == "lit":
+            a = op[2]
+            bw.code(c[0], (a >> 8) & 255)
+            bw.code(c[1], (a >> 16) & 255)
+            bw.code(c[2], a & 255)
+            bw.code(c[3], a >> 24)
+        elif op[1] == "cache":
+            bw.code(c[0], 280 + op[2])
+        else:
+            for k, v in ((0, op[2]), (4, op[3])):
+                sym, extra, n = _prefix(v)
+                bw.code(c[k], (256 if k == 0 else 0) + sym)
+                bw.put(extra, n)
+
+
+def vp8l_stream(w: int, h: int, seed: int, transforms=(0, 1, 2, 3),
+                colours: int = 16) -> bytes:
+    """A VP8L bitstream (a VP8L chunk's payload) of seeded residuals
+    under the transforms given, in that order (0 predictor with every
+    mode 0-15 among its tiles, 1 cross-colour, 2 subtract-green, 3 colour
+    indexing of `colours` colours whose indices run past the palette),
+    each image with a colour cache, meta prefix codes, LZ77 copies by
+    both distance forms and codes of both forms at random. What PIL's
+    writer never sets; its decode is what libwebp makes of it."""
+    rng = np.random.default_rng(seed)
+    bw = BitWriterL()
+    bw.put(0x2F, 8)
+    bw.put(w - 1, 14)
+    bw.put(h - 1, 14)
+    bw.put(1, 1)
+    bw.put(0, 3)
+    xs = w
+    for t in transforms:
+        bw.put(1, 1)
+        bw.put(t, 2)
+        if t in (0, 1):
+            bits = int(rng.integers(2, 5))
+            bw.put(bits - 2, 3)
+            tw, th = (xs + (1 << bits) - 1) >> bits, \
+                (h + (1 << bits) - 1) >> bits
+            sub = rng.integers(0, 1 << 32, tw * th, dtype=np.uint64)
+            if t == 0:
+                sub = (sub & ~np.uint64(0xF00)) | (
+                    (np.arange(tw * th, dtype=np.uint64) % 16) << 8)
+            _put_image(bw, tw, th, sub.tolist(), rng, False)
+        elif t == 3:
+            bw.put(colours - 1, 8)
+            pal = rng.integers(0, 1 << 32, colours, dtype=np.uint64)
+            _put_image(bw, colours, 1, pal.tolist(), rng, False)
+            bits = 0 if colours > 16 else 1 if colours > 4 else \
+                2 if colours > 2 else 3
+            xs = (xs + (1 << bits) - 1) >> bits
+    bw.put(0, 1)
+    px = rng.integers(0, 1 << 32, xs * h, dtype=np.uint64)
+    if 3 in transforms:                # indices, some past the palette
+        px = px & ~np.uint64(0xFF00) | (rng.integers(
+            0, 256, xs * h).astype(np.uint64) << 8)
+    _put_image(bw, xs, h, px.tolist(), rng, True)
+    return bw.finish()
+
+
+# ---------------------------------------------------------------------------
 # the committed files
 # ---------------------------------------------------------------------------
 
@@ -978,14 +1586,108 @@ def files_b() -> dict:
     }
 
 
+def big_webp() -> bytes:
+    """The 2048x2048 texture of make_image_modes as a lossy WebP at
+    quality 90 (a single VP8 chunk, about 225 KB)."""
+    return _pil(modes.big_texture(), "RGB", "WEBP", quality=90)
+
+
+def _srgb_icc() -> bytes:
+    """LittleCMS's sRGB profile, its creation date fixed (bytes 24-35) so
+    that the file is the same at every run."""
+    from PIL import ImageCms
+    icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    return icc[:24] + struct.pack(">6H", 2025, 1, 1, 0, 0, 0) + icc[36:]
+
+
+def files_c() -> dict:
+    """{name in scenes/data/formats_c: bytes} of every committed file:
+    SPIDER and still WebP (lossless VP8L, lossy VP8, VP8X with alpha and
+    metadata), PIL's writes but for the VP8 and VP8L features its writer
+    never sets (vp8_frame, vp8l_stream)."""
+    from PIL import Image
+    grid, logo = modes._png_pixels("grid.png"), modes._png_pixels("logo.png")
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    ggrey = np.asarray(Image.fromarray(grid).convert("L"))
+    lgrey = np.asarray(Image.fromarray(logo).convert("L"))
+    crop = modes.big_texture()[600:728, 900:1028]          # 128x128
+    c200 = np.asarray(Image.fromarray(crop).quantize(200, dither=0)
+                      .convert("RGB"))
+    c12 = np.asarray(Image.fromarray(crop).quantize(12, dither=0)
+                     .convert("RGB"))
+    ainv = lrgba.copy()
+    ainv[..., 3] = np.where(lgrey > 100, 255, 90)          # half see-through
+    return {
+        # frame G
+        "texture_2048.webp": big_webp(),
+        "logo_rgba_lossless.webp": _pil(lrgba, "RGBA", "WEBP", lossless=True,
+                                        method=4),
+        "logo_alpha_lossy.webp": _pil(ainv, "RGBA", "WEBP", quality=80),
+        # frame H
+        "grid_half.spider": _pil(ggrey[::2, ::2], "L", "SPIDER"),
+        "logo_palette_lossless.webp": _pil(logo, "RGB", "WEBP",
+                                           lossless=True),
+        "logo_q5.webp": _pil(logo, "RGB", "WEBP", quality=5),
+        # VP8L: both methods' extremes, a <= 16 and a <= 256 colour image
+        "grid_lossless_m0.webp": _pil(grid, "RGB", "WEBP", lossless=True,
+                                      method=0),
+        "grid_lossless_m6.webp": _pil(grid, "RGB", "WEBP", lossless=True,
+                                      method=6),
+        "logo_rgba_lossless_m0.webp": _pil(lrgba, "RGBA", "WEBP",
+                                           lossless=True, method=0),
+        "crop_lossless_m0.webp": _pil(crop, "RGB", "WEBP", lossless=True,
+                                      method=0, quality=50),
+        "crop_lossless_m6.webp": _pil(crop, "RGB", "WEBP", lossless=True,
+                                      method=6),
+        "crop_200colours_lossless.webp": _pil(c200, "RGB", "WEBP",
+                                              lossless=True),
+        "crop_12colours_lossless.webp": _pil(c12, "RGB", "WEBP",
+                                             lossless=True, method=6),
+        # VP8 at three qualities and sizes no multiple of 16
+        "grid_q50.webp": _pil(grid, "RGB", "WEBP", quality=50),
+        "crop_q100.webp": _pil(crop, "RGB", "WEBP", quality=100),
+        "logo_odd_q75.webp": _pil(logo[1::2, 1::2][:99, :149], "RGB", "WEBP"),
+        "crop_17x33.webp": _pil(crop[:33, :17], "RGB", "WEBP", quality=60),
+        "pixel_1x1.webp": _pil(crop[:1, :1], "RGB", "WEBP", quality=90),
+        # VP8X: alpha, an ICC profile, EXIF
+        "grid_icc.webp": _pil(grid, "RGB", "WEBP", quality=70,
+                              icc_profile=_srgb_icc()),
+        "logo_alpha_exif.webp": _pil(
+            lrgba, "RGBA", "WEBP", quality=40,
+            exif=b"Exif\x00\x00MM\x00*\x00\x00\x00\x08\x00\x00"),
+        # VP8 features PIL's writer never sets
+        "vp8_simple_filter.webp": riff_webp([(b"VP8 ", vp8_frame(
+            75, 50, 1, simple=True, level=30, sharpness=2))]),
+        "vp8_partitions8_sharp.webp": riff_webp([(b"VP8 ", vp8_frame(
+            64, 130, 2, partitions=8, sharpness=6, level=40))]),
+        "vp8_segments_deltas.webp": riff_webp([(b"VP8 ", vp8_frame(
+            90, 70, 3, segments=True, deltas=True, partitions=2))]),
+        # VP8L features PIL's writer never sets: predictor modes 0-15,
+        # indices past the palette
+        "vp8l_all_predictors.webp": riff_webp([(b"VP8L", vp8l_stream(
+            61, 37, 5, (2, 0, 1)))]),
+        "vp8l_palette5_past.webp": riff_webp([(b"VP8L", vp8l_stream(
+            45, 29, 6, (3,), colours=5))]),
+        # SPIDER: from "F" (values past 0..255, negative and fractional),
+        # big-endian, a stack
+        "logo_f32.spider": _pil(lgrey[::2, ::2].astype(np.float32) * 1.3
+                                - 20.25, "F", "SPIDER"),
+        "grid_big_endian.spider": spider_bytes(
+            ggrey[::4, ::4].astype(np.float32) * 0.9 + 0.5, ">"),
+        "logo_stack.spider": spider_bytes(
+            lgrey[::4, ::4].astype(np.float32), "<", stack=3),
+    }
+
+
 # the sets of committed files: folder -> (its files, the digests' name)
 SETS = {"formats": (files, "FORMAT_DIGESTS"),
-        "formats_b": (files_b, "FORMAT_B_DIGESTS")}
+        "formats_b": (files_b, "FORMAT_B_DIGESTS"),
+        "formats_c": (files_c, "FORMAT_C_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
-    default, or formats_b) and print its digests."""
+    default, formats_b or formats_c) and print its digests."""
     argv = sys.argv[1:] if argv is None else argv
     folder = argv[0] if argv else "formats"
     make, label = SETS[folder]
