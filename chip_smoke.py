@@ -23,13 +23,14 @@ nonzero):
 5. renders the demo at 32x32 on the card and on the CPU (plain walk) and
    compares;
 6. holds both kernels to the plain walk on every query of a 48x48, AA 3
-   frame of scenes/glass_sphere.ass at its own depths with Russian
-   roulette from refraction depth 2 (march steps with finite t_max and
-   exclude = the previous hit, roulette-dead lanes with t_max 0, launches
-   with no live lane: each kind is counted and must occur; the frame was
-   64x64 until the phase took 142-190 s of the script's 1,200, and 48x48
-   keeps every kind with 0.56x the camera rays, though the plain walk's
-   time follows its launches and their longest walks more); times the
+   frame of scenes/glass_sphere.ass at a refraction depth of 1 (the
+   scene's is 3) with Russian roulette from refraction depth 1 (march
+   steps with finite t_max and exclude = the previous hit, roulette-dead
+   lanes with t_max 0, launches with no live lane: each kind is counted
+   and must occur; the frame was 64x64 at depth 3 until the phase took
+   142-190 s of the script's 1,200; 48x48 kept the launches, whose count
+   and longest walks set the plain walk's time, and depth 1 cuts them);
+   times the
    kernels (not the plain walk: one pass takes minutes; PERF.md has it),
    checks the kernels' device time against torch.profiler's sum of their
    launches, prints the dead lanes of those queries (launches with no live
@@ -196,7 +197,22 @@ nonzero):
    lossless RGBA WebP, a lossy WebP with alpha) and frame H (a SPIDER, a
    palette lossless WebP, a quality-5 lossy WebP), each held to the plain
    walk as in 34; phases 35-36 must take 90 s at most (the lossy
-   decoder's boolean decoding is a Python loop).
+   decoder's boolean decoding is a Python loop);
+37. every committed file of scenes/data/formats_d/
+   (`tools/make_image_formats.py formats_d`: J2K and JP2 files in the five
+   progression orders, with tiles, precincts, quality layers, offsets,
+   POC and tile-parts (the cinema profiles), the 5/3 and 9/7 wavelets,
+   RCT and ICT, signed, I;16 and LA components, a palette JP2 and an ICNS
+   with a JP2 entry; an animated lossy WebP whose first frame sits inside
+   a larger canvas and an animated lossless WebP; and a 2048x2048 9/7 JP2
+   of three quality layers, its host decode on a line of its own) decoded
+   without PIL, JPEG 2000's tier-1 by the native code g++ builds there,
+   and held to the SHA-256 of PIL's decode, as in 29;
+38. the textured scene as in 30 with frame I (the 2048x2048 JP2, a
+   lossless RGBA JP2, the animated lossy WebP) and frame J (the palette
+   JP2, a tiled RPCL J2K with an image offset, the animated lossless
+   WebP), each held to the plain walk as in 34; phases 37-38 must take
+   90 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -216,8 +232,8 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_mesh` for phases 23-24, `launches_jpeg` for phase 25,
 `launches_dense` for phase 28, `launches_images` for phase 30,
 `launches_formats` for phase 32, `launches_formats_b` for phase 34,
-`launches_formats_c` for phase 36, whose sum is `launches`); the card's
-name
+`launches_formats_c` for phase 36, `launches_formats_d` for phase 38,
+whose sum is `launches`); the card's name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -245,7 +261,8 @@ SEED = 0
 GLASS = "scenes/glass_sphere.ass"
 GLASS_AA = 3
 GLASS_CHECK = 48    # width and height of the glass frame held to the walk
-GLASS_RR = 2        # roulette start of that frame (the JAX bench's)
+GLASS_CHECK_DEPTH = 1  # its GI_refraction_depth (the scene's is 3)
+GLASS_RR = 1        # its roulette start, so roulette still cuts lanes
 PROFILE_SIZE = 128  # the profiled frames: one full tile at AA 2 or 3
 GLASS_CPU = 12      # width and height of the glass CUDA vs CPU frames
 SKIN = "scenes/skin_closeup.ass"
@@ -506,6 +523,40 @@ FORMAT_C_DIGESTS = {
     "scenes/data/formats_c/vp8l_palette5_past.webp":
         "59122175770d03434c67debbcf7123f957da58924aaa0cd185767da472404a17",
 }
+FORMAT_D_DIGESTS = {
+    "scenes/data/formats_d/crop_cinema2k.j2k":
+        "b3def4a753f0baf96ff7cc4be62a815ce2ad2492b764b2eb0ae9b216e2c04d77",
+    "scenes/data/formats_d/crop_cinema4k.j2k":
+        "b3def4a753f0baf96ff7cc4be62a815ce2ad2492b764b2eb0ae9b216e2c04d77",
+    "scenes/data/formats_d/crop_cprl.j2k":
+        "3ddcc5ec4c888b7610b1739ebcbf874c67c44525ffdae54e526dedad12a059fc",
+    "scenes/data/formats_d/crop_lrcp.j2k":
+        "87b7534b86e9bbccf623fc1ed98814e831cd86642329ff59bbb7c5ef27e6a99e",
+    "scenes/data/formats_d/crop_palette.jp2":
+        "a551c82465d61e288863fa7055092bd79e32ac2d705fbbf68874994385199078",
+    "scenes/data/formats_d/crop_pcrl.j2k":
+        "d08ee73a38b5a124fc26f93e0557a0491e1bdb3da6f973e10e5b7f88d3be6146",
+    "scenes/data/formats_d/crop_rlcp.j2k":
+        "a7c653284d0564e7a53bd9e7eab1d92546a0350a66aa1e3ab8dd20f7c12e960c",
+    "scenes/data/formats_d/crop_rpcl.jp2":
+        "d11978a475ad419d42cf6bf56405f8c81079f6fcc5e8bfbd02f8963892053c10",
+    "scenes/data/formats_d/grid_anim_lossless.webp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_d/grid_jp2.icns":
+        "70842a5dae3a8d8f3733e512cb2d0355219a52c90484e9a530c56cc9f557fef1",
+    "scenes/data/formats_d/grid_tiles_rpcl.j2k":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_d/logo_anim_lossy.webp":
+        "60e6a2131de7be3b407f416f65121c3d088514cc28cd33343776114207075ddb",
+    "scenes/data/formats_d/logo_grey16.jp2":
+        "f25f028176b10ec7bb91486872f37225e5aeb087daa3f15911c22effcb511dde",
+    "scenes/data/formats_d/logo_la.jp2":
+        "7425b5387a9549f4e0a940a766156a42b7be62143b0b21e07df28a32ab0f0379",
+    "scenes/data/formats_d/logo_rgba_lossless.jp2":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_d/texture_2048.jp2":
+        "a014be28b63695fce9d6d732fc537c1567ccfecf68184666ef20e7347154043c",
+}
 # phase 30: the images put in the textured scene's three MayaFile slots
 # (the grid, the logo, the inverted logo)
 IMAGE_FRAMES = {
@@ -534,10 +585,19 @@ FORMAT_C_FRAMES = {
     "H": ("formats_c/grid_half.spider",
           "formats_c/logo_palette_lossless.webp", "formats_c/logo_q5.webp"),
 }
-FORMAT_B_CHECK = 32     # width and height of frames E to H held to the walk
+# phase 38: the same slots filled from scenes/data/formats_d
+FORMAT_D_FRAMES = {
+    "I": ("formats_d/texture_2048.jp2", "formats_d/logo_rgba_lossless.jp2",
+          "formats_d/logo_anim_lossy.webp"),
+    "J": ("formats_d/crop_palette.jp2", "formats_d/grid_tiles_rpcl.j2k",
+          "formats_d/grid_anim_lossless.webp"),
+}
+FORMAT_B_CHECK = 32     # width and height of frames E to J held to the walk
 FORMAT_PHASES_S = 60.0  # phases 31-32 together, and phases 33-34
 # phases 35-36 together: the lossy WebP's boolean decoder is Python
 FORMAT_C_PHASES_S = 90.0
+# phases 37-38 together: the 2048x2048 JP2's wavelet runs in numpy
+FORMAT_D_PHASES_S = 90.0
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -1830,6 +1890,16 @@ def format_c_phases(card: str) -> dict:
                          FORMAT_C_PHASES_S)
 
 
+def format_d_phases(card: str) -> dict:
+    """Phases 37-38: format_phases over scenes/data/formats_d (JPEG 2000,
+    with its native tier-1, and animated WebP) with frames I and J, each
+    held to the plain walk on every query of a FORMAT_B_CHECK frame,
+    within FORMAT_D_PHASES_S."""
+    return format_phases(card, "formats_d", FORMAT_D_DIGESTS,
+                         FORMAT_D_FRAMES, (37, 38), FORMAT_B_CHECK,
+                         FORMAT_D_PHASES_S)
+
+
 def same_nodes_and_leaves(a, b) -> bool:
     """Whether two builders' arrays (bbox_min, bbox_max, first, count,
     miss, order) have the same nodes and every leaf the same set of
@@ -2017,7 +2087,7 @@ def main() -> int:
     from rlshaders_tpu_torch.integrator import camera as cameramod
     from rlshaders_tpu_torch.integrator import wavefront
     from rlshaders_tpu_torch.ops import intersect as kernels
-    from rlshaders_tpu_torch.scene.build import build
+    from rlshaders_tpu_torch.scene.build import build, build_text
     from rlshaders_tpu_torch.scene.demo import demo_scene
 
     t_start = time.perf_counter()
@@ -2099,13 +2169,21 @@ def main() -> int:
         (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=32, yres=32)
     log(f"[5] phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- glass: every query of a 64x64 frame with roulette-dead lanes ----
+    # ---- glass: every query of a 48x48 frame with roulette-dead lanes, at
+    # a refraction depth of GLASS_CHECK_DEPTH (its launches, not its rays,
+    # set the plain walk's time) ----
     t0 = time.perf_counter()
     gscene = build(GLASS)
     gaccel = tracemod.build(gscene.geometry)
-    calls = capture_queries(gscene, gaccel, wavefront, tracemod,
-                            aa_samples=GLASS_AA, xres=GLASS_CHECK,
-                            yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
+    with open(GLASS) as f:
+        shallow = f.read().replace(
+            "GI_refraction_depth 3", f"GI_refraction_depth {GLASS_CHECK_DEPTH}")
+    if f"GI_refraction_depth {GLASS_CHECK_DEPTH}" not in shallow:
+        raise AssertionError(f"{GLASS} sets no GI_refraction_depth 3")
+    calls = capture_queries(
+        build_text(shallow, base_dir=os.path.dirname(GLASS)), gaccel,
+        wavefront, tracemod, aa_samples=GLASS_AA, xres=GLASS_CHECK,
+        yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
     reset(kernels)
     glass = compare(gaccel, calls, bvh, kernels)
     log(f"[6] captured and compared in {time.perf_counter() - t0:.1f} s; "
@@ -2315,6 +2393,7 @@ def main() -> int:
     format_launches = format_phases(card)
     format_b_launches = format_b_phases(card)
     format_c_launches = format_c_phases(card)
+    format_d_launches = format_d_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2350,7 +2429,7 @@ def main() -> int:
                          + mesh1[k] + mesh2[k] + jpeg_launches[k]
                          + dense["launches"][k] + image_launches[k]
                          + format_launches[k] + format_b_launches[k]
-                         + format_c_launches[k]),
+                         + format_c_launches[k] + format_d_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2372,6 +2451,7 @@ def main() -> int:
             "launches_formats": format_launches[k],
             "launches_formats_b": format_b_launches[k],
             "launches_formats_c": format_c_launches[k],
+            "launches_formats_d": format_d_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

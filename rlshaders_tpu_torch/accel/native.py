@@ -51,8 +51,8 @@ _lock = threading.Lock()
 def _compiler() -> str:
     path = shutil.which(CXX)
     if path is None:
-        raise RuntimeError(f"{CXX} not found on PATH: the native BVH "
-                           f"builder cannot be built")
+        raise RuntimeError(f"{CXX} not found on PATH: the native code "
+                           f"cannot be built")
     return path
 
 
@@ -64,22 +64,25 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     return proc
 
 
-def build(flags: tuple = CXX_FLAGS) -> str:
-    """Compile the builder if the library for this source, these flags and
-    this host is missing; returns the library's path."""
+def build(flags: tuple = CXX_FLAGS, source: str | None = None,
+          stem: str = "librls_accel") -> str:
+    """Compile `source` (SOURCE, the builder, unless another is named) if
+    the library for this source, these flags and this host is missing;
+    returns the library's path, `stem` and a digest of the three."""
     cxx = _compiler()
-    with open(SOURCE, "rb") as f:
+    source = source or SOURCE
+    with open(source, "rb") as f:
         key = hashlib.sha256(f.read())
     key.update(" ".join(flags).encode())
     # the compiler's version and the flags -march=native expands to here
     key.update(_run([cxx, "-march=native", "-E", "-v", "-x", "c++",
                      os.devnull]).stderr.encode())
-    lib = os.path.join(BUILD_DIR, f"librls_accel_{key.hexdigest()[:12]}.so")
+    lib = os.path.join(BUILD_DIR, f"{stem}_{key.hexdigest()[:12]}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    _run([cxx, *flags, "-o", tmp, SOURCE])
+    _run([cxx, *flags, "-o", tmp, source])
     os.replace(tmp, lib)
     return lib
 

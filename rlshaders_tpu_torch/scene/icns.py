@@ -7,7 +7,10 @@ an entry for, and of that size every entry PIL knows, read in PIL's
 order:
 
 * a PNG entry (ic07-ic14, icp4-icp6), decoded by png.py, which wins over
-  the others of its size;
+  the others of its size, or a JPEG 2000 entry of those types (a J2K
+  codestream or a JP2 file), which PIL opens as a file of its own and
+  converts to RGBA, decoded by jp2.py (a bare JP2 signature is no file
+  PIL opens);
 * a 24-bit RGB entry (is32, il32, ih32, and it32 after its four zero
   bytes): raw when its length is exactly three planes, else PIL's
   `read_32` run-length scheme, plane after plane (a byte n < 128 copies
@@ -17,10 +20,9 @@ order:
   drops but PIL still reads (a mask that runs past the end of the file
   raises ValueError, as there).
 
-PIL then checks the decoded size against the file's sizes; a PNG whose
-size fits none of them raises ValueError, as there. A JPEG 2000 entry
-raises NotImplementedError (the port has no JPEG 2000 decoder); other
-malformed data raises ValueError.
+PIL then checks the decoded size against the file's sizes; an image whose
+size fits none of them raises ValueError, as there. Malformed data raises
+ValueError.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import struct
 
 import numpy as np
 
-from . import png
+from . import jp2, png
 
 MAGIC = b"icns"
 _J2K = (b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")
@@ -138,9 +140,7 @@ def decode_icns(data: bytes) -> np.ndarray:
             if head.startswith(png.MAGIC):
                 got["RGBA"] = png.decode_png(data[start:])
             elif head.startswith(_J2K) or head == _J2K_BOX:
-                raise NotImplementedError(
-                    f"ICNS {kind.decode('latin-1')} entry of JPEG 2000 data "
-                    f"is not decoded by the port")
+                got["RGBA"] = jp2.decode_jpeg2000(data[start:start + length])
             else:
                 raise ValueError(f"ICNS {kind.decode('latin-1')} entry of "
                                  f"an unknown image format")

@@ -19,11 +19,12 @@ BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py and ccitt.py),
 PNM and PFM (pnm.py), PCX (pcx.py), DDS with BC1-BC7 blocks (dds.py),
 BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
 (msp.py), QOI (qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py),
-still WebP (webp.py, with vp8l.py for lossless and vp8.py for lossy
-images) and XBM (xbm.py). A format PIL opens and the port does not
-decode (JPEG 2000, AVIF, animated WebP and the rest of PIL's plugins)
-raises NotImplementedError naming it; data that no PIL plugin accepts
-raises it as an unknown format.
+WebP, still and animated (webp.py, with vp8l.py for lossless and vp8.py
+for lossy images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py
+and j2k_t1.py, whose tier-1 is native code) and XBM (xbm.py). A format
+PIL opens and the port does not decode (AVIF and the rest of PIL's
+plugins) raises NotImplementedError naming it; data that no PIL plugin
+accepts raises it as an unknown format.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
-from . import (blp, bmp, dds, gif, icns, ico, im, msp, pcx, png, pnm, qoi,
-               sgi, spider, tga, tiff, webp, xbm)
+from . import (blp, bmp, dds, gif, icns, ico, im, jp2, msp, pcx, png, pnm,
+               qoi, sgi, spider, tga, tiff, webp, xbm)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -92,8 +93,7 @@ _FORMATS = (
     ("GRIB", lambda d: d.startswith(b"GRIB") and len(d) > 7 and d[7] == 1,
      None),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
-    ("JPEG 2000", lambda d: d.startswith((
-        b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \r\n\x87\n")), None),
+    ("JPEG2000", jp2.accept, jp2.decode_jpeg2000),
     ("ICNS", lambda d: d.startswith(icns.MAGIC), icns.decode_icns),
     ("ICO", lambda d: ico.accept(d, ico.ICO_MAGIC), ico.decode_ico),
     ("IM", im.accept, im.decode_im),
@@ -141,11 +141,11 @@ def image_format(data: bytes) -> str:
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
     them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
-    JPEG, PNM and PFM, PNG, BLP, CUR, PCX, DDS, ICNS, ICO, IM, TIFF, MSP,
-    QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format raises
-    NotImplementedError (naming it and `name`), as does a mode of a
-    decoded format that is still left (an animated WebP); malformed data
-    raises ValueError."""
+    JPEG, PNM and PFM, PNG, BLP, CUR, PCX, DDS, JPEG2000, ICNS, ICO, IM,
+    TIFF, MSP, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format
+    raises NotImplementedError (naming it and `name`), as does a feature
+    of a decoded format that is still left (a JPEG 2000 code-block style
+    or sYCC file); malformed data raises ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

@@ -3,9 +3,9 @@
 The JAX package decodes textures with `Image.open(path).convert("RGB")`.
 PIL 12.1 takes a file as WebP where it starts "RIFF", then 4 bytes, then
 "WEBP" and a first chunk "VP8 ", "VP8L" or "VP8X", and reads it through
-libwebp's demuxer and animation decoder, which give it RGBA without
-premultiplying: its RGB is the image's own. `decode_webp` returns those
-bytes for a still image, checking the container as the demuxer does:
+libwebp's demuxer and animation decoder, which give it the first frame's
+RGBA without premultiplying: its RGB is the image's own. `decode_webp`
+returns those bytes, checking the container as the demuxer does:
 
 * the RIFF size is at least 8 and the file holds all of it (bytes past
   it are ignored); every chunk the demuxer reads has a size that, padded
@@ -14,24 +14,31 @@ bytes for a still image, checking the container as the demuxer does:
   vp8l.py) chunk; the demuxer reads one ALPH chunk after it (dropped)
   and the header of the next chunk, and stops there;
 * "VP8X" (at least 10 bytes: flags, 24-bit canvas width and height less
-  one) may be followed by ICCP, EXIF, XMP and unknown chunks (skipped:
-  `convert("RGB")` applies no profile) and holds one image: an optional
-  ALPH chunk (decoded where the alpha flag is set, as libwebp fails a
-  file on broken alpha, then dropped) then at once a VP8 chunk, or a
-  VP8L chunk, as large as the canvas; no flag bits outside alpha,
-  animation, ICC, EXIF and XMP.
+  one; no flag bits outside alpha, animation, ICC, EXIF and XMP) is read
+  chunk by chunk (`_demux`, libwebp's ParseVP8XChunks): ICCP, EXIF, XMP
+  and unknown chunks are skipped (`convert("RGB")` applies no profile).
+  A still file holds one image: an ALPH chunk (decoded where the alpha
+  flag is set, as libwebp fails a file on broken alpha, then dropped)
+  then at once a VP8 chunk, or a VP8L chunk, as large as the canvas. An
+  animated file (the animation flag) holds ANIM and then ANMF chunks,
+  each a frame (its offset, twice the stored one, and ALPH and VP8, or
+  VP8L, chunks); the demuxer checks every frame, its bitstream's header
+  and its place inside the canvas, before the first is drawn. That frame
+  is a key frame, drawn without blending into a zero (transparent black)
+  canvas, its ALPH chunk decoded whatever the flags; ANIM's background
+  colour is not painted and later frames are not drawn.
 
 The decoders get the image chunk with its pad byte, as libwebp's do: a
-stream of odd length may read its pad byte.
-
-An animated file (the VP8X animation flag; ANIM and ANMF chunks) raises
-NotImplementedError naming animated WebP. Malformed data raises
-ValueError.
+stream of odd length may read its pad byte. Malformed data, and an image
+past PIL's decompression bomb limit, raise ValueError.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 
+from .jp2 import MAX_PIXELS
 from .vp8 import START_CODE, decode_vp8
 from .vp8l import decode_alpha, decode_vp8l
 from .vp8l import header as _vp8l_header
@@ -40,6 +47,7 @@ KINDS = (b"VP8 ", b"VP8L", b"VP8X")
 ANIMATION, ALPHA_FLAG = 0x02, 0x10
 VALID_FLAGS = 0x3E             # alpha, animation, ICC, EXIF, XMP
 MAX_PAYLOAD = 0xFFFFFFF6
+MAX_AREA = 1 << 32             # libwebp's MAX_IMAGE_AREA
 
 
 def accept(data: bytes) -> bool:
@@ -89,6 +97,14 @@ def _size(fourcc: bytes, payload: bytes, size: int) -> tuple:
     return w, h
 
 
+def _bomb(w: int, h: int) -> None:
+    """PIL's DecompressionBombError, which its `open` raises for any
+    image past the limit."""
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"WebP image of {w}x{h} pixels: past PIL's "
+                         f"decompression bomb limit")
+
+
 def _alpha_ok(payload: bytes, w: int, h: int) -> None:
     """Where libwebp fails an ALPH chunk: its header byte, raw alpha
     shorter than the image, lossless alpha that does not decode."""
@@ -102,13 +118,6 @@ def _alpha_ok(payload: bytes, w: int, h: int) -> None:
         raise ValueError("WebP ALPH data ends early")
     if method == 1:
         decode_alpha(payload[1:], w, h)
-
-
-def _animated(fourcc: bytes) -> None:
-    if fourcc in (b"ANIM", b"ANMF"):
-        raise NotImplementedError(f"WEBP: animated WebP images (an "
-                                  f"{fourcc.decode()} chunk) are not "
-                                  f"decoded by the port")
 
 
 def decode_webp(data: bytes) -> np.ndarray:
@@ -129,7 +138,7 @@ def decode_webp(data: bytes) -> np.ndarray:
         # a simple file: the image, then at most one ALPH chunk read
         # (dropped) before the demuxer stops at the next chunk
         image = _image(data, fourcc, at, size)
-        _size(*image)
+        _bomb(*_size(*image))
         pos, alpha = _after(at, size), False
         while pos < len(data):
             fourcc, at, size = _chunk(data, pos)
@@ -142,46 +151,125 @@ def decode_webp(data: bytes) -> np.ndarray:
     flags = data[at]
     cw = 1 + int.from_bytes(data[at + 4:at + 7], "little")
     ch = 1 + int.from_bytes(data[at + 7:at + 10], "little")
-    if cw * ch >= 1 << 32:
+    if cw * ch >= MAX_AREA:
         raise ValueError("WebP canvas too large")
-    if flags & ANIMATION:
-        raise NotImplementedError("WEBP: animated WebP images are not "
-                                  "decoded by the port")
+    _bomb(cw, ch)
+    frames = _demux(data, _after(at, size), flags)
     if flags & ~VALID_FLAGS & 0xFF:
         raise ValueError(f"WebP VP8X flags {flags:#04x}")
-    pos = _after(at, size)
-    if pos >= len(data):
-        raise ValueError("WebP VP8X file holds no image")
+    animated = bool(flags & ANIMATION)
+    for f in frames:
+        if f.alpha is not None and (f.image is None
+                                    or f.alpha[0] > f.image[0]):
+            raise ValueError("WebP ALPH chunk after its image")
+        if animated:
+            if f.x + f.w > cw or f.y + f.h > ch:
+                raise ValueError("WebP frame outside its canvas")
+        elif (f.x, f.y, f.w, f.h) != (0, 0, cw, ch):
+            raise ValueError("WebP image is not the size of its canvas")
+    first = frames[0]
+    if first.alpha is not None and (animated or flags & ALPHA_FLAG):
+        _alpha_ok(data[first.alpha[1]:first.alpha[1] + first.alpha[2]],
+                  first.w, first.h)
+    rgb = _decode(*first.image[1:])
+    canvas = np.zeros((ch, cw, 3), np.uint8)
+    canvas[first.y:first.y + first.h, first.x:first.x + first.w] = rgb
+    return canvas
+
+
+class _Frame(NamedTuple):
+    """A frame the demuxer keeps: its place on the canvas and its chunks,
+    (chunk start, payload start, payload size) for ALPH and (chunk start,
+    fourcc, bitstream, chunk size) for the image."""
+    x: int
+    y: int
+    w: int
+    h: int
+    alpha: tuple
+    image: tuple
+
+
+def _frame(data: bytes, pos: int, x: int, y: int, w: int, h: int) -> tuple:
+    """libwebp's StoreFrame from pos: at most one ALPH and one image chunk
+    (VP8L not after ALPH), stopping at any other chunk. Returns (the
+    frame or None, the position after its chunks)."""
     alpha = image = None
-    while pos < len(data):
+    end = len(data)
+    if end - pos < 8:
+        raise ValueError("WebP frame ends early")
+    while pos < end:
         fourcc, at, size = _chunk(data, pos)
+        if fourcc == b"ALPH" and alpha is None:
+            alpha = (pos, at, size)
+        elif fourcc in (b"VP8 ", b"VP8L") and image is None:
+            if fourcc == b"VP8L" and alpha is not None:
+                raise ValueError("WebP VP8L image after an ALPH chunk")
+            image = (pos,) + _image(data, fourcc, at, size)
+            w, h = _size(*image[1:])
+        else:
+            break
         pos = _after(at, size)
-        _animated(fourcc)
+        if pos < end and end - pos < 8:
+            raise ValueError("WebP chunk header runs past the RIFF")
+    if alpha is None and image is None:
+        return None, pos
+    return _Frame(x, y, w, h, alpha, image), pos
+
+
+def _demux(data: bytes, pos: int, flags: int) -> list:
+    """The frames of a VP8X file as libwebp's demuxer (ParseVP8XChunks)
+    reads its chunks: a still image is one ALPH and image pair at the top
+    level, an animation an ANIM chunk and then ANMF chunks, each a frame
+    whose image chunks StoreFrame reads; ICCP, EXIF, XMP and unknown
+    chunks are skipped. Every frame is checked, however many are drawn."""
+    animated, anim, frames = bool(flags & ANIMATION), False, []
+    end = len(data)
+    if end - pos < 8:
+        raise ValueError("WebP VP8X file holds no image")
+    while pos < end:
+        fourcc, at, size = _chunk(data, pos)
+        padded = size + (size & 1)
         if fourcc == b"VP8X":
             raise ValueError("WebP file holds a second VP8X chunk")
-        if fourcc not in (b"ALPH", b"VP8 ", b"VP8L"):
-            continue                         # ICCP, EXIF, XMP and others
-        if image is not None:
-            raise ValueError("WebP file holds a second image")
-        if fourcc == b"ALPH":
-            # the frame: the image chunk must follow at once
-            alpha = data[at:at + size]
-            fourcc, at, size = _chunk(data, pos) if pos < len(data) \
-                else (b"", pos, 0)
-            if fourcc != b"VP8 ":
-                raise ValueError("WebP ALPH chunk not followed by a VP8 "
-                                 "image")
+        if fourcc in (b"ALPH", b"VP8 ", b"VP8L"):
+            if anim or animated:
+                raise ValueError("WebP animation with an image outside "
+                                 "its frames")
+            if frames:
+                raise ValueError("WebP file holds a second image")
+            frame, pos = _frame(data, pos, 0, 0, 0, 0)
+            if not flags & ALPHA_FLAG:
+                frame = frame._replace(alpha=None)
+            frames.append(frame)
+        elif fourcc == b"ANIM":
+            if padded < 6:
+                raise ValueError("WebP ANIM chunk is shorter than 6 bytes")
+            anim, pos = True, _after(at, size)
+        elif fourcc == b"ANMF":
+            if not anim:
+                raise ValueError("WebP ANMF chunk before ANIM")
+            if padded < 16:
+                raise ValueError("WebP ANMF chunk is shorter than 16 bytes")
+            x = 2 * int.from_bytes(data[at:at + 3], "little")
+            y = 2 * int.from_bytes(data[at + 3:at + 6], "little")
+            w = 1 + int.from_bytes(data[at + 6:at + 9], "little")
+            h = 1 + int.from_bytes(data[at + 9:at + 12], "little")
+            if w * h >= MAX_AREA:
+                raise ValueError("WebP frame too large")
+            if end - (at + 16) < max(8, padded - 16):
+                raise ValueError("WebP ANMF chunk ends early")
+            frame, pos = _frame(data, at + 16, x, y, w, h)
+            if pos - (at + 16) > padded - 16:
+                raise ValueError("WebP frame runs past its ANMF chunk")
+            if frame is not None and animated:
+                frames.append(frame)
+        else:
             pos = _after(at, size)
-        image = _image(data, fourcc, at, size)
-        if pos < len(data) and data[pos:pos + 4] == b"ALPH":
-            raise ValueError("WebP ALPH chunk after the image")
-    if image is None:
+        if pos < end and end - pos < 8:
+            raise ValueError("WebP chunk header runs past the RIFF")
+    if not frames:
         raise ValueError("WebP VP8X file holds no image")
-    if _size(*image) != (cw, ch):
-        raise ValueError("WebP image is not the size of its canvas")
-    if alpha is not None and flags & ALPHA_FLAG:
-        _alpha_ok(alpha, cw, ch)
-    return _decode(*image)
+    return frames
 
 
 def _decode(fourcc: bytes, payload: bytes, size: int) -> np.ndarray:

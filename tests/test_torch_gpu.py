@@ -22,13 +22,15 @@ device-to-host copy. `cli render` writes the same EXRs on the card as on
 the CPU within that tolerance, and the trace-set accels of
 `build_trace_set` have the same tables on both and the kernels the same
 hits as the CPU walk. The committed image files (scenes/data/modes and
-scenes/data/formats, formats_b and formats_c) decode on the card's
-machine, which has no PIL, to the digests of PIL's decode, and
-chip_smoke.py's frames of phases 32, 34 and 36 (a DDS, a TGA and a JPEG
-TIFF; a QOI, a PCX and a Group 4 TIFF; a BC7 and a BC6H DDS and a BLP;
-an ICO, an ICNS and an IM; a 2048x2048 lossy WebP, a lossless WebP and a
-WebP with alpha; a SPIDER, a palette WebP and a quality-5 WebP) render
-on the card as on the CPU.
+scenes/data/formats, formats_b, formats_c and formats_d) decode on the
+card's machine, which has no PIL, to the digests of PIL's decode, and
+chip_smoke.py's frames of phases 32, 34, 36 and 38 (a DDS, a TGA and a
+JPEG TIFF; a QOI, a PCX and a Group 4 TIFF; a BC7 and a BC6H DDS and a
+BLP; an ICO, an ICNS and an IM; a 2048x2048 lossy WebP, a lossless WebP
+and a WebP with alpha; a SPIDER, a palette WebP and a quality-5 WebP; a
+2048x2048 JP2, a lossless RGBA JP2 and an animated lossy WebP; a palette
+JP2, a tiled J2K and an animated lossless WebP) render on the card as on
+the CPU.
 """
 import os
 import types
@@ -918,6 +920,106 @@ def test_format_c_frames_on_the_card_match_the_cpu(cuda_device, tag):
         src = f.read()
     for old, new in zip(('"data/grid.png"', '"data/logo.png"',
                          '"data/logo.png"'), FORMAT_C_FRAMES[tag]):
+        src = src.replace(old, f'"data/{new}"', 1)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        scene = build_text(src, device=dev, base_dir="scenes")
+        assert scene.textures.n_levels.shape == (3,)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out[str(dev)] = wavefront.render(scene, trace.build(scene.geometry),
+                                         seed=0, xres=8, yres=8)
+        if dev != "cpu":
+            assert all(n > 0 for n in kernels.LAUNCHES.values())
+    for name in ("RGBA", "direct_diffuse", "indirect_diffuse",
+                 "indirect_specular"):
+        a, b = out["cuda"][name].cpu().numpy(), out["cpu"][name].numpy()
+        assert (np.abs(a - b).max(-1) <= 1e-3).mean() >= 0.98
+        assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
+    assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
+    assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+FORMAT_D_DIGESTS = {
+    "scenes/data/formats_d/crop_cinema2k.j2k":
+        "b3def4a753f0baf96ff7cc4be62a815ce2ad2492b764b2eb0ae9b216e2c04d77",
+    "scenes/data/formats_d/crop_cinema4k.j2k":
+        "b3def4a753f0baf96ff7cc4be62a815ce2ad2492b764b2eb0ae9b216e2c04d77",
+    "scenes/data/formats_d/crop_cprl.j2k":
+        "3ddcc5ec4c888b7610b1739ebcbf874c67c44525ffdae54e526dedad12a059fc",
+    "scenes/data/formats_d/crop_lrcp.j2k":
+        "87b7534b86e9bbccf623fc1ed98814e831cd86642329ff59bbb7c5ef27e6a99e",
+    "scenes/data/formats_d/crop_palette.jp2":
+        "a551c82465d61e288863fa7055092bd79e32ac2d705fbbf68874994385199078",
+    "scenes/data/formats_d/crop_pcrl.j2k":
+        "d08ee73a38b5a124fc26f93e0557a0491e1bdb3da6f973e10e5b7f88d3be6146",
+    "scenes/data/formats_d/crop_rlcp.j2k":
+        "a7c653284d0564e7a53bd9e7eab1d92546a0350a66aa1e3ab8dd20f7c12e960c",
+    "scenes/data/formats_d/crop_rpcl.jp2":
+        "d11978a475ad419d42cf6bf56405f8c81079f6fcc5e8bfbd02f8963892053c10",
+    "scenes/data/formats_d/grid_anim_lossless.webp":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_d/grid_jp2.icns":
+        "70842a5dae3a8d8f3733e512cb2d0355219a52c90484e9a530c56cc9f557fef1",
+    "scenes/data/formats_d/grid_tiles_rpcl.j2k":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_d/logo_anim_lossy.webp":
+        "60e6a2131de7be3b407f416f65121c3d088514cc28cd33343776114207075ddb",
+    "scenes/data/formats_d/logo_grey16.jp2":
+        "f25f028176b10ec7bb91486872f37225e5aeb087daa3f15911c22effcb511dde",
+    "scenes/data/formats_d/logo_la.jp2":
+        "7425b5387a9549f4e0a940a766156a42b7be62143b0b21e07df28a32ab0f0379",
+    "scenes/data/formats_d/logo_rgba_lossless.jp2":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_d/texture_2048.jp2":
+        "a014be28b63695fce9d6d732fc537c1567ccfecf68184666ef20e7347154043c",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_D_DIGESTS))
+def test_committed_image_formats_d_decode_to_their_digests(cuda_device,
+                                                           path):
+    """The JPEG 2000 and animated WebP decoders on the card's machine,
+    which has no PIL (the tier-1 of JPEG 2000 built there by g++): every
+    committed file of scenes/data/formats_d decodes to the digest of
+    PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_D_DIGESTS[path]
+
+
+# chip_smoke.py phase 38's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_D_FRAMES = {
+    "I": ("formats_d/texture_2048.jp2", "formats_d/logo_rgba_lossless.jp2",
+          "formats_d/logo_anim_lossy.webp"),
+    "J": ("formats_d/crop_palette.jp2", "formats_d/grid_tiles_rpcl.j2k",
+          "formats_d/grid_anim_lossless.webp"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_D_FRAMES))
+def test_format_d_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 38's frame (scenes/textured_disk.ass with a
+    2048x2048 9/7 JP2, a lossless RGBA JP2 and an animated lossy WebP, or
+    a palette JP2, a tiled J2K and an animated lossless WebP in its
+    texture slots) at 8x8 and its own AA 3 and GI samples: through both
+    kernels on the card, held to the CPU render with chip_smoke.py's
+    tolerance."""
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build_text
+
+    with open("scenes/textured_disk.ass") as f:
+        src = f.read()
+    for old, new in zip(('"data/grid.png"', '"data/logo.png"',
+                         '"data/logo.png"'), FORMAT_D_FRAMES[tag]):
         src = src.replace(old, f'"data/{new}"', 1)
     out = {}
     for dev in (cuda_device, "cpu"):

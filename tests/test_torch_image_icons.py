@@ -211,14 +211,13 @@ def test_icns_best_size(tmp_path):
 
 
 def test_icns_jpeg2000_is_refused():
-    """A JPEG 2000 entry, which PIL decodes through OpenJPEG: the port
-    has no JPEG 2000 decoder and names it."""
+    """A JPEG 2000 entry, which PIL decodes through OpenJPEG, refused
+    before the port decoded JPEG 2000: it now decodes as PIL does."""
     j2k = _pil(Image.fromarray(_image(128, 128, 60, 3)), "JPEG2000")
     data = fm.icns_bytes([(b"ic07", j2k)])
-    assert np.asarray(Image.open(io.BytesIO(data)).convert("RGB")).shape == (
-        128, 128, 3)
-    with pytest.raises(NotImplementedError, match="ic07.*JPEG 2000"):
-        ttex.decode_image(data)
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    assert want.shape == (128, 128, 3)
+    assert np.array_equal(ttex.decode_image(data), want)
 
 
 @pytest.mark.parametrize("cut", ["plane", "mask"])

@@ -151,13 +151,15 @@ def _dx10(dxgi: int) -> bytes:
 # when the port named it "WebP"); NOW_DECODED are those it decodes since
 OTHER_FORMATS = [("AVIF", "AVIF"), ("DDS BC7", "DDS"), ("ICO", "ICO"),
                  ("EPS", "EPS"), ("ICNS", "ICNS"), ("IM", "IM"),
-                 ("JPEG2000", "JPEG 2000"), ("BLP", "BLP"), ("MSP", "MSP"),
+                 pytest.param("JPEG2000", "JPEG2000",
+                              id="JPEG2000-JPEG 2000"),
+                 ("BLP", "BLP"), ("MSP", "MSP"),
                  ("DDS BC6H", "DDS"), ("XBM", "XBM"), ("SPIDER", "SPIDER"),
                  ("DDS BC4", "DDS"),
                  pytest.param("WEBP", "WEBP", id="WEBP-WebP")]
 _DXGI = {"DDS BC7": 98, "DDS BC6H": 95, "DDS BC4": 80}
 NOW_DECODED = {"DDS BC7", "ICO", "ICNS", "IM", "BLP", "MSP", "DDS BC6H",
-               "XBM", "DDS BC4", "SPIDER", "WEBP"}
+               "XBM", "DDS BC4", "SPIDER", "WEBP", "JPEG2000"}
 
 
 def _animated_webp_head() -> bytes:
@@ -198,19 +200,30 @@ def test_other_formats_are_named(tmp_path, fmt, name):
         assert name in ttex.image_format(f.read())
 
 
-@pytest.mark.parametrize("head,name", [
-    (b"8BPS\x00\x01", "PSD"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    # was a bare "RIFF....WEBPVP8L" head, refused before still WebP was
-    # decoded; an animated WebP is still refused
-    pytest.param(_animated_webp_head(), "WebP",
+@pytest.mark.parametrize("head,name,error", [
+    pytest.param(b"8BPS\x00\x01", "PSD", NotImplementedError,
+                 id="8BPS\x00\x01-PSD"),
+    # a JP2 signature and a VP8X chunk of an animated WebP head formats the
+    # port decodes since; followed by zeros, they are malformed, and PIL
+    # raises too
+    pytest.param(b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JP2", ValueError,
+                 id="\x00\x00\x00\x0cjP  \r\n\x87\n-JPEG 2000"),
+    pytest.param(_animated_webp_head(), "WebP", ValueError,
                  id="RIFF\x00\x00\x00\x00WEBPVP8L-WebP"),
-    (b"v/1\x01\x02\x00\x00\x00", "OpenEXR"),
-    (b"II+\x00\x08\x00\x00\x00", "BigTIFF"),
-    (b"\x00\x01\x02\x03 not an image", "an unknown format")])
-def test_signatures_name_the_format(tmp_path, head, name):
+    pytest.param(b"v/1\x01\x02\x00\x00\x00", "OpenEXR", NotImplementedError,
+                 id="v/1\x01\x02\x00\x00\x00-OpenEXR"),
+    pytest.param(b"II+\x00\x08\x00\x00\x00", "BigTIFF", NotImplementedError,
+                 id="II+\x00\x08\x00\x00\x00-BigTIFF"),
+    pytest.param(b"\x00\x01\x02\x03 not an image", "an unknown format",
+                 NotImplementedError,
+                 id="\x00\x01\x02\x03 not an image-an unknown format")])
+def test_signatures_name_the_format(tmp_path, head, name, error):
     path = tmp_path / "x.bin"
     path.write_bytes(head + bytes(200))
-    with pytest.raises(NotImplementedError, match=name):
+    if error is ValueError:
+        with pytest.raises(Exception):
+            Image.open(path).convert("RGB")
+    with pytest.raises(error, match=name):
         ttex.load_image(str(path))
 
 

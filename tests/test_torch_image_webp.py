@@ -375,8 +375,9 @@ def test_broken_alpha_agrees_with_pil(kind):
 
 
 def test_animated_webp_is_refused():
-    """An animated WebP (VP8X with the animation flag, ANIM and ANMF) is
-    named and refused; PIL opens it."""
+    """An animated WebP (VP8X with the animation flag, ANIM and ANMF),
+    refused before the port decoded animations: its first frame decodes
+    as PIL's does (tests/test_torch_image_webp_anim.py has the rest)."""
     frames = [Image.fromarray(np.full((8, 8, 3), v, np.uint8))
               for v in (10, 200)]
     buf = io.BytesIO()
@@ -384,8 +385,7 @@ def test_animated_webp_is_refused():
     data = buf.getvalue()
     assert Image.open(io.BytesIO(data)).n_frames == 2
     assert ttex.image_format(data) == "WEBP"
-    with pytest.raises(NotImplementedError, match="animated WebP"):
-        ttex.decode_image(data)
+    assert np.array_equal(ttex.decode_image(data), _pil(data))
 
 
 def test_what_pil_does_not_take_for_webp():

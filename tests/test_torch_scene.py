@@ -140,11 +140,11 @@ def test_unported_features_raise(snippet, what, tmp_path):
 
 
 def test_still_unported_raise(tmp_path):
-    """Image formats the port does not decode raise (an animated WebP, a
-    JPEG 2000); a baseline JPEG, a progressive JPEG, a GIF, a TGA, an IM
-    and a lossless WebP build, each to the same texels. Trace sets
-    build: the floor's triangles carry the set's bit 8, the others
-    none."""
+    """An image format the port does not decode raises (AVIF); a baseline
+    JPEG, a progressive JPEG, a GIF, a TGA, an IM, a lossless WebP, an
+    animated WebP (its first frame) and a JPEG 2000 build, each to the
+    same texels. Trace sets build: the floor's triangles carry the set's
+    bit 8, the others none."""
     from PIL import Image
 
     base = _nested(tmp_path)
@@ -164,8 +164,10 @@ def test_still_unported_raise(tmp_path):
     for name, kw in (("t.jpg", {}), ("p.jpg", {"progressive": True}),
                      ("t.gif", {}), ("t.tga", {}), ("t.im", {}),
                      ("t.jp2", {}), ("s.webp", {"lossless": True}),
-                     ("t.webp", {"save_all": True, "append_images": [
-                         Image.fromarray(np.full((4, 4, 3), 9, np.uint8))]})):
+                     ("t.webp", {"save_all": True, "lossless": True,
+                                 "append_images": [Image.fromarray(
+                                     np.full((4, 4, 3), 9, np.uint8))]}),
+                     ("t.avif", {})):
         img.save(os.path.join(base, name), **kw)
     src = (src.replace('shader "mat_floor"', 'shader "m"', 1)
            + 'standard\n{\n name m\n Kd_color "tex"\n}\n'
@@ -175,13 +177,12 @@ def test_still_unported_raise(tmp_path):
     for name in ("p.jpg", "t.gif"):
         other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data, scene.textures.data), name
-    for name in ("t.tga", "t.im", "s.webp"):
+    for name in ("t.tga", "t.im", "s.webp", "t.webp", "t.jp2"):
         other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data,
                            torch.full((21, 3), 200 / 255)), name
-    for name, what in (("t.webp", "WebP"), ("t.jp2", "JPEG 2000")):
-        with pytest.raises(NotImplementedError, match=what):
-            tbuild.build_text(src % name, device="cpu", base_dir=base)
+    with pytest.raises(NotImplementedError, match="AVIF"):
+        tbuild.build_text(src % "t.avif", device="cpu", base_dir=base)
 
 
 @pytest.mark.parametrize("where", ["suite/data", "nowhere"])

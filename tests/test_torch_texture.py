@@ -266,10 +266,10 @@ def test_png_filters(tmp_path, filt, channels):
 
 
 def test_other_formats_raise(tmp_path):
-    """A GIF, a grey PNG, a TGA, an IM and a WebP, refused before their
-    slices, now decode as PIL does; an animated WebP and a JPEG 2000,
-    which PIL opens and the port does not decode, raise
-    NotImplementedError naming their format."""
+    """A GIF, a grey PNG, a TGA, an IM, a WebP, an animated WebP and a
+    JPEG 2000, refused before their slices, now decode as PIL does; an
+    AVIF, which PIL opens and the port does not decode, raises
+    NotImplementedError naming its format."""
     img = Image.fromarray(np.random.default_rng(3).integers(
         0, 256, (4, 4, 3), dtype=np.uint8))
     for name, save in (("x.gif", img), ("g.png", img.convert("L")),
@@ -277,15 +277,19 @@ def test_other_formats_raise(tmp_path):
         save.save(tmp_path / name)
         assert np.array_equal(ttex.load_image(str(tmp_path / name)),
                               jtex.load_image(str(tmp_path / name), 1.0))
-    for name, fmt, what, kw in (
-            ("a.webp", "WEBP", "animated WebP", {
+    for name, fmt, kw in (
+            ("a.webp", "WEBP", {
                 "save_all": True,
                 "append_images": [img.transpose(Image.Transpose.ROTATE_90)]}),
-            ("x.jp2", "JPEG2000", "JPEG 2000", {})):
+            ("x.jp2", "JPEG2000", {})):
         img.save(tmp_path / name, fmt, **kw)
         assert Image.open(tmp_path / name).format == fmt
-        with pytest.raises(NotImplementedError, match=what):
-            ttex.load_image(str(tmp_path / name))
+        assert np.array_equal(ttex.load_image(str(tmp_path / name)),
+                              jtex.load_image(str(tmp_path / name), 1.0))
+    img.save(tmp_path / "x.avif", "AVIF")
+    assert Image.open(tmp_path / "x.avif").format == "AVIF"
+    with pytest.raises(NotImplementedError, match="AVIF"):
+        ttex.load_image(str(tmp_path / "x.avif"))
 
 
 # ---------------------------------------------------------------------------

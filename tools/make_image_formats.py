@@ -1679,15 +1679,173 @@ def files_c() -> dict:
     }
 
 
+def j2k_boxes(kind: bytes, body: bytes) -> bytes:
+    """A JP2 box: its length, its type, its body."""
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def jp2_wrap(codestream: bytes, w: int, h: int, nc: int, extra: bytes = b"",
+             colr: bytes = b"\x01\x00\x00\x00\x00\x00\x10",
+             bpc: int = 7) -> bytes:
+    """A JP2 file around a J2K codestream: signature, file type, a header
+    box of ihdr, colr (sRGB by default, None for none) and `extra` boxes,
+    then the codestream box. PIL writes no palette boxes, so palette files
+    are built here around PIL's codestream."""
+    ihdr = struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0)
+    head = j2k_boxes(b"ihdr", ihdr) + (
+        j2k_boxes(b"colr", colr) if colr is not None else b"") + extra
+    return (j2k_boxes(b"jP  ", b"\r\n\x87\n")
+            + j2k_boxes(b"ftyp", b"jp2 \x00\x00\x00\x00jp2 ")
+            + j2k_boxes(b"jp2h", head) + j2k_boxes(b"jp2c", codestream))
+
+
+def pclr_cmap(palette: np.ndarray) -> bytes:
+    """A JP2 palette box ((n, 3 or 4) uint8 entries, 8 bits each) and the
+    component mapping box that sends component 0 through every column."""
+    n, cols = palette.shape
+    pclr = struct.pack(">HB", n, cols) + bytes([7] * cols) + bytes(
+        np.asarray(palette, np.uint8).ravel())
+    cmap = b"".join(struct.pack(">HBB", 0, 1, i) for i in range(cols))
+    return j2k_boxes(b"pclr", pclr) + j2k_boxes(b"cmap", cmap)
+
+
+def jp2_palette(rgb: np.ndarray, colours: int, **kw) -> bytes:
+    """`rgb` quantized to `colours` colours as a JP2 file of palette
+    indices (PIL's lossless codestream of them as "L") with its pclr and
+    cmap boxes."""
+    from PIL import Image
+    q = Image.fromarray(rgb).quantize(colours, dither=0)
+    pal = np.asarray(q.getpalette()[:3 * colours], np.uint8).reshape(-1, 3)
+    idx = np.asarray(q)
+    stream = _pil(idx, "L", "JPEG2000", no_jp2=True, **kw)
+    return jp2_wrap(stream, idx.shape[1], idx.shape[0], 1, pclr_cmap(pal))
+
+
+def webp_chunks(data: bytes) -> list:
+    """[(fourcc, payload)] of a WebP file's chunks."""
+    out, pos = [], 12
+    while pos < len(data):
+        kind, n = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((kind, data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def anmf(x: int, y: int, w: int, h: int, chunks: list, duration: int = 100,
+         bits: int = 0) -> bytes:
+    """An ANMF payload: the frame's place (x and y even), size, duration
+    and blend and dispose bits, then its image chunks."""
+    head = b"".join((v).to_bytes(3, "little") for v in (
+        x // 2, y // 2, w - 1, h - 1, duration)) + bytes([bits])
+    return head + b"".join(k + struct.pack("<I", len(p)) + p
+                           + b"\x00" * (len(p) & 1) for k, p in chunks)
+
+
+def animated_webp(w: int, h: int, flags: int, frames: list,
+                  background: int = 0xFF404040) -> bytes:
+    """An animated WebP: VP8X (the animation flag and `flags`), ANIM and
+    one ANMF chunk for each payload of `frames`."""
+    return riff_webp([(b"VP8X", vp8x_chunk(w, h, 0x02 | flags)),
+                      (b"ANIM", struct.pack("<IH", background, 0))]
+                     + [(b"ANMF", f) for f in frames])
+
+
+def big_jp2() -> bytes:
+    """The 2048x2048 texture of make_image_modes as JPEG 2000 as cinema and
+    archive plates ship: the 9/7 wavelet, the ICT, three quality layers
+    (compression 200, 100 and 50), about 250 KB."""
+    return _pil(modes.big_texture(), "RGB", "JPEG2000", irreversible=True,
+                mct=1, quality_layers=[200, 100, 50])
+
+
+def files_d() -> dict:
+    """{name in scenes/data/formats_d: bytes} of every committed file:
+    JPEG 2000 (J2K and JP2 files and an ICNS entry) as PIL writes it, a
+    palette JP2 around PIL's codestream, and animated WebP, one file PIL
+    writes and one built here with its first frame inside a larger
+    canvas."""
+    from PIL import Image
+    grid, logo = modes._png_pixels("grid.png"), modes._png_pixels("logo.png")
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    lgrey = np.asarray(Image.fromarray(logo).convert("L"))
+    crop = modes.big_texture()[600:728, 900:1028]          # 128x128
+    odd = crop[:97, :75]
+    grey16 = (lgrey.astype(np.uint16) * 3 // 2
+              + np.arange(300, dtype=np.uint16)[None] % 7)
+    la = np.stack([lgrey, np.where(lgrey > 100, 255, 70).astype(np.uint8)],
+                  -1)
+    ainv = lrgba.copy()
+    ainv[..., 3] = np.where(lgrey > 100, 255, 90)          # half see-through
+    still = webp_chunks(_pil(ainv[::2, ::2], "RGBA", "WEBP", quality=70))
+    lossy = [c for c in still if c[0] in (b"ALPH", b"VP8 ")]
+    second = webp_chunks(_pil(logo[::4, ::4], "RGB", "WEBP", lossless=True))
+    frames = [Image.fromarray(np.roll(grid, 37 * k, axis=1)).convert("RGB")
+              for k in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:],
+                   lossless=True, duration=80)
+    return {
+        # frame I
+        "texture_2048.jp2": big_jp2(),
+        "logo_rgba_lossless.jp2": _pil(lrgba, "RGBA", "JPEG2000", mct=1),
+        "logo_anim_lossy.webp": animated_webp(190, 130, 0x10, [
+            anmf(20, 14, 150, 100, lossy),
+            anmf(0, 0, 75, 50, [c for c in second if c[0] == b"VP8L"])]),
+        # frame J
+        "crop_palette.jp2": jp2_palette(crop, 200),
+        "grid_tiles_rpcl.j2k": _pil(
+            grid, "RGB", "JPEG2000", no_jp2=True, tile_size=(96, 80),
+            tile_offset=(3, 2), offset=(7, 5), progression="RPCL",
+            num_resolutions=4),
+        "grid_anim_lossless.webp": buf.getvalue(),
+        # I;16 (clamped to 255 by convert("RGB")) and LA
+        "logo_grey16.jp2": _pil(grey16, "I;16", "JPEG2000"),
+        "logo_la.jp2": _pil(la, "LA", "JPEG2000", irreversible=True),
+        # the five progression orders, with precincts, code-blocks of
+        # 16 or 32, quality layers, odd sizes and an image offset
+        "crop_lrcp.j2k": _pil(odd, "RGB", "JPEG2000", no_jp2=True,
+                              irreversible=True, mct=1, quality_mode="dB",
+                              quality_layers=[30, 38, 45],
+                              codeblock_size=(16, 16),
+                              precinct_size=(64, 64)),
+        "crop_rlcp.j2k": _pil(odd, "RGB", "JPEG2000", no_jp2=True,
+                              progression="RLCP", quality_layers=[20, 5, 1],
+                              codeblock_size=(32, 16), num_resolutions=3),
+        "crop_rpcl.jp2": _pil(odd, "RGB", "JPEG2000", progression="RPCL",
+                              irreversible=True, precinct_size=(32, 32),
+                              codeblock_size=(16, 16), offset=(3, 9),
+                              tile_size=(128, 128)),
+        "crop_pcrl.j2k": _pil(crop, "RGB", "JPEG2000", no_jp2=True,
+                              progression="PCRL", mct=1,
+                              precinct_size=(64, 32), tile_size=(64, 64),
+                              quality_layers=[8, 2], plt=True),
+        "crop_cprl.j2k": _pil(odd, "RGB", "JPEG2000", no_jp2=True,
+                              progression="CPRL", signed=True,
+                              precinct_size=(32, 32), comment="CPRL"),
+        # the digital cinema profiles Pillow accepts for 8 bits: tile-parts
+        # and TLM, POC for 4K
+        "crop_cinema2k.j2k": _pil(crop[:48, :64], "RGB", "JPEG2000",
+                                  no_jp2=True, cinema_mode="cinema2k-24"),
+        "crop_cinema4k.j2k": _pil(crop[:48, :64], "RGB", "JPEG2000",
+                                  no_jp2=True, cinema_mode="cinema4k-24"),
+        # ICNS with a JP2 entry (ic08, 256x256)
+        "grid_jp2.icns": icns_bytes([
+            (b"is32", icns_rgb(grid[::16, ::16], rle=False)),
+            (b"ic08", _pil(grid, "RGB", "JPEG2000", irreversible=True,
+                           quality_layers=[20]))]),
+    }
+
+
 # the sets of committed files: folder -> (its files, the digests' name)
 SETS = {"formats": (files, "FORMAT_DIGESTS"),
         "formats_b": (files_b, "FORMAT_B_DIGESTS"),
-        "formats_c": (files_c, "FORMAT_C_DIGESTS")}
+        "formats_c": (files_c, "FORMAT_C_DIGESTS"),
+        "formats_d": (files_d, "FORMAT_D_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
-    default, formats_b or formats_c) and print its digests."""
+    default, formats_b, formats_c or formats_d) and print its digests."""
     argv = sys.argv[1:] if argv is None else argv
     folder = argv[0] if argv else "formats"
     make, label = SETS[folder]
