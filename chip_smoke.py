@@ -212,7 +212,21 @@ nonzero):
    lossless RGBA JP2, the animated lossy WebP) and frame J (the palette
    JP2, a tiled RPCL J2K with an image offset, the animated lossless
    WebP), each held to the plain walk as in 34; phases 37-38 must take
-   90 s at most.
+   90 s at most;
+39. every committed file of scenes/data/formats_e/
+   (`tools/make_image_formats.py formats_e`: still AVIF as PIL writes it,
+   AV1 intra frames in each subsampling, full and limited range, quality
+   0 to 100 (lossless), speed 0 to 10, explicit and automatic tiles,
+   RGBA with and without premultiplied alpha, palette and intra block
+   copy, CDEF, delta q and lf, loop restoration, 1x1 and 17x33 sizes,
+   ICC, EXIF and XMP; and a 2048x2048 AVIF of 4x2 tiles, its host decode
+   on a line of its own) decoded without PIL, the AV1 tiles by the native
+   code g++ builds there, and held to the SHA-256 of PIL's decode, as in
+   29;
+40. the textured scene as in 30 with frame K (the 2048x2048 AVIF, an RGBA
+   AVIF, a premultiplied RGBA AVIF) and frame L (a lossless 4:4:4 AVIF, a
+   4:0:0 AVIF with alpha, a limited-range 4:2:2 AVIF), each held to the
+   plain walk as in 34; phases 39-40 must take 60 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -233,7 +247,7 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_dense` for phase 28, `launches_images` for phase 30,
 `launches_formats` for phase 32, `launches_formats_b` for phase 34,
 `launches_formats_c` for phase 36, `launches_formats_d` for phase 38,
-whose sum is `launches`); the card's name
+`launches_formats_e` for phase 40, whose sum is `launches`); the card's name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -585,6 +599,54 @@ FORMAT_C_FRAMES = {
     "H": ("formats_c/grid_half.spider",
           "formats_c/logo_palette_lossless.webp", "formats_c/logo_q5.webp"),
 }
+FORMAT_E_DIGESTS = {
+    "scenes/data/formats_e/gradient_q5_speed0.avif":
+        "a65dfe44180ed4d5158089ca582b9f192dfbf46a187f8a3a0c8c4ff95d1b0c5b",
+    "scenes/data/formats_e/grid_lossless_444.avif":
+        "9927901a567a92477ea7dbab1bf36de9a766f2dac7f81699245b5224e3801964",
+    "scenes/data/formats_e/grid_mirrored.avif":
+        "3058ca2c12802b89b74121d47cb77bfd4eed67b0aea3ac6c40fd3fe0ea148a93",
+    "scenes/data/formats_e/grid_q50.avif":
+        "ad7980f1eb83fd37879d56a2069acfd5a9af12abef273e6f46d8ac1600ce87fb",
+    "scenes/data/formats_e/grid_speed0.avif":
+        "6a29efe6998ae66201cae83baf00d14f911c67ab12fdf4e83d9b646470fdbb73",
+    "scenes/data/formats_e/logo_grey_400.avif":
+        "ab4446635cd496cfa7a2c79898d822b09c77ef0c63426e1f36201878179ff0bc",
+    "scenes/data/formats_e/logo_icc_exif_xmp.avif":
+        "b72cfc58763ceb21e1d1e6b7315349afbb55afd10b340ad38fa073de99ad67ca",
+    "scenes/data/formats_e/logo_limited_422.avif":
+        "92ccd65b7b5b354b164693712b0d3d5dd6b549e7472fef9574b731a5c0269699",
+    "scenes/data/formats_e/logo_premultiplied.avif":
+        "8951e7ac20430acf1716b39d8be1395057c9eb658b0b5232eb33370b61f1f207",
+    "scenes/data/formats_e/logo_rgba.avif":
+        "b72cfc58763ceb21e1d1e6b7315349afbb55afd10b340ad38fa073de99ad67ca",
+    "scenes/data/formats_e/odd_17x33.avif":
+        "14660b5b38e6d59a3c7cf4c66f28d048f66952e2643e2301db05b5d30543c231",
+    "scenes/data/formats_e/odd_17x33_rgba.avif":
+        "1b0c27fee17fe01c5e186a9b6fc8eb73912f9d3e58f5c04a1a1671b0c5a6936d",
+    "scenes/data/formats_e/photo_420_q0.avif":
+        "d1ac0b77e996fe974010a48ce7a45f537cae758150dc4aff975682ca0af9fe95",
+    "scenes/data/formats_e/photo_422_q50.avif":
+        "2f1dfa7a4004d7b123d4f4c1bff910f48e456d3e83de995eb300e20c16ea7692",
+    "scenes/data/formats_e/photo_444_limited.avif":
+        "300ada87c0de466103e8c44529b1be69d52de2739ecaed6dd4910bdacf752a4c",
+    "scenes/data/formats_e/photo_cdef.avif":
+        "aec5a13c3deb61e3a89ac7be969ece00cda50fbd211bf6dfe51fea748301f893",
+    "scenes/data/formats_e/photo_deltaq_lf.avif":
+        "2554931d1db0c95153fcd417123dcacc8befc4224c976dfcaf2f018ee5635e6c",
+    "scenes/data/formats_e/photo_lossless.avif":
+        "51e2b527262cea421fb4bb663d45f3de2c0d2296090737792a4c4f1f20ec94fb",
+    "scenes/data/formats_e/photo_restoration.avif":
+        "3a882b2c72bf1c6b84ecd263f81f4bc45d9673c3bb15cc62b613e24ba7d4eba6",
+    "scenes/data/formats_e/photo_speed0.avif":
+        "515f89fb1a77c6f1d3d750fd8ab5a7adafa29444c326d58c851808932bab6bd7",
+    "scenes/data/formats_e/photo_tiles.avif":
+        "b22954c607b3ec2f73025ce383c45f1b6acce61eb747d4c1b79eb7acc24358cc",
+    "scenes/data/formats_e/px_1x1.avif":
+        "c08134ad48cdadc7fa6e9e810e6588cf28f84b996b45ddc95205986f0372539e",
+    "scenes/data/formats_e/texture_2048.avif":
+        "210b19f6374af4dd11eca0f429689d9d126e0f832e27e135cb15376fc8e12662",
+}
 # phase 38: the same slots filled from scenes/data/formats_d
 FORMAT_D_FRAMES = {
     "I": ("formats_d/texture_2048.jp2", "formats_d/logo_rgba_lossless.jp2",
@@ -592,12 +654,21 @@ FORMAT_D_FRAMES = {
     "J": ("formats_d/crop_palette.jp2", "formats_d/grid_tiles_rpcl.j2k",
           "formats_d/grid_anim_lossless.webp"),
 }
-FORMAT_B_CHECK = 32     # width and height of frames E to J held to the walk
+# phase 40: the same slots filled from scenes/data/formats_e
+FORMAT_E_FRAMES = {
+    "K": ("formats_e/texture_2048.avif", "formats_e/logo_rgba.avif",
+          "formats_e/logo_premultiplied.avif"),
+    "L": ("formats_e/grid_lossless_444.avif", "formats_e/logo_grey_400.avif",
+          "formats_e/logo_limited_422.avif"),
+}
+FORMAT_B_CHECK = 32     # width and height of frames E to L held to the walk
 FORMAT_PHASES_S = 60.0  # phases 31-32 together, and phases 33-34
 # phases 35-36 together: the lossy WebP's boolean decoder is Python
 FORMAT_C_PHASES_S = 90.0
 # phases 37-38 together: the 2048x2048 JP2's wavelet runs in numpy
 FORMAT_D_PHASES_S = 90.0
+# phases 39-40 together: the AV1 tiles decode in native code
+FORMAT_E_PHASES_S = 60.0
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -1900,6 +1971,16 @@ def format_d_phases(card: str) -> dict:
                          FORMAT_D_PHASES_S)
 
 
+def format_e_phases(card: str) -> dict:
+    """Phases 39-40: format_phases over scenes/data/formats_e (still AVIF,
+    its AV1 tiles decoded by native code) with frames K and L, each held
+    to the plain walk on every query of a FORMAT_B_CHECK frame, within
+    FORMAT_E_PHASES_S."""
+    return format_phases(card, "formats_e", FORMAT_E_DIGESTS,
+                         FORMAT_E_FRAMES, (39, 40), FORMAT_B_CHECK,
+                         FORMAT_E_PHASES_S)
+
+
 def same_nodes_and_leaves(a, b) -> bool:
     """Whether two builders' arrays (bbox_min, bbox_max, first, count,
     miss, order) have the same nodes and every leaf the same set of
@@ -2394,6 +2475,7 @@ def main() -> int:
     format_b_launches = format_b_phases(card)
     format_c_launches = format_c_phases(card)
     format_d_launches = format_d_phases(card)
+    format_e_launches = format_e_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2429,7 +2511,8 @@ def main() -> int:
                          + mesh1[k] + mesh2[k] + jpeg_launches[k]
                          + dense["launches"][k] + image_launches[k]
                          + format_launches[k] + format_b_launches[k]
-                         + format_c_launches[k] + format_d_launches[k]),
+                         + format_c_launches[k] + format_d_launches[k]
+                         + format_e_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2452,6 +2535,7 @@ def main() -> int:
             "launches_formats_b": format_b_launches[k],
             "launches_formats_c": format_c_launches[k],
             "launches_formats_d": format_d_launches[k],
+            "launches_formats_e": format_e_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -21,10 +21,11 @@ BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
 (msp.py), QOI (qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py),
 WebP, still and animated (webp.py, with vp8l.py for lossless and vp8.py
 for lossy images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py
-and j2k_t1.py, whose tier-1 is native code) and XBM (xbm.py). A format
-PIL opens and the port does not decode (AVIF and the rest of PIL's
-plugins) raises NotImplementedError naming it; data that no PIL plugin
-accepts raises it as an unknown format.
+and j2k_t1.py, whose tier-1 is native code), still AVIF (avif.py, with
+av1.py, whose tile decoder is native code) and XBM (xbm.py). A format PIL
+opens and the port does not decode (PSD and the rest of PIL's plugins)
+raises NotImplementedError naming it; data that no PIL plugin accepts
+raises it as an unknown format.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
-from . import (blp, bmp, dds, gif, icns, ico, im, jp2, msp, pcx, png, pnm,
-               qoi, sgi, spider, tga, tiff, webp, xbm)
+from . import (avif, blp, bmp, dds, gif, icns, ico, im, jp2, msp, pcx, png,
+               pnm, qoi, sgi, spider, tga, tiff, webp, xbm)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -76,8 +77,7 @@ _FORMATS = (
     ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), decode_jpeg),
     ("PPM", pnm.header_ok, pnm.decode_pnm),
     ("PNG", lambda d: d.startswith(png.MAGIC), decode_png),
-    ("AVIF", lambda d: d[4:8] == b"ftyp" and d[8:12] in (
-        b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("AVIF", avif.accept, avif.decode_avif),
     ("BLP", lambda d: d[:4] in blp.MAGICS, blp.decode_blp),
     ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
     ("CUR", lambda d: ico.accept(d, ico.CUR_MAGIC), ico.decode_cur),
@@ -141,11 +141,12 @@ def image_format(data: bytes) -> str:
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
     them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
-    JPEG, PNM and PFM, PNG, BLP, CUR, PCX, DDS, JPEG2000, ICNS, ICO, IM,
-    TIFF, MSP, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format
+    JPEG, PNM and PFM, PNG, AVIF, BLP, CUR, PCX, DDS, JPEG2000, ICNS, ICO,
+    IM, TIFF, MSP, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format
     raises NotImplementedError (naming it and `name`), as does a feature
     of a decoded format that is still left (a JPEG 2000 code-block style
-    or sYCC file); malformed data raises ValueError."""
+    or sYCC file, AVIF quantizer matrices, film grain, sequences and
+    grids); malformed data raises ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

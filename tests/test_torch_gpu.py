@@ -22,15 +22,18 @@ device-to-host copy. `cli render` writes the same EXRs on the card as on
 the CPU within that tolerance, and the trace-set accels of
 `build_trace_set` have the same tables on both and the kernels the same
 hits as the CPU walk. The committed image files (scenes/data/modes and
-scenes/data/formats, formats_b, formats_c and formats_d) decode on the
-card's machine, which has no PIL, to the digests of PIL's decode, and
-chip_smoke.py's frames of phases 32, 34, 36 and 38 (a DDS, a TGA and a
+scenes/data/formats, formats_b, formats_c, formats_d and formats_e)
+decode on the card's machine, which has no PIL, to the digests of PIL's
+decode, and chip_smoke.py's frames of phases 32, 34, 36, 38 and 40 (a
+DDS, a TGA and a
 JPEG TIFF; a QOI, a PCX and a Group 4 TIFF; a BC7 and a BC6H DDS and a
 BLP; an ICO, an ICNS and an IM; a 2048x2048 lossy WebP, a lossless WebP
 and a WebP with alpha; a SPIDER, a palette WebP and a quality-5 WebP; a
 2048x2048 JP2, a lossless RGBA JP2 and an animated lossy WebP; a palette
-JP2, a tiled J2K and an animated lossless WebP) render on the card as on
-the CPU.
+JP2, a tiled J2K and an animated lossless WebP; a 2048x2048 AVIF, an
+RGBA AVIF and a premultiplied one; a lossless 4:4:4 AVIF, a 4:0:0 AVIF
+with alpha and a limited-range 4:2:2 AVIF) render on the card as on the
+CPU.
 """
 import os
 import types
@@ -1012,6 +1015,12 @@ def test_format_d_frames_on_the_card_match_the_cpu(cuda_device, tag):
     texture slots) at 8x8 and its own AA 3 and GI samples: through both
     kernels on the card, held to the CPU render with chip_smoke.py's
     tolerance."""
+    _frame_matches_the_cpu(cuda_device, FORMAT_D_FRAMES[tag])
+
+
+def _frame_matches_the_cpu(cuda_device, images):
+    """The textured scene with `images` in its three MayaFile slots at 8x8
+    on the card (both kernels launched) and the CPU, held together."""
     from rlshaders_tpu_torch.integrator import wavefront
     from rlshaders_tpu_torch.ops import intersect as kernels
     from rlshaders_tpu_torch.scene.build import build_text
@@ -1019,7 +1028,7 @@ def test_format_d_frames_on_the_card_match_the_cpu(cuda_device, tag):
     with open("scenes/textured_disk.ass") as f:
         src = f.read()
     for old, new in zip(('"data/grid.png"', '"data/logo.png"',
-                         '"data/logo.png"'), FORMAT_D_FRAMES[tag]):
+                         '"data/logo.png"'), images):
         src = src.replace(old, f'"data/{new}"', 1)
     out = {}
     for dev in (cuda_device, "cpu"):
@@ -1038,3 +1047,91 @@ def test_format_d_frames_on_the_card_match_the_cpu(cuda_device, tag):
         assert abs(a.mean() - b.mean()) <= 2e-3 * abs(b.mean())
     assert float(out["cuda"]["direct_diffuse"].mean()) > 0.0
     assert out["cuda"]["__stats__"] == out["cpu"]["__stats__"]
+
+
+FORMAT_E_DIGESTS = {
+    "scenes/data/formats_e/gradient_q5_speed0.avif":
+        "a65dfe44180ed4d5158089ca582b9f192dfbf46a187f8a3a0c8c4ff95d1b0c5b",
+    "scenes/data/formats_e/grid_lossless_444.avif":
+        "9927901a567a92477ea7dbab1bf36de9a766f2dac7f81699245b5224e3801964",
+    "scenes/data/formats_e/grid_mirrored.avif":
+        "3058ca2c12802b89b74121d47cb77bfd4eed67b0aea3ac6c40fd3fe0ea148a93",
+    "scenes/data/formats_e/grid_q50.avif":
+        "ad7980f1eb83fd37879d56a2069acfd5a9af12abef273e6f46d8ac1600ce87fb",
+    "scenes/data/formats_e/grid_speed0.avif":
+        "6a29efe6998ae66201cae83baf00d14f911c67ab12fdf4e83d9b646470fdbb73",
+    "scenes/data/formats_e/logo_grey_400.avif":
+        "ab4446635cd496cfa7a2c79898d822b09c77ef0c63426e1f36201878179ff0bc",
+    "scenes/data/formats_e/logo_icc_exif_xmp.avif":
+        "b72cfc58763ceb21e1d1e6b7315349afbb55afd10b340ad38fa073de99ad67ca",
+    "scenes/data/formats_e/logo_limited_422.avif":
+        "92ccd65b7b5b354b164693712b0d3d5dd6b549e7472fef9574b731a5c0269699",
+    "scenes/data/formats_e/logo_premultiplied.avif":
+        "8951e7ac20430acf1716b39d8be1395057c9eb658b0b5232eb33370b61f1f207",
+    "scenes/data/formats_e/logo_rgba.avif":
+        "b72cfc58763ceb21e1d1e6b7315349afbb55afd10b340ad38fa073de99ad67ca",
+    "scenes/data/formats_e/odd_17x33.avif":
+        "14660b5b38e6d59a3c7cf4c66f28d048f66952e2643e2301db05b5d30543c231",
+    "scenes/data/formats_e/odd_17x33_rgba.avif":
+        "1b0c27fee17fe01c5e186a9b6fc8eb73912f9d3e58f5c04a1a1671b0c5a6936d",
+    "scenes/data/formats_e/photo_420_q0.avif":
+        "d1ac0b77e996fe974010a48ce7a45f537cae758150dc4aff975682ca0af9fe95",
+    "scenes/data/formats_e/photo_422_q50.avif":
+        "2f1dfa7a4004d7b123d4f4c1bff910f48e456d3e83de995eb300e20c16ea7692",
+    "scenes/data/formats_e/photo_444_limited.avif":
+        "300ada87c0de466103e8c44529b1be69d52de2739ecaed6dd4910bdacf752a4c",
+    "scenes/data/formats_e/photo_cdef.avif":
+        "aec5a13c3deb61e3a89ac7be969ece00cda50fbd211bf6dfe51fea748301f893",
+    "scenes/data/formats_e/photo_deltaq_lf.avif":
+        "2554931d1db0c95153fcd417123dcacc8befc4224c976dfcaf2f018ee5635e6c",
+    "scenes/data/formats_e/photo_lossless.avif":
+        "51e2b527262cea421fb4bb663d45f3de2c0d2296090737792a4c4f1f20ec94fb",
+    "scenes/data/formats_e/photo_restoration.avif":
+        "3a882b2c72bf1c6b84ecd263f81f4bc45d9673c3bb15cc62b613e24ba7d4eba6",
+    "scenes/data/formats_e/photo_speed0.avif":
+        "515f89fb1a77c6f1d3d750fd8ab5a7adafa29444c326d58c851808932bab6bd7",
+    "scenes/data/formats_e/photo_tiles.avif":
+        "b22954c607b3ec2f73025ce383c45f1b6acce61eb747d4c1b79eb7acc24358cc",
+    "scenes/data/formats_e/px_1x1.avif":
+        "c08134ad48cdadc7fa6e9e810e6588cf28f84b996b45ddc95205986f0372539e",
+    "scenes/data/formats_e/texture_2048.avif":
+        "210b19f6374af4dd11eca0f429689d9d126e0f832e27e135cb15376fc8e12662",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_E_DIGESTS))
+def test_committed_image_formats_e_decode_to_their_digests(cuda_device,
+                                                           path):
+    """The AVIF decoder on the card's machine, which has no PIL (its AV1
+    tile decoder built there by g++): every committed file of
+    scenes/data/formats_e decodes to the digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_E_DIGESTS[path]
+
+
+# chip_smoke.py phase 40's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_E_FRAMES = {
+    "K": ("formats_e/texture_2048.avif", "formats_e/logo_rgba.avif",
+          "formats_e/logo_premultiplied.avif"),
+    "L": ("formats_e/grid_lossless_444.avif", "formats_e/logo_grey_400.avif",
+          "formats_e/logo_limited_422.avif"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_E_FRAMES))
+def test_format_e_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 40's frame (scenes/textured_disk.ass with a
+    2048x2048 AVIF, an RGBA AVIF and a premultiplied one, or a lossless
+    4:4:4 AVIF, a 4:0:0 AVIF with alpha and a limited-range 4:2:2 AVIF in
+    its texture slots) at 8x8 and its own AA 3 and GI samples: through
+    both kernels on the card, held to the CPU render with chip_smoke.py's
+    tolerance."""
+    _frame_matches_the_cpu(cuda_device, FORMAT_E_FRAMES[tag])

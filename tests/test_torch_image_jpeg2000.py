@@ -603,10 +603,14 @@ def test_refused_features_are_named(feature, message):
 
 
 def test_avif_is_refused():
-    """AVIF, which PIL opens through libavif, stays refused by name."""
+    """AVIF, which PIL opens through libavif, is decoded since; an AVIF
+    with quantizer matrices (aom's enable-qm), which PIL opens too, stays
+    refused by name."""
     buf = io.BytesIO()
-    Image.fromarray(_image(16, 16, 3, 11)).save(buf, "AVIF")
-    with pytest.raises(NotImplementedError, match="AVIF"):
+    Image.fromarray(_image(16, 16, 3, 11)).save(
+        buf, "AVIF", quality=60, advanced={"enable-qm": "1"})
+    assert isinstance(pil_outcome(buf.getvalue()), np.ndarray)
+    with pytest.raises(NotImplementedError, match="quantizer matrices"):
         ttex.decode_image(buf.getvalue())
 
 

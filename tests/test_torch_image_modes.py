@@ -159,7 +159,7 @@ OTHER_FORMATS = [("AVIF", "AVIF"), ("DDS BC7", "DDS"), ("ICO", "ICO"),
                  pytest.param("WEBP", "WEBP", id="WEBP-WebP")]
 _DXGI = {"DDS BC7": 98, "DDS BC6H": 95, "DDS BC4": 80}
 NOW_DECODED = {"DDS BC7", "ICO", "ICNS", "IM", "BLP", "MSP", "DDS BC6H",
-               "XBM", "DDS BC4", "SPIDER", "WEBP", "JPEG2000"}
+               "XBM", "DDS BC4", "SPIDER", "WEBP", "JPEG2000", "AVIF"}
 
 
 def _animated_webp_head() -> bytes:

@@ -181,8 +181,18 @@ def test_still_unported_raise(tmp_path):
         other = tbuild.build_text(src % name, device="cpu", base_dir=base)
         assert torch.equal(other.textures.data,
                            torch.full((21, 3), 200 / 255)), name
-    with pytest.raises(NotImplementedError, match="AVIF"):
-        tbuild.build_text(src % "t.avif", device="cpu", base_dir=base)
+    # an AVIF (lossy YUV) builds to the texels of PIL's decode of it, as a
+    # PNG of that decode does; a PSD, which PIL opens and the port does
+    # not decode, raises NotImplementedError naming it
+    Image.open(os.path.join(base, "t.avif")).convert("RGB").save(
+        os.path.join(base, "avif.png"))
+    other = tbuild.build_text(src % "t.avif", device="cpu", base_dir=base)
+    png = tbuild.build_text(src % "avif.png", device="cpu", base_dir=base)
+    assert torch.equal(other.textures.data, png.textures.data)
+    with open(os.path.join(base, "t.psd"), "wb") as f:
+        f.write(b"8BPS\x00\x01" + bytes(40))
+    with pytest.raises(NotImplementedError, match="PSD"):
+        tbuild.build_text(src % "t.psd", device="cpu", base_dir=base)
 
 
 @pytest.mark.parametrize("where", ["suite/data", "nowhere"])

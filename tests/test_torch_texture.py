@@ -266,9 +266,9 @@ def test_png_filters(tmp_path, filt, channels):
 
 
 def test_other_formats_raise(tmp_path):
-    """A GIF, a grey PNG, a TGA, an IM, a WebP, an animated WebP and a
-    JPEG 2000, refused before their slices, now decode as PIL does; an
-    AVIF, which PIL opens and the port does not decode, raises
+    """A GIF, a grey PNG, a TGA, an IM, a WebP, an animated WebP, a JPEG
+    2000 and an AVIF, refused before their slices, now decode as PIL does;
+    a PSD, which PIL opens and the port does not decode, raises
     NotImplementedError naming its format."""
     img = Image.fromarray(np.random.default_rng(3).integers(
         0, 256, (4, 4, 3), dtype=np.uint8))
@@ -288,8 +288,11 @@ def test_other_formats_raise(tmp_path):
                               jtex.load_image(str(tmp_path / name), 1.0))
     img.save(tmp_path / "x.avif", "AVIF")
     assert Image.open(tmp_path / "x.avif").format == "AVIF"
-    with pytest.raises(NotImplementedError, match="AVIF"):
-        ttex.load_image(str(tmp_path / "x.avif"))
+    assert np.array_equal(ttex.load_image(str(tmp_path / "x.avif")),
+                          jtex.load_image(str(tmp_path / "x.avif"), 1.0))
+    (tmp_path / "x.psd").write_bytes(b"8BPS\x00\x01" + bytes(40))
+    with pytest.raises(NotImplementedError, match="PSD"):
+        ttex.load_image(str(tmp_path / "x.psd"))
 
 
 # ---------------------------------------------------------------------------

@@ -1836,16 +1836,115 @@ def files_d() -> dict:
     }
 
 
+def _avif(px: np.ndarray, mode: str, **kw) -> bytes:
+    """PIL's AVIF of the pixels with one encoder thread: aom's bytes
+    depend on its thread count, which Pillow takes from the host's cores
+    unless it is given."""
+    return _pil(px, mode, "AVIF", max_threads=1, **kw)
+
+
+def big_avif() -> bytes:
+    """The content of texture_2048.jp2 (PIL's decode of it) as AVIF at
+    PIL's defaults (quality 75, speed 6, 4:2:0, autotiling: 4x2 tiles of
+    128x128 superblocks), about 390 KB."""
+    from PIL import Image
+    src = os.path.join(modes.DATA, "formats_d", "texture_2048.jp2")
+    return _avif(np.asarray(Image.open(src).convert("RGB")), "RGB")
+
+
+def _exif(orientation: int) -> bytes:
+    from PIL import Image
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    return exif.tobytes()
+
+
+def files_e() -> dict:
+    """{name in scenes/data/formats_e: bytes} of every committed file: still
+    AVIF as PIL 12.1 writes it through its documented options (quality,
+    speed, subsampling, range, tiles, RGBA with and without premultiplied
+    alpha, ICC, EXIF, XMP), and through `advanced` aom options that make
+    aom use the coding tools its defaults leave out here (CDEF, delta q
+    and lf, loop restoration of each kind), so that the files reach every
+    intra tool aom writes."""
+    from PIL import Image
+    grid = modes._png_pixels("grid.png")
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    crop = np.asarray(Image.open(os.path.join(
+        modes.DATA, "formats_d", "texture_2048.jp2")).convert("RGB"))
+    photo = crop[600:856, 900:1156]                         # 256x256
+    odd = photo[:33, :17]
+    ramp = np.arange(256)
+    gradient = np.stack(np.broadcast_arrays(
+        ramp[None, :], ramp[:, None], (ramp[None, :] + ramp[:, None]) // 2),
+        -1).astype(np.uint8)
+    icc = Image.open(os.path.join(modes.DATA, "logo.png")).info.get("icc")
+    return {
+        # frame K
+        "texture_2048.avif": big_avif(),
+        "logo_rgba.avif": _avif(lrgba, "RGBA"),
+        "logo_premultiplied.avif": _avif(lrgba, "RGBA",
+                                         alpha_premultiplied=True),
+        # frame L
+        "grid_lossless_444.avif": _avif(grid, "RGB", quality=100,
+                                        subsampling="4:4:4"),
+        "logo_grey_400.avif": _avif(lrgba, "RGBA", subsampling="4:0:0"),
+        "logo_limited_422.avif": _avif(lrgba[..., :3], "RGB",
+                                       subsampling="4:2:2",
+                                       range="limited"),
+        # flat colour at aom's screen-content speeds: palette, intra copy
+        "grid_speed0.avif": _avif(grid, "RGB", speed=0, quality=60),
+        "grid_q50.avif": _avif(grid, "RGB", quality=50),
+        # the subsamplings, range, quality and speed extremes, tiles
+        "photo_420_q0.avif": _avif(photo, "RGB", quality=0),
+        "photo_422_q50.avif": _avif(photo, "RGB", quality=50,
+                                    subsampling="4:2:2", speed=2),
+        "photo_444_limited.avif": _avif(photo, "RGB", quality=70,
+                                        subsampling="4:4:4",
+                                        range="limited", speed=10),
+        "photo_lossless.avif": _avif(photo[:64, :96], "RGB", quality=100),
+        "photo_speed0.avif": _avif(photo, "RGB", quality=40, speed=0),
+        "photo_tiles.avif": _avif(crop[:512, :1024], "RGB", quality=60,
+                                  tile_rows=1, tile_cols=2,
+                                  autotiling=False),
+        # a smooth gradient at aom's lowest quality: 64x64 transforms
+        "gradient_q5_speed0.avif": _avif(gradient, "RGB", quality=5,
+                                         speed=0),
+        # sizes
+        "px_1x1.avif": _avif(photo[:1, :1], "RGB"),
+        "odd_17x33.avif": _avif(odd, "RGB", quality=60),
+        "odd_17x33_rgba.avif": _avif(np.dstack([odd, odd[..., 0]]), "RGBA",
+                                     quality=60, subsampling="4:2:2"),
+        # metadata: ICC, EXIF with an orientation (irot/imir), XMP
+        "logo_icc_exif_xmp.avif": _avif(
+            lrgba, "RGBA", icc_profile=icc or b"", exif=_exif(6),
+            xmp=b"<x:xmpmeta xmlns:x='adobe:ns:meta/'/>"),
+        "grid_mirrored.avif": _avif(grid, "RGB", exif=_exif(2)),
+        # aom tools its defaults do not reach here
+        "photo_cdef.avif": _avif(photo, "RGB", quality=35, speed=2,
+                                 advanced={"enable-cdef": "1"}),
+        "photo_deltaq_lf.avif": _avif(photo, "RGB", quality=45, speed=4,
+                                      advanced={"enable-cdef": "1",
+                                                "deltaq-mode": "2",
+                                                "delta-lf-mode": "1"}),
+        "photo_restoration.avif": _avif(crop[:320, :320], "RGB",
+                                        quality=25, speed=0,
+                                        advanced={"enable-cdef": "1"}),
+    }
+
+
 # the sets of committed files: folder -> (its files, the digests' name)
 SETS = {"formats": (files, "FORMAT_DIGESTS"),
         "formats_b": (files_b, "FORMAT_B_DIGESTS"),
         "formats_c": (files_c, "FORMAT_C_DIGESTS"),
-        "formats_d": (files_d, "FORMAT_D_DIGESTS")}
+        "formats_d": (files_d, "FORMAT_D_DIGESTS"),
+        "formats_e": (files_e, "FORMAT_E_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
-    default, formats_b, formats_c or formats_d) and print its digests."""
+    default, formats_b, formats_c, formats_d or formats_e) and print its
+    digests."""
     argv = sys.argv[1:] if argv is None else argv
     folder = argv[0] if argv else "formats"
     make, label = SETS[folder]
