@@ -226,7 +226,22 @@ nonzero):
 40. the textured scene as in 30 with frame K (the 2048x2048 AVIF, an RGBA
    AVIF, a premultiplied RGBA AVIF) and frame L (a lossless 4:4:4 AVIF, a
    4:0:0 AVIF with alpha, a limited-range 4:2:2 AVIF), each held to the
-   plain walk as in 34; phases 39-40 must take 60 s at most.
+   plain walk as in 34; phases 39-40 must take 60 s at most;
+41. every file of scenes/bombs/ (`tools/make_image_formats.py bombs`: a
+   header-only file past PIL's decompression-bomb limit for each of the
+   23 formats the port decodes, and a whole 1-bit PNG of 13,380 x 13,380
+   pixels) raises ValueError naming the limit, before a pixel is
+   decoded; then every committed file of scenes/data/formats_f/
+   (`tools/make_image_formats.py formats_f`: AVIF with quantizer
+   matrices, film grain, PIL's image sequences and hand-built grids, with
+   alpha, at each subsampling and odd sizes; a 2048x2048 AVIF with film
+   grain and a 2048x2048 grid of four 1024x1024 tiles) decoded without
+   PIL and held to the SHA-256 of PIL's decode, as in 29;
+42. the textured scene as in 30 with frame M (the 2048x2048 film-grain
+   AVIF, an RGBA image sequence, a quantizer-matrix AVIF) and frame N
+   (the 2048x2048 grid, a 4:4:4 quantizer-matrix AVIF with alpha, an
+   odd-size film-grain AVIF with chroma scaled from luma), each held to
+   the plain walk as in 34; phases 41-42 must take 60 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -247,7 +262,8 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_dense` for phase 28, `launches_images` for phase 30,
 `launches_formats` for phase 32, `launches_formats_b` for phase 34,
 `launches_formats_c` for phase 36, `launches_formats_d` for phase 38,
-`launches_formats_e` for phase 40, whose sum is `launches`); the card's name
+`launches_formats_e` for phase 40, `launches_formats_f` for phase 42,
+whose sum is `launches`); the card's name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
 """
@@ -647,6 +663,60 @@ FORMAT_E_DIGESTS = {
     "scenes/data/formats_e/texture_2048.avif":
         "210b19f6374af4dd11eca0f429689d9d126e0f832e27e135cb15376fc8e12662",
 }
+FORMAT_F_DIGESTS = {
+    "scenes/data/formats_f/grid_1x2.avif":
+        "4cda93acb42cca558449a6fc48354f5f8116ff3135b506cd57ed5aa12abb47ab",
+    "scenes/data/formats_f/grid_2x1.avif":
+        "33be1b6896c0ba723780ef918bc0fd6906abd772aabbdfd7becffb8f5f18e828",
+    "scenes/data/formats_f/grid_2x2_cropped.avif":
+        "6886ca3db68212615dd3962a209014a7b372786c312099329f06590376071c8a",
+    "scenes/data/formats_f/grid_3x3_odd_444.avif":
+        "4e176f242aa7944d1e7ec0ebde359ec14ed2440db9834935bc3a546800da4532",
+    "scenes/data/formats_f/grid_rgba.avif":
+        "4cda93acb42cca558449a6fc48354f5f8116ff3135b506cd57ed5aa12abb47ab",
+    "scenes/data/formats_f/logo_odd_grain_csfl.avif":
+        "481ba2dcd2d831403f7ec90cc655ab9c1344f474f13f1b5deecde01bcb20a4cc",
+    "scenes/data/formats_f/logo_qm.avif":
+        "32508286ffaa50cb15b23ac6f60c9ba5deebf3372e4a0e62ab02b843cd790b7c",
+    "scenes/data/formats_f/logo_qm_444_rgba.avif":
+        "eee4402423d3b47289070e9175b13d8b8496c7c349ff3d43d269140fd4ed6cb4",
+    "scenes/data/formats_f/logo_sequence_rgba.avif":
+        "999d40dd536917ae5514b6e157c3edf3aa973eea80463efd9c91e2aeea744616",
+    "scenes/data/formats_f/odd_grain_rgba.avif":
+        "6b0bd06bf8cc777e93b9eb55e2ef8321e61913bf73c262de83a155563b60381c",
+    "scenes/data/formats_f/odd_sequence_444.avif":
+        "c749309b8426ef3236c01a449931919acde463ea68e2603fa60277af02ac19ca",
+    "scenes/data/formats_f/photo_grain_400.avif":
+        "713d8a3993c086cd37bfe70b17ae26b088065ec7d745a8ea77948de936668214",
+    "scenes/data/formats_f/photo_grain_422.avif":
+        "512e87ac6776b2a52918c0efa21cd9fd830ec0056e476abe1ec7bf17675513f8",
+    "scenes/data/formats_f/photo_grain_444.avif":
+        "b21119363ded0beeeaef21ec44763b9c04cef1053ab89428a3f3f8d2cd6034ce",
+    "scenes/data/formats_f/photo_grain_clip.avif":
+        "f36071a2c800bb077cb1b2c68b66517dbec9721fb9fdc926fc057811c3a2c364",
+    "scenes/data/formats_f/photo_qm_400.avif":
+        "808e69ebf7d9224847e0182314141bc3597b9967ac8c64163edb961aa54c4615",
+    "scenes/data/formats_f/photo_qm_420.avif":
+        "bcc0ae35ed3733be5684af866a85f0241f66cf943085cd969585948b708cd3bd",
+    "scenes/data/formats_f/photo_qm_422.avif":
+        "cd7758235b1acb21eb2a745a9d469c34887e2f266b754ee0960a1dada8cb5d3d",
+    "scenes/data/formats_f/photo_sequence.avif":
+        "0ec148a6755f03fd8bfe2d47bdb6be9fa88d9c1dead0bd3ea140f81961484e53",
+    "scenes/data/formats_f/px_1x1_grain.avif":
+        "80a028b2c605ce3d66961dd721d658e3bddee02cf044551efcaa22f75114a3b0",
+    "scenes/data/formats_f/texture_2048_grain.avif":
+        "af4a350fae10b0ce0e1103989a02869359e853e7e0fb4b40be4e77aa7dcf874c",
+    "scenes/data/formats_f/texture_2048_grid.avif":
+        "3bd3102b7f03bb1098a67c9e9deba700bedf05c81cde670d133137e19d41fb54",
+}
+# phase 41: the header-only files past PIL's decompression-bomb limit
+BOMBS = "scenes/bombs"
+BOMB_FILES = ("avif.bomb", "blp.bomb", "bmp.bomb", "cur.bomb", "dds.bomb",
+              "dib.bomb", "gif.bomb", "icns.bomb", "ico.bomb", "im.bomb",
+              "jpeg.bomb", "jpeg2000.bomb", "msp.bomb", "pcx.bomb",
+              "png.bomb", "png_whole.bomb", "ppm.bomb", "qoi.bomb",
+              "sgi.bomb", "spider.bomb", "tga.bomb", "tiff.bomb",
+              "webp.bomb", "xbm.bomb")
 # phase 38: the same slots filled from scenes/data/formats_d
 FORMAT_D_FRAMES = {
     "I": ("formats_d/texture_2048.jp2", "formats_d/logo_rgba_lossless.jp2",
@@ -661,7 +731,15 @@ FORMAT_E_FRAMES = {
     "L": ("formats_e/grid_lossless_444.avif", "formats_e/logo_grey_400.avif",
           "formats_e/logo_limited_422.avif"),
 }
-FORMAT_B_CHECK = 32     # width and height of frames E to L held to the walk
+# phase 42: the same slots filled from scenes/data/formats_f
+FORMAT_F_FRAMES = {
+    "M": ("formats_f/texture_2048_grain.avif",
+          "formats_f/logo_sequence_rgba.avif", "formats_f/logo_qm.avif"),
+    "N": ("formats_f/texture_2048_grid.avif",
+          "formats_f/logo_qm_444_rgba.avif",
+          "formats_f/logo_odd_grain_csfl.avif"),
+}
+FORMAT_B_CHECK = 32     # width and height of frames E to N held to the walk
 FORMAT_PHASES_S = 60.0  # phases 31-32 together, and phases 33-34
 # phases 35-36 together: the lossy WebP's boolean decoder is Python
 FORMAT_C_PHASES_S = 90.0
@@ -669,6 +747,8 @@ FORMAT_C_PHASES_S = 90.0
 FORMAT_D_PHASES_S = 90.0
 # phases 39-40 together: the AV1 tiles decode in native code
 FORMAT_E_PHASES_S = 60.0
+# phases 41-42 together, the bomb files included
+FORMAT_F_PHASES_S = 60.0
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -1981,6 +2061,56 @@ def format_e_phases(card: str) -> dict:
                          FORMAT_E_PHASES_S)
 
 
+def bomb_phase(card: str) -> None:
+    """Phase 41's first part: every file of BOMBS, each past PIL's
+    decompression-bomb limit, raises ValueError naming the limit (PIL
+    raises DecompressionBombError), without a pixel decoded."""
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    t0 = time.perf_counter()
+    names = sorted(os.listdir(BOMBS))
+    if tuple(names) != BOMB_FILES:
+        raise AssertionError(f"[41] {BOMBS} holds {names}, expected "
+                             f"{BOMB_FILES}")
+    for name in names:
+        with open(f"{BOMBS}/{name}", "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        try:
+            decode_image(data)
+        except ValueError as e:
+            if "decompression bomb limit" not in str(e):
+                raise AssertionError(f"[41] {name}: {e}") from None
+            dt = (time.perf_counter() - t1) * 1e3
+            log(f"[41] {BOMBS}/{name}: {len(data)} B -> ValueError in "
+                f"{dt:.2f} ms (host): {e}")
+        else:
+            raise AssertionError(f"[41] {name} decodes; PIL refuses it as "
+                                 f"a decompression bomb")
+    log(f"[41] {len(names)} bomb files refused in "
+        f"{time.perf_counter() - t0:.2f} s; {card}")
+
+
+def format_f_phases(card: str) -> dict:
+    """Phases 41-42: the bomb files (bomb_phase), then format_phases over
+    scenes/data/formats_f (quantizer matrices, film grain, image
+    sequences and grids) with frames M and N, each held to the plain walk
+    on every query of a FORMAT_B_CHECK frame, all within
+    FORMAT_F_PHASES_S."""
+    t0 = time.perf_counter()
+    bomb_phase(card)
+    launches = format_phases(card, "formats_f", FORMAT_F_DIGESTS,
+                             FORMAT_F_FRAMES, (41, 42), FORMAT_B_CHECK,
+                             FORMAT_F_PHASES_S)
+    took = time.perf_counter() - t0
+    log(f"[42] phases 41-42 with the bomb files {took:.1f} s (at most "
+        f"{FORMAT_F_PHASES_S} s); {card}")
+    if took > FORMAT_F_PHASES_S:
+        raise AssertionError(f"[42] phases 41-42 took {took:.1f} s, more "
+                             f"than {FORMAT_F_PHASES_S} s")
+    return launches
+
+
 def same_nodes_and_leaves(a, b) -> bool:
     """Whether two builders' arrays (bbox_min, bbox_max, first, count,
     miss, order) have the same nodes and every leaf the same set of
@@ -2476,6 +2606,7 @@ def main() -> int:
     format_c_launches = format_c_phases(card)
     format_d_launches = format_d_phases(card)
     format_e_launches = format_e_phases(card)
+    format_f_launches = format_f_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2512,7 +2643,7 @@ def main() -> int:
                          + dense["launches"][k] + image_launches[k]
                          + format_launches[k] + format_b_launches[k]
                          + format_c_launches[k] + format_d_launches[k]
-                         + format_e_launches[k]),
+                         + format_e_launches[k] + format_f_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2536,6 +2667,7 @@ def main() -> int:
             "launches_formats_c": format_c_launches[k],
             "launches_formats_d": format_d_launches[k],
             "launches_formats_e": format_e_launches[k],
+            "launches_formats_f": format_f_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -5,21 +5,22 @@ sequence of OBUs: a sequence header, then a frame (or a frame header and
 its tile groups). This module reads the OBU headers and sizes, the
 sequence header (reduced still-picture or full, with colour config and
 operating points), the uncompressed frame header of an intra frame
-(quantizer and delta q, segmentation, delta lf, loop filter, CDEF and
-loop restoration parameters, tx mode, reduced tx set, intra block copy)
-and the tile info (uniform or explicit spacing) and tile groups, as the
-AV1 specification (sections 5.3-5.11) lays them out and dav1d reads them.
+(quantizer and delta q, quantizer matrix levels, segmentation, delta
+lf, loop filter, CDEF and loop restoration parameters, tx mode, reduced
+tx set, intra block copy, film grain) and the tile info (uniform or
+explicit spacing) and tile groups, as the AV1 specification (sections
+5.3-5.11) lays them out and dav1d reads them.
 
 The tiles themselves are decoded by native code, `csrc/av1.cpp`
-(entropy decoding, prediction, reconstruction and the three in-loop
-filters), compiled by g++ at first use into `rlshaders_tpu_torch/build/`
-and bound with ctypes, as `j2k_t1.py` binds its tier-1; a missing
-compiler or a failed compile raises. `decode_frame` returns the 8-bit Y,
-U and V planes.
+(entropy decoding, prediction, dequantization with the quantizer
+matrices, reconstruction, the three in-loop filters and dav1d's film
+grain synthesis), compiled by g++ at first use into
+`rlshaders_tpu_torch/build/` and bound with ctypes, as `j2k_t1.py` binds
+its tier-1; a missing compiler or a failed compile raises.
+`decode_frame` returns the 8-bit Y, U and V planes.
 
-Quantizer matrices, film grain, superres and bit depths other than 8
-raise NotImplementedError naming the feature; a malformed stream raises
-ValueError.
+Superres and bit depths other than 8 raise NotImplementedError naming
+the feature; a malformed stream raises ValueError.
 """
 from __future__ import annotations
 
@@ -54,7 +55,8 @@ FIELDS = (
     ("enable_intra_edge_filter", 1), ("disable_cdf_update", 1),
     ("allow_screen_content_tools", 1), ("allow_intrabc", 1),
     ("base_q_idx", 1), ("dq_y_dc", 1), ("dq_u_dc", 1), ("dq_u_ac", 1),
-    ("dq_v_dc", 1), ("dq_v_ac", 1), ("seg_enabled", 1),
+    ("dq_v_dc", 1), ("dq_v_ac", 1), ("qm_y", 1), ("qm_u", 1), ("qm_v", 1),
+    ("seg_enabled", 1),
     ("seg_feature_enabled", 64), ("seg_feature_data", 64),
     ("seg_id_pre_skip", 1), ("last_active_seg_id", 1),
     ("delta_q_present", 1), ("delta_q_res", 1), ("delta_lf_present", 1),
@@ -67,7 +69,16 @@ FIELDS = (
     ("tile_cols_log2", 1), ("tile_rows_log2", 1),
     ("mi_col_starts", 65), ("mi_row_starts", 65), ("coded_lossless", 1),
     ("all_lossless", 1), ("matrix_coefficients", 1),
+    ("apply_grain", 1), ("grain_seed", 1), ("num_y_points", 1),
+    ("y_points", 28), ("chroma_scaling_from_luma", 1), ("num_uv_points", 2),
+    ("uv_points", 40), ("scaling_shift", 1), ("ar_coeff_lag", 1),
+    ("ar_coeffs_y", 24), ("ar_coeffs_uv", 50), ("ar_coeff_shift", 1),
+    ("grain_scale_shift", 1), ("uv_mult", 2), ("uv_luma_mult", 2),
+    ("uv_offset", 2), ("overlap_flag", 1), ("clip_to_restricted_range", 1),
 )
+# the film grain parameters, zero where a frame has none
+GRAIN = {name: 0 if n == 1 else [0] * n for name, n in FIELDS[FIELDS.index(
+    ("apply_grain", 1)):]}
 # TxMode values
 ONLY_4X4, TX_MODE_LARGEST, TX_MODE_SELECT = 0, 1, 2
 
@@ -132,9 +143,7 @@ def obus(data: bytes):
     """Yield (type, temporal_id, spatial_id, payload start, payload end)."""
     at = 0
     while at < len(data):
-        h = data[at]
-        if h & 0x80:
-            raise ValueError("AV1 OBU forbidden bit set")
+        h = data[at]  # dav1d ignores the forbidden bit (not strict)
         typ, ext, has_size = (h >> 3) & 15, (h >> 2) & 1, (h >> 1) & 1
         at += 1
         tid = sid = 0
@@ -303,6 +312,7 @@ def frame_header(r: BitReader, s: dict, tid: int = 0, sid: int = 0) -> dict:
             error_resilient = r.f(1)
     if frame_type not in (KEY_FRAME, INTRA_ONLY_FRAME):
         raise ValueError("AV1 still picture's first frame is not intra")
+    h["frame_type"] = frame_type
     h["show_frame"], h["showable"] = show_frame, showable
     h["disable_cdf_update"] = r.f(1)
     sct = r.f(1) if s["force_sct"] == SELECT else s["force_sct"]
@@ -412,9 +422,11 @@ def frame_header(r: BitReader, s: dict, tid: int = 0, sid: int = 0) -> dict:
             h["dq_v_dc"], h["dq_v_ac"] = _delta_q(r), _delta_q(r)
         else:
             h["dq_v_dc"], h["dq_v_ac"] = h["dq_u_dc"], h["dq_u_ac"]
-    if r.f(1):
-        raise NotImplementedError(
-            "AV1 quantizer matrices are not decoded by the port")
+    # quantizer matrix levels; 15 is flat (no matrix)
+    h["qm_y"] = h["qm_u"] = h["qm_v"] = 15
+    if r.f(1):  # using_qmatrix
+        h["qm_y"], h["qm_u"] = r.f(4), r.f(4)
+        h["qm_v"] = r.f(4) if s["separate_uv_delta_q"] else h["qm_u"]
     # segmentation_params
     en = [0] * 64
     data = [0] * 64
@@ -521,20 +533,76 @@ def frame_header(r: BitReader, s: dict, tid: int = 0, sid: int = 0) -> dict:
     else:
         h["tx_mode"] = TX_MODE_SELECT if r.f(1) else TX_MODE_LARGEST
     h["reduced_tx_set"] = r.f(1)
-    # film_grain_params
-    if s["film_grain_params_present"] and (show_frame or showable):
-        if r.f(1):
-            raise NotImplementedError(
-                "AV1 film grain is not decoded by the port")
+    h.update(GRAIN)
+    if s["film_grain_params_present"] and (show_frame or showable) and \
+            r.f(1):
+        h.update(film_grain_params(r, s))
     return h
 
 
-def parse(data: bytes) -> tuple:
+def film_grain_params(r: BitReader, s: dict) -> dict:
+    """film_grain_params (5.9.30) of an intra frame with apply_grain set
+    (update_grain is 1), with dav1d's checks: at most 14 luma and 10
+    chroma scaling points in increasing order, and both or neither chroma
+    plane scaled at 4:2:0."""
+    g = {"apply_grain": 1, "grain_seed": r.f(16)}
+
+    def points(most):
+        n = r.f(4)
+        if n > most:
+            raise ValueError("AV1 film grain has too many scaling points")
+        pts = []
+        for i in range(n):
+            x = r.f(8)
+            if i and pts[-1][0] >= x:
+                raise ValueError("AV1 film grain scaling points out of order")
+            pts.append((x, r.f(8)))
+        return n, [v for p in pts for v in p]
+
+    g["num_y_points"], g["y_points"] = points(14)
+    csfl = 0 if s["mono"] else r.f(1)
+    g["chroma_scaling_from_luma"] = csfl
+    n_uv, uv = [0, 0], [[], []]
+    if not (s["mono"] or csfl or (s["ss_x"] and s["ss_y"]
+                                  and not g["num_y_points"])):
+        for pl in range(2):
+            n_uv[pl], uv[pl] = points(10)
+    if s["ss_x"] and s["ss_y"] and bool(n_uv[0]) != bool(n_uv[1]):
+        raise ValueError("AV1 film grain scales one chroma plane of 4:2:0")
+    g["num_uv_points"] = n_uv
+    g["uv_points"] = (uv[0] + [0] * 20)[:20] + uv[1]
+    g["scaling_shift"] = r.f(2) + 8
+    lag = g["ar_coeff_lag"] = r.f(2)
+    n_pos = 2 * lag * (lag + 1)
+    if g["num_y_points"]:
+        g["ar_coeffs_y"] = [r.f(8) - 128 for _ in range(n_pos)]
+    coeffs_uv = [[0] * 25, [0] * 25]
+    for pl in range(2):
+        if n_uv[pl] or csfl:
+            n = n_pos + (1 if g["num_y_points"] else 0)
+            coeffs_uv[pl][:n] = [r.f(8) - 128 for _ in range(n)]
+    g["ar_coeffs_uv"] = coeffs_uv[0] + coeffs_uv[1]
+    g["ar_coeff_shift"] = r.f(2) + 6
+    g["grain_scale_shift"] = r.f(2)
+    g["uv_mult"], g["uv_luma_mult"], g["uv_offset"] = [0, 0], [0, 0], [0, 0]
+    for pl in range(2):
+        if n_uv[pl]:
+            g["uv_mult"][pl] = r.f(8) - 128
+            g["uv_luma_mult"][pl] = r.f(8) - 128
+            g["uv_offset"][pl] = r.f(9) - 256
+    g["overlap_flag"] = r.f(1)
+    g["clip_to_restricted_range"] = r.f(1)
+    return g
+
+
+def parse(data: bytes, seq: dict | None = None) -> tuple:
     """(sequence header, frame header, tiles) of an AV1 still picture:
     its first frame, read from its OBUs as dav1d reads them (OBUs of
     other operating points than the first dropped, metadata, padding and
-    temporal delimiters skipped). A tile is (start, size) in `data`."""
-    seq = frame = None
+    temporal delimiters skipped). A tile is (start, size) in `data`.
+    `seq` is the sequence header a decoder already holds (that of an
+    earlier image it decoded), which the data's own replaces."""
+    frame = None
     tiles = []
     n_tiles = 0
     units = list(obus(data))
@@ -683,11 +751,13 @@ def header_array(seq: dict, frame: dict) -> np.ndarray:
     return np.array(out, np.int32)
 
 
-def decode_frame(data: bytes, census: np.ndarray | None = None) -> tuple:
+def decode_frame(data: bytes, census: np.ndarray | None = None,
+                 seq: dict | None = None) -> tuple:
     """(seq, Y, U, V) of an AV1 still picture: uint8 planes, U and V at
     the chroma size (None for 4:0:0). `census`, an int64 array of
-    `len(census_names())`, gets the counts of the coding tools used."""
-    seq, frame, tiles = parse(data)
+    `len(census_names())`, gets the counts of the coding tools used;
+    `seq` is the decoder's sequence header from an earlier image."""
+    seq, frame, tiles = parse(data, seq)
     w, h = frame["width"], frame["height"]
     if w * h > 1 << 28:
         raise ValueError(f"AV1 frame of {w}x{h} is too large")

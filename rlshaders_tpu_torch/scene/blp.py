@@ -30,6 +30,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from . import dds
 from .jpeg import decode_jpeg
 
@@ -126,6 +127,7 @@ def decode_blp(data: bytes) -> np.ndarray:
         alpha = alpha_flag != 0
         start = 20
     w, h = struct.unpack_from("<II", data, 12)
+    bomb.check("BLP", w, h)
     if v1:
         if len(data) < 28:
             raise ValueError("BLP1 header ends early")

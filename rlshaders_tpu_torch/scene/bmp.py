@@ -32,6 +32,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from .png import unpack_samples
 
 MAGIC = b"BM"
@@ -183,6 +184,7 @@ def decode_bmp(data: bytes) -> np.ndarray:
     else:
         raise NotImplementedError(f"BMP with a {hsize}-byte header is not "
                                   f"decoded by the port")
+    bomb.check("BMP", w, h)
     colors = colors or 1 << bits
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors

@@ -116,7 +116,7 @@ struct FrameHeader {
   int32_t width, height, ss_x, ss_y, num_planes, use_128,
       enable_filter_intra, enable_intra_edge_filter, disable_cdf_update,
       allow_screen_content_tools, allow_intrabc, base_q_idx, dq_y_dc,
-      dq_u_dc, dq_u_ac, dq_v_dc, dq_v_ac, seg_enabled,
+      dq_u_dc, dq_u_ac, dq_v_dc, dq_v_ac, qm_y, qm_u, qm_v, seg_enabled,
       seg_feature_enabled[64], seg_feature_data[64], seg_id_pre_skip,
       last_active_seg_id, delta_q_present, delta_q_res, delta_lf_present,
       delta_lf_res, delta_lf_multi, lf_level[4], lf_sharpness,
@@ -126,6 +126,12 @@ struct FrameHeader {
       tile_cols, tile_rows, tile_cols_log2, tile_rows_log2,
       mi_col_starts[65], mi_row_starts[65], coded_lossless, all_lossless,
       matrix_coefficients;
+  // film_grain_params (5.9.30), as dav1d keeps them
+  int32_t apply_grain, grain_seed, num_y_points, y_points[14][2],
+      chroma_scaling_from_luma, num_uv_points[2], uv_points[2][10][2],
+      scaling_shift, ar_coeff_lag, ar_coeffs_y[24], ar_coeffs_uv[2][25],
+      ar_coeff_shift, grain_scale_shift, uv_mult[2], uv_luma_mult[2],
+      uv_offset[2], overlap_flag, clip_to_restricted_range;
 };
 
 // ---------------------------------------------------------------------------
@@ -2107,6 +2113,13 @@ struct Decoder {
     if (pl == 0) { dcq = AV1_DC_QLOOKUP[clip3(0, 255, q + fh.dq_y_dc)]; acq = AV1_AC_QLOOKUP[clip3(0, 255, q)]; }
     else if (pl == 1) { dcq = AV1_DC_QLOOKUP[clip3(0, 255, q + fh.dq_u_dc)]; acq = AV1_AC_QLOOKUP[clip3(0, 255, q + fh.dq_u_ac)]; }
     else { dcq = AV1_DC_QLOOKUP[clip3(0, 255, q + fh.dq_v_dc)]; acq = AV1_AC_QLOOKUP[clip3(0, 255, q + fh.dq_v_ac)]; }
+    // the quantizer matrix (7.12.3): a 5-bit weight per position, for a
+    // 2D transform type of a block that is not lossless, below level 15
+    // (flat); libaom's weights run column by column
+    const uint8_t *qm = nullptr;
+    int qm_level = pl == 0 ? fh.qm_y : pl == 1 ? fh.qm_u : fh.qm_v;
+    if (!lossless && qm_level < 15 && plane_tx_type < IDTX)
+      qm = &AV1_QM[qm_level][pl > 0][AV1_QM_OFFSET[txsz]];
     static thread_local int32_t R[64 * 64];
     int32_t T[64];
     // dequantized coefficients in R (rows of th, stride w)
@@ -2117,6 +2130,7 @@ struct Decoder {
         int32_t c = quant[i * tw + j];
         if (!c) continue;
         int64_t qv = (i == 0 && j == 0) ? dcq : acq;
+        if (qm) qv = (qv * qm[j * th + i] + 16) >> 5;
         int64_t a = std::abs((int64_t)c);
         int64_t dq = ((a * qv) & 0xFFFFFF) >> dq_shift;
         if (c < 0) dq = std::min<int64_t>(dq, 32768), dq = -dq;
@@ -2528,6 +2542,204 @@ struct Decoder {
   }
 };
 
+// ---------------------------------------------------------------------------
+// film grain synthesis (7.18.3), as dav1d's filmgrain_tmpl.c and
+// fg_apply_tmpl.c lay it out for 8-bit samples: the grain templates from
+// the 16-bit LFSR and the gaussian sequence, the auto-regressive filter,
+// the scaling LUTs, then 32x32 blocks at random offsets into the
+// templates, blended where blocks overlap, scaled and clipped
+// ---------------------------------------------------------------------------
+const int GRAIN_W = 82, GRAIN_H = 73, SUB_GRAIN_W = 44, SUB_GRAIN_H = 38;
+const int FG_BLOCK = 32;
+typedef int16_t GrainLut[GRAIN_H + 1][GRAIN_W];
+
+inline int grain_random(int bits, unsigned *state) {
+  const unsigned r = *state;
+  const unsigned bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+  *state = (r >> 1) | (bit << 15);
+  return (*state >> (16 - bits)) & ((1 << bits) - 1);
+}
+inline int fg_round2(int x, int shift) { return (x + ((1 << shift) >> 1)) >> shift; }
+
+void grain_y(GrainLut &buf, const FrameHeader &g) {
+  unsigned seed = (unsigned)g.grain_seed;
+  const int shift = 4 + g.grain_scale_shift;
+  for (int y = 0; y < GRAIN_H; y++)
+    for (int x = 0; x < GRAIN_W; x++)
+      buf[y][x] = (int16_t)fg_round2(AV1_GAUSSIAN_SEQUENCE[grain_random(11, &seed)], shift);
+  const int lag = g.ar_coeff_lag;
+  for (int y = 3; y < GRAIN_H; y++)
+    for (int x = 3; x < GRAIN_W - 3; x++) {
+      const int32_t *coeff = g.ar_coeffs_y;
+      int sum = 0;
+      for (int dy = -lag; dy <= 0; dy++)
+        for (int dx = -lag; dx <= lag; dx++) {
+          if (!dx && !dy) break;
+          sum += *(coeff++) * buf[y + dy][x + dx];
+        }
+      buf[y][x] = (int16_t)clip3(-128, 127, buf[y][x] + fg_round2(sum, g.ar_coeff_shift));
+    }
+}
+
+void grain_uv(GrainLut &buf, const GrainLut &buf_y, const FrameHeader &g,
+              int uv, int subx, int suby) {
+  unsigned seed = (unsigned)g.grain_seed ^ (uv ? 0x49d8 : 0xb524);
+  const int shift = 4 + g.grain_scale_shift;
+  const int cw = subx ? SUB_GRAIN_W : GRAIN_W, ch = suby ? SUB_GRAIN_H : GRAIN_H;
+  for (int y = 0; y < ch; y++)
+    for (int x = 0; x < cw; x++)
+      buf[y][x] = (int16_t)fg_round2(AV1_GAUSSIAN_SEQUENCE[grain_random(11, &seed)], shift);
+  const int lag = g.ar_coeff_lag;
+  for (int y = 3; y < ch; y++)
+    for (int x = 3; x < cw - 3; x++) {
+      const int32_t *coeff = g.ar_coeffs_uv[uv];
+      int sum = 0;
+      for (int dy = -lag; dy <= 0; dy++)
+        for (int dx = -lag; dx <= lag; dx++) {
+          if (!dx && !dy) {
+            // the current sample: the luma grain under it
+            if (!g.num_y_points) break;
+            int luma = 0;
+            const int lx = ((x - 3) << subx) + 3, ly = ((y - 3) << suby) + 3;
+            for (int i = 0; i <= suby; i++)
+              for (int j = 0; j <= subx; j++) luma += buf_y[ly + i][lx + j];
+            sum += fg_round2(luma, subx + suby) * *coeff;
+            break;
+          }
+          sum += *(coeff++) * buf[y + dy][x + dx];
+        }
+      buf[y][x] = (int16_t)clip3(-128, 127, buf[y][x] + fg_round2(sum, g.ar_coeff_shift));
+    }
+}
+
+void grain_scaling(const int32_t (*points)[2], int num, uint8_t scaling[256]) {
+  if (num == 0) { memset(scaling, 0, 256); return; }
+  memset(scaling, points[0][1], points[0][0]);
+  for (int i = 0; i < num - 1; i++) {
+    const int bx = points[i][0], by = points[i][1];
+    const int dx = points[i + 1][0] - bx, dy = points[i + 1][1] - by;
+    const int delta = dy * ((0x10000 + (dx >> 1)) / dx);
+    for (int x = 0, d = 0x8000; x < dx; x++) {
+      scaling[bx + x] = (uint8_t)(by + (d >> 16));
+      d += delta;
+    }
+  }
+  const int n = points[num - 1][0];
+  memset(&scaling[n], points[num - 1][1], 256 - n);
+}
+
+inline int grain_at(const GrainLut &lut, const int off[2][2], int sx, int sy,
+                    int bx, int by, int x, int y) {
+  const int r = off[bx][by];
+  const int ox = 3 + (2 >> sx) * (3 + (r >> 4)), oy = 3 + (2 >> sy) * (3 + (r & 15));
+  return lut[oy + y + (FG_BLOCK >> sy) * by][ox + x + (FG_BLOCK >> sx) * bx];
+}
+
+// One row of 32x32 luma blocks (row `row_num`, `bh` rows high) of a plane
+// of width `pw`, or of chroma blocks (`luma` set, the frame's luma rows
+// of the same blocks, `lw` wide): the noise of each sample, added and
+// clipped. `src` and `dst` have a stride of `stride`.
+void grain_rows(uint8_t *dst, const uint8_t *src, int stride, int pw,
+                const FrameHeader &g, const uint8_t scaling[256],
+                const GrainLut &lut, int bh, int row_num, const uint8_t *luma,
+                int lstride, int lw, int uv, int sx, int sy, bool is_id) {
+  const int rows = 1 + (g.overlap_flag && row_num > 0);
+  int lo = 0, hi = 255;
+  if (g.clip_to_restricted_range) { lo = 16; hi = luma && !is_id ? 240 : 235; }
+  unsigned seed[2];
+  for (int i = 0; i < rows; i++) {
+    seed[i] = (unsigned)g.grain_seed;
+    seed[i] ^= (unsigned)((((row_num - i) * 37 + 178) & 0xFF) << 8);
+    seed[i] ^= (unsigned)(((row_num - i) * 173 + 105) & 0xFF);
+  }
+  static const int w_luma[2][2] = {{27, 17}, {17, 27}};
+  static const int w_sub[2][2] = {{23, 22}, {0, 0}};
+  const int (*wx)[2] = sx ? w_sub : w_luma;
+  const int (*wy)[2] = sy ? w_sub : w_luma;
+  int off[2][2] = {{0, 0}, {0, 0}};
+  auto blend = [](int old, int cur, const int *w) {
+    return clip3(-128, 127, fg_round2(old * w[0] + cur * w[1], 5));
+  };
+  for (int bx = 0; bx < pw; bx += FG_BLOCK >> sx) {
+    const int bw = std::min(FG_BLOCK >> sx, pw - bx);
+    const int ystart = g.overlap_flag && row_num ? std::min(2 >> sy, bh) : 0;
+    const int xstart = g.overlap_flag && bx ? std::min(2 >> sx, bw) : 0;
+    if (g.overlap_flag && bx)
+      for (int i = 0; i < rows; i++) off[1][i] = off[0][i];
+    for (int i = 0; i < rows; i++) off[0][i] = grain_random(8, &seed[i]);
+    auto add = [&](int x, int y, int grain) {
+      const int s = src[(size_t)y * stride + bx + x];
+      int val = s;
+      if (luma) {
+        const int lx = std::min((bx + x) << sx, lw - 1);
+        const uint8_t *l = luma + (size_t)(y << sy) * lstride;
+        int avg = l[lx];
+        if (sx) avg = (avg + l[std::min(lx + 1, lw - 1)] + 1) >> 1;
+        val = avg;
+        if (!g.chroma_scaling_from_luma)
+          val = clip1(((avg * g.uv_luma_mult[uv] + s * g.uv_mult[uv]) >> 6) + g.uv_offset[uv]);
+      }
+      const int noise = fg_round2(scaling[val] * grain, g.scaling_shift);
+      dst[(size_t)y * stride + bx + x] = (uint8_t)clip3(lo, hi, s + noise);
+    };
+    for (int y = ystart; y < bh; y++) {
+      for (int x = xstart; x < bw; x++) add(x, y, grain_at(lut, off, sx, sy, 0, 0, x, y));
+      for (int x = 0; x < xstart; x++)
+        add(x, y, blend(grain_at(lut, off, sx, sy, 1, 0, x, y), grain_at(lut, off, sx, sy, 0, 0, x, y), wx[x]));
+    }
+    for (int y = 0; y < ystart; y++) {
+      for (int x = xstart; x < bw; x++)
+        add(x, y, blend(grain_at(lut, off, sx, sy, 0, 1, x, y), grain_at(lut, off, sx, sy, 0, 0, x, y), wy[y]));
+      for (int x = 0; x < xstart; x++) {
+        const int top = blend(grain_at(lut, off, sx, sy, 1, 1, x, y), grain_at(lut, off, sx, sy, 0, 1, x, y), wx[x]);
+        const int cur = blend(grain_at(lut, off, sx, sy, 1, 0, x, y), grain_at(lut, off, sx, sy, 0, 0, x, y), wx[x]);
+        add(x, y, blend(top, cur, wy[y]));
+      }
+    }
+  }
+}
+
+// The frame's planes with grain added (dav1d's prep_grain and
+// apply_grain_row over every row of blocks); nothing changes unless
+// dav1d's has_grain holds. `y`, `u`, `v` are cropped planes.
+void apply_grain(const FrameHeader &g, uint8_t *y, uint8_t *u, uint8_t *v) {
+  if (!g.apply_grain || !(g.num_y_points || g.num_uv_points[0] ||
+                          g.num_uv_points[1] ||
+                          (g.clip_to_restricted_range && g.chroma_scaling_from_luma)))
+    return;
+  const int w = g.width, h = g.height, sx = g.ss_x, sy = g.ss_y;
+  const int cw = (w + sx) >> sx;
+  const bool chroma = g.num_planes > 1 &&
+      (g.num_uv_points[0] || g.num_uv_points[1] || g.chroma_scaling_from_luma);
+  std::vector<GrainLut> lut(3);
+  uint8_t scaling[3][256];
+  grain_y(lut[0], g);
+  if (chroma) {
+    for (int pl = 0; pl < 2; pl++)
+      if (g.num_uv_points[pl] || g.chroma_scaling_from_luma) grain_uv(lut[1 + pl], lut[0], g, pl, sx, sy);
+  }
+  grain_scaling(g.y_points, g.num_y_points, scaling[0]);
+  for (int pl = 0; pl < 2; pl++) grain_scaling(g.uv_points[pl], g.num_uv_points[pl], scaling[1 + pl]);
+  // chroma reads the luma before its grain
+  std::vector<uint8_t> luma(y, y + (size_t)w * h);
+  const bool is_id = g.matrix_coefficients == 0;
+  for (int row = 0; row * FG_BLOCK < h; row++) {
+    const int bh = std::min(h - row * FG_BLOCK, FG_BLOCK);
+    uint8_t *yr = y + (size_t)row * FG_BLOCK * w;
+    if (g.num_y_points)
+      grain_rows(yr, &luma[(size_t)row * FG_BLOCK * w], w, w, g, scaling[0], lut[0], bh, row, nullptr, 0, 0, 0, 0, 0, false);
+    if (!chroma) continue;
+    const int cbh = (bh + sy) >> sy;
+    const size_t coff = (size_t)((row * FG_BLOCK) >> sy) * cw;
+    const uint8_t *lr = &luma[(size_t)row * FG_BLOCK * w];
+    for (int pl = 0; pl < 2; pl++) {
+      if (!g.chroma_scaling_from_luma && !g.num_uv_points[pl]) continue;
+      uint8_t *c = (pl ? v : u) + coff;
+      grain_rows(c, c, cw, cw, g, scaling[g.chroma_scaling_from_luma ? 0 : 1 + pl], lut[1 + pl], cbh, row, lr, w, w, pl, sx, sy, is_id);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -2639,6 +2851,7 @@ int rls_av1_decode(const uint8_t *data, const int32_t *hdr,
         memcpy(v + (size_t)r * cw, &d->cur[2].px[(size_t)r * d->cur[2].w], cw);
       }
     }
+    apply_grain(fh, y, u, v);
   }
   delete d;
   return err;

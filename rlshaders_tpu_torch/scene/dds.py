@@ -32,6 +32,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from . import bomb
+
 MAGIC = b"DDS "
 _RGB, _ALPHAPIXELS, _LUMINANCE, _PALETTE8, _FOURCC = (0x40, 0x1, 0x20000,
                                                        0x20, 0x4)
@@ -542,6 +544,7 @@ def decode_dds(data: bytes) -> np.ndarray:
     if _u32(data, 4) != 124:
         raise ValueError(f"DDS header of {_u32(data, 4)} bytes")
     h, w = _u32(data, 12), _u32(data, 16)
+    bomb.check("DDS", w, h)
     if w == 0 or h == 0:
         raise ValueError(f"DDS of {w}x{h} pixels")
     pfflags, fourcc, bitcount = _u32(data, 80), data[84:88], _u32(data, 88)

@@ -24,7 +24,7 @@ import struct
 
 import numpy as np
 
-from . import lzw
+from . import bomb, lzw
 
 MAGICS = (b"GIF87a", b"GIF89a")
 
@@ -58,6 +58,7 @@ def decode_gif(data: bytes) -> np.ndarray:
     if data[:6] not in MAGICS or len(data) < 13:
         raise ValueError("not a GIF file")
     sw, sh, flags = struct.unpack_from("<HHB", data, 6)
+    bomb.check("GIF", sw, sh)
     pos = 13
     palette = None
     if flags & 0x80:
@@ -81,6 +82,9 @@ def decode_gif(data: bytes) -> np.ndarray:
             if pos + 9 > len(data):
                 raise ValueError("GIF image descriptor runs past the end")
             x0, y0, w, h, iflags = struct.unpack_from("<HHHHB", data, pos)
+            # the frame grows the screen where it reaches past it; the
+            # frame's (disposal) extent lies inside that
+            bomb.check("GIF", max(sw, x0 + w), max(sh, y0 + h))
             pos += 9
             if iflags & 0x80:
                 size = 3 << ((iflags & 7) + 1)

@@ -28,6 +28,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from . import bmp, png
 
 ICO_MAGIC = b"\x00\x00\x01\x00"
@@ -49,23 +50,28 @@ def _directory(data: bytes) -> list:
 
 
 def _half_dib(data: bytes, pos: int, alpha32: bool = False,
-              and_end: int | None = None) -> np.ndarray:
+              and_end: int | None = None, fmt: str = "ICO") -> np.ndarray:
     """(H, W, 3) of the DIB at `pos` with its height halved, as PIL reads
     an icon's or cursor's bitmap. `alpha32`: PIL reads width * height * 4
     bytes of alpha from the pixels; `and_end`: where the entry ends, the
-    AND mask (rows padded to 32 bits) just before it."""
+    AND mask (rows padded to 32 bits) just before it. PIL checks the
+    bomb limit on an icon's whole bitmap, a cursor's halved one (`fmt`
+    "ICO" or "CUR")."""
     dib = bytearray(data[pos:])
     if len(dib) < 16:
         raise ValueError("icon bitmap header runs past the end of the file")
     hsize = struct.unpack_from("<I", dib, 0)[0]
     if hsize == 12:
         w, h = struct.unpack_from("<HH", dib, 4)
+        bomb.check(fmt, w, h if fmt == "ICO" else h // 2)
         h //= 2
         struct.pack_into("<H", dib, 6, h)
     else:
         w, raw = struct.unpack_from("<II", dib, 4)
         flip = dib[11] == 0xFF
-        h = (2 ** 32 - raw if flip else raw) // 2
+        full = 2 ** 32 - raw if flip else raw
+        bomb.check(fmt, w, full if fmt == "ICO" else full // 2)
+        h = full // 2
         if h == 0:
             raise ValueError("icon bitmap of 0 rows")
         struct.pack_into("<I", dib, 8, 2 ** 32 - h if flip else h)
@@ -115,6 +121,6 @@ def decode_cur(data: bytes) -> np.ndarray:
                                   "not open either) is not decoded by the "
                                   "port")
     try:
-        return _half_dib(data, offset)
+        return _half_dib(data, offset, fmt="CUR")
     except NotImplementedError as err:
         raise NotImplementedError(f"CUR: {err}") from None

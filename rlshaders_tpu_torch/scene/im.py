@@ -29,6 +29,7 @@ import re
 
 import numpy as np
 
+from . import bomb
 from .jpeg import muldiv255
 from .pnm import float_to_rgb
 
@@ -150,6 +151,7 @@ def decode_im(data: bytes) -> np.ndarray:
             and all(isinstance(v, int) and v > 0 for v in size)):
         raise ValueError(f"IM image size {size!r}")
     w, h = size
+    bomb.check("IM", w, h)
     if kind not in _TYPES:
         raise NotImplementedError(
             f"IM {kind!r} (not a type PIL writes) is not decoded by the port")

@@ -39,6 +39,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from .j2k import decode_codestream, read_header
 from .jpeg import muldiv255
 
@@ -47,8 +48,6 @@ JP2_MAGIC = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 # OpenJPEG's colour spaces, from the colr box's enumerated space
 GRAY, SRGB, SYCC, EYCC, CMYK, UNKNOWN = ("gray", "srgb", "sycc", "eycc",
                                          "cmyk", "unknown")
-# PIL's DecompressionBombError: twice Image.MAX_IMAGE_PIXELS
-MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 _ENUMCS = {16: SRGB, 17: GRAY, 18: SYCC, 24: EYCC, 12: CMYK}
 # Pillow's unpackers: (mode, colour space, components) -> what they read
 # ("l": component 0 as grey, "la": 0 and 1, "rgb": 0-2, "rgba": 0-3,
@@ -348,6 +347,7 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
     if not accept(data):
         raise ValueError("not a JPEG 2000 file")
     (w, h), mode, palette = pil_header(data)
+    bomb.check("JPEG 2000", w, h)
     if data.startswith(JP2_MAGIC):
         start, space = _jp2_boxes(data)
     else:
@@ -368,9 +368,6 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
                                   "by the port")
     if w <= 0 or h <= 0:
         raise ValueError("JPEG 2000 image of zero size")
-    if w * h > MAX_PIXELS:
-        raise ValueError(f"JPEG 2000 image of {w}x{h} pixels: past PIL's "
-                         f"decompression bomb limit")
     if (w, h) != (siz.x1 - siz.x0, siz.y1 - siz.y0):
         raise ValueError("JPEG 2000 header and codestream sizes differ")
     img = decode_codestream(stream)

@@ -43,6 +43,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import bomb
+
 # natural (row-major) index of the k-th coefficient in zig-zag order
 ZIGZAG = (
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -632,6 +634,7 @@ def _markers(data: bytes, st: _Stream) -> None:
                     f"or 4 components)")
             if h == 0 or w == 0:
                 raise ValueError(f"JPEG frame of {w}x{h} samples")
+            bomb.check("JPEG", w, h)
             st.progressive = m == 0xC2
             comps = [_Component(seg[6 + 3 * j], seg[7 + 3 * j] >> 4,
                                 seg[7 + 3 * j] & 15, seg[8 + 3 * j])

@@ -21,6 +21,8 @@ import struct
 
 import numpy as np
 
+from . import bomb
+
 MAGICS = (b"DanM", b"LinS")
 
 
@@ -70,6 +72,7 @@ def decode_msp(data: bytes) -> np.ndarray:
     if not accept(data):
         raise ValueError("not an MSP file (or its checksum is not 0)")
     w, h = struct.unpack_from("<HH", data, 4)
+    bomb.check("MSP", w, h)
     if w == 0 or h == 0:
         raise ValueError(f"MSP of {w}x{h} pixels")
     stride = (w + 7) // 8

@@ -27,6 +27,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from .png import unpack_samples
 
 
@@ -74,6 +75,7 @@ def decode_pcx(data: bytes) -> np.ndarray:
         raise ValueError("not a PCX file")
     x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
     w, h = x1 + 1 - x0, y1 + 1 - y0
+    bomb.check("PCX", w, h)
     version, bits, planes = data[1], data[3], data[65]
     provided = struct.unpack_from("<H", data, 66)[0]
     pal = None

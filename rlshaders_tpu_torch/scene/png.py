@@ -27,6 +27,8 @@ import zlib
 
 import numpy as np
 
+from . import bomb
+
 MAGIC = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples a pixel, bit depths allowed)
 _TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
@@ -129,6 +131,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("not a PNG file")
     parts = _chunks(data)
     w, h, depth, ctype, method, filt, interlace = parts["header"]
+    bomb.check("PNG", w, h)
     if ctype not in _TYPES or depth not in _TYPES[ctype][1]:
         raise ValueError(f"PNG with colour type {ctype} at bit depth "
                          f"{depth}")

@@ -30,6 +30,7 @@ import math
 
 import numpy as np
 
+from . import bomb
 from .png import unpack_samples
 
 _WHITESPACE = b"\x20\x09\x0a\x0b\x0c\x0d"
@@ -141,6 +142,7 @@ def decode_pnm(data: bytes) -> np.ndarray:
     w, h = rd.number(), rd.number()
     if w <= 0 or h <= 0:
         raise ValueError(f"PNM of {w}x{h} pixels")
+    bomb.check("PPM", w, h)
     bands = 3 if mode == "RGB" else 1
     if mode == "F":
         scale = rd.number(float)

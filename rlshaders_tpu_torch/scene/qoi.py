@@ -19,6 +19,8 @@ import struct
 
 import numpy as np
 
+from . import bomb
+
 MAGIC = b"qoif"
 
 
@@ -28,6 +30,7 @@ def decode_qoi(data: bytes) -> np.ndarray:
     if not data.startswith(MAGIC) or len(data) < 14:
         raise ValueError("not a QOI file")
     w, h = struct.unpack_from(">II", data, 4)
+    bomb.check("QOI", w, h)
     if w == 0 or h == 0:
         raise ValueError(f"QOI of {w}x{h} pixels")
     n = w * h

@@ -20,6 +20,8 @@ import struct
 
 import numpy as np
 
+from . import bomb
+
 MAGIC = 474
 # (bytes a sample, dimension, channels) PIL opens (SgiImagePlugin.MODES)
 _LAYOUTS = {(1, 1, 1), (1, 2, 1), (2, 1, 1), (2, 2, 1), (1, 3, 3), (2, 3, 3),
@@ -69,6 +71,7 @@ def decode_sgi(data: bytes) -> np.ndarray:
         raise ValueError("not an SGI file")
     compression, bpc = data[2], data[3]
     dim, w, h, z = struct.unpack_from(">4H", data, 4)
+    bomb.check("SGI", w, h)
     if (bpc, dim, z) not in _LAYOUTS:
         raise NotImplementedError(
             f"SGI of {bpc} bytes a sample, dimension {dim} and {z} channels "

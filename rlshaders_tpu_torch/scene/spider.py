@@ -30,6 +30,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from .pnm import float_to_rgb
 
 IFORMS = (1, 3, -11, -12, -21, -22)
@@ -94,6 +95,7 @@ def decode_spider(data: bytes) -> np.ndarray:
     w, rows = int(h[12]), int(h[2])
     if w <= 0 or rows <= 0:
         raise ValueError(f"SPIDER image of {w}x{rows} pixels")
+    bomb.check("SPIDER", w, rows)
     raw = data[offset:offset + 4 * w * rows]
     if len(raw) < 4 * w * rows:
         raise ValueError("SPIDER pixel data ends early")

@@ -21,11 +21,13 @@ BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
 (msp.py), QOI (qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py),
 WebP, still and animated (webp.py, with vp8l.py for lossless and vp8.py
 for lossy images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py
-and j2k_t1.py, whose tier-1 is native code), still AVIF (avif.py, with
-av1.py, whose tile decoder is native code) and XBM (xbm.py). A format PIL
-opens and the port does not decode (PSD and the rest of PIL's plugins)
-raises NotImplementedError naming it; data that no PIL plugin accepts
-raises it as an unknown format.
+and j2k_t1.py, whose tier-1 is native code), AVIF: still, grids and an
+image sequence's first frame (avif.py, with av1.py, whose tile decoder
+is native code) and XBM (xbm.py). Every decoder keeps PIL's
+decompression-bomb limit (bomb.py). A format PIL opens and the port
+does not decode (PSD and the rest of PIL's plugins) raises
+NotImplementedError naming it; data that no PIL plugin accepts raises it
+as an unknown format.
 """
 from __future__ import annotations
 
@@ -145,8 +147,8 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     IM, TIFF, MSP, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format
     raises NotImplementedError (naming it and `name`), as does a feature
     of a decoded format that is still left (a JPEG 2000 code-block style
-    or sYCC file, AVIF quantizer matrices, film grain, sequences and
-    grids); malformed data raises ValueError."""
+    or sYCC file, an AVIF frame libavif would scale); an image past
+    PIL's decompression-bomb limit and malformed data raise ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

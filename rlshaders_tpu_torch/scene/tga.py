@@ -29,6 +29,7 @@ import struct
 
 import numpy as np
 
+from . import bomb
 from .png import unpack_samples
 
 # (image type & 7, bits a pixel) -> PIL's raw mode (TgaImagePlugin.MODES)
@@ -88,6 +89,7 @@ def decode_tga(data: bytes) -> np.ndarray:
         raise ValueError("not a TGA file")
     id_len, cmap_type, itype = data[0], data[1], data[2]
     w, h = struct.unpack_from("<HH", data, 12)
+    bomb.check("TGA", w, h)
     depth, flags = data[16], data[17]
     kind = itype & 7
     rawmode = _RAWMODES.get((kind, depth))

@@ -48,6 +48,7 @@ import zlib
 
 import numpy as np
 
+from . import bomb
 from . import ccitt, lzw
 from .jpeg import decode_planes, muldiv255, ycc_to_rgb
 from .png import unpack_samples
@@ -211,6 +212,7 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if "width" not in tags or "height" not in tags:
         raise ValueError("TIFF without its image width and length")
     w, h = _one(tags, "width"), _one(tags, "height")
+    bomb.check("TIFF", w, h)
     compression = _one(tags, "compression", 1)
     photo = _one(tags, "photometric", 0)
     planar = _one(tags, "planar", 1)

@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .jp2 import MAX_PIXELS
+from . import bomb
 from .vp8 import START_CODE, decode_vp8
 from .vp8l import decode_alpha, decode_vp8l
 from .vp8l import header as _vp8l_header
@@ -97,14 +97,6 @@ def _size(fourcc: bytes, payload: bytes, size: int) -> tuple:
     return w, h
 
 
-def _bomb(w: int, h: int) -> None:
-    """PIL's DecompressionBombError, which its `open` raises for any
-    image past the limit."""
-    if w * h > MAX_PIXELS:
-        raise ValueError(f"WebP image of {w}x{h} pixels: past PIL's "
-                         f"decompression bomb limit")
-
-
 def _alpha_ok(payload: bytes, w: int, h: int) -> None:
     """Where libwebp fails an ALPH chunk: its header byte, raw alpha
     shorter than the image, lossless alpha that does not decode."""
@@ -138,7 +130,7 @@ def decode_webp(data: bytes) -> np.ndarray:
         # a simple file: the image, then at most one ALPH chunk read
         # (dropped) before the demuxer stops at the next chunk
         image = _image(data, fourcc, at, size)
-        _bomb(*_size(*image))
+        bomb.check("WebP", *_size(*image))
         pos, alpha = _after(at, size), False
         while pos < len(data):
             fourcc, at, size = _chunk(data, pos)
@@ -153,7 +145,7 @@ def decode_webp(data: bytes) -> np.ndarray:
     ch = 1 + int.from_bytes(data[at + 7:at + 10], "little")
     if cw * ch >= MAX_AREA:
         raise ValueError("WebP canvas too large")
-    _bomb(cw, ch)
+    bomb.check("WebP", cw, ch)
     frames = _demux(data, _after(at, size), flags)
     if flags & ~VALID_FLAGS & 0xFF:
         raise ValueError(f"WebP VP8X flags {flags:#04x}")

@@ -16,6 +16,8 @@ import re
 
 import numpy as np
 
+from . import bomb
+
 _HEAD = re.compile(
     rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
     rb"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
@@ -45,6 +47,7 @@ def decode_xbm(data: bytes) -> np.ndarray:
     if not m:
         raise ValueError("not an XBM file (PIL's header pattern fails)")
     w, h = int(m.group("width")), int(m.group("height"))
+    bomb.check("XBM", w, h)
     if w == 0 or h == 0:
         raise ValueError(f"XBM of {w}x{h} pixels")
     stride = (w + 7) // 8

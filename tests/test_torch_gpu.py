@@ -1135,3 +1135,91 @@ def test_format_e_frames_on_the_card_match_the_cpu(cuda_device, tag):
     both kernels on the card, held to the CPU render with chip_smoke.py's
     tolerance."""
     _frame_matches_the_cpu(cuda_device, FORMAT_E_FRAMES[tag])
+
+
+FORMAT_F_DIGESTS = {
+    "scenes/data/formats_f/grid_1x2.avif":
+        "4cda93acb42cca558449a6fc48354f5f8116ff3135b506cd57ed5aa12abb47ab",
+    "scenes/data/formats_f/grid_2x1.avif":
+        "33be1b6896c0ba723780ef918bc0fd6906abd772aabbdfd7becffb8f5f18e828",
+    "scenes/data/formats_f/grid_2x2_cropped.avif":
+        "6886ca3db68212615dd3962a209014a7b372786c312099329f06590376071c8a",
+    "scenes/data/formats_f/grid_3x3_odd_444.avif":
+        "4e176f242aa7944d1e7ec0ebde359ec14ed2440db9834935bc3a546800da4532",
+    "scenes/data/formats_f/grid_rgba.avif":
+        "4cda93acb42cca558449a6fc48354f5f8116ff3135b506cd57ed5aa12abb47ab",
+    "scenes/data/formats_f/logo_odd_grain_csfl.avif":
+        "481ba2dcd2d831403f7ec90cc655ab9c1344f474f13f1b5deecde01bcb20a4cc",
+    "scenes/data/formats_f/logo_qm.avif":
+        "32508286ffaa50cb15b23ac6f60c9ba5deebf3372e4a0e62ab02b843cd790b7c",
+    "scenes/data/formats_f/logo_qm_444_rgba.avif":
+        "eee4402423d3b47289070e9175b13d8b8496c7c349ff3d43d269140fd4ed6cb4",
+    "scenes/data/formats_f/logo_sequence_rgba.avif":
+        "999d40dd536917ae5514b6e157c3edf3aa973eea80463efd9c91e2aeea744616",
+    "scenes/data/formats_f/odd_grain_rgba.avif":
+        "6b0bd06bf8cc777e93b9eb55e2ef8321e61913bf73c262de83a155563b60381c",
+    "scenes/data/formats_f/odd_sequence_444.avif":
+        "c749309b8426ef3236c01a449931919acde463ea68e2603fa60277af02ac19ca",
+    "scenes/data/formats_f/photo_grain_400.avif":
+        "713d8a3993c086cd37bfe70b17ae26b088065ec7d745a8ea77948de936668214",
+    "scenes/data/formats_f/photo_grain_422.avif":
+        "512e87ac6776b2a52918c0efa21cd9fd830ec0056e476abe1ec7bf17675513f8",
+    "scenes/data/formats_f/photo_grain_444.avif":
+        "b21119363ded0beeeaef21ec44763b9c04cef1053ab89428a3f3f8d2cd6034ce",
+    "scenes/data/formats_f/photo_grain_clip.avif":
+        "f36071a2c800bb077cb1b2c68b66517dbec9721fb9fdc926fc057811c3a2c364",
+    "scenes/data/formats_f/photo_qm_400.avif":
+        "808e69ebf7d9224847e0182314141bc3597b9967ac8c64163edb961aa54c4615",
+    "scenes/data/formats_f/photo_qm_420.avif":
+        "bcc0ae35ed3733be5684af866a85f0241f66cf943085cd969585948b708cd3bd",
+    "scenes/data/formats_f/photo_qm_422.avif":
+        "cd7758235b1acb21eb2a745a9d469c34887e2f266b754ee0960a1dada8cb5d3d",
+    "scenes/data/formats_f/photo_sequence.avif":
+        "0ec148a6755f03fd8bfe2d47bdb6be9fa88d9c1dead0bd3ea140f81961484e53",
+    "scenes/data/formats_f/px_1x1_grain.avif":
+        "80a028b2c605ce3d66961dd721d658e3bddee02cf044551efcaa22f75114a3b0",
+    "scenes/data/formats_f/texture_2048_grain.avif":
+        "af4a350fae10b0ce0e1103989a02869359e853e7e0fb4b40be4e77aa7dcf874c",
+    "scenes/data/formats_f/texture_2048_grid.avif":
+        "3bd3102b7f03bb1098a67c9e9deba700bedf05c81cde670d133137e19d41fb54",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_F_DIGESTS))
+def test_committed_image_formats_f_decode_to_their_digests(cuda_device,
+                                                           path):
+    """The AVIF decoder on the card's machine, which has no PIL: every
+    committed file of scenes/data/formats_f (quantizer matrices, film
+    grain, image sequences, grids) decodes to the digest of PIL's
+    decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_F_DIGESTS[path]
+
+
+# chip_smoke.py phase 42's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_F_FRAMES = {
+    "M": ("formats_f/texture_2048_grain.avif",
+          "formats_f/logo_sequence_rgba.avif", "formats_f/logo_qm.avif"),
+    "N": ("formats_f/texture_2048_grid.avif",
+          "formats_f/logo_qm_444_rgba.avif",
+          "formats_f/logo_odd_grain_csfl.avif"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_F_FRAMES))
+def test_format_f_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 42's frame (scenes/textured_disk.ass with a
+    2048x2048 film-grain AVIF, an RGBA image sequence and a
+    quantizer-matrix AVIF, or a 2048x2048 grid, a 4:4:4 quantizer-matrix
+    AVIF with alpha and an odd-size film-grain AVIF in its texture slots)
+    at 8x8 and its own AA 3 and GI samples: through both kernels on the
+    card, held to the CPU render with chip_smoke.py's tolerance."""
+    _frame_matches_the_cpu(cuda_device, FORMAT_F_FRAMES[tag])

@@ -13,13 +13,16 @@ raises wherever PIL raises, decodes PIL's bytes wherever PIL decodes, or
 names a feature it does not decode). The tile decoder's tool counters
 show that the committed files reach each intra coding tool aom writes
 here; the constant tables equal those tools/extract_av1_tables.py reads
-from PIL's libavif; and the features left for later (quantizer matrices,
-film grain, image sequences) raise NotImplementedError naming them.
+from PIL's libavif; the features once left for later (quantizer
+matrices, film grain, image sequences) decode to PIL's bytes, and a
+frame libavif scales to another ispe size raises NotImplementedError
+naming it.
 """
 import hashlib
 import io
 import os
 import re
+import struct
 
 import numpy as np
 import pytest
@@ -237,23 +240,32 @@ def _refusals() -> dict:
     buf = io.BytesIO()
     img.save(buf, "AVIF", save_all=True, append_images=[
         Image.fromarray(px[::-1].copy())])
+    still = _save(px, quality=50)
+    at = still.index(b"ispe") + 8
     return {
         "quantizer matrices": _save(px, quality=50,
                                     advanced={"enable-qm": "1"}),
         "film grain": _save(px, quality=50,
                             advanced={"film-grain-test": "1"}),
         "image sequences": buf.getvalue(),
+        # libavif scales the 64x48 frame to its item's ispe with libyuv
+        "ispe size": still[:at] + struct.pack(">II", 80, 60) + still[at + 8:],
     }
 
 
 @pytest.mark.parametrize("feature", ["quantizer matrices", "film grain",
-                                     "image sequences"])
+                                     "image sequences", "ispe size"])
 def test_refused_features_are_named(feature):
     """Files PIL opens with quantizer matrices (aom's enable-qm), film
-    grain (film-grain-test) or an image sequence (save_all) raise
-    NotImplementedError naming the feature."""
+    grain (film-grain-test) or an image sequence (save_all), once refused,
+    decode to PIL's bytes; a frame libavif scales to an ispe size of its
+    item's that differs from the AV1 frame's still raises
+    NotImplementedError naming it."""
     data = _refusals()[feature]
     assert isinstance(pil_outcome(data), np.ndarray)
+    if feature != "ispe size":
+        assert held_to_pil(data) == "equal"
+        return
     with pytest.raises(NotImplementedError, match=feature):
         ttex.decode_image(data)
 
@@ -308,13 +320,18 @@ def test_tables_equal_the_extraction():
 
 
 def test_port_imports_no_pil():
-    """No module of the port imports PIL (the card's machine has none)."""
+    """No module of the port imports PIL (the card's machine has none),
+    the decoders' bomb limit (scene/bomb.py) and the AVIF and AV1 modules
+    among them."""
     pat = re.compile(r"^\s*(import PIL|from PIL\b)", re.M)
+    seen = set()
     for root, _, files in os.walk("rlshaders_tpu_torch"):
         for name in files:
             if name.endswith(".py"):
+                seen.add(name)
                 with open(os.path.join(root, name)) as f:
                     assert not pat.search(f.read()), name
+    assert {"bomb.py", "avif.py", "av1.py", "texture.py"} <= seen
 
 
 def test_no_compiler_raises(monkeypatch):

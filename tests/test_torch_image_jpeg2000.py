@@ -603,15 +603,19 @@ def test_refused_features_are_named(feature, message):
 
 
 def test_avif_is_refused():
-    """AVIF, which PIL opens through libavif, is decoded since; an AVIF
-    with quantizer matrices (aom's enable-qm), which PIL opens too, stays
-    refused by name."""
+    """AVIF, which PIL opens through libavif, is decoded since, quantizer
+    matrices (aom's enable-qm) too; an AVIF whose frame libavif scales
+    to another ispe size, which PIL opens too, stays refused by name."""
     buf = io.BytesIO()
     Image.fromarray(_image(16, 16, 3, 11)).save(
         buf, "AVIF", quality=60, advanced={"enable-qm": "1"})
-    assert isinstance(pil_outcome(buf.getvalue()), np.ndarray)
-    with pytest.raises(NotImplementedError, match="quantizer matrices"):
-        ttex.decode_image(buf.getvalue())
+    assert held_to_pil(buf.getvalue()) == "equal"
+    data = buf.getvalue()
+    at = data.index(b"ispe") + 8
+    scaled = data[:at] + struct.pack(">II", 24, 20) + data[at + 8:]
+    assert pil_outcome(scaled).shape == (20, 24, 3)
+    with pytest.raises(NotImplementedError, match="ispe size"):
+        ttex.decode_image(scaled)
 
 
 # ---------------------------------------------------------------------------

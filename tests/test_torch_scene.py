@@ -346,7 +346,8 @@ def test_port_imports_no_jax():
             "rlshaders_tpu_torch.io.png", "rlshaders_tpu_torch.models.dcc",
             "rlshaders_tpu_torch.models.registry",
             "rlshaders_tpu_torch.parallel.mesh",
-            "rlshaders_tpu_torch.scene.bmp", "rlshaders_tpu_torch.scene.gif",
+            "rlshaders_tpu_torch.scene.bmp", "rlshaders_tpu_torch.scene.bomb",
+            "rlshaders_tpu_torch.scene.gif",
             "rlshaders_tpu_torch.scene.jpeg", "rlshaders_tpu_torch.scene.lzw",
             "rlshaders_tpu_torch.scene.png", "rlshaders_tpu_torch.scene.tiff",
             "rlshaders_tpu_torch.utils.sample_writer",

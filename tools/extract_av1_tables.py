@@ -2,8 +2,9 @@
 tables the port's intra-frame decoder (scene/csrc/av1.cpp) needs.
 
 The AV1 specification's default CDFs, quantizer lookups, smooth weights,
-directional derivatives, filter-intra taps and self-guided parameters are
-too long to write out by hand. The libavif that Pillow ships
+directional derivatives, filter-intra taps, self-guided parameters,
+quantizer matrices and the film grain's gaussian sequence are too long
+to write out by hand. The libavif that Pillow ships
 (`pillow.libs/libavif-*.so*`) links libaom's encoder and dav1d, and both
 keep these tables in `.rodata`. This tool finds each table there by its
 known head (its first values as the specification lists them), reads it
@@ -250,7 +251,68 @@ def other_tables(lib: Lib) -> dict:
     at = lib.find([2, 1, 140, 3236], "<i4")
     p = lib.read(at, 16 * 4, "<i4").reshape(16, 4)
     t["SGR_PARAMS"] = p[:, [0, 2, 1, 3]]
+    t["QM"] = quantizer_matrices(lib)
+    # dav1d's gaussian_sequence, the film grain's 2,048 draws
+    at = lib.find([56, 568, -180, 172, 124, -84, 172, -64], "<i2")
+    t["GAUSSIAN_SEQUENCE"] = lib.read(at, 2048, "<i2")
     return t
+
+
+# libaom's transform sizes in its order (w, h), the offset of each size's
+# weights in a level's 3,344 values, and the size whose weights a 64-point
+# size takes (its top-left 32 x 32 quarter): every size but those five
+# owns w * h values, stored column by column
+QM_SIZES = ((4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4),
+            (8, 16), (16, 8), (16, 32), (32, 16), (32, 64), (64, 32),
+            (4, 16), (16, 4), (8, 32), (32, 8), (16, 64), (64, 16))
+QM_LEVELS, QM_TOTAL = 15, 3344
+
+
+def qm_offsets() -> list:
+    out, at = [], 0
+    for w, h in QM_SIZES:
+        if max(w, h) == 64:
+            out.append(out[QM_SIZES.index((min(w, 32), min(h, 32)))])
+        else:
+            out.append(at)
+            at += w * h
+    assert at == QM_TOTAL
+    return out
+
+
+def quantizer_matrices(lib: Lib) -> np.ndarray:
+    """(15, 2, 3344): the dequantizer weights of levels 0-14 (level 15 is
+    flat) for luma and chroma, libaom's iwt_matrix_ref. dav1d keeps the
+    32x32 weights as a triangle and the 32x16 ones whole, and derives
+    every other size from them by subsampling at init: the tool checks
+    libaom's weights of every size against that derivation."""
+    at = lib.find([32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150],
+                  "u1")
+    qm = lib.read(at, QM_LEVELS * 2 * QM_TOTAL, "u1").reshape(
+        QM_LEVELS, 2, QM_TOTAL)
+    offs = qm_offsets()
+    m32 = qm[:, :, offs[3]:offs[3] + 1024].reshape(QM_LEVELS, 2, 32, 32)
+    tri = [r * 32 + c for r in range(32) for c in range(r + 1)]
+    at = lib.find(m32[0, 0].ravel()[tri[:12]], "u1")
+    d32 = lib.read(at, QM_LEVELS * 2 * 528, "u1").reshape(QM_LEVELS, 2, 528)
+    if not np.array_equal(m32.reshape(QM_LEVELS, 2, 1024)[:, :, tri], d32):
+        raise ValueError("libaom's and dav1d's 32x32 weights differ")
+    d16 = lib.read(at + d32.size, QM_LEVELS * 2 * 512, "u1").reshape(
+        QM_LEVELS, 2, 16, 32)
+    full = {(32, 32): m32, (16, 32): d16,
+            (32, 16): d16.transpose(0, 1, 3, 2)}
+    for t, (w, h) in enumerate(QM_SIZES):
+        if max(w, h) == 64:
+            continue
+        # a size's weights [col][row], from dav1d's square or 2:1 table
+        m = qm[:, :, offs[t]:offs[t] + w * h].reshape(QM_LEVELS, 2, w, h)
+        src = full[(32, 32)] if w == h else full[
+            (16, 32) if w < h else (32, 16)]
+        sa, sb = src.shape[2] // w, src.shape[3] // h
+        if not any(np.array_equal(src[:, :, a::sa, b::sb], m)
+                   for a in range(sa) for b in range(sb)):
+            raise ValueError(f"the {w}x{h} weights are not dav1d's")
+    return qm
 
 
 def _diag(w: int, h: int, zigzag: bool) -> list:
@@ -340,13 +402,16 @@ def header() -> str:
     for name, a in cdf_tables(lib).items():
         parts.append(_c(name + "_CDF", a, "uint16_t"))
     for name, a in other_tables(lib).items():
-        ctype = "int16_t" if name.endswith("QLOOKUP") else (
-            "int8_t" if name == "FILTER_INTRA_TAPS" else "int32_t")
+        ctype = ("int16_t" if name.endswith("QLOOKUP")
+                 or name == "GAUSSIAN_SEQUENCE" else
+                 "int8_t" if name == "FILTER_INTRA_TAPS" else
+                 "uint8_t" if name == "QM" else "int32_t")
         parts.append(_c(name, a, ctype))
     for name, a in scans(lib).items():
         parts.append(_c(name, a, "int16_t"))
     for name, a in GENERATED.items():
         parts.append(_c(name, a, "int32_t"))
+    parts.append(_c("QM_OFFSET", qm_offsets(), "int32_t"))
     return "\n".join(parts)
 
 

@@ -35,6 +35,7 @@ import io
 import os
 import struct
 import sys
+import zlib
 
 import numpy as np
 
@@ -1933,22 +1934,479 @@ def files_e() -> dict:
     }
 
 
+def heif_box(typ: bytes, body: bytes, full: tuple = None) -> bytes:
+    """An ISOBMFF box; `full` = (version, flags) makes it a full box."""
+    if full is not None:
+        body = struct.pack(">I", (full[0] << 24) | full[1]) + body
+    return struct.pack(">I4s", 8 + len(body), typ) + body
+
+
+def heif_children(data: bytes, at: int, end: int) -> list:
+    """(type, start, end) of the boxes in data[at:end], each whole."""
+    out = []
+    while at < end:
+        size, typ = struct.unpack_from(">I4s", data, at)
+        out.append((typ, at, at + size))
+        at += size
+    return out
+
+
+def avif_parts(data: bytes) -> dict:
+    """The primary item's (and the alpha item's) AV1 payload and property
+    boxes (av1C, colr) of a still AVIF file PIL wrote: {"color": (payload,
+    {type: box}), "alpha": ... or None}."""
+    top = {t: (a, e) for t, a, e in heif_children(data, 0, len(data))}
+    a, e = top[b"meta"]
+    meta = {t: (x, y) for t, x, y in heif_children(data, a + 12, e)}
+    x, y = meta[b"iloc"]
+    # PIL writes iloc version 0 with 4-byte offsets and lengths
+    n = struct.unpack_from(">H", data, x + 14)[0]
+    where = {}
+    for k in range(n):
+        item, _, _, off, length = struct.unpack_from(">HHHII", data,
+                                                     x + 16 + 14 * k)
+        where[item] = data[off:off + length]
+    x, y = meta[b"iprp"]
+    boxes = dict((t, (a2, e2)) for t, a2, e2 in heif_children(data, x + 8, y))
+    a2, e2 = boxes[b"ipco"]
+    props = [data[p:q] for _, p, q in heif_children(data, a2 + 8, e2)]
+    a2, e2 = boxes[b"ipma"]
+    assoc, at = {}, a2 + 16
+    for _ in range(struct.unpack_from(">I", data, a2 + 12)[0]):
+        item, count = struct.unpack_from(">HB", data, at)
+        assoc[item] = [props[(b & 0x7F) - 1] for b in data[at + 3:
+                                                            at + 3 + count]]
+        at += 3 + count
+    out = {}
+    for k, item in enumerate(sorted(where)):
+        got = {p[4:8]: p for p in assoc[item] if p[4:8] in (b"av1C",
+                                                             b"colr")}
+        out["color" if k == 0 else "alpha"] = (where[item], got)
+    out.setdefault("alpha", None)
+    return out
+
+
+ALPHA_URN = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+
+
+def avif_grid(tiles: list, rows: int, cols: int, out_w: int, out_h: int, *,
+              ispe: tuple = None, big: bool = False,
+              alpha: bool = False) -> bytes:
+    """A HEIF file whose primary item is a grid (`rows` x `cols` cells,
+    `out_w` x `out_h` output; 32-bit sizes where `big`) over the AV1
+    payloads of `tiles`, still AVIF files PIL wrote, one a cell in row
+    order: each tile an av01 item with its own ispe, av1C and pixi, the
+    grid item with the first tile's colr and an ispe of `ispe` (the
+    output size by default). With `alpha`, the tiles' alpha items make
+    a second grid, auxiliary to the first."""
+    parts = [avif_parts(t) for t in tiles]
+    ispe = ispe or (out_w, out_h)
+    props, items = [], []
+
+    def prop(box: bytes) -> int:
+        if box not in props:
+            props.append(box)
+        return props.index(box) + 1
+
+    def ispe_box(w, h):
+        return heif_box(b"ispe", struct.pack(">II", w, h), (0, 0))
+
+    def pixi(n):
+        return heif_box(b"pixi", bytes([n] + [8] * n), (0, 0))
+
+    fmt = ">BBBBII" if big else ">BBBBHH"
+    grid_body = struct.pack(fmt, 0, int(big), rows - 1, cols - 1, out_w,
+                            out_h)
+    planes = 1 if parts[0]["color"][1][b"av1C"][8 + 2] & 0x10 else 3
+    grids = [("color", 1)] + ([("alpha", 1 + len(tiles) + 1)] if alpha
+                              else [])
+    refs = b""
+    for kind, gid in grids:
+        tile_ids = list(range(gid + 1, gid + 1 + len(parts)))
+        for tid, p in zip(tile_ids, parts):
+            payload, boxes = p[kind]
+            h, w = _av1_size(payload)
+            assoc = [prop(boxes[b"av1C"]) | 0x80, prop(ispe_box(w, h)),
+                     prop(pixi(1 if kind == "alpha" else planes))]
+            items.append((tid, b"av01", 1, payload, assoc))
+        gassoc = [prop(ispe_box(*ispe)),
+                  prop(pixi(1 if kind == "alpha" else planes))]
+        if kind == "color" and b"colr" in parts[0]["color"][1]:
+            gassoc.append(prop(parts[0]["color"][1][b"colr"]))
+        if kind == "alpha":
+            gassoc.append(prop(heif_box(b"auxC", ALPHA_URN, (0, 0))))
+            refs += heif_box(b"auxl", struct.pack(">HHH", gid, 1, 1))
+        items.append((gid, b"grid", 0, grid_body, gassoc))
+        refs_body = struct.pack(">HH", gid, len(tile_ids)) + b"".join(
+            struct.pack(">H", t) for t in tile_ids)
+        refs = heif_box(b"dimg", refs_body) + refs
+    items.sort()
+    ftyp = heif_box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miaf")
+    hdlr = heif_box(b"hdlr", bytes(4) + b"pict" + bytes(12) + b"\0", (0, 0))
+    pitm = heif_box(b"pitm", struct.pack(">H", 1), (0, 0))
+    iinf = heif_box(b"iinf", struct.pack(">H", len(items)) + b"".join(
+        heif_box(b"infe", struct.pack(">HH4s", i, 0, t) + b"\0",
+                 (2, hidden)) for i, t, hidden, _, _ in items), (0, 0))
+    iref = heif_box(b"iref", refs, (0, 0))
+    ipco = heif_box(b"ipco", b"".join(props))
+    ipma = heif_box(b"ipma", struct.pack(">I", len(items)) + b"".join(
+        struct.pack(">HB", i, len(a)) + bytes(a)
+        for i, _, _, _, a in items), (0, 0))
+    iprp = heif_box(b"iprp", ipco + ipma)
+
+    def meta(offsets):
+        iloc = heif_box(b"iloc", struct.pack(">BBH", 0x44, 0, len(items))
+                        + b"".join(struct.pack(">HHHII", i, 0, 1, off,
+                                               len(body))
+                                   for (i, _, _, body, _), off in
+                                   zip(items, offsets)), (0, 0))
+        return heif_box(b"meta", hdlr + pitm + iloc + iinf + iref + iprp,
+                        (0, 0))
+    size = len(ftyp) + len(meta([0] * len(items))) + 8
+    offsets = []
+    for _, _, _, body, _ in items:
+        offsets.append(size)
+        size += len(body)
+    mdat = heif_box(b"mdat", b"".join(body for _, _, _, body, _ in items))
+    return ftyp + meta(offsets) + mdat
+
+
+def _av1_size(payload: bytes) -> tuple:
+    """(height, width) of an AV1 still picture's sequence header (its
+    maximum frame size, which PIL's writes use as the frame size)."""
+    from rlshaders_tpu_torch.scene import av1
+    seq = av1.sequence_header(payload, *next(
+        (a, e) for t, _, _, a, e in av1.obus(payload) if t == 1))
+    return seq["max_height"], seq["max_width"]
+
+
+def _avif_frames(frames: list, mode: str, **kw) -> bytes:
+    """PIL's AVIF image sequence (save_all) of the frames, one encoder
+    thread, with the creation and modification times libavif writes
+    into mvhd, tkhd and mdhd (the time of the run) set to 0, so that each
+    run writes the same bytes."""
+    from PIL import Image
+    buf = io.BytesIO()
+    imgs = [Image.fromarray(f).convert(mode) for f in frames]
+    imgs[0].save(buf, "AVIF", save_all=True, append_images=imgs[1:],
+                 max_threads=1, **kw)
+    data = bytearray(buf.getvalue())
+
+    def walk(at, end):
+        for typ, a, e in heif_children(data, at, end):
+            if typ in (b"moov", b"trak", b"mdia"):
+                walk(a + 8, e)
+            elif typ in (b"mvhd", b"tkhd", b"mdhd"):
+                n = 16 if data[a + 8] == 1 else 8
+                data[a + 12:a + 12 + n] = bytes(n)
+    walk(0, len(data))
+    return bytes(data)
+
+
+def grain_flag(data: bytes, which: int) -> bytes:
+    """The AVIF file with one flag at the end of its primary item's film
+    grain parameters set (`which` 1: clip_to_restricted_range, 2:
+    overlap_flag): PIL's writer (aom) sets no clipping."""
+    from rlshaders_tpu_torch.scene import av1, avif
+    payload = avif.parse(data)["color"]
+    at = data.index(payload)
+    seq = None
+    for typ, tid, sid, a, e in av1.obus(payload):
+        if typ == av1.OBU_SEQUENCE_HEADER:
+            seq = av1.sequence_header(payload, a, e)
+        elif typ == av1.OBU_FRAME:
+            r = av1.BitReader(payload, a, e)
+            frame = av1.frame_header(r, seq, tid, sid)
+            assert frame["apply_grain"]
+            bit = r.pos - which
+            out = bytearray(data)
+            out[at + (bit >> 3)] |= 0x80 >> (bit & 7)
+            return bytes(out)
+    raise ValueError("no frame")
+
+
+def big_grid() -> bytes:
+    """The 2048x2048 texture as a 2x2 grid of four 1024x1024 tiles, each
+    PIL's AVIF at its defaults (one thread)."""
+    from PIL import Image
+    src = os.path.join(modes.DATA, "formats_d", "texture_2048.jp2")
+    tex = np.asarray(Image.open(src).convert("RGB"))
+    tiles = [_avif(np.ascontiguousarray(tex[r:r + 1024, c:c + 1024]), "RGB")
+             for r in (0, 1024) for c in (0, 1024)]
+    return avif_grid(tiles, 2, 2, 2048, 2048)
+
+
+def _tiles(px: np.ndarray, rows: int, cols: int, tw: int, th: int,
+           mode: str = "RGB", **kw) -> list:
+    return [_avif(np.ascontiguousarray(px[r * th:(r + 1) * th,
+                                          c * tw:(c + 1) * tw]), mode, **kw)
+            for r in range(rows) for c in range(cols)]
+
+
+def files_f(big: bool = True) -> dict:
+    """{name in scenes/data/formats_f: bytes} of every committed file (but
+    the two 2048x2048 ones where `big` is False): AVIF
+    with aom's quantizer matrices (enable-qm, qm-min, qm-max) and film
+    grain (its film-grain-test vectors 1-16: luma and chroma scaling,
+    chroma from luma, AR lags 2 and 3, overlap), PIL's image sequences
+    (save_all, with alpha) and grids this tool builds from PIL's AV1
+    payloads (`avif_grid`; PIL writes none), at the subsamplings, odd
+    sizes and 1x1, with alpha; one grain file has its clipping flag set
+    (`grain_flag`), which aom never writes."""
+    from PIL import Image
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    tex = np.asarray(Image.open(os.path.join(
+        modes.DATA, "formats_d", "texture_2048.jp2")).convert("RGB"))
+    photo = tex[600:856, 900:1156]                          # 256x256
+    odd = np.ascontiguousarray(photo[:33, :17])
+    out = {
+        # frame M (with texture_2048_grain.avif)
+        "logo_sequence_rgba.avif": _avif_frames(
+            [lrgba, lrgba[::-1].copy(), np.roll(lrgba, 40, 1)], "RGBA"),
+        "logo_qm.avif": _avif(lrgba, "RGBA", quality=60,
+                              advanced={"enable-qm": "1"}),
+        # frame N (with texture_2048_grid.avif)
+        "logo_qm_444_rgba.avif": _avif(lrgba, "RGBA", quality=55,
+                                       subsampling="4:4:4",
+                                       advanced={"enable-qm": "1",
+                                                 "qm-min": "2",
+                                                 "qm-max": "10"}),
+        "logo_odd_grain_csfl.avif": _avif(
+            np.ascontiguousarray(lrgba[:199, :299, :3]), "RGB", quality=50,
+            advanced={"film-grain-test": "15"}),
+        # quantizer matrices at each subsampling and level range
+        "photo_qm_420.avif": _avif(photo, "RGB", quality=45, speed=4,
+                                   advanced={"enable-qm": "1",
+                                             "qm-min": "0", "qm-max": "6"}),
+        "photo_qm_422.avif": _avif(photo, "RGB", quality=35, speed=2,
+                                   subsampling="4:2:2",
+                                   advanced={"enable-qm": "1"}),
+        "photo_qm_400.avif": _avif(photo, "RGB", quality=30,
+                                   subsampling="4:0:0",
+                                   advanced={"enable-qm": "1",
+                                             "qm-min": "4",
+                                             "qm-max": "15"}),
+        # film grain: test vectors over the subsamplings, sizes, alpha
+        "photo_grain_400.avif": _avif(photo, "RGB", quality=50,
+                                      subsampling="4:0:0",
+                                      advanced={"film-grain-test": "6"}),
+        "photo_grain_422.avif": _avif(photo, "RGB", quality=50,
+                                      subsampling="4:2:2",
+                                      advanced={"film-grain-test": "4"}),
+        "photo_grain_444.avif": _avif(photo, "RGB", quality=50,
+                                      subsampling="4:4:4",
+                                      advanced={"film-grain-test": "16"}),
+        "odd_grain_rgba.avif": _avif(np.dstack([odd, odd[..., 0]]), "RGBA",
+                                     quality=60,
+                                     advanced={"film-grain-test": "2"}),
+        "px_1x1_grain.avif": _avif(photo[:1, :1].copy(), "RGB",
+                                   advanced={"film-grain-test": "9"}),
+        "photo_grain_clip.avif": grain_flag(_avif(
+            photo[:96, :160].copy(), "RGB", quality=40,
+            advanced={"film-grain-test": "11"}), 1),
+        # image sequences: the first frame of each
+        "photo_sequence.avif": _avif_frames(
+            [photo, photo[::-1].copy(), photo[:, ::-1].copy()], "RGB",
+            quality=50),
+        "odd_sequence_444.avif": _avif_frames(
+            [odd, odd[::-1].copy()], "RGB", subsampling="4:4:4"),
+        # grids
+        "grid_1x2.avif": avif_grid(_tiles(photo, 1, 2, 64, 64), 1, 2, 128,
+                                   64),
+        "grid_2x1.avif": avif_grid(_tiles(photo, 2, 1, 64, 64), 2, 1, 64,
+                                   128),
+        "grid_3x3_odd_444.avif": avif_grid(
+            _tiles(photo, 3, 3, 66, 64, subsampling="4:4:4"), 3, 3, 197,
+            191),
+        "grid_2x2_cropped.avif": avif_grid(_tiles(photo, 2, 2, 64, 64),
+                                           2, 2, 120, 100, big=True),
+        "grid_rgba.avif": avif_grid(
+            _tiles(np.dstack([photo, photo[..., 1]]), 1, 2, 64, 64,
+                   "RGBA"), 1, 2, 128, 64, alpha=True),
+    }
+    if big:
+        # PIL's defaults with aom's first film grain test vector
+        out["texture_2048_grain.avif"] = _avif(
+            tex, "RGB", advanced={"film-grain-test": "1"})
+        out["texture_2048_grid.avif"] = big_grid()
+    return out
+
+
+# the side of the bomb files: 13,380 ** 2 = 179,024,400 pixels, just past
+# PIL's limit of 178,956,970
+BOMB_SIDE = S = 13380
+
+
+def _bomb_png(w: int, h: int,
+              body: bytes = b"\x78\x9c\x03\x00\x00\x00\x00\x01") -> bytes:
+    """A 1-bit grey PNG header of w x h with an IDAT of `body`."""
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 1, 0, 0, 0, 0))
+            + chunk(b"IDAT", body) + chunk(b"IEND", b""))
+
+
+def _bomb_dib(w: int, h: int, bits: int = 24) -> bytes:
+    return struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, 0, 0, 0, 0, 0, 0)
+
+
+def _bomb_icon(entry_w: int, entry_h: int, body: bytes, cursor: bool) -> bytes:
+    """An ICO (or CUR) directory of one entry, then the entry's bytes."""
+    return (struct.pack("<HHH", 0, 2 if cursor else 1, 1)
+            + struct.pack("<BBBBHHII", entry_w, entry_h, 0, 0, 1, 32,
+                          len(body), 22) + body)
+
+
+def _bomb_avif() -> bytes:
+    """PIL's 8x8 AVIF with its ispe patched to S x S."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.new("RGB", (8, 8), (40, 90, 200)).save(buf, "AVIF", max_threads=1)
+    data = buf.getvalue()
+    at = data.index(b"ispe") + 8
+    return data[:at] + struct.pack(">II", S, S) + data[at + 8:]
+
+
+def _bomb_tiff() -> bytes:
+    """One IFD: width, length, 8 bits, no compression, min-is-black, a
+    strip of the whole image."""
+    entries = [(256, 4, S), (257, 4, S), (258, 3, 8), (259, 3, 1),
+               (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, S),
+               (279, 4, S * S)]
+    ifd = struct.pack("<H", len(entries)) + b"".join(
+        struct.pack("<HHII", tag, typ, 1, v) for tag, typ, v in entries)
+    return b"II*\x00" + struct.pack("<I", 16) + bytes(8) + ifd + bytes(4)
+
+
+def _bomb_msp() -> bytes:
+    """A version 1 header whose words XOR to 0, as PIL checks."""
+    words = [0x6144, 0x4D6E, S, S, 1, 1, 1, 1, 0, 0, 0, 0]
+    check = 0
+    for w in words:
+        check ^= w
+    return struct.pack("<13H", *words, check).ljust(32, b"\0") + bytes(16)
+
+
+def _bomb_spider() -> bytes:
+    """PIL's SPIDER label fields (counted from 1): nslice 1, nrow, iform
+    1, nsam, labrec 1, labbyt = lenbyt = 4 * nsam."""
+    fields = [0.0] * 27
+    fields[0], fields[1], fields[4] = 1.0, float(S), 1.0
+    fields[11], fields[12] = float(S), 1.0
+    fields[21] = fields[22] = float(4 * S)
+    return struct.pack(">27f", *fields).ljust(1024, b"\0")
+
+
+def fault5_png() -> bytes:
+    """The whole 1-bit grey PNG of S x S black pixels (21,846 B)."""
+    return _bomb_png(S, S, zlib.compress(bytes(S * (1 + (S + 7) // 8)), 9))
+
+
+def bomb_cases() -> dict:
+    """{PIL's format name: (a header-only file of S x S pixels, whether PIL
+    raises at open rather than on loading the entry or inner image it
+    picks)} for each format the port decodes."""
+    sos = b"\x01\x01\x00\x00\x3f\x00"
+    sof = struct.pack(">BHHB", 8, S, S, 1) + b"\x01\x11\x00"
+    siz = struct.pack(">HIIIIIIIIH", 0, S, S, 0, 0, S, S, 0, 0, 1) + \
+        b"\x07\x01\x01"
+    png = _bomb_png(S, S)
+    icns = b"ic10" + struct.pack(">I", 8 + len(png)) + png
+    blp = (b"BLP2" + struct.pack("<iBBBBII", 1, 1, 0, 0, 0, S, S)
+           + struct.pack("<16I", 20 + 128 + 1024, *([0] * 15))
+           + struct.pack("<16I", 16, *([0] * 15)) + bytes(1040))
+    im = (b"Image type: L image\r\nName: bomb\r\n"
+          + f"Image size (x*y): {S}*{S}\r\n".encode()
+          + b"File size (no of images): 1\r\n")
+    pcx = struct.pack("<BBBBHHHHHH", 10, 5, 1, 8, 0, 0, S - 1, S - 1, 72,
+                      72) + bytes(48) + struct.pack("<BBHH", 0, 1, S, 1)
+    dds = (struct.pack("<4sIIIIIII", b"DDS ", 124, 0x1007, S, S, 0, 0, 0)
+           + bytes(44) + struct.pack("<II4sIIIII", 32, 0x4, b"DXT1", 0, 0,
+                                     0, 0, 0)
+           + struct.pack("<IIIII", 0x1000, 0, 0, 0, 0))
+    frame = anmf(0, 0, 1, 1, [(b"VP8L", vp8l_stream(1, 1, 1))])
+    return {
+        "BMP": (b"BM" + struct.pack("<IHHI", 62, 0, 0, 54)
+                + _bomb_dib(S, S) + bytes(8), True),
+        "DIB": (_bomb_dib(S, S) + bytes(16), True),
+        # a logical screen of S x S and one 1x1 frame
+        "GIF": (b"GIF89a" + struct.pack("<HHBBB", S, S, 0, 0, 0) + b","
+                + struct.pack("<HHHHB", 0, 0, 1, 1, 0)
+                + b"\x02\x02\x44\x01\x00;", True),
+        "JPEG": (b"\xff\xd8\xff\xc0" + struct.pack(">H", 2 + len(sof)) + sof
+                 + b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos
+                 + bytes(8) + b"\xff\xd9", True),
+        "PPM": (f"P6\n{S} {S}\n255\n".encode() + bytes(16), True),
+        "PNG": (png, True),
+        "AVIF": (_bomb_avif(), True),
+        "BLP": (blp, True),
+        "CUR": (_bomb_icon(32, 32, _bomb_dib(S, 2 * S, 32) + bytes(16),
+                           True), True),
+        "PCX": (pcx.ljust(128, b"\0") + bytes(16), True),
+        "DDS": (dds + bytes(16), True),
+        "JPEG2000": (b"\xff\x4f\xff\x51" + struct.pack(">H", 2 + len(siz))
+                     + siz + b"\xff\xd9", True),
+        "ICNS": (b"icns" + struct.pack(">I", 8 + len(icns)) + icns, False),
+        "ICO": (_bomb_icon(0, 0, png, False), False),
+        "IM": (im.ljust(511, b"\0") + b"\x1a" + bytes(16), True),
+        "TIFF": (_bomb_tiff(), True),
+        "MSP": (_bomb_msp(), True),
+        "QOI": (b"qoif" + struct.pack(">IIBB", S, S, 3, 0) + bytes(16),
+                True),
+        "SGI": (struct.pack(">HBBHHHH", 474, 0, 1, 2, S, S, 1).ljust(
+            512, b"\0") + bytes(16), True),
+        "SPIDER": (_bomb_spider(), True),
+        "TGA": (struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, S, S,
+                            24, 0x20) + bytes(16), True),
+        # an animated WebP: an S x S canvas and one 1x1 frame
+        "WEBP": (animated_webp(S, S, 0, [frame]), True),
+        "XBM": (f"#define b_width {S}\n#define b_height {S}\n"
+                f"static char b_bits[] = {{\n0x00, 0x00 }};\n".encode(),
+                True),
+    }
+
+
+BOMBS = os.path.join(os.path.dirname(modes.DATA), "bombs")
+
+
+def bomb_files() -> dict:
+    """{name in scenes/bombs: bytes}: for each of PIL's formats the
+    port decodes, a header-only file of 13,380 x 13,380 pixels, past
+    PIL's decompression-bomb limit (tests/test_torch_image_bomb.py holds
+    each to PIL), and the whole 1-bit PNG of that size."""
+    out = {f"{fmt.lower()}.bomb": data for fmt, (data, _) in
+           bomb_cases().items()}
+    out["png_whole.bomb"] = fault5_png()
+    return out
+
+
 # the sets of committed files: folder -> (its files, the digests' name)
 SETS = {"formats": (files, "FORMAT_DIGESTS"),
         "formats_b": (files_b, "FORMAT_B_DIGESTS"),
         "formats_c": (files_c, "FORMAT_C_DIGESTS"),
         "formats_d": (files_d, "FORMAT_D_DIGESTS"),
-        "formats_e": (files_e, "FORMAT_E_DIGESTS")}
+        "formats_e": (files_e, "FORMAT_E_DIGESTS"),
+        "formats_f": (files_f, "FORMAT_F_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
-    default, formats_b, formats_c, formats_d or formats_e) and print its
-    digests."""
+    default, formats_b, formats_c, formats_d, formats_e or formats_f) and
+    print its digests; `bombs` writes scenes/bombs (outside scenes/data:
+    no texture; each file raises)."""
     argv = sys.argv[1:] if argv is None else argv
     folder = argv[0] if argv else "formats"
-    make, label = SETS[folder]
     out = os.path.join(modes.DATA, folder)
+    if folder == "bombs":
+        out = BOMBS
+        os.makedirs(out, exist_ok=True)
+        for name, data in sorted(bomb_files().items()):
+            with open(os.path.join(out, name), "wb") as f:
+                f.write(data)
+        return
+    make, label = SETS[folder]
     os.makedirs(out, exist_ok=True)
     print(f"{label} = {{")
     for name, data in sorted(make().items()):
