@@ -19,6 +19,9 @@ test. `decode_avif` returns the bytes of `convert("RGB")`:
   grid item (the `grid` box; its tiles from `iref`/`dimg`, in order,
   with libavif's checks of the tiles) stitched and cropped, as is an
   alpha grid;
+* a frame whose AV1 size is not its item's ispe (or its track header's)
+  size, each plane scaled to it as libavif scales it (libyuv's box
+  filter, scene/yuvscale.py), in stills, grid tiles and sequences;
 * an image sequence's first frame where libavif takes the tracks (a
   major brand of avis): the `moov` box (trak, tkhd, tref, edts,
   mdia, mdhd, hdlr, minf, stbl with stsd, stsc, stsz, stco or co64, stss
@@ -32,8 +35,7 @@ test. `decode_avif` returns the bytes of `convert("RGB")`:
   libavif links libyuv), libavif's float32 otherwise; and the colour
   un-premultiplied by a premultiplied alpha as libyuv does it.
 
-Frames libavif would scale to an ispe (or track) size of another size,
-a sequence whose first frame is not a shown key frame, superres and bit
+A sequence whose first frame is not a shown key frame, superres and bit
 depths other than 8 (av1.py) raise NotImplementedError naming them; an
 image past PIL's decompression-bomb limit (bomb.py) and malformed data
 raise ValueError.
@@ -44,7 +46,7 @@ import struct
 
 import numpy as np
 
-from . import av1, bomb
+from . import av1, bomb, yuvscale
 
 BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
@@ -871,17 +873,24 @@ def _check_config(props: dict) -> None:
         raise ValueError("AVIF av1C depth differs from the item's pixi")
 
 
-def _check_frame(props: dict, y: np.ndarray) -> None:
-    """libavif's checks of a decoded frame against its item or track: the
-    pixi depths (8 here) and the ispe (or track header) size, to which
-    libavif would scale the frame with libyuv, which the port does not
-    do."""
+def _scaled(props: dict, planes: tuple) -> tuple:
+    """libavif's checks of a decoded frame against its item or track (the
+    pixi depths, 8 here), then its scaling of each plane to the ispe (or
+    track header) size where the AV1 frame's differs (libyuv's
+    ScalePlane, box filter: scene/yuvscale.py), chroma to that size's
+    subsampled size."""
     if any(d != 8 for d in props.get("pixi", ())):
         raise ValueError("AVIF pixi depth differs from the AV1 bit depth")
-    if props["ispe"] != (y.shape[1], y.shape[0]):
-        raise NotImplementedError(
-            "AVIF frames scaled to an ispe size that differs from the AV1 "
-            "frame's are not decoded by the port")
+    seq, y = planes[0], planes[1]
+    w, h = props["ispe"]
+    if (w, h) == (y.shape[1], y.shape[0]):
+        return planes
+    sx, sy = (0, 0) if seq["mono"] else (seq["ss_x"], seq["ss_y"])
+    out = [seq, yuvscale.scale_plane(y, w, h)]
+    for c in planes[2:]:
+        out.append(None if c is None else yuvscale.scale_plane(
+            c, (w + sx) >> sx, (h + sy) >> sy))
+    return tuple(out)
 
 
 def _frame(payload: bytes, props: dict, track: bool,
@@ -895,9 +904,7 @@ def _frame(payload: bytes, props: dict, track: bool,
             raise NotImplementedError(
                 "AVIF image sequences whose first frame is not a shown key "
                 "frame are not decoded by the port")
-    planes = av1.decode_frame(payload, seq=seq)
-    _check_frame(props, planes[1])
-    return planes
+    return _scaled(props, av1.decode_frame(payload, seq=seq))
 
 
 # the sequence header's fields every tile of a grid must share (libavif:

@@ -23,13 +23,13 @@ bytes of `convert("RGB")` of that image:
   PIL's size must be the codestream's.
 * Pillow picks its unpacker by mode, colour space and component count
   (`_UNPACKERS`; none for eYCC, or for P without sRGB) and shifts each
-  component to 8 bits (16 for I;16) with its rounding offset;
-  `convert("RGB")` then drops alpha, clamps I;16 to 255, looks P and PA
-  up in the palette (black past its end) and turns CMYK into RGB as
-  Pillow's cmyk2rgb.
+  component to 8 bits (16 for I;16) with its rounding offset, and turns
+  sYCC into RGB with its own YCbCr conversion (im.py); `convert("RGB")`
+  then drops alpha, clamps I;16 to 255, looks P and PA up in the palette
+  (black past its end) and turns CMYK into RGB as Pillow's cmyk2rgb.
 
-sYCC files (Pillow's own YCbCr conversion) and palettes of other than
-three or four columns raise NotImplementedError naming them, as does what
+Palettes of other than three or four columns raise NotImplementedError
+naming them, as does what
 j2k.py refuses; malformed data, and an image past PIL's decompression
 bomb limit, raise ValueError.
 """
@@ -40,6 +40,7 @@ import struct
 import numpy as np
 
 from . import bomb
+from .im import ycbcr_to_rgb
 from .j2k import decode_codestream, read_header
 from .jpeg import muldiv255
 
@@ -363,9 +364,6 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
     if kind is None:
         raise ValueError(f"JPEG 2000 {mode} image of {n} components in "
                          f"colour space {space}: no Pillow unpacker")
-    if kind == "ycc":
-        raise NotImplementedError("JPEG 2000 sYCC images are not decoded "
-                                  "by the port")
     if w <= 0 or h <= 0:
         raise ValueError("JPEG 2000 image of zero size")
     if (w, h) != (siz.x1 - siz.x0, siz.y1 - siz.y0):
@@ -382,6 +380,10 @@ def decode_jpeg2000(data: bytes) -> np.ndarray:
         rgb = np.stack([grey] * 3, -1)
     elif kind in ("l", "la"):
         rgb = np.stack([chan(0)] * 3, -1)
+    elif kind == "ycc":
+        # Pillow's sYCC unpackers: the samples to 8 bits as for sRGB, then
+        # its own YCbCr to RGB (an alpha component is only copied)
+        rgb = ycbcr_to_rgb(np.stack([chan(c) for c in range(3)], -1))
     else:
         rgb = np.stack([chan(c) for c in range(3)], -1)
         if mode == "CMYK":

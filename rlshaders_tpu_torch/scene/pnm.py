@@ -122,9 +122,10 @@ def float_to_rgb(f: np.ndarray) -> np.ndarray:
     """(H, W, 3) uint8 of (H, W) mode "F" samples as PIL's
     `convert("RGB")` makes them: truncated toward zero and clamped to
     0..255 (NaN 0, -inf 0, inf 255)."""
-    f = np.asarray(f, np.float64)
-    g = np.where(f >= 255.0, 255, np.where(
-        f > 0.0, np.trunc(np.nan_to_num(f)), 0)).astype(np.uint8)
+    with np.errstate(invalid="ignore"):         # signalling NaNs too
+        f = np.asarray(f, np.float64)
+        g = np.where(f >= 255.0, 255, np.where(
+            f > 0.0, np.trunc(np.nan_to_num(f)), 0)).astype(np.uint8)
     return np.repeat(g[..., None], 3, axis=2)
 
 

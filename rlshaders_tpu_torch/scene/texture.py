@@ -22,12 +22,13 @@ BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
 WebP, still and animated (webp.py, with vp8l.py for lossless and vp8.py
 for lossy images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py
 and j2k_t1.py, whose tier-1 is native code), AVIF: still, grids and an
-image sequence's first frame (avif.py, with av1.py, whose tile decoder
-is native code) and XBM (xbm.py). Every decoder keeps PIL's
-decompression-bomb limit (bomb.py). A format PIL opens and the port
-does not decode (PSD and the rest of PIL's plugins) raises
-NotImplementedError naming it; data that no PIL plugin accepts raises it
-as an unknown format.
+image sequence's first frame, frames libavif scales (avif.py, with
+av1.py, whose tile decoder is native code, and yuvscale.py), PSD
+(psd.py) and XBM (xbm.py). Every decoder keeps PIL's decompression-bomb
+limit (bomb.py). A format PIL opens and the port does not decode (Sun
+raster, XPM and the rest of PIL's plugins) raises NotImplementedError
+naming it; data that no PIL plugin accepts raises it as an unknown
+format.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import torch
 from ..core import vec3
 from ..core.vec3 import V3
 from . import (avif, blp, bmp, dds, gif, icns, ico, im, jp2, msp, pcx, png,
-               pnm, qoi, sgi, spider, tga, tiff, webp, xbm)
+               pnm, psd, qoi, sgi, spider, tga, tiff, webp, xbm)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -107,7 +108,7 @@ _FORMATS = (
     ("MSP", msp.accept, msp.decode_msp),
     ("PhotoCD", lambda d: d[2048:2052] == b"PCD_", None),
     ("PIXAR", lambda d: d.startswith(b"\x80\xe8\x00\x00"), None),
-    ("PSD", lambda d: d.startswith(b"8BPS"), None),
+    ("PSD", lambda d: d.startswith(psd.MAGIC), psd.decode_psd),
     ("QOI", lambda d: d.startswith(qoi.MAGIC), qoi.decode_qoi),
     ("SGI", sgi.accept, sgi.decode_sgi),
     ("SPIDER", spider.accept, spider.decode_spider),
@@ -144,11 +145,11 @@ def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
     them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
     JPEG, PNM and PFM, PNG, AVIF, BLP, CUR, PCX, DDS, JPEG2000, ICNS, ICO,
-    IM, TIFF, MSP, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other format
-    raises NotImplementedError (naming it and `name`), as does a feature
-    of a decoded format that is still left (a JPEG 2000 code-block style
-    or sYCC file, an AVIF frame libavif would scale); an image past
-    PIL's decompression-bomb limit and malformed data raise ValueError."""
+    IM, TIFF, MSP, PSD, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other
+    format raises NotImplementedError (naming it and `name`), as does a
+    feature of a decoded format that is still left (a JPEG 2000
+    code-block style, LAB, a ZSTD-compressed TIFF); an image past PIL's
+    decompression-bomb limit and malformed data raise ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

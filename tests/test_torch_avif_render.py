@@ -27,7 +27,8 @@ from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu.scene import texture as jtex
 from test_torch_gpu import FORMAT_E_FRAMES
 from test_torch_textured_render import (KW, OPBYOP_ATOL, PIX_ATOL, PLANES,
-                                        REDUCED, RES, textured_copy)
+                                        REDUCED, RES, padded, texel_rows,
+                                        textured_copy)
 from rlshaders_tpu_torch.accel import trace as ttrace
 from rlshaders_tpu_torch.core import cpu_math
 from rlshaders_tpu_torch.integrator import wavefront as twave
@@ -102,6 +103,9 @@ OPBYOP = {
 }
 
 
+ROWS = texel_rows(FORMAT_E_FRAMES)
+
+
 @pytest.fixture(scope="module", params=sorted(FORMAT_E_FRAMES))
 def frame(request, tmp_path_factory):
     tag = request.param
@@ -116,7 +120,8 @@ def frame(request, tmp_path_factory):
     with open(path, "w") as f:
         f.write(src)
     js = jbuild.build(path)
-    jout = jwave.render(js, jtrace.build(js.geometry), **KW)
+    # one compiled JAX program for the file's frames (texel_rows, padded)
+    jout = jwave.render(padded(js, ROWS), jtrace.build(js.geometry), **KW)
     ts = tbuild.build(path, device="cpu")
     own = twave.render(ts, ttrace.build(ts.geometry), **KW)
     return tag, images, jout, own, ts

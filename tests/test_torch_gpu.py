@@ -1223,3 +1223,113 @@ def test_format_f_frames_on_the_card_match_the_cpu(cuda_device, tag):
     at 8x8 and its own AA 3 and GI samples: through both kernels on the
     card, held to the CPU render with chip_smoke.py's tolerance."""
     _frame_matches_the_cpu(cuda_device, FORMAT_F_FRAMES[tag])
+
+
+FORMAT_G_DIGESTS = {
+    "scenes/data/formats_g/grid_scaled_tiles.avif":
+        "aab366a351ef92721b655498aea72e4c0bdf824a20fdfaa4629795407d15a8c5",
+    "scenes/data/formats_g/grid_ycbcr_2x2_lzw.tif":
+        "d551ef075e9db8da02f7b203d0e2bc0938277792a73bb5c2c52c01a0ce8349eb",
+    "scenes/data/formats_g/height_1024_float_pred3.tif":
+        "8d2bb00f108b8f7d22ae973b3c2d408ec4dccc14c7672fd122468c910b5d12a2",
+    "scenes/data/formats_g/logo_int16_signed.tif":
+        "8161cec1d4d28cd5584b69f5d196470401b75e179d8d1cc021d40badf91b7c02",
+    "scenes/data/formats_g/logo_rgb_rle_layers.psd":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_g/logo_scaled_ispe.avif":
+        "9ff7f421a1b5dfc5bf8f2bd4e197b0b91dac60ea501c5c6e3028edecf74617eb",
+    "scenes/data/formats_g/logo_sycc.jp2":
+        "598a8be5ad1c0024dd367b60c5d948059f52b250962af1ae362b8a7bdd03e825",
+    "scenes/data/formats_g/odd_bitmap.psd":
+        "14d9ce0209c20f421ac95252bfa82a19493c67f61d95eb6f05f06fdf5531f73c",
+    "scenes/data/formats_g/odd_cmyk5_raw.psd":
+        "91df149e0c473e662d4d55b679033daed272b34fa3b28f50257621e7efc104b8",
+    "scenes/data/formats_g/odd_duotone_layers.psd":
+        "8546f1639dffc80b91862f4d9bace0a575b117562b3dbfaf73be2e4a15d3a4cd",
+    "scenes/data/formats_g/odd_float_minwhite_raw.tif":
+        "33bf392a5b5dd619c7835bb8f57a80fd77ef3d846150815b36e3580f0879bf84",
+    "scenes/data/formats_g/odd_float_mm_raw_planar.tif":
+        "e316916794f52b41ef97892d95b40e999ffb212cb3e6f17bfadb45aa57eae4aa",
+    "scenes/data/formats_g/odd_float_mm_tiles_lzw_pred3.tif":
+        "07fb8807f0c98238845551898d3113fb0786f7dcdaef0e9a1edf45af34c0e63a",
+    "scenes/data/formats_g/odd_grey_rle.psd":
+        "8546f1639dffc80b91862f4d9bace0a575b117562b3dbfaf73be2e4a15d3a4cd",
+    "scenes/data/formats_g/odd_indexed.psd":
+        "7f0b7a2904c517ec3fe186dca51472c4f065629eb93029d5562c7391772a5f7d",
+    "scenes/data/formats_g/odd_int16_signed_mm_deflate.tif":
+        "c84f3f9d6a421abd122970b36ecb29c8f3306260c925cd287bbf7221c7b9862c",
+    "scenes/data/formats_g/odd_int32_signed_packbits.tif":
+        "c84f3f9d6a421abd122970b36ecb29c8f3306260c925cd287bbf7221c7b9862c",
+    "scenes/data/formats_g/odd_int8_signed.tif":
+        "a04e12bfd70c23c93e91f039e491839c94a565239f2a6921c8eca5b353090526",
+    "scenes/data/formats_g/odd_multichannel_spill.psd":
+        "1ee8cdc9f87f385cc4467d674913cc34869974457614b40a4bcd7131f36325f9",
+    "scenes/data/formats_g/odd_rgba_rle.psd":
+        "91df149e0c473e662d4d55b679033daed272b34fa3b28f50257621e7efc104b8",
+    "scenes/data/formats_g/odd_scaled_420_rgba.avif":
+        "a81079dd57df00f51f8b0a55092c155404adc20ae9d3fbb0485928f5237a1d8f",
+    "scenes/data/formats_g/odd_sycc.j2k":
+        "ab2c2a95386ae01011b06473d336cd4415a4aff0082033d515db4cf41c291f1c",
+    "scenes/data/formats_g/odd_sycc_rgba.jp2":
+        "0eb666ce778530f995de5f80bac1f3043d6d9f11561bd62d29843b8acb6d5ee7",
+    "scenes/data/formats_g/odd_uint32_lzw_pred2.tif":
+        "29a5ed34335c82d05e7169d18fdce8150a7706bc04d2163c0bb45c5010fba81a",
+    "scenes/data/formats_g/odd_ycbcr_1x2_lzw.tif":
+        "9e807dff915dc27f6999e0bc5448a7cb5260b6f0e45f20d683bfcbe51370daa3",
+    "scenes/data/formats_g/odd_ycbcr_2x1_mm_pred2.tif":
+        "06e2aea1dc4bb6a181f318be2352fa105a4eef299afb279deac47fc9c184cf6e",
+    "scenes/data/formats_g/odd_ycbcr_4x2_bt709_studio.tif":
+        "e7bacaa80d514f9d4efe2dfcddd17a24ec789c2cdf18618f6a2fb38f24dbdcf6",
+    "scenes/data/formats_g/odd_ycbcr_4x4_tiles_deflate.tif":
+        "3c03327176f922d0903eaf36317b0f6eaf632a18276c33bb2c1adf33374defd6",
+    "scenes/data/formats_g/odd_ycbcr_default_2x2.tif":
+        "722b056613ad38649b91f3a1bced3bbab452b56f354a85c729c69574f2ada5de",
+    "scenes/data/formats_g/odd_ycbcr_pil_packbits.tif":
+        "e2fc7f66a916af36f43b7879508e4c6f016dcccee4b889a6d548cc655b75c700",
+    "scenes/data/formats_g/photo_cmyk_rle.psd":
+        "69194ec3da9e830ffd79b8408548fab7d16514f2b7011a6c7a350de4ca600e1f",
+    "scenes/data/formats_g/photo_scaled_down34.avif":
+        "25e567d1d4cb61844b066097b9a8b26c4af67a68b6395e13c758e1e929ee8af9",
+    "scenes/data/formats_g/sequence_scaled.avif":
+        "afe4db386d3d87a113f44b25ee1a5579e657f08a9d8d6c74d662f7a123ffd234",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_G_DIGESTS))
+def test_committed_image_formats_g_decode_to_their_digests(cuda_device,
+                                                           path):
+    """The decoders on the card's machine, which has no PIL: every
+    committed file of scenes/data/formats_g (float and signed TIFF, YCbCr
+    TIFF, sYCC JPEG 2000, PSD, AVIF frames libavif scales) decodes to the
+    digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_G_DIGESTS[path]
+
+
+# chip_smoke.py phase 44's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_G_FRAMES = {
+    "O": ("formats_g/height_1024_float_pred3.tif",
+          "formats_g/logo_int16_signed.tif",
+          "formats_g/logo_rgb_rle_layers.psd"),
+    "P": ("formats_g/grid_ycbcr_2x2_lzw.tif", "formats_g/logo_sycc.jp2",
+          "formats_g/logo_scaled_ispe.avif"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_G_FRAMES))
+def test_format_g_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """chip_smoke.py phase 44's frame (scenes/textured_disk.ass with a
+    1024x1024 float height map, a 16-bit signed TIFF and an RLE RGB PSD,
+    or a subsampled YCbCr TIFF, an sYCC JP2 and an AVIF libavif scales,
+    in its texture slots) at 8x8 and its own AA 3 and GI samples: through
+    both kernels on the card, held to the CPU render with chip_smoke.py's
+    tolerance."""
+    _frame_matches_the_cpu(cuda_device, FORMAT_G_FRAMES[tag])

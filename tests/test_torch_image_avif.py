@@ -257,17 +257,12 @@ def _refusals() -> dict:
                                      "image sequences", "ispe size"])
 def test_refused_features_are_named(feature):
     """Files PIL opens with quantizer matrices (aom's enable-qm), film
-    grain (film-grain-test) or an image sequence (save_all), once refused,
-    decode to PIL's bytes; a frame libavif scales to an ispe size of its
-    item's that differs from the AV1 frame's still raises
-    NotImplementedError naming it."""
+    grain (film-grain-test), an image sequence (save_all) or a frame
+    libavif scales to an ispe size of its item's that differs from the
+    AV1 frame's, each once refused, decode to PIL's bytes."""
     data = _refusals()[feature]
     assert isinstance(pil_outcome(data), np.ndarray)
-    if feature != "ispe size":
-        assert held_to_pil(data) == "equal"
-        return
-    with pytest.raises(NotImplementedError, match=feature):
-        ttex.decode_image(data)
+    assert held_to_pil(data) == "equal"
 
 
 # ---------------------------------------------------------------------------

@@ -526,14 +526,15 @@ def test_palette_edges(case):
     (b"\x01\x00\x00\x00", 3, "raise"),
     (b"\x01\x00\x00\x00\x00\x00\x18", 3, "raise"),
     (b"\x01\x00\x00\x00\x00\x00\x0c", 4, "equal"),
-    (b"\x01\x00\x00\x00\x00\x00\x12", 3, "refused")],
+    (b"\x01\x00\x00\x00\x00\x00\x12", 3, "equal")],
     ids=["grey_none", "grey_icc", "grey_enum3", "grey", "rgb_none", "rgb_icc",
          "rgb_method3", "rgb_short", "eycc", "cmyk", "sycc"])
 def test_colour_spaces(colr, nc, want):
     """The colr box: none, an ICC profile, an unknown method or space
     (PIL's colour space then follows the component count), a box too
-    short, eYCC (no unpacker), CMYK (Pillow's cmyk2rgb) and sYCC (which
-    the port names and refuses) around PIL's codestream (seed 8)."""
+    short, eYCC (no unpacker), CMYK (Pillow's cmyk2rgb) and sYCC (once
+    refused, now Pillow's YCbCr conversion) around PIL's codestream (seed
+    8)."""
     px = _image(21, 30, nc, 8)
     data = fm.jp2_wrap(_save(px, no_jp2=True), 30, 21, nc, colr=colr)
     assert held_to_pil(data) == want
@@ -604,8 +605,8 @@ def test_refused_features_are_named(feature, message):
 
 def test_avif_is_refused():
     """AVIF, which PIL opens through libavif, is decoded since, quantizer
-    matrices (aom's enable-qm) too; an AVIF whose frame libavif scales
-    to another ispe size, which PIL opens too, stays refused by name."""
+    matrices (aom's enable-qm) too, and an AVIF whose frame libavif
+    scales to another ispe size (refused before its slice) too."""
     buf = io.BytesIO()
     Image.fromarray(_image(16, 16, 3, 11)).save(
         buf, "AVIF", quality=60, advanced={"enable-qm": "1"})
@@ -614,8 +615,7 @@ def test_avif_is_refused():
     at = data.index(b"ispe") + 8
     scaled = data[:at] + struct.pack(">II", 24, 20) + data[at + 8:]
     assert pil_outcome(scaled).shape == (20, 24, 3)
-    with pytest.raises(NotImplementedError, match="ispe size"):
-        ttex.decode_image(scaled)
+    assert held_to_pil(scaled) == "equal"
 
 
 # ---------------------------------------------------------------------------

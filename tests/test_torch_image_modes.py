@@ -201,8 +201,10 @@ def test_other_formats_are_named(tmp_path, fmt, name):
 
 
 @pytest.mark.parametrize("head,name,error", [
-    pytest.param(b"8BPS\x00\x01", "PSD", NotImplementedError,
-                 id="8BPS\x00\x01-PSD"),
+    # a PSD, refused before its slice, is decoded since; Sun raster, which
+    # PIL opens too, is not
+    pytest.param(b"\x59\xa6\x6a\x95", "Sun raster", NotImplementedError,
+                 id="Y\xa6j\x95-Sun raster"),
     # a JP2 signature and a VP8X chunk of an animated WebP head formats the
     # port decodes since; followed by zeros, they are malformed, and PIL
     # raises too

@@ -124,7 +124,7 @@ def test_conversions_are_pils():
 
 @pytest.mark.parametrize("tags,what", [
     ([(259, 3, [6])], "old-style JPEG compression"),
-    ([(259, 3, [34925])], "LZMA"),
+    ([(259, 3, [34676])], "SGILog"),
     ([(259, 3, [50001])], "WebP"),
     ([(266, 3, [2])], "fill order 2"),
     ([(274, 3, [6])], "orientation"),

@@ -18,6 +18,7 @@ import torch
 
 from rlshaders_tpu.parallel import mesh as jmesh
 from rlshaders_tpu.scene import build as jbuild
+from tools import make_image_formats as fm
 from rlshaders_tpu_torch import interop
 from rlshaders_tpu_torch.scene import build as tbuild
 from rlshaders_tpu_torch.scene import demo as tdemo
@@ -182,17 +183,23 @@ def test_still_unported_raise(tmp_path):
         assert torch.equal(other.textures.data,
                            torch.full((21, 3), 200 / 255)), name
     # an AVIF (lossy YUV) builds to the texels of PIL's decode of it, as a
-    # PNG of that decode does; a PSD, which PIL opens and the port does
-    # not decode, raises NotImplementedError naming it
+    # PNG of that decode does; a PSD (refused before its slice) to its
+    # pixels; a Sun raster, which PIL opens and the port does not decode,
+    # raises NotImplementedError naming it
     Image.open(os.path.join(base, "t.avif")).convert("RGB").save(
         os.path.join(base, "avif.png"))
     other = tbuild.build_text(src % "t.avif", device="cpu", base_dir=base)
     png = tbuild.build_text(src % "avif.png", device="cpu", base_dir=base)
     assert torch.equal(other.textures.data, png.textures.data)
     with open(os.path.join(base, "t.psd"), "wb") as f:
-        f.write(b"8BPS\x00\x01" + bytes(40))
-    with pytest.raises(NotImplementedError, match="PSD"):
-        tbuild.build_text(src % "t.psd", device="cpu", base_dir=base)
+        f.write(fm.psd_bytes(np.full((3, 4, 4), 200), 3, rle=True))
+    other = tbuild.build_text(src % "t.psd", device="cpu", base_dir=base)
+    assert torch.equal(other.textures.data, torch.full((21, 3), 200 / 255))
+    with open(os.path.join(base, "t.ras"), "wb") as f:
+        f.write(fm.sun_raster(np.full((4, 4, 3), 200, np.uint8)))
+    assert Image.open(os.path.join(base, "t.ras")).format == "SUN"
+    with pytest.raises(NotImplementedError, match="Sun raster"):
+        tbuild.build_text(src % "t.ras", device="cpu", base_dir=base)
 
 
 @pytest.mark.parametrize("where", ["suite/data", "nowhere"])

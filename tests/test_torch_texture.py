@@ -35,6 +35,7 @@ from rlshaders_tpu.models import dispatch as jdispatch
 from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu.scene import texture as jtex
 from test_r5_semantics import SCENE_INVERT
+from tools import make_image_formats as fm
 from rlshaders_tpu_torch import interop
 from rlshaders_tpu_torch.core import cpu_math
 from rlshaders_tpu_torch.core import vec3 as tv
@@ -267,9 +268,9 @@ def test_png_filters(tmp_path, filt, channels):
 
 def test_other_formats_raise(tmp_path):
     """A GIF, a grey PNG, a TGA, an IM, a WebP, an animated WebP, a JPEG
-    2000 and an AVIF, refused before their slices, now decode as PIL does;
-    a PSD, which PIL opens and the port does not decode, raises
-    NotImplementedError naming its format."""
+    2000, an AVIF and a PSD, refused before their slices, now decode as
+    PIL does; a Sun raster, which PIL opens and the port does not decode,
+    raises NotImplementedError naming its format."""
     img = Image.fromarray(np.random.default_rng(3).integers(
         0, 256, (4, 4, 3), dtype=np.uint8))
     for name, save in (("x.gif", img), ("g.png", img.convert("L")),
@@ -290,9 +291,15 @@ def test_other_formats_raise(tmp_path):
     assert Image.open(tmp_path / "x.avif").format == "AVIF"
     assert np.array_equal(ttex.load_image(str(tmp_path / "x.avif")),
                           jtex.load_image(str(tmp_path / "x.avif"), 1.0))
-    (tmp_path / "x.psd").write_bytes(b"8BPS\x00\x01" + bytes(40))
-    with pytest.raises(NotImplementedError, match="PSD"):
-        ttex.load_image(str(tmp_path / "x.psd"))
+    (tmp_path / "x.psd").write_bytes(fm.psd_bytes(
+        np.moveaxis(np.asarray(img), -1, 0), 3, rle=True, layers=True))
+    assert Image.open(tmp_path / "x.psd").format == "PSD"
+    assert np.array_equal(ttex.load_image(str(tmp_path / "x.psd")),
+                          jtex.load_image(str(tmp_path / "x.psd"), 1.0))
+    (tmp_path / "x.ras").write_bytes(fm.sun_raster(np.asarray(img)))
+    assert Image.open(tmp_path / "x.ras").format == "SUN"
+    with pytest.raises(NotImplementedError, match="Sun raster"):
+        ttex.load_image(str(tmp_path / "x.ras"))
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,41 @@ _OPBYOP_RGBA = {
 }
 OPBYOP = {"indirect_specular": _OPBYOP_SPEC, "RGBA": _OPBYOP_RGBA}
 
+def texel_rows(frames: dict) -> int:
+    """The most rows the JAX package's texel table takes for any frame of
+    `frames` ({tag: images of scenes/data in the three slots}): every mip
+    level of each image (2x reductions, odd sides rounded up, at most 12
+    levels)."""
+    from PIL import Image
+
+    def rows(name):
+        w, h = Image.open(os.path.join("scenes", "data", name)).size
+        total = 0
+        for _ in range(12):
+            total += h * w
+            if h == w == 1:
+                break
+            h, w = (h + 1) // 2, (w + 1) // 2
+        return total
+    return max(sum(rows(n) for n in images) for images in frames.values())
+
+
+def padded(scene, rows: int):
+    """The JAX scene with its texel table padded with zero rows to `rows`:
+    the same render (no lookup reads past a texture's last level), and
+    one compiled program for the frames of a file, whose tables are then
+    of one shape (the JAX package reuses its programs across scenes of
+    identical table shapes)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    tex = scene.textures
+    pad = jnp.zeros((rows - tex.data.shape[0], 3), tex.data.dtype)
+    return dataclasses.replace(scene, textures=tex._replace(
+        data=jnp.concatenate([tex.data, pad])))
+
+
 def textured_copy(path, **opts) -> str:
     """scenes/textured_disk.ass with options replaced, written beside its
     images (`path` in a directory holding data/)."""

@@ -2232,6 +2232,372 @@ def files_f(big: bool = True) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# TIFF: YCbCr outside JPEG
+# ---------------------------------------------------------------------------
+
+def ycbcr_cell_bytes(ycc: np.ndarray, hs: int, vs: int, predictor: int = 1,
+                     rowsize: int = 0):
+    """tools/make_image_modes.py `tiff_bytes`'s cell_bytes for full-size
+    YCbCr samples ((h, w, 3)): each strip or tile as blocks of hs x vs luma
+    samples and the block's mean Cb and Cr (rounded), the image's edge
+    samples repeated past it; predictor 2 differences each `rowsize`
+    bytes at a stride of 3 where the sizes divide, as libtiff does."""
+    h, w, _ = ycc.shape
+
+    def cell(x, y, cw, ch):
+        nr, nc = -(-ch // vs), -(-cw // hs)
+        yy = np.minimum(np.arange(y, y + nr * vs), h - 1)
+        xx = np.minimum(np.arange(x, x + nc * hs), w - 1)
+        px = ycc[yy][:, xx].astype(np.int64)
+        blk = px.reshape(nr, vs, nc, hs, 3).transpose(0, 2, 1, 3, 4)
+        lum = blk[..., 0].reshape(nr, nc, hs * vs)
+        chroma = (blk[..., 1:].reshape(nr, nc, hs * vs, 2).sum(2)
+                  + hs * vs // 2) // (hs * vs)
+        out = np.concatenate([lum, chroma], -1).reshape(-1)
+        if predictor == 2 and rowsize % 3 == 0 and out.size % rowsize == 0:
+            rows = out.reshape(-1, rowsize // 3, 3)
+            rows[:, 1:] = np.diff(rows, axis=1)
+            out = rows.reshape(-1) & 0xFF
+        return out.astype(np.uint8).tobytes()
+    return cell
+
+
+def ycbcr_tiff(ycc: np.ndarray, hs: int, vs: int, *, order: str = "II",
+               compression: int = 5, predictor: int = 1, tile=None,
+               rows_per_strip=None, coefficients=None, reference=None,
+               subsampling_tag: bool = True, tags=()) -> bytes:
+    """A YCbCr TIFF (photometric 6) of full-size samples, subsampled hs x
+    vs, in strips or tiles; YCbCrCoefficients and ReferenceBlackWhite as
+    (numerator, denominator) pairs where given; no YCbCrSubsampling tag
+    (libtiff then takes 2x2) where `subsampling_tag` is False."""
+    h, w, _ = ycc.shape
+    if tile:
+        rowsize = 3 * tile[0]
+    else:
+        rowsize = -(-w // hs) * (hs * vs + 2) // vs
+    extra = list(tags)
+    if subsampling_tag:
+        extra.append((530, 3, [hs, vs]))
+    if coefficients is not None:
+        extra.append((529, 5, coefficients))
+    if reference is not None:
+        extra.append((532, 5, reference))
+    return modes.tiff_bytes(
+        np.zeros((h, w, 3), np.int64), 8, 6, order=order,
+        compression=compression, predictor=predictor, tile=tile,
+        rows_per_strip=rows_per_strip, tags=extra,
+        cell_bytes=ycbcr_cell_bytes(ycc, hs, vs, predictor, rowsize))
+
+
+# ---------------------------------------------------------------------------
+# PSD
+# ---------------------------------------------------------------------------
+
+def psd_packbits_row(row: bytes) -> bytes:
+    """One row as PackBits records: runs of 3 or more equal bytes as
+    repeats, the rest as literals, at most 128 bytes a record, and a
+    no-op record (0x80) before the row's second record."""
+    out, i, n = bytearray(), 0, len(row)
+    records = 0
+    while i < n:
+        if records == 1:
+            out.append(0x80)
+        j = i
+        while j < n and j - i < 128 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), row[i]])
+        else:
+            j = i
+            while j < n and j - i < 128 and not (
+                    j + 2 < n and row[j] == row[j + 1] == row[j + 2]):
+                j += 1
+            out += bytes([j - i - 1]) + row[i:j]
+        records += 1
+        i = j
+    return bytes(out)
+
+
+def psd_bytes(channels: np.ndarray, mode: int, bits: int = 8, *,
+              rle: bool = False, palette: np.ndarray = None,
+              resources: bool = True, layers: bool = False,
+              spill: bool = False, version: int = 1,
+              compression: int = None) -> bytes:
+    """A PSD file of `channels` ((c, h, w) samples: bytes, or 0/1 where
+    bits is 1), colour mode `mode` (0 bitmap, 1 grey, 2 indexed, 3 RGB,
+    4 CMYK, 7 multichannel, 8 duotone, 9 LAB): the header, the colour
+    mode data (a 768-byte palette, or a duotone block), image resources
+    (a resolution block and one of odd length) where `resources`, a layer
+    and mask section holding one layer of the first channel's pixels
+    where `layers`, then the merged image, raw or (`rle`) as PackBits
+    rows after their byte counts; `spill` makes the first row's last
+    record run on into the next row, which PIL's decoder drops."""
+    c, h, w = channels.shape
+    out = bytearray(b"8BPS" + struct.pack(">H6xHIIHH", version, c, h, w,
+                                          bits, mode))
+    if palette is not None:
+        cmd = palette.astype(np.uint8).T.tobytes()     # R, G then B
+    elif mode == 8:
+        cmd = b"duotone-data\x00\x01"
+    else:
+        cmd = b""
+    out += struct.pack(">I", len(cmd)) + cmd
+    res = b""
+    if resources:
+        res = (b"8BIM" + struct.pack(">H", 1005) + b"\x00\x00"
+               + struct.pack(">I", 16) + bytes(16)
+               + b"8BIM" + struct.pack(">H", 1000) + b"\x03abc"
+               + struct.pack(">I", 5) + b"12345\x00")
+    out += struct.pack(">I", len(res)) + res
+    if layers:
+        img = channels[0].astype(np.uint8).tobytes() if bits == 8 else \
+            np.packbits(channels[0].astype(np.uint8), axis=1).tobytes()
+        rec = (struct.pack(">iiiiH", 0, 0, h, w, 1) + struct.pack(
+            ">hI", 0, 2 + len(img)) + b"8BIMnorm" + bytes([255, 0, 0, 0])
+            + struct.pack(">I", 12) + struct.pack(">II", 0, 0) + b"\x03lay")
+        info = struct.pack(">h", 1) + rec + struct.pack(">H", 0) + img
+        if len(info) & 1:
+            info += b"\x00"
+        section = struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+        out += struct.pack(">I", len(section)) + section
+    else:
+        out += struct.pack(">I", 0)
+    if bits == 1:
+        rows = [np.packbits(ch.astype(np.uint8), axis=1) for ch in channels]
+    else:
+        rows = [ch.astype(np.uint8) for ch in channels]
+    if compression is not None:
+        out += struct.pack(">H", compression)
+    elif not rle:
+        out += struct.pack(">H", 0)
+        for r in rows:
+            out += r.tobytes()
+    else:
+        packed = [[psd_packbits_row(r[y].tobytes()) for y in range(h)]
+                  for r in rows]
+        if spill and w > 2:
+            # the first row's records as one literal longer than the row
+            row0 = rows[0][0].tobytes()
+            packed[0][0] = bytes([len(row0)]) + row0 + row0[:1]
+        out += struct.pack(">H", 1)
+        for ch in packed:
+            out += b"".join(struct.pack(">H", len(p)) for p in ch)
+        for ch in packed:
+            out += b"".join(ch)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# formats_g: float and signed TIFF, YCbCr TIFF, sYCC JPEG 2000, PSD and
+# AVIF frames libavif scales
+# ---------------------------------------------------------------------------
+
+SEED_G = 17
+
+
+def height_map(side: int = 1024, seed: int = SEED_G) -> np.ndarray:
+    """(side, side) float32 heights about 100, quantised to 1/256: a sum
+    of seeded ridges and a little noise, as a sculpting tool exports a
+    displacement map."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:side, 0:side] / side
+    hgt = np.full((side, side), 100.0)
+    for _ in range(6):
+        fx, fy, ph = rng.uniform(1, 6), rng.uniform(1, 6), rng.uniform(0, 6)
+        hgt += rng.uniform(4, 12) * np.sin(2 * np.pi * (fx * x + fy * y)
+                                           + ph)
+    hgt += rng.normal(0, 0.3, hgt.shape)
+    return (np.round(hgt * 256) / 256).astype(np.float32)
+
+
+def float_tiff(values: np.ndarray, **kw) -> bytes:
+    """A 32-bit floating-point grey TIFF (SampleFormat 3) of (h, w)
+    float32 values."""
+    bits = values.astype(np.float32).view(np.uint32).astype(np.int64)
+    return modes.tiff_bytes(bits[..., None], 32, kw.pop("photometric", 1),
+                            tags=[(339, 3, [3])] + list(kw.pop("tags", ())),
+                            **kw)
+
+
+def signed_tiff(values: np.ndarray, bits: int, **kw) -> bytes:
+    """A signed (SampleFormat 2) grey TIFF of (h, w) integers."""
+    return modes.tiff_bytes((values.astype(np.int64) % (1 << bits))[..., None],
+                            bits, 1, tags=[(339, 3, [2])], **kw)
+
+
+def scaled_avif(data: bytes, w: int, h: int, which=None) -> bytes:
+    """An AVIF with the ispe properties (all, or the `which`-th ones) and
+    track header sizes rewritten to w x h: libavif scales each decoded
+    frame to that size."""
+    out = bytearray(data)
+    at, k = 0, 0
+    while True:
+        at = out.find(b"ispe", at)
+        if at < 0:
+            break
+        if which is None or k in which:
+            struct.pack_into(">II", out, at + 8, w, h)
+        at, k = at + 4, k + 1
+    at = 0
+    while True:
+        at = out.find(b"tkhd", at)
+        if at < 0:
+            break
+        v = out[at + 4]
+        struct.pack_into(">II", out, at + 4 + 4 + (32 if v == 1 else 20)
+                         + 52, w << 16, h << 16)
+        at += 4
+    return bytes(out)
+
+
+def files_g() -> dict:
+    """{name in scenes/data/formats_g: bytes}: the 1024x1024 float height
+    map (Deflate, floating-point predictor) and signed and float TIFF of
+    every layout PIL opens (8-, 16- and 32-bit signed, 32-bit unsigned
+    little-endian, float under photometric 0 and 1, both byte orders,
+    where libtiff hands PIL big-endian samples swapped; predictors 2 and
+    3; strips and tiles); YCbCr TIFF outside JPEG (`ycbcr_tiff`) at every
+    subsampling libtiff converts, clipped 4x4 tiles, Rec. 709
+    coefficients and a studio-range ReferenceBlackWhite, and PIL's own;
+    sYCC JP2 (PIL's, and an RGBA codestream under colour space 18);
+    PSD (`psd_bytes`) of every mode PIL opens, raw and RLE, with and
+    without a layer section, odd sizes; and AVIF whose ispe or track
+    size libavif scales it to, up and down, in stills, a grid's tiles
+    and a sequence."""
+    from PIL import Image
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    grid = np.asarray(Image.open(os.path.join(modes.DATA, "grid.png")))
+    tex = np.asarray(Image.open(os.path.join(
+        modes.DATA, "formats_d", "texture_2048.jp2")).convert("RGB"))
+    photo = tex[600:856, 900:1156]                          # 256x256
+    odd = np.ascontiguousarray(photo[:37, :53])
+    wide = odd.astype(np.int64)
+    lum = np.asarray(Image.fromarray(lrgba[..., :3]).convert("L")).astype(
+        np.int64)
+    hgt = height_map()
+
+    def ycc(px):
+        return np.asarray(Image.fromarray(np.ascontiguousarray(
+            px[..., :3])).convert("YCbCr")).astype(np.int64)
+
+    def pil_tiff(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    def pil_jp2(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    def planes(px):
+        return np.moveaxis(px, -1, 0)
+
+    rgba_stream = pil_jp2(Image.fromarray(np.ascontiguousarray(
+        lrgba[:64, :96])), no_jp2=True)
+    # PSD stores CMYK inverted (PIL reads it with its "C;I" modes)
+    cmyk = 255 - np.asarray(Image.fromarray(photo).convert("CMYK"))
+    rng = np.random.default_rng(SEED_G)
+    # values of every mantissa bit, whose bytes swapped are other floats
+    fine = rng.uniform(0, 1, odd.shape[:2]).astype(np.float32)
+    logo_avif = _avif(lrgba, "RGBA", quality=60)
+    grid_tiles = avif_grid(_tiles(photo, 1, 2, 64, 64), 1, 2, 128, 64)
+    out = {
+        # frame O
+        "height_1024_float_pred3.tif": float_tiff(
+            hgt, compression=32946, predictor=3, rows_per_strip=64),
+        "logo_int16_signed.tif": signed_tiff(lum * 3 - 150, 16,
+                                             compression=5, predictor=2,
+                                             rows_per_strip=32),
+        "logo_rgb_rle_layers.psd": psd_bytes(planes(lrgba[..., :3]), 3,
+                                             rle=True, layers=True),
+        # frame P
+        "grid_ycbcr_2x2_lzw.tif": ycbcr_tiff(ycc(grid), 2, 2,
+                                             rows_per_strip=16),
+        "logo_sycc.jp2": pil_jp2(Image.fromarray(
+            np.ascontiguousarray(lrgba[..., :3])).convert("YCbCr")),
+        "logo_scaled_ispe.avif": scaled_avif(logo_avif, 360, 240),
+        # the rest of the sweep
+        "photo_cmyk_rle.psd": psd_bytes(planes(cmyk), 4, rle=True),
+        "odd_float_mm_tiles_lzw_pred3.tif": float_tiff(
+            odd[..., 0].astype(np.float32) / 2 + fine, order="MM",
+            compression=5, predictor=3, tile=(16, 16)),
+        "odd_float_minwhite_raw.tif": float_tiff(
+            odd[..., 1].astype(np.float32) * 1.5 - 60, photometric=0,
+            rows_per_strip=7),
+        "odd_float_mm_raw_planar.tif": float_tiff(
+            odd[..., 2].astype(np.float32) - fine, order="MM", planar=2),
+        "odd_int32_signed_packbits.tif": signed_tiff(
+            wide[..., 0] * 300 - 20000, 32, compression=32773,
+            rows_per_strip=5),
+        "odd_int16_signed_mm_deflate.tif": signed_tiff(
+            wide[..., 1] * 2 - 100, 16, order="MM", compression=8,
+            predictor=2, tile=(16, 16)),
+        "odd_int8_signed.tif": signed_tiff(odd[..., 2], 8),
+        "odd_uint32_lzw_pred2.tif": modes.tiff_bytes(
+            wide[..., :1] * 16843009, 32, 1,
+            compression=5, predictor=2, rows_per_strip=8),
+        "odd_ycbcr_4x4_tiles_deflate.tif": ycbcr_tiff(
+            ycc(odd), 4, 4, compression=8, tile=(16, 16)),
+        "odd_ycbcr_4x2_bt709_studio.tif": ycbcr_tiff(
+            ycc(odd), 4, 2, compression=32773, rows_per_strip=8,
+            coefficients=[(2126, 10000), (7152, 10000), (722, 10000)],
+            reference=[(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                       (240, 1)]),
+        "odd_ycbcr_2x1_mm_pred2.tif": ycbcr_tiff(
+            ycc(odd), 2, 1, order="MM", compression=5, predictor=2,
+            rows_per_strip=6),
+        "odd_ycbcr_1x2_lzw.tif": ycbcr_tiff(ycc(odd), 1, 2, compression=5,
+                                            rows_per_strip=10),
+        "odd_ycbcr_default_2x2.tif": ycbcr_tiff(
+            ycc(odd), 2, 2, compression=8, subsampling_tag=False),
+        "odd_ycbcr_pil_packbits.tif": pil_tiff(
+            Image.fromarray(odd).convert("YCbCr"), compression="packbits"),
+        "odd_sycc_rgba.jp2": jp2_wrap(rgba_stream, 96, 64, 4,
+                                      colr=b"\x01\x00\x00\x00\x00\x00\x12"),
+        "odd_sycc.j2k": pil_jp2(Image.fromarray(odd).convert("YCbCr"),
+                                no_jp2=True),
+        "odd_bitmap.psd": psd_bytes(
+            (planes(odd[..., :1]) > 100).astype(np.int64), 0, 1),
+        "odd_grey_rle.psd": psd_bytes(planes(odd[..., :1]), 1, rle=True,
+                                      resources=False),
+        "odd_indexed.psd": psd_bytes(planes(odd[..., :1]), 2,
+                                     palette=photo[::16, ::16].reshape(
+                                         256, 3)),
+        "odd_multichannel_spill.psd": psd_bytes(planes(odd), 7, rle=True,
+                                                spill=True),
+        "odd_duotone_layers.psd": psd_bytes(planes(odd[..., :1]), 8,
+                                            layers=True),
+        "odd_rgba_rle.psd": psd_bytes(planes(np.dstack([odd, odd[..., 0]])),
+                                      3, rle=True, layers=True),
+        "odd_cmyk5_raw.psd": psd_bytes(planes(np.dstack([
+            255 - np.asarray(Image.fromarray(odd).convert("CMYK")),
+            odd[..., 1]])), 4),
+        "photo_scaled_down34.avif": scaled_avif(
+            _avif(photo, "RGB", quality=50), 192, 192),
+        "odd_scaled_420_rgba.avif": scaled_avif(
+            _avif(np.dstack([odd, odd[..., 0]]), "RGBA"), 71, 30),
+        "grid_scaled_tiles.avif": scaled_avif(grid_tiles, 70, 64,
+                                              which=(0,)),
+        "sequence_scaled.avif": scaled_avif(_avif_frames(
+            [odd, odd[::-1].copy()], "RGB"), 40, 50),
+    }
+    return out
+
+
+def sun_raster(px: np.ndarray) -> bytes:
+    """A 24-bit standard Sun raster file of (h, w, 3) uint8 pixels (BGR
+    samples, rows padded to 16 bits), which PIL opens and the port does
+    not decode yet."""
+    h, w, _ = px.shape
+    rows = px[..., ::-1].reshape(h, -1).astype(np.uint8)
+    if rows.shape[1] % 2:
+        rows = np.hstack([rows, np.zeros((h, 1), np.uint8)])
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, rows.size, 1, 0,
+                       0) + rows.tobytes()
+
+
 # the side of the bomb files: 13,380 ** 2 = 179,024,400 pixels, just past
 # PIL's limit of 178,956,970
 BOMB_SIDE = S = 13380
@@ -2388,12 +2754,14 @@ SETS = {"formats": (files, "FORMAT_DIGESTS"),
         "formats_c": (files_c, "FORMAT_C_DIGESTS"),
         "formats_d": (files_d, "FORMAT_D_DIGESTS"),
         "formats_e": (files_e, "FORMAT_E_DIGESTS"),
-        "formats_f": (files_f, "FORMAT_F_DIGESTS")}
+        "formats_f": (files_f, "FORMAT_F_DIGESTS"),
+        "formats_g": (files_g, "FORMAT_G_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
-    default, formats_b, formats_c, formats_d, formats_e or formats_f) and
+    default, formats_b, formats_c, formats_d, formats_e, formats_f or
+    formats_g) and
     print its digests; `bombs` writes scenes/bombs (outside scenes/data:
     no texture; each file raises)."""
     argv = sys.argv[1:] if argv is None else argv

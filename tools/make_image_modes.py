@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import hashlib
 import io
+import lzma
 import os
 import struct
 import zlib
@@ -49,12 +50,13 @@ ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
 def pack_rows(samples: np.ndarray, bits: int,
               big_endian: bool = True) -> np.ndarray:
     """(h, n) sample values as rows of bytes: sub-byte samples packed most
-    significant bits first, each row padded to a byte; 16-bit samples in
-    the given byte order."""
+    significant bits first, each row padded to a byte; 16- and 32-bit
+    samples in the given byte order."""
     h, n = samples.shape
-    if bits == 16:
-        return samples.astype(">u2" if big_endian else "<u2").view(
-            np.uint8).reshape(h, 2 * n)
+    if bits in (16, 32):
+        t = f"{'>' if big_endian else '<'}u{bits // 8}"
+        return (samples & ((1 << bits) - 1)).astype(t).view(
+            np.uint8).reshape(h, bits // 8 * n)
     if bits == 8:
         return samples.astype(np.uint8)
     shifts = np.arange(bits - 1, -1, -1)
@@ -207,18 +209,36 @@ def packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
+def _fp_diff(rows: np.ndarray, stride: int) -> np.ndarray:
+    """libtiff's fpDiff of rows of 32-bit samples: each row's bytes as four
+    planes (most significant first), then each byte less the byte
+    `stride` before it."""
+    planes = rows.astype(">u4").view(np.uint8).reshape(
+        len(rows), -1, 4).transpose(0, 2, 1).reshape(len(rows), -1)
+    out = planes.astype(np.int64)
+    out[:, stride:] -= planes[:, :-stride]
+    return (out & 0xFF).astype(np.uint8)
+
+
 _COMPRESS = {1: lambda b: b, 5: lambda b: lzw_encode(b, 8, True, 1),
-             8: zlib.compress, 32946: zlib.compress, 32773: packbits}
+             8: zlib.compress, 32946: zlib.compress, 32773: packbits,
+             34925: lambda b: lzma.compress(b, lzma.FORMAT_XZ)}
 
 
 def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
                order: str = "II", compression: int = 1, predictor: int = 1,
                planar: int = 1, tile=None, rows_per_strip=None,
-               extra=(), colormap=None, tags=()) -> bytes:
+               extra=(), colormap=None, tags=(), cell_bytes=None) -> bytes:
     """A TIFF of `samples` ((h, w, spp) values at `bits` bits), in strips
     of rows_per_strip rows or tiles of tile = (width, length), chunky
     (planar 1) or one plane a sample (planar 2), each strip or tile
-    compressed on its own; predictor 2 stores each row's differences."""
+    compressed on its own; predictor 2 stores each row's differences,
+    predictor 3 (libtiff's floating-point predictor, for 32-bit samples)
+    each row's bytes as planes, most significant first, then their
+    differences. Tags of type 5 (RATIONAL) take (numerator, denominator)
+    pairs. `cell_bytes(x, y, width, length)`, where given, makes each
+    strip's or tile's bytes before compression instead (the samples then
+    give only the size)."""
     h, w, spp = samples.shape
     big = order == "MM"
     e = ">" if big else "<"
@@ -234,13 +254,20 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
     chunks = []
     for chans in planes:
         for x, y, cw, chh in cells:
+            if cell_bytes is not None:
+                chunks.append(_COMPRESS[compression](cell_bytes(x, y, cw,
+                                                                chh)))
+                continue
             sub = np.zeros((chh, cw, len(chans)), np.int64)
             part = samples[y:y + chh, x:x + cw][..., chans]
             sub[:part.shape[0], :part.shape[1]] = part
             if predictor == 2:
                 sub = np.concatenate([sub[:, :1], np.diff(sub, axis=1)],
                                      axis=1) % (1 << bits)
-            rows = pack_rows(sub.reshape(chh, -1), bits, big)
+            if predictor == 3:
+                rows = _fp_diff(sub.reshape(chh, -1), len(chans))
+            else:
+                rows = pack_rows(sub.reshape(chh, -1), bits, big)
             chunks.append(_COMPRESS[compression](rows.tobytes()))
 
     entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
@@ -274,13 +301,16 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
     body, spill = bytearray(struct.pack(e + "H", len(entries))), bytearray()
     for tag in sorted(entries):
         typ, vals = entries[tag]
-        fmt = {3: "H", 4: "I", 1: "B"}[typ]
-        raw = struct.pack(e + fmt * len(vals), *vals)
+        fmt = {3: "H", 4: "I", 1: "B", 5: "II"}[typ]
+        if typ == 5:
+            vals = [v for pair in vals for v in pair]
+        raw = struct.pack(e + fmt * (len(vals) // len(fmt)), *vals)
         if len(raw) <= 4:
-            body += struct.pack(e + "HHI", tag, typ, len(vals)) + raw.ljust(
+            body += struct.pack(e + "HHI", tag, typ,
+                                len(vals) // len(fmt)) + raw.ljust(
                 4, b"\x00")
         else:
-            body += struct.pack(e + "HHII", tag, typ, len(vals),
+            body += struct.pack(e + "HHII", tag, typ, len(vals) // len(fmt),
                                 tail + len(spill))
             spill += raw + (b"\x00" if len(raw) % 2 else b"")
     return bytes(data + body + bytes(4) + spill)
