@@ -255,7 +255,19 @@ nonzero):
    16-bit signed TIFF, an RLE RGB PSD with a layer section) and frame P
    (a 2x2-subsampled YCbCr LZW TIFF, an sYCC JP2, an AVIF libavif scales
    to its ispe), each held to the plain walk as in 34; phases 43-44 must
-   take 60 s at most.
+   take 60 s at most;
+45. every committed file of scenes/data/formats_h/
+   (`tools/make_image_formats.py formats_h`: a 1024x1024 LAB TIFF under
+   ZSTD, a 512x512 ZSTD TIFF tiled 256x256 with predictor 2, LAB PSD and
+   TIFF, Sun rasters of every depth raw and run-length coded, XPM, FTEX,
+   DCX, GIMP brushes, IMT, McIdas, PIXAR and an XV thumbnail) decoded
+   without PIL and held to the SHA-256 of PIL's decode, with the host
+   milliseconds of each file and, for the LAB ZSTD TIFF, the milliseconds
+   of its ZSTD strips and of its LAB conversion apart, as in 29;
+46. the textured scene as in 30 with frame Q (the LAB ZSTD TIFF, the
+   tiled ZSTD TIFF, a 24-bit RLE Sun raster) and frame R (an RLE LAB PSD,
+   an XPM, a DXT1 FTEX), each held to the plain walk as in 34; phases
+   45-46 must take 60 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -277,7 +289,8 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_formats` for phase 32, `launches_formats_b` for phase 34,
 `launches_formats_c` for phase 36, `launches_formats_d` for phase 38,
 `launches_formats_e` for phase 40, `launches_formats_f` for phase 42,
-`launches_formats_g` for phase 44, whose sum is `launches`); the card's
+`launches_formats_g` for phase 44, `launches_formats_h` for phase 46,
+whose sum is `launches`); the card's
 name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
@@ -792,6 +805,70 @@ FORMAT_G_DIGESTS = {
     "scenes/data/formats_g/sequence_scaled.avif":
         "afe4db386d3d87a113f44b25ee1a5579e657f08a9d8d6c74d662f7a123ffd234",
 }
+FORMAT_H_DIGESTS = {
+    "scenes/data/formats_h/grid.xpm":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_h/logo_dxt1.ftex":
+        "e6eb01bd1e8a05a45104aeffb554e32da4f6c1a35a33ed959c749730f8ace3e6",
+    "scenes/data/formats_h/logo_lab_rle.psd":
+        "aaa8db6a2eed862bbb8dc071d151a515823ab55bc6384117393d0a846a6c6952",
+    "scenes/data/formats_h/logo_rle24.ras":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_h/odd.imt":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd.pixar":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd.xvthumb":
+        "a1df4c45ac91c67b62679b56b1c821faceffeedfc0fad8177f3e5e2e985fd5ef",
+    "scenes/data/formats_h/odd_16bit.mcidas":
+        "d19978fd6926d907ca658b97337520209ae9c8e9c4b14c934c363d68f85f4e3c",
+    "scenes/data/formats_h/odd_32bit.mcidas":
+        "8bea24d20ef5c1bc042888885a1c9a744d3e5141ab33d47cc9ec2c038d51030b",
+    "scenes/data/formats_h/odd_8bit.mcidas":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd_bgr32_rle.ras":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_bilevel.ras":
+        "12297ef5b93f14b082049f303c8a2a697a538e29e569b532217656f11e4588cb",
+    "scenes/data/formats_h/odd_bilevel_rle.ras":
+        "04873d81115c2e1b9f877dda673e1a321dbb4442e0aa39b0f2996291e0621cdc",
+    "scenes/data/formats_h/odd_grey4.ras":
+        "414afd8a17fa6095c8f324b5a35c41b0b722b051329012bbd292f106590e2430",
+    "scenes/data/formats_h/odd_grey4_pal.ras":
+        "a1f8f5ceb8da9308bad11c92d2a1ec42c2ebdb03ffe6ebd2b638e6843cb63f58",
+    "scenes/data/formats_h/odd_grey8.ras":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd_grey8_pal_rle.ras":
+        "d07856adc5c2cd374efccdb74f80d1e815c2ebf135bbd94e273a0f1bfdd1c62f",
+    "scenes/data/formats_h/odd_lab_jpeg.tif":
+        "67df6576ca494df6ae1cfd0f3e0eed89f6ce0fb16bf62298e4ed1599f47adb23",
+    "scenes/data/formats_h/odd_lab_lzw_mm.tif":
+        "3338ed9e4f69d95a2c3d8d3f771846ebb2474413b0267b0c4204a1e7ca3e04ac",
+    "scenes/data/formats_h/odd_lab_packbits_tiles.tif":
+        "3338ed9e4f69d95a2c3d8d3f771846ebb2474413b0267b0c4204a1e7ca3e04ac",
+    "scenes/data/formats_h/odd_lab_raw.psd":
+        "3338ed9e4f69d95a2c3d8d3f771846ebb2474413b0267b0c4204a1e7ca3e04ac",
+    "scenes/data/formats_h/odd_many_2chars.xpm":
+        "42b01fa8b5b81ce66b1befd56ee50158dc3c62d1967a0b38d28024d9aae62439",
+    "scenes/data/formats_h/odd_pages.dcx":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_rgb.ftex":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_rgb32_rgb_order.ras":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_v1_grey.gbr":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd_v2_rgba.gbr":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_zstd_grey16_size.tif":
+        "8bea24d20ef5c1bc042888885a1c9a744d3e5141ab33d47cc9ec2c038d51030b",
+    "scenes/data/formats_h/odd_zstd_mm_float_pred3.tif":
+        "a70e25e811d699bbc050a13853fb21fbb15798d252b7bb052949ee18871d0d4b",
+    "scenes/data/formats_h/photo_512_zstd_tiles_pred2.tif":
+        "5f1e5247503101cd046b8df73ec3b287f37690d74cca35571c217e606591540e",
+    "scenes/data/formats_h/texture_1024_lab_zstd.tif":
+        "a224c154faad8a39f9105048b7409be3ce930931017a5ea11f53a65dc77990c5",
+}
 # phase 41: the header-only files past PIL's decompression-bomb limit
 BOMBS = "scenes/bombs"
 BOMB_FILES = ("avif.bomb", "blp.bomb", "bmp.bomb", "cur.bomb", "dds.bomb",
@@ -831,6 +908,16 @@ FORMAT_G_FRAMES = {
     "P": ("formats_g/grid_ycbcr_2x2_lzw.tif", "formats_g/logo_sycc.jp2",
           "formats_g/logo_scaled_ispe.avif"),
 }
+# phase 46: the same slots filled from scenes/data/formats_h
+FORMAT_H_FRAMES = {
+    "Q": ("formats_h/texture_1024_lab_zstd.tif",
+          "formats_h/photo_512_zstd_tiles_pred2.tif",
+          "formats_h/logo_rle24.ras"),
+    "R": ("formats_h/logo_lab_rle.psd", "formats_h/grid.xpm",
+          "formats_h/logo_dxt1.ftex"),
+}
+# phase 45's file whose ZSTD and LAB shares are printed apart
+FORMAT_H_SPLIT = "scenes/data/formats_h/texture_1024_lab_zstd.tif"
 # width and height of frames E to P held to the walk, and of frames A to
 # P on the card and the CPU (both 32 until PR 17, when the whole script
 # took 1,091 s of its 1,200 s on a slow call and phases 41-42 58.5 s of 60)
@@ -847,6 +934,9 @@ FORMAT_E_PHASES_S = 60.0
 FORMAT_F_PHASES_S = 60.0
 # phases 43-44 together: the YCbCr TIFF and PSD decoders are numpy
 FORMAT_G_PHASES_S = 60.0
+# phases 45-46 together: LAB is numpy over each distinct colour, ZSTD
+# native code
+FORMAT_H_PHASES_S = 60.0
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -2220,6 +2310,58 @@ def format_g_phases(card: str) -> dict:
                          FORMAT_G_PHASES_S)
 
 
+def lab_zstd_split(card: str) -> None:
+    """Phase 45's split of FORMAT_H_SPLIT's decode: the milliseconds of
+    its ZSTD strips (the native decoder) and of its LAB conversion
+    (numpy), timed inside one decode of the file."""
+    from rlshaders_tpu_torch.scene import lab, tiff, zstd
+
+    with open(FORMAT_H_SPLIT, "rb") as f:
+        data = f.read()
+    spent = {"zstd": 0.0, "lab": 0.0}
+
+    def timed(name, fn):
+        def run(*args):
+            t1 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                spent[name] += (time.perf_counter() - t1) * 1e3
+        return run
+
+    strip, to_rgb = zstd.tiff_strip, lab.to_rgb
+    zstd.tiff_strip, lab.to_rgb = timed("zstd", strip), timed("lab", to_rgb)
+    try:
+        t1 = time.perf_counter()
+        tiff.decode_tiff(data)
+        total = (time.perf_counter() - t1) * 1e3
+    finally:
+        zstd.tiff_strip, lab.to_rgb = strip, to_rgb
+    log(f"[45] {FORMAT_H_SPLIT}: {total:.2f} ms (host): ZSTD strips "
+        f"{spent['zstd']:.2f} ms, LAB to RGB {spent['lab']:.2f} ms, the "
+        f"rest {total - spent['zstd'] - spent['lab']:.2f} ms; {card}")
+
+
+def format_h_phases(card: str) -> dict:
+    """Phases 45-46: format_phases over scenes/data/formats_h (ZSTD TIFF,
+    LAB through LittleCMS's transform, and nine more of PIL's plugins)
+    with frames Q and R, each held to the plain walk on every query of a
+    FORMAT_B_CHECK frame, then the LAB ZSTD TIFF's split, all within
+    FORMAT_H_PHASES_S."""
+    t0 = time.perf_counter()
+    launches = format_phases(card, "formats_h", FORMAT_H_DIGESTS,
+                             FORMAT_H_FRAMES, (45, 46), FORMAT_B_CHECK,
+                             FORMAT_H_PHASES_S)
+    lab_zstd_split(card)
+    took = time.perf_counter() - t0
+    log(f"[46] phases 45-46 with the split {took:.1f} s (at most "
+        f"{FORMAT_H_PHASES_S} s); {card}")
+    if took > FORMAT_H_PHASES_S:
+        raise AssertionError(f"[46] phases 45-46 took {took:.1f} s, more "
+                             f"than {FORMAT_H_PHASES_S} s")
+    return launches
+
+
 def same_nodes_and_leaves(a, b) -> bool:
     """Whether two builders' arrays (bbox_min, bbox_max, first, count,
     miss, order) have the same nodes and every leaf the same set of
@@ -2717,6 +2859,7 @@ def main() -> int:
     format_e_launches = format_e_phases(card)
     format_f_launches = format_f_phases(card)
     format_g_launches = format_g_phases(card)
+    format_h_launches = format_h_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2754,7 +2897,7 @@ def main() -> int:
                          + format_launches[k] + format_b_launches[k]
                          + format_c_launches[k] + format_d_launches[k]
                          + format_e_launches[k] + format_f_launches[k]
-                         + format_g_launches[k]),
+                         + format_g_launches[k] + format_h_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2780,6 +2923,7 @@ def main() -> int:
             "launches_formats_e": format_e_launches[k],
             "launches_formats_f": format_f_launches[k],
             "launches_formats_g": format_g_launches[k],
+            "launches_formats_h": format_h_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -485,7 +485,9 @@ def _bc6h(blocks: np.ndarray, signed: bool) -> np.ndarray:
     return out
 
 
-def _bcn(data: bytes, pos: int, fmt: str, w: int, h: int) -> np.ndarray:
+def bcn(data: bytes, pos: int, fmt: str, w: int, h: int) -> np.ndarray:
+    """(h, w, 3) uint8 of the `fmt` blocks (BC1 to BC7) at `pos`, as PIL's
+    BCn decoder gives them (also FTEX's DXT1, ftex.py)."""
     bw, bh = -(-w // 4), -(-h // 4)
     size = _BLOCK_BYTES[fmt]
     raw = data[pos:pos + bw * bh * size]
@@ -601,4 +603,4 @@ def decode_dds(data: bytes) -> np.ndarray:
             raise NotImplementedError(f"DDS pixel format {fourcc!r}{what} "
                                       f"(which PIL does not open either) is "
                                       f"not decoded by the port")
-    return _bcn(data, pos, fmt, w, h)
+    return bcn(data, pos, fmt, w, h)

@@ -7,9 +7,9 @@ reading it as its `_open` does:
 * the 26-byte header: signature, version 1, channels, size, depth and
   colour mode, which with the depth picks PIL's mode (`MODES`): bitmap
   at 1 bit as "1", bitmap, grey, multichannel and duotone at 8 bits as
-  "L", indexed as "P", RGB as "RGB" (or "RGBA" with four channels exactly)
-  and CMYK as "CMYK"; fewer channels than the mode needs fail, more are
-  left unread;
+  "L", indexed as "P", RGB as "RGB" (or "RGBA" with four channels
+  exactly), CMYK as "CMYK" and Lab as "LAB"; fewer channels than the mode
+  needs fail, more are left unread;
 * the colour mode data, whose 768 bytes are an indexed image's palette
   (256 reds, then greens, then blues; without them every index is
   black);
@@ -25,10 +25,11 @@ reading it as its `_open` does:
   decode short; data that ends first is truncated (an error).
 
 CMYK is stored inverted (PIL's "C;I" raw modes) and converted as Pillow's
-cmyk2rgb; bitmap pixels are white where set. LAB (which Pillow converts
-through LittleCMS) raises NotImplementedError naming it, as do depths PIL
-does not open; malformed data and an image past PIL's decompression-bomb
-limit raise ValueError.
+cmyk2rgb; bitmap pixels are white where set; LAB (colour mode 9), stored
+with a* and b* offset by 128 as Pillow keeps them, converts through
+LittleCMS's transform as `lab.py` evaluates it. Depths PIL does not open
+raise NotImplementedError naming them; malformed data and an image past
+PIL's decompression-bomb limit raise ValueError.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ import struct
 
 import numpy as np
 
-from . import bomb
+from . import bomb, lab
 from .jpeg import muldiv255
 
 MAGIC = b"8BPS"
@@ -166,9 +167,6 @@ def decode_psd(data: bytes) -> np.ndarray:
     if compression not in (0, 1):
         raise ValueError(f"PSD compression {compression}: PIL cannot load "
                          f"the image")
-    if mode == "LAB":
-        raise NotImplementedError("LAB PSD (which Pillow converts through "
-                                  "LittleCMS) is not decoded by the port")
     rowbytes = (w + 7) // 8 if mode == "1" else w
     planes = []
     for off in offsets:
@@ -189,6 +187,8 @@ def decode_psd(data: bytes) -> np.ndarray:
         if palette is None:
             return np.zeros((h, w, 3), np.uint8)
         return palette[planes[0]]
+    if mode == "LAB":
+        return lab.to_rgb(np.stack(planes[:3], -1))
     px = np.stack(planes[:3], -1).astype(np.int64)
     if mode == "CMYK":
         k = planes[3].astype(np.int64)[..., None]    # stored inverted

@@ -15,20 +15,25 @@ port decodes every texture it renders itself, with no PIL: `load_image`
 names the format by the file's bytes, as PIL's `open` does (never by its
 extension), and hands it to the port's decoder of it, each equal to PIL's
 decode byte for byte: PNG (scene/png.py), JPEG (jpeg.py), GIF (gif.py),
-BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py and ccitt.py),
-PNM and PFM (pnm.py), PCX (pcx.py), DDS with BC1-BC7 blocks (dds.py),
-BLP (blp.py), ICO and CUR (ico.py), ICNS (icns.py), IM (im.py), MSP
-(msp.py), QOI (qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py),
-WebP, still and animated (webp.py, with vp8l.py for lossless and vp8.py
-for lossy images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py
-and j2k_t1.py, whose tier-1 is native code), AVIF: still, grids and an
-image sequence's first frame, frames libavif scales (avif.py, with
-av1.py, whose tile decoder is native code, and yuvscale.py), PSD
-(psd.py) and XBM (xbm.py). Every decoder keeps PIL's decompression-bomb
-limit (bomb.py). A format PIL opens and the port does not decode (Sun
-raster, XPM and the rest of PIL's plugins) raises NotImplementedError
-naming it; data that no PIL plugin accepts raises it as an unknown
-format.
+BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py, ccitt.py and
+zstd.py, whose Zstandard decoder is native code; LAB converted as
+LittleCMS converts it, lab.py), PNM and PFM (pnm.py), PCX (pcx.py), DCX
+(dcx.py), DDS with BC1-BC7 blocks (dds.py), BLP (blp.py), ICO and CUR
+(ico.py), ICNS (icns.py), IM (im.py), IMT (imt.py), MSP (msp.py), QOI
+(qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py), WebP, still
+and animated (webp.py, with vp8l.py for lossless and vp8.py for lossy
+images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py and
+j2k_t1.py, whose tier-1 is native code), AVIF: still, grids and an image
+sequence's first frame, frames libavif scales (avif.py, with av1.py,
+whose tile decoder is native code, and yuvscale.py), PSD (psd.py, LAB
+through lab.py), Sun raster (sun.py), XPM (xpm.py), FTEX (ftex.py), GIMP
+brushes (gbr.py), PIXAR (pixar.py), McIdas (mcidas.py), XV thumbnails
+(xvthumb.py) and XBM (xbm.py). Every decoder keeps PIL's
+decompression-bomb limit (bomb.py). A format PIL opens and the port does
+not decode (FLI/FLC, PhotoCD, FITS, IPTC and the rest of PIL's plugins)
+raises NotImplementedError naming it; MPEG, which PIL opens and cannot
+load, raises ValueError; data that no PIL plugin accepts raises
+NotImplementedError as an unknown format.
 """
 from __future__ import annotations
 
@@ -40,8 +45,9 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
-from . import (avif, blp, bmp, dds, gif, icns, ico, im, jp2, msp, pcx, png,
-               pnm, psd, qoi, sgi, spider, tga, tiff, webp, xbm)
+from . import (avif, blp, bmp, dcx, dds, ftex, gbr, gif, icns, ico, im,
+               imt, jp2, mcidas, msp, pcx, pixar, png, pnm, psd, qoi, sgi,
+               spider, sun, tga, tiff, webp, xbm, xpm, xvthumb)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -51,28 +57,32 @@ MAX_LEVELS = 12
 TEX_SHIFT = 0.5
 
 
-def _u32(d: bytes, e: str = "<") -> int:
-    return struct.unpack_from(e + "I", d.ljust(4, b"\x00"))[0]
+def _u32(d: bytes) -> int:
+    return struct.unpack_from("<I", d.ljust(4, b"\x00"))[0]
 
 
-def _gbr(d: bytes) -> bool:
-    """PIL's GbrImagePlugin checks (a GIMP brush header), which the first
-    bytes of other files (a QOI of width 1 or 2) can pass in part."""
-    if len(d) < 20:
-        return False
-    size, version, w, h, depth = struct.unpack_from(">5I", d)
-    return (size >= 20 and version in (1, 2) and w and h and depth in (1, 4)
-            and (version == 1 or d[20:24] == b"GIMP"))
+def _mpeg_size(d: bytes) -> bool:
+    """PIL's MpegImagePlugin opens a sequence header whose 12-bit width
+    and height (after the start code) are both set."""
+    return len(d) >= 7 and d.startswith(b"\x00\x00\x01\xb3") and bool(
+        d[4] << 4 | d[5] >> 4) and bool((d[5] & 15) << 8 | d[6])
+
+
+def _mpeg(d: bytes) -> np.ndarray:
+    raise ValueError("MPEG: PIL opens the stream and cannot load an image "
+                     "from it")
 
 
 # PIL's plugins in the order its `open` tries them (Image.ID: BMP, DIB,
 # GIF, JPEG, PPM and PNG first, then the rest as PIL.__init__ lists
 # them): (name, the test of the file's bytes, the port's decoder or None).
 # A test is the plugin's `_accept`, and for the formats whose `_open`
-# may still refuse a file it accepted (PNM, PCX, TGA, ICO, CUR, MSP: PIL
-# then tries the next plugin), that check too; IM has no prefix test, so
-# its header reader decides. The name of a decoded format is PIL's
-# `format` for it.
+# may still refuse a file it accepted (PNM, PCX, DCX, FTEX, GBR, TGA, ICO,
+# CUR, MSP, MCIDAS, MPEG, PIXAR, SUN, XPM, XVThumb: PIL then tries the
+# next plugin), that check too; IM, IMT and IPTC have no prefix test, so
+# their header readers decide (IMT's runs on every file the plugins
+# before it refuse). The name of a decoded format is PIL's `format` for
+# it.
 _FORMATS = (
     ("BMP", lambda d: d.startswith(bmp.MAGIC), bmp.decode_bmp),
     ("DIB", bmp.dib_accept, bmp.decode_dib),
@@ -85,14 +95,14 @@ _FORMATS = (
     ("BUFR", lambda d: d[:4] in (b"BUFR", b"ZCZC"), None),
     ("CUR", lambda d: ico.accept(d, ico.CUR_MAGIC), ico.decode_cur),
     ("PCX", pcx.header_ok, pcx.decode_pcx),
-    ("DCX", lambda d: _u32(d) == 987654321, None),
+    ("DCX", dcx.accept, dcx.decode_dcx),
     ("DDS", lambda d: d.startswith(dds.MAGIC), dds.decode_dds),
     ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d) == 0xC6D3D0C5, None),
     ("FITS", lambda d: d.startswith(b"SIMPLE"), None),
     ("FLI", lambda d: len(d) > 5 and struct.unpack_from("<H", d, 4)[0] in (
         0xAF11, 0xAF12), None),
-    ("FTEX", lambda d: d.startswith(b"FTEX"), None),
-    ("GBR", _gbr, None),
+    ("FTEX", ftex.accept, ftex.decode_ftex),
+    ("GBR", gbr.accept, gbr.decode_gbr),
     ("GRIB", lambda d: d.startswith(b"GRIB") and len(d) > 7 and d[7] == 1,
      None),
     ("HDF5", lambda d: d.startswith(b"\x89HDF\r\n\x1a\n"), None),
@@ -100,33 +110,36 @@ _FORMATS = (
     ("ICNS", lambda d: d.startswith(icns.MAGIC), icns.decode_icns),
     ("ICO", lambda d: ico.accept(d, ico.ICO_MAGIC), ico.decode_ico),
     ("IM", im.accept, im.decode_im),
-    ("McIdas", lambda d: d.startswith(b"\x00\x00\x00\x00\x00\x00\x00\x04"),
-     None),
-    ("MPEG", lambda d: d.startswith(b"\x00\x00\x01\xb3"), None),
+    ("IMT", imt.accept, imt.decode_imt),
+    ("IPTC", imt.iptc_accept, imt.refuse_iptc),
+    ("MCIDAS", mcidas.accept, mcidas.decode_mcidas),
+    ("MPEG", _mpeg_size, _mpeg),
     ("TIFF", lambda d: d.startswith(tiff.MAGICS + tiff.BIGTIFF),
      tiff.decode_tiff),
     ("MSP", msp.accept, msp.decode_msp),
     ("PhotoCD", lambda d: d[2048:2052] == b"PCD_", None),
-    ("PIXAR", lambda d: d.startswith(b"\x80\xe8\x00\x00"), None),
+    ("PIXAR", pixar.accept, pixar.decode_pixar),
     ("PSD", lambda d: d.startswith(psd.MAGIC), psd.decode_psd),
     ("QOI", lambda d: d.startswith(qoi.MAGIC), qoi.decode_qoi),
     ("SGI", sgi.accept, sgi.decode_sgi),
     ("SPIDER", spider.accept, spider.decode_spider),
-    ("Sun raster", lambda d: _u32(d, ">") == 0x59A66A95, None),
+    ("SUN", sun.accept, sun.decode_sun),
     ("TGA", tga.header_ok, tga.decode_tga),
     ("WEBP", webp.accept, webp.decode_webp),
     ("WMF/EMF", lambda d: d.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
         d.startswith(b"\x01\x00\x00\x00") and d[40:44] == b" EMF"), None),
     ("XBM", xbm.accept, xbm.decode_xbm),
-    ("XPM", lambda d: d.startswith(b"/* XPM */"), None),
-    ("XV thumbnail", lambda d: d.startswith(b"P7 332"), None),
+    ("XPM", xpm.accept, xpm.decode_xpm),
+    ("XVThumb", xvthumb.accept, xvthumb.decode_xvthumb),
     ("OpenEXR (which PIL does not open either)",
      lambda d: d.startswith(b"\x76\x2f\x31\x01"), None),
     ("PAM (which PIL does not open either)",
      lambda d: d.startswith(b"P7") and d[2:3] in b"\n\r\t \x0b\x0c", None),
 )
-# what the port decodes, named in its messages
-DECODED = ", ".join(name for name, _, dec in _FORMATS if dec is not None)
+# what the port decodes, named in its messages (IPTC and MPEG rows only
+# raise: ValueError where PIL fails, else IPTC's refusal by name)
+DECODED = ", ".join(name for name, _, dec in _FORMATS
+                    if dec not in (None, imt.refuse_iptc, _mpeg))
 
 
 def _format(data: bytes):
@@ -144,12 +157,14 @@ def image_format(data: bytes) -> str:
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
     them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
-    JPEG, PNM and PFM, PNG, AVIF, BLP, CUR, PCX, DDS, JPEG2000, ICNS, ICO,
-    IM, TIFF, MSP, PSD, QOI, SGI, SPIDER, TGA, WEBP and XBM); any other
-    format raises NotImplementedError (naming it and `name`), as does a
-    feature of a decoded format that is still left (a JPEG 2000
-    code-block style, LAB, a ZSTD-compressed TIFF); an image past PIL's
-    decompression-bomb limit and malformed data raise ValueError."""
+    JPEG, PNM and PFM, PNG, AVIF, BLP, CUR, PCX, DCX, DDS, FTEX, GBR,
+    JPEG2000, ICNS, ICO, IM, IMT, MCIDAS, TIFF, MSP, PIXAR, PSD, QOI,
+    SGI, SPIDER, SUN, TGA, WEBP, XBM, XPM and XVThumb); any other format
+    raises NotImplementedError (naming it and `name`), as does a feature
+    of a decoded format that is still left (a JPEG 2000 code-block style,
+    CCITT RLEW TIFF, planar LAB TIFF); an image past PIL's
+    decompression-bomb limit, MPEG (which PIL cannot load) and malformed
+    data raise ValueError."""
     fmt, decode = _format(data)
     if decode is None:
         raise NotImplementedError(

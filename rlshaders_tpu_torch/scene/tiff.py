@@ -1,5 +1,5 @@
-"""TIFF decoding in numpy (zlib, lzma, scene/lzw.py, scene/jpeg.py and
-scene/ccitt.py for the data), equal to PIL's decode.
+"""TIFF decoding in numpy (zlib, lzma, scene/lzw.py, scene/zstd.py,
+scene/jpeg.py and scene/ccitt.py for the data), equal to PIL's decode.
 
 The JAX package decodes textures with `Image.open(path).convert("RGB")`;
 `decode_tiff` returns those bytes for the first image (IFD) of a TIFF, as
@@ -12,9 +12,11 @@ which reads the tags again with its own rules (`_libtiff_directory`):
 * II and MM byte order; strips and tiles; planar configuration 1 (chunky)
   and 2 (one plane a sample);
 * compression none, LZW (most significant bit first, the early width
-  change), PackBits, Deflate, Adobe Deflate and LZMA; predictor 1, 2
-  (horizontal differences at 8, 16 and 32 bits) and 3 (libtiff's
-  floating-point predictor: byte planes, then differences);
+  change), PackBits, Deflate, Adobe Deflate, LZMA and ZSTD (libtiff's
+  codec: the strip's first frame, read until the rows are full,
+  `zstd.tiff_strip`); predictor 1, 2 (horizontal differences at 8, 16
+  and 32 bits) and 3 (libtiff's floating-point predictor: byte planes,
+  then differences);
 * JPEG compression (7) as libtiff hands it to PIL: each strip or tile a
   JPEG stream read after the shared JPEGTables (tag 347), so it may be
   abbreviated; under photometric YCbCr libjpeg converts it to RGB
@@ -33,7 +35,10 @@ which reads the tags again with its own rules (`_libtiff_directory`):
   of 8 and 16 bits with an alpha or unused extra sample, palette (3) of
   1, 2, 4 or 8 bits, CMYK (5) of 8 or 16 bits; signed grey of 8 bits
   (read as unsigned "L"), 16 and 32 bits (mode I), unsigned 32-bit grey
-  in little-endian files (mode I), 32-bit float grey (mode F).
+  in little-endian files (mode I), 32-bit float grey (mode F); CIELab
+  (8) of three 8-bit samples, chunky, PIL's mode LAB: its unpacker flips
+  the sign bit of a* and b*, and Pillow converts it to RGB through
+  LittleCMS (`lab.to_rgb`).
 
 The samples map to 8 bits as PIL's modes and unpackers map them: 16-bit
 samples keep their high byte, but 16-bit grey opens as "I;16" (or
@@ -49,11 +54,12 @@ samples come out byte-swapped, as they do in PIL. Orientations 2-4 are
 applied as PIL's exif_transpose applies them.
 
 A valid file of a layout or compression that PIL opens but the port does
-not (old-style JPEG, ZSTD, WebP and CCITT RLEW compression, fill order 2
-but under CCITT compression, planar or non-8-bit JPEG data, orientations
+not (old-style JPEG, WebP and CCITT RLEW compression, fill order 2 but
+under CCITT compression, planar or non-8-bit JPEG data, orientations
 5-8, uncompressed planar data that PIL misreads, uncompressed or planar
-YCbCr, YCbCr data that fails part way, LAB) or that PIL cannot open
-raises NotImplementedError naming it; malformed data raises ValueError.
+YCbCr, YCbCr data that fails part way, planar LAB) or that PIL cannot
+open raises NotImplementedError naming it (ICCLab and ITULab, 9 and 10,
+among these); malformed data raises ValueError.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ import zlib
 import numpy as np
 
 from . import bomb
-from . import ccitt, lzw
+from . import ccitt, lab, lzw, zstd
 from .jpeg import decode_planes, muldiv255, ycc_to_rgb
 from .png import unpack_samples
 from .pnm import float_to_rgb
@@ -74,11 +80,10 @@ BIGTIFF = (b"II+\x00", b"MM\x00+")
 
 _COMPRESSIONS = {
     6: "old-style JPEG", 32771: "16-bit padded raw (CCITT RLEW)",
-    32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24", 50000: "ZSTD",
-    50001: "WebP",
+    32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24", 50001: "WebP",
 }
 # the codecs libtiff sets a predictor up for
-_PREDICTED = (5, 8, 32946, 34925)
+_PREDICTED = (5, 8, 32946, 34925, 50000)
 _TAGS = {256: "width", 257: "height", 258: "bits", 259: "compression",
          262: "photometric", 266: "fill_order", 273: "strip_offsets",
          274: "orientation", 277: "samples", 278: "rows_per_strip",
@@ -157,6 +162,8 @@ def _layout(big: bool, photo: int, bits: tuple, extra: tuple,
             return ("rgba_pre" if extra[0] == 1 else "rgb"), b
     if photo == 6 and bits == (8,):
         return "grey", 8
+    if photo == 8 and bits == (8, 8, 8) and not extra:
+        return "lab", 8
     if photo == 6 and bits == (8, 8, 8) and not extra:
         return "ycbcr_rgba", 8
     if photo == 3 and n == 1 and b in (1, 2, 4, 8):
@@ -346,6 +353,9 @@ def _striles(lib: dict, name: str, cells: int) -> tuple:
         # libtiff estimates one strip's byte count: the file less its
         # header and directory, cut at the end of the file
         off = lib[name.replace("counts", "offsets")][0]
+        if any(t not in _PIL_UNITS for t, _ in lib["_all"]):
+            raise ValueError("libtiff cannot estimate the strip's byte "
+                             "count past a tag of an unknown type")
         space = len(lib["_file"]) - 14 - 12 * len(lib["_all"]) - sum(
             _PIL_UNITS.get(t, 0) * c for t, c in lib["_all"]
             if _PIL_UNITS.get(t, 0) * c > 4)
@@ -373,6 +383,8 @@ def _inflate(raw: bytes, compression: int, need: int) -> bytes:
             # libtiff fails LZW data that does not open with a clear code
             raise ValueError("TIFF LZW data without a clear code first")
         return lzw.decode(raw, 8, True, 1, need)
+    if compression == 50000:
+        return zstd.tiff_strip(raw, need)
     if compression == 34925:
         try:                            # an xz stream, as libtiff's liblzma
             return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(
@@ -444,10 +456,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
         raise NotImplementedError(
             f"JPEG-compressed TIFF of {bits[0]}-bit samples in planar "
             f"configuration {planar} is not decoded by the port")
-    if photo == 8:
-        raise NotImplementedError("LAB TIFF (which Pillow converts to RGB "
-                                  "through LittleCMS) is not decoded by the "
-                                  "port")
+    if photo == 8 and planar == 2:
+        raise NotImplementedError("planar LAB TIFF (which PIL reads plane "
+                                  "by plane or through libtiff's RGBA "
+                                  "reader) is not decoded by the port")
     if layout is None or len(bits) != spp:
         what = {(1,): "unsigned", (2,): "signed",
                 (3,): "floating point"}.get(fmt, f"sample format {fmt}")
@@ -857,6 +869,10 @@ def _to_rgb(px: np.ndarray, kind: str, depth: int, tags: dict):
         return np.repeat(g[..., None], 3, axis=2).astype(np.uint8)
     if kind == "ycbcr":
         return px.astype(np.uint8)
+    if kind == "lab":
+        # PIL's LAB unpacker flips the sign bit of TIFF's signed a* and b*
+        return lab.to_rgb((px[..., :3] ^ np.array([0, 128, 128])).astype(
+            np.uint8))
     if depth == 16:
         px = px >> 8
     if kind == "cmyk":

@@ -1333,3 +1333,108 @@ def test_format_g_frames_on_the_card_match_the_cpu(cuda_device, tag):
     both kernels on the card, held to the CPU render with chip_smoke.py's
     tolerance."""
     _frame_matches_the_cpu(cuda_device, FORMAT_G_FRAMES[tag])
+
+
+FORMAT_H_DIGESTS = {
+    "scenes/data/formats_h/grid.xpm":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_h/logo_dxt1.ftex":
+        "e6eb01bd1e8a05a45104aeffb554e32da4f6c1a35a33ed959c749730f8ace3e6",
+    "scenes/data/formats_h/logo_lab_rle.psd":
+        "aaa8db6a2eed862bbb8dc071d151a515823ab55bc6384117393d0a846a6c6952",
+    "scenes/data/formats_h/logo_rle24.ras":
+        "7322e30e8b5558d0a1655b7c69cb56d546f937220d9917a481d754487840b184",
+    "scenes/data/formats_h/odd.imt":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd.pixar":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd.xvthumb":
+        "a1df4c45ac91c67b62679b56b1c821faceffeedfc0fad8177f3e5e2e985fd5ef",
+    "scenes/data/formats_h/odd_16bit.mcidas":
+        "d19978fd6926d907ca658b97337520209ae9c8e9c4b14c934c363d68f85f4e3c",
+    "scenes/data/formats_h/odd_32bit.mcidas":
+        "8bea24d20ef5c1bc042888885a1c9a744d3e5141ab33d47cc9ec2c038d51030b",
+    "scenes/data/formats_h/odd_8bit.mcidas":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd_bgr32_rle.ras":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_bilevel.ras":
+        "12297ef5b93f14b082049f303c8a2a697a538e29e569b532217656f11e4588cb",
+    "scenes/data/formats_h/odd_bilevel_rle.ras":
+        "04873d81115c2e1b9f877dda673e1a321dbb4442e0aa39b0f2996291e0621cdc",
+    "scenes/data/formats_h/odd_grey4.ras":
+        "414afd8a17fa6095c8f324b5a35c41b0b722b051329012bbd292f106590e2430",
+    "scenes/data/formats_h/odd_grey4_pal.ras":
+        "a1f8f5ceb8da9308bad11c92d2a1ec42c2ebdb03ffe6ebd2b638e6843cb63f58",
+    "scenes/data/formats_h/odd_grey8.ras":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd_grey8_pal_rle.ras":
+        "d07856adc5c2cd374efccdb74f80d1e815c2ebf135bbd94e273a0f1bfdd1c62f",
+    "scenes/data/formats_h/odd_lab_jpeg.tif":
+        "67df6576ca494df6ae1cfd0f3e0eed89f6ce0fb16bf62298e4ed1599f47adb23",
+    "scenes/data/formats_h/odd_lab_lzw_mm.tif":
+        "3338ed9e4f69d95a2c3d8d3f771846ebb2474413b0267b0c4204a1e7ca3e04ac",
+    "scenes/data/formats_h/odd_lab_packbits_tiles.tif":
+        "3338ed9e4f69d95a2c3d8d3f771846ebb2474413b0267b0c4204a1e7ca3e04ac",
+    "scenes/data/formats_h/odd_lab_raw.psd":
+        "3338ed9e4f69d95a2c3d8d3f771846ebb2474413b0267b0c4204a1e7ca3e04ac",
+    "scenes/data/formats_h/odd_many_2chars.xpm":
+        "42b01fa8b5b81ce66b1befd56ee50158dc3c62d1967a0b38d28024d9aae62439",
+    "scenes/data/formats_h/odd_pages.dcx":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_rgb.ftex":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_rgb32_rgb_order.ras":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_v1_grey.gbr":
+        "bb97b8e787ef025674c8f898b54f19ff31c020f8c1ae04e3a0440b26614dff31",
+    "scenes/data/formats_h/odd_v2_rgba.gbr":
+        "ca580c6278eab3890c7528c168dcc6c5614a956ee200d3f82a7c2e5197f2a64b",
+    "scenes/data/formats_h/odd_zstd_grey16_size.tif":
+        "8bea24d20ef5c1bc042888885a1c9a744d3e5141ab33d47cc9ec2c038d51030b",
+    "scenes/data/formats_h/odd_zstd_mm_float_pred3.tif":
+        "a70e25e811d699bbc050a13853fb21fbb15798d252b7bb052949ee18871d0d4b",
+    "scenes/data/formats_h/photo_512_zstd_tiles_pred2.tif":
+        "5f1e5247503101cd046b8df73ec3b287f37690d74cca35571c217e606591540e",
+    "scenes/data/formats_h/texture_1024_lab_zstd.tif":
+        "a224c154faad8a39f9105048b7409be3ce930931017a5ea11f53a65dc77990c5",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_H_DIGESTS))
+def test_committed_image_formats_h_decode_to_their_digests(cuda_device,
+                                                           path):
+    """On the machine with the card (no PIL there): every committed file
+    of scenes/data/formats_h (ZSTD and LAB TIFF, LAB PSD, Sun raster, XPM,
+    FTEX, DCX, GBR, IMT, McIdas, PIXAR, XV thumbnail) decodes to the
+    digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_H_DIGESTS[path]
+
+
+# chip_smoke.py phase 46's frames, in the textured scene's three MayaFile
+# slots (the grid, the logo, the inverted logo)
+FORMAT_H_FRAMES = {
+    "Q": ("formats_h/texture_1024_lab_zstd.tif",
+          "formats_h/photo_512_zstd_tiles_pred2.tif",
+          "formats_h/logo_rle24.ras"),
+    "R": ("formats_h/logo_lab_rle.psd", "formats_h/grid.xpm",
+          "formats_h/logo_dxt1.ftex"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_H_FRAMES))
+def test_format_h_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """Frames Q and R (the textured scene with a 1024x1024 LAB ZSTD TIFF,
+    a 512x512 tiled ZSTD TIFF and an RLE Sun raster, or an RLE LAB PSD,
+    an XPM and a DXT1 FTEX, in its texture slots) at 8x8 and its own AA 3
+    and GI samples: through both kernels on the card, held to the CPU
+    render with chip_smoke.py's tolerance."""
+    _frame_matches_the_cpu(cuda_device, FORMAT_H_FRAMES[tag])

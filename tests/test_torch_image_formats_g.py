@@ -15,7 +15,7 @@ tolerance.
   colour space 18;
 * PSD (scene/psd.py): every mode of PsdImagePlugin.MODES, raw and RLE,
   with a layer section or not, odd sizes, rows whose last record runs
-  on; LAB refused by name;
+  on; LAB, once refused by name, decoded;
 * AVIF frames libavif scales to their ispe or track size
   (scene/yuvscale.py): libyuv's ScalePlane held to the bundled
   libavif's `avifImageScale` on every path, then stills, alpha, grids
@@ -27,8 +27,7 @@ streams cut by 1-40 bytes and a seeded mutation fuzz (200 cases a
 format) to PIL's outcome, where a named refusal is allowed only for the
 features listed in `REFUSALS`. Last, every mode PIL writes is saved, at
 53x37, in every format and TIFF compression PIL writes here, and held to
-PIL: only LAB (Pillow converts it through LittleCMS), ZSTD and CCITT
-RLEW TIFF are refused.
+PIL: only CCITT RLEW TIFF is refused (LAB and ZSTD once were too).
 """
 import ctypes
 import glob
@@ -341,13 +340,13 @@ def test_psd_modes(mode, nch, bits):
 
 
 def test_psd_refusals():
-    """LAB (Pillow converts it through LittleCMS) is refused by name; a
-    compression PIL does not know and a PSB (version 2) file raise, as in
-    PIL."""
+    """LAB (refused by name before its slice) decodes as PIL converts it,
+    through LittleCMS; a compression PIL does not know and a PSB (version
+    2) file raise, as in PIL."""
     ch = np.random.default_rng(17700).integers(0, 256, (3, 5, 7))
     assert isinstance(pil_outcome(fm.psd_bytes(ch, 9)), np.ndarray)
-    with pytest.raises(NotImplementedError, match="LAB"):
-        ttex.decode_image(fm.psd_bytes(ch, 9))
+    assert _same(fm.psd_bytes(ch, 9)) == "equal"
+    assert _same(fm.psd_bytes(ch, 9, rle=True)) == "equal"
     assert _same(fm.psd_bytes(ch, 3, compression=2)) == "raise"
     assert _same(fm.psd_bytes(ch, 3, version=2)) == "raise"
 
@@ -549,7 +548,7 @@ SCAN_FORMATS = ("AVIF", "BLP", "BMP", "DDS", "DIB", "EPS", "GIF", "ICNS",
 SCAN_TIFF = ("tiff_lzw", "packbits", "tiff_deflate", "tiff_adobe_deflate",
              "jpeg", "group3", "group4", "tiff_ccitt", "tiff_raw_16",
              "lzma", "zstd")
-SCAN_REFUSED = ("LAB", "ZSTD", "CCITT RLEW")
+SCAN_REFUSED = ("CCITT RLEW",)
 
 
 def _scan_cases(fmt: str):
@@ -568,7 +567,7 @@ def _scan_cases(fmt: str):
 def test_mode_by_format_scan(fmt):
     """A seeded 53x37 image in every mode PIL writes in this format: each
     file PIL writes decodes equal to PIL, raises where PIL raises, or is
-    refused naming LAB, ZSTD or CCITT RLEW TIFF."""
+    refused naming CCITT RLEW TIFF."""
     save_fmt, modes, kw = _scan_cases(fmt)
     rng = np.random.default_rng(17)
     px4 = rng.integers(0, 256, (37, 53, 4), np.uint8)

@@ -201,9 +201,10 @@ def test_other_formats_are_named(tmp_path, fmt, name):
 
 
 @pytest.mark.parametrize("head,name,error", [
-    # a PSD, refused before its slice, is decoded since; Sun raster, which
-    # PIL opens too, is not
-    pytest.param(b"\x59\xa6\x6a\x95", "Sun raster", NotImplementedError,
+    # a PSD, refused before its slice, is decoded since, and so is a Sun
+    # raster; EPS, which PIL opens and cannot load without Ghostscript, is
+    # not (the case keeps the id it had when it held a Sun raster's magic)
+    pytest.param(b"%!PS-Adobe-3.0 EPSF-3.0\n", "EPS", NotImplementedError,
                  id="Y\xa6j\x95-Sun raster"),
     # a JP2 signature and a VP8X chunk of an animated WebP head formats the
     # port decodes since; followed by zeros, they are malformed, and PIL

@@ -183,9 +183,9 @@ def test_still_unported_raise(tmp_path):
         assert torch.equal(other.textures.data,
                            torch.full((21, 3), 200 / 255)), name
     # an AVIF (lossy YUV) builds to the texels of PIL's decode of it, as a
-    # PNG of that decode does; a PSD (refused before its slice) to its
-    # pixels; a Sun raster, which PIL opens and the port does not decode,
-    # raises NotImplementedError naming it
+    # PNG of that decode does; a PSD and a Sun raster (refused before their
+    # slices) to their pixels; an EPS, which PIL opens and cannot load
+    # without Ghostscript, raises NotImplementedError naming it
     Image.open(os.path.join(base, "t.avif")).convert("RGB").save(
         os.path.join(base, "avif.png"))
     other = tbuild.build_text(src % "t.avif", device="cpu", base_dir=base)
@@ -198,8 +198,13 @@ def test_still_unported_raise(tmp_path):
     with open(os.path.join(base, "t.ras"), "wb") as f:
         f.write(fm.sun_raster(np.full((4, 4, 3), 200, np.uint8)))
     assert Image.open(os.path.join(base, "t.ras")).format == "SUN"
-    with pytest.raises(NotImplementedError, match="Sun raster"):
-        tbuild.build_text(src % "t.ras", device="cpu", base_dir=base)
+    other = tbuild.build_text(src % "t.ras", device="cpu", base_dir=base)
+    assert torch.equal(other.textures.data, torch.full((21, 3), 200 / 255))
+    Image.new("RGB", (4, 4), (200, 200, 200)).save(os.path.join(base,
+                                                               "t.eps"))
+    assert Image.open(os.path.join(base, "t.eps")).format == "EPS"
+    with pytest.raises(NotImplementedError, match="EPS"):
+        tbuild.build_text(src % "t.eps", device="cpu", base_dir=base)
 
 
 @pytest.mark.parametrize("where", ["suite/data", "nowhere"])

@@ -268,9 +268,9 @@ def test_png_filters(tmp_path, filt, channels):
 
 def test_other_formats_raise(tmp_path):
     """A GIF, a grey PNG, a TGA, an IM, a WebP, an animated WebP, a JPEG
-    2000, an AVIF and a PSD, refused before their slices, now decode as
-    PIL does; a Sun raster, which PIL opens and the port does not decode,
-    raises NotImplementedError naming its format."""
+    2000, an AVIF, a PSD and a Sun raster, refused before their slices,
+    now decode as PIL does; an EPS, which PIL opens and cannot load
+    without Ghostscript, raises NotImplementedError naming its format."""
     img = Image.fromarray(np.random.default_rng(3).integers(
         0, 256, (4, 4, 3), dtype=np.uint8))
     for name, save in (("x.gif", img), ("g.png", img.convert("L")),
@@ -298,8 +298,12 @@ def test_other_formats_raise(tmp_path):
                           jtex.load_image(str(tmp_path / "x.psd"), 1.0))
     (tmp_path / "x.ras").write_bytes(fm.sun_raster(np.asarray(img)))
     assert Image.open(tmp_path / "x.ras").format == "SUN"
-    with pytest.raises(NotImplementedError, match="Sun raster"):
-        ttex.load_image(str(tmp_path / "x.ras"))
+    assert np.array_equal(ttex.load_image(str(tmp_path / "x.ras")),
+                          jtex.load_image(str(tmp_path / "x.ras"), 1.0))
+    img.save(tmp_path / "x.eps")
+    assert Image.open(tmp_path / "x.eps").format == "EPS"
+    with pytest.raises(NotImplementedError, match="EPS"):
+        ttex.load_image(str(tmp_path / "x.eps"))
 
 
 # ---------------------------------------------------------------------------

@@ -2586,16 +2586,332 @@ def files_g() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# formats_h: ZSTD TIFF, LAB, and nine more of PIL's plugins
+# ---------------------------------------------------------------------------
+
+SEED_H = 18
+
+
+def zstd_coder(level: int = 3, checksum: bool = False, size: bool = False,
+               ldm: bool = False):
+    """A Zstandard compressor of one frame (the `zstandard` module) at
+    `level`, with or without its checksum and content size, for
+    `make_image_modes.tiff_bytes(..., compress=)`."""
+    import zstandard
+
+    params = zstandard.ZstdCompressionParameters.from_level(
+        level, write_checksum=checksum, write_content_size=size,
+        enable_ldm=ldm)
+    return zstandard.ZstdCompressor(compression_params=params).compress
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's run-length coding: runs of 3 to 256 equal bytes (and any
+    0x80) as 0x80, n - 1, v, a single 0x80 as 0x80 0x00, other bytes as
+    themselves."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 256 and data[j] == data[i]:
+            j += 1
+        if data[i] == 0x80 and j - i == 1:
+            out += b"\x80\x00"
+        elif j - i >= 3 or data[i] == 0x80:
+            out += bytes([0x80, j - i - 1, data[i]])
+        else:
+            out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+def sun_bytes(px: np.ndarray, depth: int, ftype: int = 1,
+              palette: np.ndarray = None) -> bytes:
+    """A Sun raster file: px is (h, w) values of 1, 4 or 8 bits (1 is
+    black at depth 1) or (h, w, 3) RGB at 24 or 32 bits (stored BGR, or
+    RGB where ftype is 3, a fourth byte 0); rows padded to 16 bits, or
+    (ftype 2) run-length coded with no padding; `palette` ((n, 3)) as
+    its reds, greens then blues."""
+    h, w = px.shape[:2]
+    if depth in (24, 32):
+        rgb = px[..., :3] if ftype == 3 else px[..., 2::-1]
+        if depth == 32:
+            rgb = np.dstack([rgb, np.zeros((h, w), np.uint8)])
+        rows = rgb.astype(np.uint8).reshape(h, -1)
+    else:
+        rows = modes.pack_rows(px.astype(np.int64), depth,
+                               True).reshape(h, -1)
+    if ftype == 2:
+        body = sun_rle(rows.tobytes())
+    else:
+        pad = (w * depth + 15) // 16 * 2 - rows.shape[1]
+        body = np.hstack([rows, np.zeros((h, pad), np.uint8)]).tobytes()
+    cmap = b"" if palette is None else \
+        palette.astype(np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ftype,
+                       1 if cmap else 0, len(cmap)) + cmap + body
+
+
 def sun_raster(px: np.ndarray) -> bytes:
     """A 24-bit standard Sun raster file of (h, w, 3) uint8 pixels (BGR
-    samples, rows padded to 16 bits), which PIL opens and the port does
-    not decode yet."""
-    h, w, _ = px.shape
-    rows = px[..., ::-1].reshape(h, -1).astype(np.uint8)
-    if rows.shape[1] % 2:
-        rows = np.hstack([rows, np.zeros((h, 1), np.uint8)])
-    return struct.pack(">8I", 0x59A66A95, w, h, 24, rows.size, 1, 0,
-                       0) + rows.tobytes()
+    samples, rows padded to 16 bits)."""
+    return sun_bytes(px, 24)
+
+
+XPM_KEYS = (" .XoO+@#$%&*=-;:>,<1234567890qwertyuipasdfghjklzxcvbnmMNBVC"
+            "ZASDFGHJKLPIUYTREWQ!~^/()_`'][{}|")
+
+
+def xpm_bytes(index: np.ndarray, colours: list, bpp: int = 1,
+              none: int = None, symbolic: bool = False) -> bytes:
+    """An XPM file of (h, w) indices into `colours` ((r, g, b) tuples;
+    entry `none`, where given, is "None"), keys of `bpp` characters from
+    XPM_KEYS, a "/* pixels */" line before the rows; `symbolic` puts an
+    "s" pair before each "c" one, as GIMP writes."""
+    h, w = index.shape
+    n = len(colours)
+    keys = [XPM_KEYS[k % len(XPM_KEYS)] + "".join(
+        XPM_KEYS[k // len(XPM_KEYS) ** (i + 1) % len(XPM_KEYS)]
+        for i in range(bpp - 1)) for k in range(n)]
+    lines = ["/* XPM */", "static char *image[] = {",
+             "/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {n} {bpp} ",']
+    for k, (key, c) in enumerate(zip(keys, colours)):
+        col = "None" if k == none else "#%02X%02X%02X" % tuple(c)
+        sym = f"s c{k} " if symbolic else ""
+        lines.append(f'"{key} {sym}c {col}",')
+    lines.append("/* pixels */")
+    for y in range(h):
+        row = "".join(keys[v] for v in index[y])
+        lines.append(f'"{row}"' + ("," if y < h - 1 else ""))
+    lines.append("};")
+    return ("\n".join(lines) + "\n").encode()
+
+
+def dcx_bytes(pages: list) -> bytes:
+    """A DCX file of PCX pages: the magic, 1024 page offsets (0 after the
+    last), then the pages."""
+    at, table = 4 + 4 * 1024, []
+    for p in pages:
+        table.append(at)
+        at += len(p)
+    table += [0] * (1024 - len(table))
+    return struct.pack("<I1024I", 987654321, *table) + b"".join(pages)
+
+
+def pcx_bytes(px: np.ndarray, mode: str = "RGB") -> bytes:
+    """PIL's PCX of (h, w, 3) pixels in `mode`."""
+    return _pil(px, mode, "PCX")
+
+
+def dxt1_blocks(px: np.ndarray) -> bytes:
+    """PIL's DXT1 blocks of (h, w, 3 or 4) pixels (its DDS writer's)."""
+    return _pil(px, "RGBA" if px.shape[2] == 4 else "RGB", "DDS",
+                pixel_format="DXT1")[128:]
+
+
+def ftex_bytes(w: int, h: int, fmt: int, body: bytes) -> bytes:
+    """An FTEX file of one format (0 DXT1, 1 raw RGB) and one mip-map."""
+    return (b"FTEX" + struct.pack("<7i", 1, w, h, 1, 1, fmt, 32)
+            + struct.pack("<i", len(body)) + body)
+
+
+def gbr_bytes(px: np.ndarray, version: int = 2,
+              name: bytes = b"brush") -> bytes:
+    """A GIMP brush of (h, w) grey or (h, w, 4) RGBA pixels, version 1 or
+    2 (with the "GIMP" magic and a spacing)."""
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else 4
+    extra = b"GIMP" + struct.pack(">I", 25) if version == 2 else b""
+    size = 20 + len(extra) + len(name) + 1
+    return (struct.pack(">5I", size, version, w, h, depth) + extra + name
+            + b"\x00" + px.astype(np.uint8).tobytes())
+
+
+def imt_bytes(px: np.ndarray, comment: bool = True) -> bytes:
+    """An IM Tools file of (h, w) grey pixels."""
+    h, w = px.shape
+    head = (b"* written by make_image_formats\n" if comment else b"") + \
+        f"width {w}\nheight {h}\npixel n8\n".encode()
+    return head + b"\x0c" + px.astype(np.uint8).tobytes()
+
+
+def mcidas_bytes(values: np.ndarray, size: int, prefix: int = 0,
+                 bands: int = 1, at: int = 256) -> bytes:
+    """A McIdas area file of (h, w) values of `size` bytes (1, 2 or 4,
+    big-endian; 4 signed), `bands` bands a row (the first the values,
+    the rest their complement), `prefix` bytes before each row, the data
+    `at` bytes into the file."""
+    h, w = values.shape
+    word = [0] * 65
+    word[2], word[9], word[10], word[11] = 4, h, w, size
+    word[14], word[15], word[34] = bands, prefix, at
+    head = struct.pack(">64i", *word[1:])
+    dt = {1: "u1", 2: ">u2", 4: ">i4"}[size]
+    v = values.astype(np.int64)
+    rows = [np.hstack([np.full((1, prefix), 7, np.uint8).reshape(-1)]
+                      + [(v[y] if b == 0 else ~v[y]).astype(dt).view(
+                          np.uint8) for b in range(bands)])
+            for y in range(h)]
+    return head.ljust(at, b"\x00") + b"".join(r.tobytes() for r in rows)
+
+
+def pixar_bytes(px: np.ndarray) -> bytes:
+    """A PIXAR file of (h, w, 3) RGB pixels, the layout PIL opens."""
+    h, w = px.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<2H", head, 416, h, w)
+    struct.pack_into("<2H", head, 424, 14, 2)
+    return bytes(head) + px.astype(np.uint8).tobytes()
+
+
+def xvthumb_bytes(px: np.ndarray) -> bytes:
+    """An XV thumbnail of (h, w, 3) RGB pixels: 3-3-2 indices after xv's
+    header and comment lines."""
+    h, w = px.shape[:2]
+    p = px.astype(np.int64)
+    index = (p[..., 0] >> 5) << 5 | (p[..., 1] >> 5) << 2 | p[..., 2] >> 6
+    head = (b"P7 332\n#XVVERSION:Version 2.28  Rev: 9/26/92\n"
+            + f"#IMGINFO:{w}x{h} RGB (12345 bytes)\n".encode()
+            + b"#END_OF_COMMENTS\n" + f"{w} {h} 255\n".encode())
+    return head + index.astype(np.uint8).tobytes()
+
+
+def zero_tiff_pad(data: bytes) -> bytes:
+    """A little-endian TIFF with the bytes between its last strip and its
+    directory zeroed: libtiff leaves the pad byte that aligns the
+    directory as it finds it in memory, so PIL's writes differ there from
+    run to run."""
+    out = bytearray(data)
+    ifd = struct.unpack_from("<I", out, 4)[0]
+    tags = {}
+    for k in range(struct.unpack_from("<H", out, ifd)[0]):
+        tag, typ, n, val = struct.unpack_from("<HHII", out, ifd + 2 + 12 * k)
+        if tag in (273, 279, 324, 325):
+            fmt = "<" + ("H" if typ == 3 else "I") * n
+            tags[tag] = (struct.unpack_from(fmt, out, ifd + 10 + 12 * k)
+                         if struct.calcsize(fmt) <= 4 else
+                         struct.unpack_from(fmt, out, val))
+    offs = tags.get(273, tags.get(324, ()))
+    counts = tags.get(279, tags.get(325, ()))
+    end = max((o + c for o, c in zip(offs, counts)), default=ifd)
+    if end < ifd:
+        out[end:ifd] = bytes(ifd - end)
+    return bytes(out)
+
+
+def lab_of(px: np.ndarray) -> np.ndarray:
+    """PIL's LAB of (h, w, 3) RGB pixels as Pillow stores it (and PSD):
+    L*, a* + 128, b* + 128. (numpy's view of a LAB image is its "LAB" raw
+    mode, TIFF's signed a* and b*.)"""
+    from PIL import Image
+    return np.asarray(Image.fromarray(np.ascontiguousarray(
+        px[..., :3])).convert("LAB")) ^ np.array([0, 128, 128], np.uint8)
+
+
+def files_h() -> dict:
+    """{name in scenes/data/formats_h: bytes}: the 2048x2048 texture
+    resized to 1024x1024 as a LAB TIFF under ZSTD (PIL's write); a
+    512x512 copy tiled 256x256 under ZSTD with predictor 2 at level 19
+    with a checksum, as GDAL tiles a colour map; Sun rasters of every
+    depth, raw and run-length coded, with and without a colour map; LAB
+    PSD (RLE and raw) and LAB TIFF of PIL's other compressions; XPM (a
+    palette with an unused "None", two-character keys of more than 256
+    colours); FTEX of DXT1 blocks and of raw RGB; DCX; GIMP brushes of
+    both versions; IMT; McIdas areas of 1, 2 and 4 bytes; PIXAR; an XV
+    thumbnail; and ZSTD TIFF of the other sample layouts (big-endian,
+    float with predictor 3, a frame with its content size)."""
+    from PIL import Image
+    lrgba = np.asarray(Image.open(os.path.join(modes.DATA, "logo.png")))
+    logo = np.ascontiguousarray(lrgba[..., :3])
+    grid = np.asarray(Image.open(os.path.join(modes.DATA, "grid.png")))
+    big = Image.open(os.path.join(modes.DATA, "modes", "texture_2048.jpg"))
+    tex = np.asarray(big.convert("RGB").resize((1024, 1024)))
+    photo = np.asarray(big.convert("RGB").resize((512, 512)))
+    odd = np.ascontiguousarray(photo[100:137, 200:253])
+    lum = np.asarray(Image.fromarray(odd).convert("L"))
+    rng = np.random.default_rng(SEED_H)
+
+    def pil_tiff(img, **kw):
+        buf = io.BytesIO()
+        img.save(buf, "TIFF", **kw)
+        return zero_tiff_pad(buf.getvalue())
+
+    def lab_img(px):
+        # PIL's LAB carries lcms2's Lab profile, stamped with the time it
+        # was made: fixed here, so each run writes the same bytes
+        img = Image.fromarray(np.ascontiguousarray(px)).convert("LAB")
+        icc = bytearray(img.info["icc_profile"])
+        icc[24:36] = struct.pack(">6H", 2026, 1, 1, 0, 0, 0)
+        img.info["icc_profile"] = bytes(icc)
+        return img
+
+    def planes(px):
+        return np.moveaxis(px, -1, 0)
+
+    # the grid's few colours as palette indices, the photo's 4-bit grey
+    colours, gidx = np.unique(grid.reshape(-1, 3), axis=0,
+                              return_inverse=True)
+    gidx = gidx.reshape(grid.shape[:2])
+    many = rng.integers(0, 300, (37, 53))
+    many_cols = [tuple(int(v) for v in c)
+                 for c in rng.integers(0, 256, (300, 3))]
+    pal16 = rng.integers(0, 256, (16, 3))
+    out = {
+        # frame Q
+        "texture_1024_lab_zstd.tif": pil_tiff(lab_img(tex),
+                                              compression="zstd"),
+        "photo_512_zstd_tiles_pred2.tif": modes.tiff_bytes(
+            photo.astype(np.int64), 8, 2, compression=50000, predictor=2,
+            tile=(256, 256), compress=zstd_coder(19, checksum=True)),
+        "logo_rle24.ras": sun_bytes(logo, 24, 2),
+        # frame R
+        "logo_lab_rle.psd": psd_bytes(planes(lab_of(logo)), 9, rle=True),
+        "grid.xpm": xpm_bytes(gidx, [tuple(c) for c in colours] + [
+            (0, 0, 0)], none=len(colours)),
+        "logo_dxt1.ftex": ftex_bytes(300, 200, 0, dxt1_blocks(lrgba)),
+        # the rest of the sweep
+        "odd_rgb32_rgb_order.ras": sun_bytes(odd, 32, 3),
+        "odd_bgr32_rle.ras": sun_bytes(odd, 32, 2),
+        "odd_grey8_pal_rle.ras": sun_bytes(lum, 8, 2, palette=rng.integers(
+            0, 256, (200, 3))),
+        "odd_grey4_pal.ras": sun_bytes(lum >> 4, 4, palette=pal16),
+        "odd_grey4.ras": sun_bytes(lum >> 4, 4, 2),
+        "odd_bilevel.ras": sun_bytes(lum > 120, 1),
+        "odd_bilevel_rle.ras": sun_bytes(lum > 90, 1, 2),
+        "odd_grey8.ras": sun_bytes(lum, 8, 5),
+        "odd_lab_raw.psd": psd_bytes(planes(lab_of(odd)), 9, layers=True),
+        "odd_lab_lzw_mm.tif": modes.tiff_bytes(
+            (lab_of(odd) ^ np.array([0, 128, 128])).astype(np.int64), 8, 8,
+            order="MM", compression=5, predictor=2, rows_per_strip=8),
+        "odd_lab_jpeg.tif": pil_tiff(lab_img(odd), compression="jpeg"),
+        "odd_lab_packbits_tiles.tif": modes.tiff_bytes(
+            (lab_of(odd) ^ np.array([0, 128, 128])).astype(np.int64), 8, 8,
+            compression=32773, tile=(16, 16)),
+        "odd_many_2chars.xpm": xpm_bytes(many, many_cols, 2,
+                                         symbolic=True),
+        "odd_rgb.ftex": ftex_bytes(53, 37, 1, odd.tobytes()),
+        "odd_pages.dcx": dcx_bytes([pcx_bytes(odd), pcx_bytes(
+            logo, "P")]),
+        "odd_v1_grey.gbr": gbr_bytes(lum, 1),
+        "odd_v2_rgba.gbr": gbr_bytes(np.dstack([odd, lum])),
+        "odd.imt": imt_bytes(lum),
+        "odd_8bit.mcidas": mcidas_bytes(lum, 1, prefix=4, bands=2),
+        "odd_16bit.mcidas": mcidas_bytes(lum.astype(np.int64) * 3 - 20, 2),
+        "odd_32bit.mcidas": mcidas_bytes(
+            lum.astype(np.int64) * 70000 - 300000, 4, at=512),
+        "odd.pixar": pixar_bytes(odd),
+        "odd.xvthumb": xvthumb_bytes(odd),
+        "odd_zstd_mm_float_pred3.tif": float_tiff(
+            lum.astype(np.float32) / 3 - 10, order="MM", compression=50000,
+            predictor=3, tile=(16, 16), compress=zstd_coder(-3)),
+        "odd_zstd_grey16_size.tif": modes.tiff_bytes(
+            lum[..., None].astype(np.int64) * 257, 16, 1,
+            compression=50000, rows_per_strip=9,
+            compress=zstd_coder(12, checksum=True, size=True)),
+    }
+    return out
 
 
 # the side of the bomb files: 13,380 ** 2 = 179,024,400 pixels, just past
@@ -2755,13 +3071,14 @@ SETS = {"formats": (files, "FORMAT_DIGESTS"),
         "formats_d": (files_d, "FORMAT_D_DIGESTS"),
         "formats_e": (files_e, "FORMAT_E_DIGESTS"),
         "formats_f": (files_f, "FORMAT_F_DIGESTS"),
-        "formats_g": (files_g, "FORMAT_G_DIGESTS")}
+        "formats_g": (files_g, "FORMAT_G_DIGESTS"),
+        "formats_h": (files_h, "FORMAT_H_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
-    default, formats_b, formats_c, formats_d, formats_e, formats_f or
-    formats_g) and
+    default, formats_b, formats_c, formats_d, formats_e, formats_f,
+    formats_g or formats_h) and
     print its digests; `bombs` writes scenes/bombs (outside scenes/data:
     no texture; each file raises)."""
     argv = sys.argv[1:] if argv is None else argv

@@ -228,7 +228,8 @@ _COMPRESS = {1: lambda b: b, 5: lambda b: lzw_encode(b, 8, True, 1),
 def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
                order: str = "II", compression: int = 1, predictor: int = 1,
                planar: int = 1, tile=None, rows_per_strip=None,
-               extra=(), colormap=None, tags=(), cell_bytes=None) -> bytes:
+               extra=(), colormap=None, tags=(), cell_bytes=None,
+               compress=None) -> bytes:
     """A TIFF of `samples` ((h, w, spp) values at `bits` bits), in strips
     of rows_per_strip rows or tiles of tile = (width, length), chunky
     (planar 1) or one plane a sample (planar 2), each strip or tile
@@ -238,7 +239,9 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
     differences. Tags of type 5 (RATIONAL) take (numerator, denominator)
     pairs. `cell_bytes(x, y, width, length)`, where given, makes each
     strip's or tile's bytes before compression instead (the samples then
-    give only the size)."""
+    give only the size). `compress`, where given, compresses each strip
+    or tile in place of the coder of `compression`."""
+    compress = compress or _COMPRESS[compression]
     h, w, spp = samples.shape
     big = order == "MM"
     e = ">" if big else "<"
@@ -255,8 +258,7 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
     for chans in planes:
         for x, y, cw, chh in cells:
             if cell_bytes is not None:
-                chunks.append(_COMPRESS[compression](cell_bytes(x, y, cw,
-                                                                chh)))
+                chunks.append(compress(cell_bytes(x, y, cw, chh)))
                 continue
             sub = np.zeros((chh, cw, len(chans)), np.int64)
             part = samples[y:y + chh, x:x + cw][..., chans]
@@ -268,7 +270,7 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int,
                 rows = _fp_diff(sub.reshape(chh, -1), len(chans))
             else:
                 rows = pack_rows(sub.reshape(chh, -1), bits, big)
-            chunks.append(_COMPRESS[compression](rows.tobytes()))
+            chunks.append(compress(rows.tobytes()))
 
     entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp),
                259: (3, [compression]), 262: (3, [photometric]),
