@@ -34,9 +34,9 @@ nonzero):
    kernels (not the plain walk: one pass takes minutes; PERF.md has it),
    checks the kernels' device time against torch.profiler's sum of their
    launches, prints the dead lanes of those queries (launches with no live
-   lane, 32-lane groups with a live lane) and the longest walk of each
-   launch, and profiles a 128x128 frame, one full tile of the timed frame
-   (the card's activity only: the device time by kernel, its busy share);
+   lane, 32-lane groups with a live lane), and profiles a 128x128 frame,
+   one full tile of the timed frame (the card's activity only, read from
+   the raw events: the device time by kernel, its busy share);
 7. renders the glass scene at 256x256, AA 3, its own options, through the
    kernels (counts reset, plain walk barred); prints seconds per frame, the
    query counts, the rate and the refraction AOV;
@@ -44,8 +44,8 @@ nonzero):
    kernel alone, warm, on 262,144 coherent camera rays of the glass scene
    and 262,144 incoherent cosine-bounce rays from their hits, beside its
    byte and operation bounds;
-9. renders the glass scene at 12x12 on the card and on the CPU and
-   compares;
+9. renders the glass scene at 12x12 on the card and on the CPU, at phase
+   6's refraction depth of 1, and compares;
 10. holds both kernels to the plain walk on every query of a 64x64, AA 2
    frame of scenes/skin_closeup.ass (the SSS probe stage: probes with an
    exclude and foreign-hit termination, the probe-hit light columns) and
@@ -57,8 +57,8 @@ nonzero):
    plane and that the sss AOV is above 0; prints seconds per frame, the
    rays, the launches per kernel, and the device busy share of one
    profiled tile (128x128, AA 2);
-12. renders the skin scene at 64x64, AA 2 on the card and on the CPU and
-   compares;
+12. renders the skin scene at 32x32, AA 2 on the card and on the CPU and
+   compares (64x64 until the script neared its time limit);
 13. holds both kernels to the plain walk on every query of a 64x64, AA 3
    frame of scenes/disney_spheres.ass (six rlDisney spheres: curved
    meshes, GTR1 and anisotropic glossy rays); prints the table path, the
@@ -166,8 +166,8 @@ nonzero):
    LZW TIFF with predictor 2 and an Adam7 palette PNG, frame B a GIF, a
    4-bit BMP and a CMYK JPEG; each frame must launch 16 nearest and 60
    any-hit queries, prints its build seconds, texture-table bytes and
-   seconds per frame, and is compared at 24x24 on the card and the CPU
-   (32x32 until PR 17, when phases 29-44 neared their limits);
+   seconds per frame, and is compared at 16x16 on the card and the CPU
+   (32x32, then 24x24, as the script neared its time limit);
 31. every committed file of scenes/data/formats/
    (tools/make_image_formats.py: JPEG- and CCITT-compressed TIFF, DIB,
    TGA, PNM and PFM, DDS, SGI, PCX, QOI, and a 2048x2048 DXT1 DDS)
@@ -267,7 +267,22 @@ nonzero):
 46. the textured scene as in 30 with frame Q (the LAB ZSTD TIFF, the
    tiled ZSTD TIFF, a 24-bit RLE Sun raster) and frame R (an RLE LAB PSD,
    an XPM, a DXT1 FTEX), each held to the plain walk as in 34; phases
-   45-46 must take 60 s at most.
+   45-46 must take 60 s at most;
+47. every committed file of scenes/data/formats_i/
+   (`tools/make_image_formats.py formats_i`, hand writers: FLI and FLC of
+   every sub-chunk type, a 640x480 FLC, a 768x512 PhotoCD and its two
+   turned orientations, FITS of each BITPIX, axes and GZIP_1 tiles, raw
+   and JPEG IPTC, and damaged JPEGs that libjpeg-turbo decodes: a bad
+   Huffman code, a marker hit mid-scan, a lost EOI, a restart resync,
+   blocks whose SIMD IDCT differs from the C routine, progressive scans
+   damaged and cut for block smoothing, a JPEG TIFF strip) decoded
+   without PIL and held to the SHA-256 of PIL's decode, with the host
+   milliseconds of each file, as in 29;
+48. the textured scene as in 30 with frame S (the 640x480 FLC, the
+   PhotoCD, the block-smoothed cut progressive JPEG) and frame T (the
+   512x512 16-bit GZIP_1 FITS, an RGB IPTC band, the baseline JPEG whose
+   samples follow the SIMD IDCT), each held to the plain walk as in 34;
+   phases 47-48 must take 60 s at most.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -290,7 +305,7 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_formats_c` for phase 36, `launches_formats_d` for phase 38,
 `launches_formats_e` for phase 40, `launches_formats_f` for phase 42,
 `launches_formats_g` for phase 44, `launches_formats_h` for phase 46,
-whose sum is `launches`); the card's
+`launches_formats_i` for phase 48, whose sum is `launches`); the card's
 name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
@@ -325,7 +340,7 @@ PROFILE_SIZE = 128  # the profiled frames: one full tile at AA 2 or 3
 GLASS_CPU = 12      # width and height of the glass CUDA vs CPU frames
 SKIN = "scenes/skin_closeup.ass"
 SKIN_CHECK = 64     # width and height of the skin frames held to the walk
-SKIN_CPU = 64       # width and height of the skin CUDA vs CPU frames
+SKIN_CPU = 32       # width and height of the skin CUDA vs CPU frames
 DISNEY = "scenes/disney_spheres.ass"
 DISNEY_AA = 3
 DISNEY_CHECK = 64   # width and height of the Disney frame held to the walk
@@ -870,6 +885,70 @@ FORMAT_H_DIGESTS = {
         "a224c154faad8a39f9105048b7409be3ce930931017a5ea11f53a65dc77990c5",
 }
 # phase 41: the header-only files past PIL's decompression-bomb limit
+FORMAT_I_DIGESTS = {
+    "scenes/data/formats_i/grey_restart_resync.jpg":
+        "9efbe8668ffa17180c95ce1804c2ecb155dbed6e7530200c196e762d0c415e88",
+    "scenes/data/formats_i/grid_bad_code.jpg":
+        "271c40617cd9861173998400b8b84ee786bd275b2bdd557eaa77726d33cc197e",
+    "scenes/data/formats_i/grid_brun.flc":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_i/grid_eoi_lost.jpg":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/formats_i/grid_jpeg_rgb.iptc":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/formats_i/grid_marker_hit.jpg":
+        "e90d480e11be770ebd5fa27b69749b504c5120d033bf49538e80f65e28dedf95",
+    "scenes/data/formats_i/grid_simd_idct.jpg":
+        "bfdba60e64efd2c7f5faab18da669686aae317d18926f3502d6f3dd88aa0d5d3",
+    "scenes/data/formats_i/height_512_16bit_gzip.fits":
+        "b1928e3847cee529bc77fbec4d212096d9028942dc10871e2ebea9ab4b114557",
+    "scenes/data/formats_i/idct_extremes.jpg":
+        "8fa941d8d953e73101a28026ad4b6931f9153452a6526101b6ef62fbf9bb1eac",
+    "scenes/data/formats_i/logo_color64_lc.fli":
+        "9235ce5548639131ac5263a311c9dbe788c51fc212c274ebf86365af314d5d2e",
+    "scenes/data/formats_i/logo_progressive_damaged.jpg":
+        "d0c63af717edb1452e204262ae2b269ae12b28be3f586ae53700f8057fab93ef",
+    "scenes/data/formats_i/logo_progressive_refine_damaged.jpg":
+        "f9f7fdbb609ab7250d937707b7a84177e0feb4f3816e25bb5718b7e311fed600",
+    "scenes/data/formats_i/logo_progressive_smoothed.jpg":
+        "0c8b53f71072fd528afd6388b87170923925747eb9610810d304908e5c6a2ec2",
+    "scenes/data/formats_i/logo_raw_rgb_band.iptc":
+        "a48a51cfb18fb128bac5abcae1c3cec84171ddf1db242099c1c8d9062eb5fe03",
+    "scenes/data/formats_i/odd_16bit.fits":
+        "b893342bd21033ebd2982643f04756d8be6f19547f2aacdd222b54244df77fbe",
+    "scenes/data/formats_i/odd_32bit.fits":
+        "a11dc20a06020aa1e412cfda48637db9efa22a6bfdf36fd81d8e41838b733ac7",
+    "scenes/data/formats_i/odd_8bit.fits":
+        "263a356d19ff7d7804b61a25b5bdc5435b50a0ec4fe8b04a9a26a2feafeb547b",
+    "scenes/data/formats_i/odd_copy_ss2.flc":
+        "f0ee3cebc30e3928bc2bc52b335a0914845144a03024b832c13bcc97a3f2b516",
+    "scenes/data/formats_i/odd_float32.fits":
+        "ef7ea9e7d344b663215acb5e12a85f99243cf09b2bbb6616e5968111b623508e",
+    "scenes/data/formats_i/odd_float64.fits":
+        "1f1880d3314bb461c938b0a2cbad86082fc5feef741794749c450b4a1f5e68fc",
+    "scenes/data/formats_i/odd_gzip_tiles.fits":
+        "45ae504ffcff808acc26af288699f1ad4e4f3e3adbf9db052f1d7e85b27f3065",
+    "scenes/data/formats_i/odd_jpeg_grey.iptc":
+        "acd0ef9d34a327a5979eee7e7db3f6b3b4c4b56c807f3f1ac2bd76e8fb7e9243",
+    "scenes/data/formats_i/odd_lab_jpeg_damaged.tif":
+        "b09b55ea3ee94fb5214e56c49fa5a57b9176480a11404468fc9fb6329ae9fd8d",
+    "scenes/data/formats_i/odd_naxis1.fits":
+        "ccf503c4464a74530639b1bdfd14ebb9561e2d1e5314429a87fce9e574a5656f",
+    "scenes/data/formats_i/odd_naxis3.fits":
+        "263a356d19ff7d7804b61a25b5bdc5435b50a0ec4fe8b04a9a26a2feafeb547b",
+    "scenes/data/formats_i/odd_raw_cmyk_band.iptc":
+        "3404e61a251e9bddb20bd9c875a24d522f0a1cd8b6e03ccdbd1c1312d766d2f1",
+    "scenes/data/formats_i/odd_raw_grey.iptc":
+        "263a356d19ff7d7804b61a25b5bdc5435b50a0ec4fe8b04a9a26a2feafeb547b",
+    "scenes/data/formats_i/photo_768.pcd":
+        "e56fd6ea8f88312ed29f9267c12541bdc699184cdf28571afc2453a4b6b21bbd",
+    "scenes/data/formats_i/photo_768_turn270.pcd":
+        "a9171b99c0b982b0f2bdcc0d4b867316022b4d52f7d945ce0c9baa98b0d8cd2d",
+    "scenes/data/formats_i/photo_768_turn90.pcd":
+        "cf9fdc7d9b858fba9c7bf99a076662bc79b6c9013eb6a9eb737c02f4528a425c",
+    "scenes/data/formats_i/texture_640_brun.flc":
+        "94c5cb97c0388e22a49a0be2f9debbdcaf9e2376b4fd2526b7540c19d8fcf420",
+}
 BOMBS = "scenes/bombs"
 BOMB_FILES = ("avif.bomb", "blp.bomb", "bmp.bomb", "cur.bomb", "dds.bomb",
               "dib.bomb", "gif.bomb", "icns.bomb", "ico.bomb", "im.bomb",
@@ -916,13 +995,23 @@ FORMAT_H_FRAMES = {
     "R": ("formats_h/logo_lab_rle.psd", "formats_h/grid.xpm",
           "formats_h/logo_dxt1.ftex"),
 }
+# phase 48: the same slots filled from scenes/data/formats_i
+FORMAT_I_FRAMES = {
+    "S": ("formats_i/texture_640_brun.flc", "formats_i/photo_768.pcd",
+          "formats_i/logo_progressive_smoothed.jpg"),
+    "T": ("formats_i/height_512_16bit_gzip.fits",
+          "formats_i/logo_raw_rgb_band.iptc",
+          "formats_i/grid_simd_idct.jpg"),
+}
 # phase 45's file whose ZSTD and LAB shares are printed apart
 FORMAT_H_SPLIT = "scenes/data/formats_h/texture_1024_lab_zstd.tif"
-# width and height of frames E to P held to the walk, and of frames A to
-# P on the card and the CPU (both 32 until PR 17, when the whole script
-# took 1,091 s of its 1,200 s on a slow call and phases 41-42 58.5 s of 60)
+# width and height of frames E to T held to the walk (a check's time
+# follows its launches, not its size, so compare() walks each kernel's
+# queries of a frame at once), and of frames A to T on the card and the
+# CPU (24 until the script neared its time limit; all their planes agreed
+# in every pixel)
 FORMAT_B_CHECK = 24
-IMAGE_CPU = 24
+IMAGE_CPU = 16
 FORMAT_PHASES_S = 60.0  # phases 31-32 together, and phases 33-34
 # phases 35-36 together: the lossy WebP's boolean decoder is Python
 FORMAT_C_PHASES_S = 90.0
@@ -937,6 +1026,9 @@ FORMAT_G_PHASES_S = 60.0
 # phases 45-46 together: LAB is numpy over each distinct colour, ZSTD
 # native code
 FORMAT_H_PHASES_S = 60.0
+# phases 47-48 together: FLI, PhotoCD, FITS and IPTC are numpy, the
+# damaged JPEGs' Huffman decode Python
+FORMAT_I_PHASES_S = 60.0
 # each frame's launches at the scene's own options (phase 25's)
 IMAGE_LAUNCHES = {"rls_nearest": 16, "rls_occluded": 60}
 # the dense Disney scene (phases 26-28): quads round each ball, and the
@@ -1033,6 +1125,20 @@ def device_ms(run, reps: int) -> float:
     return ms
 
 
+def device_events(prof) -> dict:
+    """The card's activity in a torch.profiler run, by name: [device ms,
+    count]. Read from the raw events, as cli.py reads them: turning a
+    frame's events into FunctionEvents (`key_averages()`) takes tens of
+    seconds for one glass tile."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            row = out.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    return out
+
+
 def profiled_ms(run, key: str) -> float:
     """torch.profiler's device milliseconds of the kernels whose name holds
     `key`, over one eager call of `run`."""
@@ -1042,8 +1148,8 @@ def profiled_ms(run, key: str) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return sum(r.self_device_time_total for r in prof.key_averages()
-               if key in r.key) / 1e3
+    return sum(ms for name, (ms, _) in device_events(prof).items()
+               if key in name)
 
 
 def capture_queries(scene, accel, wavefront, tracemod, **render_kw):
@@ -1124,14 +1230,24 @@ def soup_accel(tracemod, t: int, seed: int = 8):
 
 
 def compare(accel, calls, bvh, kernels):
-    """Run kernel and plain version on each captured query; returns per
+    """Run kernel and plain version on the captured queries; returns per
     kernel [mismatching rays, rays, max abs error, the plain walk's work
-    counts]. The walk counts its work here, so it is not timed here."""
+    counts]. The kernel runs each captured launch as the frame made it;
+    the plain walk runs once over all of a kernel's queries that share a
+    visibility mask (a ray's walk depends on that ray alone, and a walk's
+    time on its lockstep steps, not its rays), so its "steps" count is
+    the sum of those walks' longest. The walk counts its work here, so
+    it is not timed here."""
     res = {k: [0, 0, 0.0, {}] for k in REPLACES}
+    groups = {}
     for name, o, d, tm, ex, vis in calls:
+        groups.setdefault((name, vis), []).append((o, d, tm, ex))
+    for (name, vis), queries in groups.items():
         counts = res[name][3]
+        o, d, tm, ex = (torch.cat(x) for x in zip(*queries))
         if name == "rls_nearest":
-            hk = kernels.nearest(accel.packed, o, d, tm, ex, vis)
+            got = [kernels.nearest(accel.packed, *q, vis) for q in queries]
+            hk = type(got[0])(*(torch.cat(f) for f in zip(*got)))
             hp = bvh.intersect(accel.tree, accel.tris, o, d, tm, ex, vis,
                                counts=counts)
             bad = ((hk.tri != hp.tri) | (hk.t != hp.t) | (hk.u != hp.u)
@@ -1142,10 +1258,10 @@ def compare(accel, calls, bvh, kernels):
                       float((hk.u - hp.u).abs().max()),
                       float((hk.v - hp.v).abs().max()))
         else:
-            bk = kernels.occluded(accel.packed, o, d, tm, ex, vis)
-            bp = bvh.occluded(accel.tree, accel.tris, o, d, tm, ex, vis,
-                              counts=counts)
-            bad = bk != bp
+            bk = torch.cat([kernels.occluded(accel.packed, *q, vis)
+                            for q in queries])
+            bad = bk != bvh.occluded(accel.tree, accel.tris, o, d, tm, ex,
+                                     vis, counts=counts)
             err = float(bad.any())
         r = res[name]
         r[0] += int(bad.sum())
@@ -1218,12 +1334,12 @@ def time_kernels(accel, calls, bvh, kernels):
     for name in REPLACES:
         mine = [c[1:] for c in calls if c[0] == name]
         kern, walk = pair(name, kernels, bvh, accel)
-        # plain, kernel, kernel, plain: clocks drift less across a pair
-        p1 = cuda_ms(lambda: run_all(walk, mine), 2)
+        # one pass of the plain walk (compare() has warmed it), then the
+        # kernel twice
+        pm = events_ms(lambda: run_all(walk, mine), 1)
         d1, c1 = kernel_ms(kern, mine, 10)
         d2, c2 = kernel_ms(kern, mine, 10)
-        p2 = cuda_ms(lambda: run_all(walk, mine), 2)
-        out[name] = ((d1 + d2) / 2, (c1 + c2) / 2, (p1 + p2) / 2,
+        out[name] = ((d1 + d2) / 2, (c1 + c2) / 2, pm,
                      sum(c[0].shape[0] for c in mine), len(mine))
     return out
 
@@ -1368,16 +1484,16 @@ def profile_frame(wavefront, tag, scene, accel, **kw) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    dev = [(r.self_device_time_total, r.count, r.key)
-           for r in prof.key_averages() if r.self_device_time_total > 0]
-    total = sum(t for t, _, _ in dev) / 1e3
+    dev = sorted(((ms, n, key) for key, (ms, n) in device_events(prof).items()),
+                 reverse=True)
+    total = sum(ms for ms, _, _ in dev)
     kernels = sum(n for _, n, key in dev if not key.startswith("Mem"))
     log(f"[{tag}] profile: wall {wall:.4f} s (profiled), device time "
         f"{total:.4f} ms, busy share {total / 1e3 / wall:.4f}, kernels "
         f"run {kernels}; reading the profile took "
         f"{time.perf_counter() - t1:.1f} s")
-    for t, n, key in sorted(dev, reverse=True)[:8]:
-        log(f"[{tag}]   {t / 1e3:10.4f} ms  {n:8d} x  {key[:110]}")
+    for ms, n, key in dev[:8]:
+        log(f"[{tag}]   {ms:10.4f} ms  {n:8d} x  {key[:110]}")
 
 
 def jwalk_rays(scene, accel, tracemod, rng, cameramod):
@@ -1484,20 +1600,16 @@ def check_shape(t_check: str, shape: str, scene, accel, aa: int,
     for k in REPLACES:
         mine = [c[1:] for c in calls if c[0] == k]
         kern, walk = pair(k, kernels, bvh, accel)
-        p1 = events_ms(lambda: run_all(walk, mine), 1)
+        pm = events_ms(lambda: run_all(walk, mine), 1)
         dm, cm = kernel_ms(kern, mine, 5)
-        p2 = events_ms(lambda: run_all(walk, mine), 1)
         r = sum(c[0].shape[0] for c in mine)
-        times[k] = (dm, cm, (p1 + p2) / 2, r, len(mine))
+        times[k] = (dm, cm, pm, r, len(mine))
         b = bounds[k] = bound(k, r, res[k][3], accel)
-        walks = res[k][3]
-        working = sum(1 for c in mine if bool((c[2] > 0).any()))
         log(f"[{t_check}] {k}: all {r} rays of the {shape} frame's "
             f"{len(mine)} queries: device {dm:.4f} ms, call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
-            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk "
-            f"{walk_counts(walks)}, the longest walk of a launch with a "
-            f"live lane {walks['steps'] / max(working, 1):.2f} on average; "
+            f"per launch), plain {pm:.4f} ms; walk "
+            f"{walk_counts(res[k][3])}; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")
@@ -2362,6 +2474,16 @@ def format_h_phases(card: str) -> dict:
     return launches
 
 
+def format_i_phases(card: str) -> dict:
+    """Phases 47-48: format_phases over scenes/data/formats_i (FLI/FLC,
+    PhotoCD, FITS, IPTC and damaged JPEGs) with frames S and T, each held
+    to the plain walk on every query of a FORMAT_B_CHECK frame, within
+    FORMAT_I_PHASES_S."""
+    return format_phases(card, "formats_i", FORMAT_I_DIGESTS,
+                         FORMAT_I_FRAMES, (47, 48), FORMAT_B_CHECK,
+                         FORMAT_I_PHASES_S)
+
+
 def same_nodes_and_leaves(a, b) -> bool:
     """Whether two builders' arrays (bbox_min, bbox_max, first, count,
     miss, order) have the same nodes and every leaf the same set of
@@ -2642,10 +2764,10 @@ def main() -> int:
             "GI_refraction_depth 3", f"GI_refraction_depth {GLASS_CHECK_DEPTH}")
     if f"GI_refraction_depth {GLASS_CHECK_DEPTH}" not in shallow:
         raise AssertionError(f"{GLASS} sets no GI_refraction_depth 3")
+    gshallow = build_text(shallow, base_dir=os.path.dirname(GLASS))
     calls = capture_queries(
-        build_text(shallow, base_dir=os.path.dirname(GLASS)), gaccel,
-        wavefront, tracemod, aa_samples=GLASS_AA, xres=GLASS_CHECK,
-        yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
+        gshallow, gaccel, wavefront, tracemod, aa_samples=GLASS_AA,
+        xres=GLASS_CHECK, yres=GLASS_CHECK, rr_refr_start=GLASS_RR)
     reset(kernels)
     glass = compare(gaccel, calls, bvh, kernels)
     log(f"[6] captured and compared in {time.perf_counter() - t0:.1f} s; "
@@ -2681,15 +2803,12 @@ def main() -> int:
         gtimes[k] = (dm, cm, None, r, len(mine))
         b = glass_bound[k] = bound(k, r, glass[k][3], gaccel)
         walks = glass[k][3]
-        working = sum(1 for c in mine if bool((c[2] > 0).any()))
         log(f"[6] {k}: all {r} rays of the glass frame's {len(mine)} "
             f"queries: device {dm:.4f} ms (torch.profiler's sum of the "
             f"kernel's launches {prof:.4f} ms), call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us per "
             f"launch); walk {walk_counts(walks)}: per live ray "
-            f"{walks['boxes'] / walks['rays']:.2f} slab tests, the longest "
-            f"walk of a launch with a live lane "
-            f"{walks['steps'] / working:.2f} on average; "
+            f"{walks['boxes'] / walks['rays']:.2f} slab tests; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
             f"of device time {b['bound_ms'] / dm:.4f}")
@@ -2746,11 +2865,13 @@ def main() -> int:
                 f"{b['bound_ms'] / dm:.4f}")
     log(f"[8] phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- the glass frame on the card and on the CPU ----
+    # ---- the glass frame on the card and on the CPU, at phase 6's
+    # refraction depth ----
     t0 = time.perf_counter()
-    cscene = build(GLASS, device="cpu")
+    cscene = build_text(shallow, device="cpu",
+                        base_dir=os.path.dirname(GLASS))
     cuda_vs_cpu(wavefront, "9", {
-        "cuda": (gscene, gaccel),
+        "cuda": (gshallow, gaccel),
         "cpu": (cscene, tracemod.build(cscene.geometry))},
         (PIX_TOL, PIX_FRAC, MEAN_RTOL), aa_samples=AA, xres=GLASS_CPU,
         yres=GLASS_CPU)
@@ -2788,16 +2909,15 @@ def main() -> int:
     for k in REPLACES:
         mine = [c[1:] for c in calls if c[0] == k]
         kern, walk = pair(k, kernels, bvh, saccel)
-        p1 = events_ms(lambda: run_all(walk, mine), 1)
+        pm = events_ms(lambda: run_all(walk, mine), 1)
         dm, cm = kernel_ms(kern, mine, 5)
-        p2 = events_ms(lambda: run_all(walk, mine), 1)
         r = sum(c[0].shape[0] for c in mine)
-        stimes[k] = (dm, cm, (p1 + p2) / 2, r, len(mine))
+        stimes[k] = (dm, cm, pm, r, len(mine))
         b = skin_bound[k] = bound(k, r, skin[k][3], saccel)
         log(f"[10] {k}: all {r} rays of the skin frame's {len(mine)} "
             f"queries: device {dm:.4f} ms, call {cm:.4f} ms "
             f"({dm / len(mine) * 1e3:.2f} / {cm / len(mine) * 1e3:.2f} us "
-            f"per launch), plain {(p1 + p2) / 2:.4f} ms; walk "
+            f"per launch), plain {pm:.4f} ms; walk "
             f"{walk_counts(skin[k][3])}; "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
             f"{b['byte_ms']:.4f} ms, operations {b['op_ms']:.4f} ms), share "
@@ -2860,6 +2980,7 @@ def main() -> int:
     format_f_launches = format_f_phases(card)
     format_g_launches = format_g_phases(card)
     format_h_launches = format_h_phases(card)
+    format_i_launches = format_i_phases(card)
 
     entries = []
     for k in REPLACES:
@@ -2897,7 +3018,8 @@ def main() -> int:
                          + format_launches[k] + format_b_launches[k]
                          + format_c_launches[k] + format_d_launches[k]
                          + format_e_launches[k] + format_f_launches[k]
-                         + format_g_launches[k] + format_h_launches[k]),
+                         + format_g_launches[k] + format_h_launches[k]
+                         + format_i_launches[k]),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -2924,6 +3046,7 @@ def main() -> int:
             "launches_formats_f": format_f_launches[k],
             "launches_formats_g": format_g_launches[k],
             "launches_formats_h": format_h_launches[k],
+            "launches_formats_i": format_i_launches[k],
             "shapes": shapes,
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -19,7 +19,8 @@ BMP and DIB (bmp.py), TIFF (tiff.py, with lzw.py, jpeg.py, ccitt.py and
 zstd.py, whose Zstandard decoder is native code; LAB converted as
 LittleCMS converts it, lab.py), PNM and PFM (pnm.py), PCX (pcx.py), DCX
 (dcx.py), DDS with BC1-BC7 blocks (dds.py), BLP (blp.py), ICO and CUR
-(ico.py), ICNS (icns.py), IM (im.py), IMT (imt.py), MSP (msp.py), QOI
+(ico.py), ICNS (icns.py), IM (im.py), IMT (imt.py), IPTC (iptc.py), FITS
+(fits.py), FLI and FLC (fli.py), PhotoCD (pcd.py), MSP (msp.py), QOI
 (qoi.py), SGI (sgi.py), SPIDER (spider.py), TGA (tga.py), WebP, still
 and animated (webp.py, with vp8l.py for lossless and vp8.py for lossy
 images), JPEG 2000 as J2K and JP2 files (jp2.py, with j2k.py and
@@ -30,9 +31,9 @@ through lab.py), Sun raster (sun.py), XPM (xpm.py), FTEX (ftex.py), GIMP
 brushes (gbr.py), PIXAR (pixar.py), McIdas (mcidas.py), XV thumbnails
 (xvthumb.py) and XBM (xbm.py). Every decoder keeps PIL's
 decompression-bomb limit (bomb.py). A format PIL opens and the port does
-not decode (FLI/FLC, PhotoCD, FITS, IPTC and the rest of PIL's plugins)
-raises NotImplementedError naming it; MPEG, which PIL opens and cannot
-load, raises ValueError; data that no PIL plugin accepts raises
+not decode (BUFR, EPS, GRIB, HDF5, WMF/EMF and the rest of PIL's
+plugins) raises NotImplementedError naming it; MPEG, which PIL opens and
+cannot load, raises ValueError; data that no PIL plugin accepts raises
 NotImplementedError as an unknown format.
 """
 from __future__ import annotations
@@ -45,9 +46,10 @@ import torch
 
 from ..core import vec3
 from ..core.vec3 import V3
-from . import (avif, blp, bmp, dcx, dds, ftex, gbr, gif, icns, ico, im,
-               imt, jp2, mcidas, msp, pcx, pixar, png, pnm, psd, qoi, sgi,
-               spider, sun, tga, tiff, webp, xbm, xpm, xvthumb)
+from . import (avif, blp, bmp, dcx, dds, fits, fli, ftex, gbr, gif, icns,
+               ico, im, imt, iptc, jp2, mcidas, msp, pcd, pcx, pixar, png,
+               pnm, psd, qoi, sgi, spider, sun, tga, tiff, webp, xbm, xpm,
+               xvthumb)
 from .jpeg import decode_jpeg
 from .png import decode_png
 
@@ -77,12 +79,12 @@ def _mpeg(d: bytes) -> np.ndarray:
 # GIF, JPEG, PPM and PNG first, then the rest as PIL.__init__ lists
 # them): (name, the test of the file's bytes, the port's decoder or None).
 # A test is the plugin's `_accept`, and for the formats whose `_open`
-# may still refuse a file it accepted (PNM, PCX, DCX, FTEX, GBR, TGA, ICO,
-# CUR, MSP, MCIDAS, MPEG, PIXAR, SUN, XPM, XVThumb: PIL then tries the
-# next plugin), that check too; IM, IMT and IPTC have no prefix test, so
-# their header readers decide (IMT's runs on every file the plugins
-# before it refuse). The name of a decoded format is PIL's `format` for
-# it.
+# may still refuse a file it accepted (PNM, PCX, DCX, FITS, FLI, FTEX,
+# GBR, TGA, ICO, CUR, MSP, MCIDAS, MPEG, PIXAR, SUN, XPM, XVThumb: PIL
+# then tries the next plugin), that check too; IM, IMT, IPTC and PCD have
+# no prefix test, so their header readers decide (IMT's and IPTC's run on
+# every file the plugins before them refuse). The name of a decoded
+# format is PIL's `format` for it.
 _FORMATS = (
     ("BMP", lambda d: d.startswith(bmp.MAGIC), bmp.decode_bmp),
     ("DIB", bmp.dib_accept, bmp.decode_dib),
@@ -98,9 +100,8 @@ _FORMATS = (
     ("DCX", dcx.accept, dcx.decode_dcx),
     ("DDS", lambda d: d.startswith(dds.MAGIC), dds.decode_dds),
     ("EPS", lambda d: d.startswith(b"%!PS") or _u32(d) == 0xC6D3D0C5, None),
-    ("FITS", lambda d: d.startswith(b"SIMPLE"), None),
-    ("FLI", lambda d: len(d) > 5 and struct.unpack_from("<H", d, 4)[0] in (
-        0xAF11, 0xAF12), None),
+    ("FITS", fits.accept, fits.decode_fits),
+    ("FLI", fli.accept, fli.decode_fli),
     ("FTEX", ftex.accept, ftex.decode_ftex),
     ("GBR", gbr.accept, gbr.decode_gbr),
     ("GRIB", lambda d: d.startswith(b"GRIB") and len(d) > 7 and d[7] == 1,
@@ -111,13 +112,13 @@ _FORMATS = (
     ("ICO", lambda d: ico.accept(d, ico.ICO_MAGIC), ico.decode_ico),
     ("IM", im.accept, im.decode_im),
     ("IMT", imt.accept, imt.decode_imt),
-    ("IPTC", imt.iptc_accept, imt.refuse_iptc),
+    ("IPTC", iptc.accept, iptc.decode_iptc),
     ("MCIDAS", mcidas.accept, mcidas.decode_mcidas),
     ("MPEG", _mpeg_size, _mpeg),
     ("TIFF", lambda d: d.startswith(tiff.MAGICS + tiff.BIGTIFF),
      tiff.decode_tiff),
     ("MSP", msp.accept, msp.decode_msp),
-    ("PhotoCD", lambda d: d[2048:2052] == b"PCD_", None),
+    ("PCD", pcd.accept, pcd.decode_pcd),
     ("PIXAR", pixar.accept, pixar.decode_pixar),
     ("PSD", lambda d: d.startswith(psd.MAGIC), psd.decode_psd),
     ("QOI", lambda d: d.startswith(qoi.MAGIC), qoi.decode_qoi),
@@ -136,10 +137,10 @@ _FORMATS = (
     ("PAM (which PIL does not open either)",
      lambda d: d.startswith(b"P7") and d[2:3] in b"\n\r\t \x0b\x0c", None),
 )
-# what the port decodes, named in its messages (IPTC and MPEG rows only
-# raise: ValueError where PIL fails, else IPTC's refusal by name)
+# what the port decodes, named in its messages (the MPEG row only raises
+# ValueError: PIL opens the stream and cannot load it)
 DECODED = ", ".join(name for name, _, dec in _FORMATS
-                    if dec not in (None, imt.refuse_iptc, _mpeg))
+                    if dec not in (None, _mpeg))
 
 
 def _format(data: bytes):
@@ -157,9 +158,10 @@ def image_format(data: bytes) -> str:
 def decode_image(data: bytes, name: str = "image") -> np.ndarray:
     """(H, W, 3) uint8 of an image file's bytes, PIL's `convert("RGB")` of
     them, for every format the port decodes (`DECODED`: BMP, DIB, GIF,
-    JPEG, PNM and PFM, PNG, AVIF, BLP, CUR, PCX, DCX, DDS, FTEX, GBR,
-    JPEG2000, ICNS, ICO, IM, IMT, MCIDAS, TIFF, MSP, PIXAR, PSD, QOI,
-    SGI, SPIDER, SUN, TGA, WEBP, XBM, XPM and XVThumb); any other format
+    JPEG, PNM and PFM, PNG, AVIF, BLP, CUR, PCX, DCX, DDS, FITS, FLI,
+    FTEX, GBR, JPEG2000, ICNS, ICO, IM, IMT, IPTC, MCIDAS, TIFF, MSP, PCD,
+    PIXAR, PSD, QOI, SGI, SPIDER, SUN, TGA, WEBP, XBM, XPM and XVThumb);
+    damaged JPEG data as libjpeg-turbo decodes it; any other format
     raises NotImplementedError (naming it and `name`), as does a feature
     of a decoded format that is still left (a JPEG 2000 code-block style,
     CCITT RLEW TIFF, planar LAB TIFF); an image past PIL's

@@ -531,7 +531,8 @@ def decode_tiff(data: bytes) -> np.ndarray:
             i += 1
             if compression == 7:
                 px[y:y + ch, x:x + cw] = _jpeg_cell(
-                    data[off:end], lt, cw, ch, spp)[:h - y, :w - x]
+                    data[off:end], lt, cw, ch, spp,
+                    "strip_offsets" in names and y + ch == h)[:h - y, :w - x]
                 continue
             if compression in _CCITT:
                 px[y:y + ch, x:x + cw, 0] = ccitt.decode(
@@ -820,18 +821,21 @@ def _ycbcr_rgba(data: bytes, tags: dict, w: int, h: int,
     return out
 
 
-def _jpeg_cell(stream: bytes, tags: dict, cw: int, ch: int,
-               spp: int) -> np.ndarray:
+def _jpeg_cell(stream: bytes, tags: dict, cw: int, ch: int, spp: int,
+               last_strip: bool = False) -> np.ndarray:
     """(ch, cw, spp) int32 of one JPEG-compressed strip or tile, as
     libtiff hands it to PIL: its JPEGTables read first; under photometric
     YCbCr libjpeg's conversion to RGB (upsampled as libjpeg upsamples),
     under any other the decoded components as they are."""
-    planes, _, _ = decode_planes(stream, tags.get("jpeg_tables", b""))
+    planes, _, _ = decode_planes(stream, tags.get("jpeg_tables", b""),
+                                 tiff=True)
     if len(planes) != spp:
         raise ValueError(f"TIFF JPEG strip or tile of {len(planes)} "
                          f"components, the image has {spp} samples")
     jh, jw = planes[0][0].shape
-    if jh < ch or jw < cw:
+    # libtiff's JPEGPreDecode: a larger stream is refused, but for the
+    # last strip's rows where its width is the image's
+    if jh < ch or jw < cw or jw > cw or (jh > ch and not last_strip):
         raise ValueError(f"TIFF JPEG strip or tile of {jw}x{jh} samples, "
                          f"its cell is {cw}x{ch}")
     if _one(tags, "photometric") == 6:

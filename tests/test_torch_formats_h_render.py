@@ -1,20 +1,25 @@
-"""chip_smoke.py phase 46's frames at the reduced size of
+"""chip_smoke.py phase 46's and phase 48's frames at the reduced size of
 tests/test_torch_textured_render.py (16x16, AA 1, one diffuse and one
 glossy sample): scenes/textured_disk.ass with its three MayaFile slots
-filled from scenes/data/formats_h, rendered by the JAX package (which
-decodes the images with PIL) and by the port on the CPU (its own
-decoders), every plane held to that file's PIX_ATOL; at the four pixels
+filled from scenes/data/formats_h or formats_i, rendered by the JAX
+package (which decodes the images with PIL) and by the port on the CPU
+(its own decoders), every plane held to that file's PIX_ATOL; at the
+four pixels
 around (7, 13), where the JAX package's jitted frame rounds one glossy
 lane the other way (tests/test_torch_textured_render.py), the reference
 is the JAX package's op-by-op value of the same frame (OPBYOP, printed by
-`tools/textured_opbyop.py --images`), held to OPBYOP_ATOL. Both frames'
+`tools/textured_opbyop.py --images`), held to OPBYOP_ATOL. The frames'
 JAX texel tables are padded to one shape (`padded`), so the file compiles
-the JAX render once.
+the JAX render once for all four frames.
 
 Frame Q: the 2048x2048 texture at 1024x1024 as a LAB TIFF under ZSTD in
 the grid slot, a 512x512 ZSTD TIFF tiled 256x256 with predictor 2 as the
 logo and a 24-bit RLE Sun raster as the inverted logo. Frame R: an RLE
-LAB PSD, an XPM and a DXT1 FTEX.
+LAB PSD, an XPM and a DXT1 FTEX. Frame S: a 640x480 FLC (one BRUN
+frame), the 768x512 PhotoCD and a progressive JPEG cut after its fourth
+scan (libjpeg's block smoothing). Frame T: a 512x512 16-bit GZIP_1 FITS,
+an RGB IPTC file of one band and a damaged baseline JPEG whose samples
+follow libjpeg-turbo's SIMD IDCT.
 """
 import os
 
@@ -26,7 +31,7 @@ from rlshaders_tpu.accel import trace as jtrace
 from rlshaders_tpu.integrator import wavefront as jwave
 from rlshaders_tpu.scene import build as jbuild
 from rlshaders_tpu.scene import texture as jtex
-from test_torch_gpu import FORMAT_H_FRAMES
+from test_torch_gpu import FORMAT_H_FRAMES, FORMAT_I_FRAMES
 from test_torch_textured_render import (KW, OPBYOP_ATOL, PIX_ATOL, PLANES,
                                         REDUCED, RES, padded, texel_rows,
                                         textured_copy)
@@ -101,17 +106,79 @@ OPBYOP = {
                       0.09742662310600281),
         },
     },
+    "S": {
+        "indirect_specular": {
+            (6, 13): (0.0004283149028196931,
+                      0.00037521476042456925,
+                      0.00032497619395144284),
+            (6, 14): (0.0028904795181006193,
+                      0.0035600243136286736,
+                      0.004307068884372711),
+            (7, 13): (0.0013378681614995003,
+                      0.0011720064794644713,
+                      0.0010150832822546363),
+            (7, 14): (0.002685937797650695,
+                      0.003108557779341936,
+                      0.003591896966099739),
+        },
+        "RGBA": {
+            (6, 13): (0.004974301904439926,
+                      0.006212173495441675,
+                      0.007419315632432699),
+            (6, 14): (0.04192480072379112,
+                      0.036843191832304,
+                      0.054625045508146286),
+            (7, 13): (0.022516516968607903,
+                      0.019424162805080414,
+                      0.013202288188040257),
+            (7, 14): (0.022907719016075134,
+                      0.018978051841259003,
+                      0.032392390072345734),
+        },
+    },
+    "T": {
+        "indirect_specular": {
+            (6, 13): (0.0004552360624074936,
+                      0.0005614364636130631,
+                      0.0006798849790357053),
+            (6, 14): (0.002891317941248417,
+                      0.003565822960808873,
+                      0.004318119026720524),
+            (7, 13): (0.0014219580916687846,
+                      0.0017536814557388425,
+                      0.002123662969097495),
+            (7, 14): (0.002721823286265135,
+                      0.0033567871432751417,
+                      0.004064982291311026),
+        },
+        "RGBA": {
+            (6, 13): (0.056024882942438126,
+                      0.008317015133798122,
+                      0.0052147903479635715),
+            (6, 14): (0.037430353462696075,
+                      0.09107962995767593,
+                      0.023755868896842003),
+            (7, 13): (0.00605706637725234,
+                      0.029793091118335724,
+                      0.006888851523399353),
+            (7, 14): (0.007444624789059162,
+                      0.07342138886451721,
+                      0.007810684852302074),
+        },
+    },
 }
 
 
-ROWS = texel_rows(FORMAT_H_FRAMES)
+FRAMES = {**FORMAT_H_FRAMES, **FORMAT_I_FRAMES}
+ROWS = texel_rows(FRAMES)
 
 
-@pytest.fixture(scope="module", params=sorted(FORMAT_H_FRAMES))
+@pytest.fixture(scope="module", params=sorted(FRAMES))
 def frame(request, tmp_path_factory):
     tag = request.param
-    images = FORMAT_H_FRAMES[tag]
-    assert chip_smoke.FORMAT_H_FRAMES[tag] == images
+    images = FRAMES[tag]
+    assert {**chip_smoke.FORMAT_H_FRAMES,
+            **chip_smoke.FORMAT_I_FRAMES}[tag] == images
     d = tmp_path_factory.mktemp(f"formats_{tag}") / "a" / "b"
     d.mkdir(parents=True)
     (d / "data").symlink_to(os.path.abspath("scenes/data"))

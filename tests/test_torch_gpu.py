@@ -1418,6 +1418,88 @@ def test_committed_image_formats_h_decode_to_their_digests(cuda_device,
     assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_H_DIGESTS[path]
 
 
+FORMAT_I_DIGESTS = {
+    "scenes/data/formats_i/grey_restart_resync.jpg":
+        "9efbe8668ffa17180c95ce1804c2ecb155dbed6e7530200c196e762d0c415e88",
+    "scenes/data/formats_i/grid_bad_code.jpg":
+        "271c40617cd9861173998400b8b84ee786bd275b2bdd557eaa77726d33cc197e",
+    "scenes/data/formats_i/grid_brun.flc":
+        "a14b0a190c4f0a3d51fea9a8f5e1379538f6e10f6425e04a8c03adda09b084d8",
+    "scenes/data/formats_i/grid_eoi_lost.jpg":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/formats_i/grid_jpeg_rgb.iptc":
+        "95c6e193d2be4e9f04f28f29048cfc0acf2ac85fc03479fa7c978f919caa9603",
+    "scenes/data/formats_i/grid_marker_hit.jpg":
+        "e90d480e11be770ebd5fa27b69749b504c5120d033bf49538e80f65e28dedf95",
+    "scenes/data/formats_i/grid_simd_idct.jpg":
+        "bfdba60e64efd2c7f5faab18da669686aae317d18926f3502d6f3dd88aa0d5d3",
+    "scenes/data/formats_i/height_512_16bit_gzip.fits":
+        "b1928e3847cee529bc77fbec4d212096d9028942dc10871e2ebea9ab4b114557",
+    "scenes/data/formats_i/idct_extremes.jpg":
+        "8fa941d8d953e73101a28026ad4b6931f9153452a6526101b6ef62fbf9bb1eac",
+    "scenes/data/formats_i/logo_color64_lc.fli":
+        "9235ce5548639131ac5263a311c9dbe788c51fc212c274ebf86365af314d5d2e",
+    "scenes/data/formats_i/logo_progressive_damaged.jpg":
+        "d0c63af717edb1452e204262ae2b269ae12b28be3f586ae53700f8057fab93ef",
+    "scenes/data/formats_i/logo_progressive_refine_damaged.jpg":
+        "f9f7fdbb609ab7250d937707b7a84177e0feb4f3816e25bb5718b7e311fed600",
+    "scenes/data/formats_i/logo_progressive_smoothed.jpg":
+        "0c8b53f71072fd528afd6388b87170923925747eb9610810d304908e5c6a2ec2",
+    "scenes/data/formats_i/logo_raw_rgb_band.iptc":
+        "a48a51cfb18fb128bac5abcae1c3cec84171ddf1db242099c1c8d9062eb5fe03",
+    "scenes/data/formats_i/odd_16bit.fits":
+        "b893342bd21033ebd2982643f04756d8be6f19547f2aacdd222b54244df77fbe",
+    "scenes/data/formats_i/odd_32bit.fits":
+        "a11dc20a06020aa1e412cfda48637db9efa22a6bfdf36fd81d8e41838b733ac7",
+    "scenes/data/formats_i/odd_8bit.fits":
+        "263a356d19ff7d7804b61a25b5bdc5435b50a0ec4fe8b04a9a26a2feafeb547b",
+    "scenes/data/formats_i/odd_copy_ss2.flc":
+        "f0ee3cebc30e3928bc2bc52b335a0914845144a03024b832c13bcc97a3f2b516",
+    "scenes/data/formats_i/odd_float32.fits":
+        "ef7ea9e7d344b663215acb5e12a85f99243cf09b2bbb6616e5968111b623508e",
+    "scenes/data/formats_i/odd_float64.fits":
+        "1f1880d3314bb461c938b0a2cbad86082fc5feef741794749c450b4a1f5e68fc",
+    "scenes/data/formats_i/odd_gzip_tiles.fits":
+        "45ae504ffcff808acc26af288699f1ad4e4f3e3adbf9db052f1d7e85b27f3065",
+    "scenes/data/formats_i/odd_jpeg_grey.iptc":
+        "acd0ef9d34a327a5979eee7e7db3f6b3b4c4b56c807f3f1ac2bd76e8fb7e9243",
+    "scenes/data/formats_i/odd_lab_jpeg_damaged.tif":
+        "b09b55ea3ee94fb5214e56c49fa5a57b9176480a11404468fc9fb6329ae9fd8d",
+    "scenes/data/formats_i/odd_naxis1.fits":
+        "ccf503c4464a74530639b1bdfd14ebb9561e2d1e5314429a87fce9e574a5656f",
+    "scenes/data/formats_i/odd_naxis3.fits":
+        "263a356d19ff7d7804b61a25b5bdc5435b50a0ec4fe8b04a9a26a2feafeb547b",
+    "scenes/data/formats_i/odd_raw_cmyk_band.iptc":
+        "3404e61a251e9bddb20bd9c875a24d522f0a1cd8b6e03ccdbd1c1312d766d2f1",
+    "scenes/data/formats_i/odd_raw_grey.iptc":
+        "263a356d19ff7d7804b61a25b5bdc5435b50a0ec4fe8b04a9a26a2feafeb547b",
+    "scenes/data/formats_i/photo_768.pcd":
+        "e56fd6ea8f88312ed29f9267c12541bdc699184cdf28571afc2453a4b6b21bbd",
+    "scenes/data/formats_i/photo_768_turn270.pcd":
+        "a9171b99c0b982b0f2bdcc0d4b867316022b4d52f7d945ce0c9baa98b0d8cd2d",
+    "scenes/data/formats_i/photo_768_turn90.pcd":
+        "cf9fdc7d9b858fba9c7bf99a076662bc79b6c9013eb6a9eb737c02f4528a425c",
+    "scenes/data/formats_i/texture_640_brun.flc":
+        "94c5cb97c0388e22a49a0be2f9debbdcaf9e2376b4fd2526b7540c19d8fcf420",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FORMAT_I_DIGESTS))
+def test_committed_image_formats_i_decode_to_their_digests(cuda_device,
+                                                           path):
+    """On the machine with the card (no PIL there): every committed file
+    of scenes/data/formats_i (FLI and FLC, PhotoCD, FITS, IPTC and damaged
+    JPEGs) decodes to the digest of PIL's decode."""
+    import hashlib
+
+    from rlshaders_tpu_torch.scene.texture import decode_image
+
+    with open(path, "rb") as f:
+        px = decode_image(f.read())
+    assert hashlib.sha256(px.tobytes()).hexdigest() == FORMAT_I_DIGESTS[path]
+
+
 # chip_smoke.py phase 46's frames, in the textured scene's three MayaFile
 # slots (the grid, the logo, the inverted logo)
 FORMAT_H_FRAMES = {
@@ -1438,3 +1520,25 @@ def test_format_h_frames_on_the_card_match_the_cpu(cuda_device, tag):
     and GI samples: through both kernels on the card, held to the CPU
     render with chip_smoke.py's tolerance."""
     _frame_matches_the_cpu(cuda_device, FORMAT_H_FRAMES[tag])
+
+
+# chip_smoke.py phase 48's frames, in the same three slots
+FORMAT_I_FRAMES = {
+    "S": ("formats_i/texture_640_brun.flc", "formats_i/photo_768.pcd",
+          "formats_i/logo_progressive_smoothed.jpg"),
+    "T": ("formats_i/height_512_16bit_gzip.fits",
+          "formats_i/logo_raw_rgb_band.iptc",
+          "formats_i/grid_simd_idct.jpg"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(FORMAT_I_FRAMES))
+def test_format_i_frames_on_the_card_match_the_cpu(cuda_device, tag):
+    """Frames S and T (the textured scene with a 640x480 FLC, a PhotoCD
+    and a block-smoothed cut progressive JPEG, or a 512x512 16-bit GZIP_1
+    FITS, an RGB IPTC band and a damaged baseline JPEG whose samples
+    follow the SIMD IDCT, in its texture slots) at 8x8 and its own AA 3
+    and GI samples: through both kernels on the card, held to the CPU
+    render with chip_smoke.py's tolerance."""
+    _frame_matches_the_cpu(cuda_device, FORMAT_I_FRAMES[tag])

@@ -12,11 +12,12 @@ Adobe marker, YCCK (PIL's CMYK file with the APP14 transform byte set to
 progressive; RGB-coded three-component files (PIL's keep_rgb: Adobe
 transform 0, component ids 'R', 'G', 'B'), with and without the Adobe
 marker. A progressive file whose last refinement scans are cut away
-before EOI is decoded by PIL with libjpeg's block smoothing, which the
-port raises NotImplementedError for, naming it.
+before EOI is decoded by PIL with libjpeg's block smoothing, and by the
+port equal to it.
 """
 import io
 
+import numpy as np
 import pytest
 from PIL import Image
 
@@ -127,13 +128,15 @@ def test_rgb_coded(tmp_path, size, progressive):
 def test_cut_progressive_file_raises_block_smoothing():
     """PIL decodes a progressive file cut after any of its scans (EOI in
     place of the rest); libjpeg then smooths the blocks whose low AC
-    coefficients are not fully refined, and the port refuses the file."""
+    coefficients are not fully refined, and the port decodes each cut
+    file equal to PIL (it refused them, naming block smoothing, until
+    fault 10 was closed)."""
     data = _jpeg(_image(64, 48), quality=80, progressive=True)
     sos = _segments(data, 0xDA)
     for k in range(1, len(sos)):
         cut = max([p for p in _segments(data, 0xC4) if sos[k - 1] < p
                    < sos[k]] or [sos[k]])
         part = data[:cut] + b"\xff\xd9"
-        assert Image.open(io.BytesIO(part)).convert("RGB").size == (64, 48)
-        with pytest.raises(NotImplementedError, match="block smoothing"):
-            decode_jpeg(part)
+        want = np.asarray(Image.open(io.BytesIO(part)).convert("RGB"))
+        assert want.shape == (48, 64, 3)
+        assert np.array_equal(decode_jpeg(part), want)

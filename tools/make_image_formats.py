@@ -3050,6 +3050,550 @@ def bomb_cases() -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# formats_i: hand-written JPEG, FLI/FLC, PhotoCD, FITS and IPTC (no PIL)
+# ---------------------------------------------------------------------------
+
+ZIGZAG = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+)
+
+
+class _JpegBits:
+    """The entropy-coded bits of a JPEG scan, 0xFF bytes stuffed."""
+
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, v: int, n: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.acc = self.acc << 1 | (v >> i) & 1
+            self.n += 1
+            if self.n == 8:
+                self.out.append(self.acc)
+                if self.acc == 0xFF:
+                    self.out.append(0)
+                self.acc = self.n = 0
+
+    def flush(self) -> bytes:
+        if self.n:
+            self.put((1 << (8 - self.n)) - 1, 8 - self.n)
+        return bytes(self.out)
+
+
+def _jseg(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def jpeg_blocks(blocks: np.ndarray, w: int, h: int, qt, *,
+                wide: bool = False, restart: int = 0) -> bytes:
+    """A grey baseline JPEG (SOF1 where `wide`, a 16-bit quantisation
+    table) of w x h samples whose (rows, cols, 64) natural-order blocks
+    are the quantised coefficients given, any value a 16-bit JCOEF holds
+    (DC differences of up to 15 bits), with a restart marker every
+    `restart` blocks. Its Huffman tables give every DC size a 5-bit code
+    and every AC symbol a 9-bit code (the last a 10-bit one)."""
+    qt = np.asarray(qt, np.int64)
+    dqt = bytes([0x10 if wide else 0]) + b"".join(
+        int(qt[ZIGZAG[k]]).to_bytes(2 if wide else 1, "big")
+        for k in range(64))
+    dc = bytes([0x00, 0, 0, 0, 0, 16] + [0] * 11) + bytes(range(16))
+    ac = bytes([0x10] + [0] * 8 + [255, 1] + [0] * 6) + bytes(range(256))
+    acode = {sym: (sym, 9) if sym < 255 else (510, 10) for sym in range(256)}
+    sof = struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0])
+    head = (b"\xff\xd8" + _jseg(0xDB, dqt) + _jseg(0xC4, dc + ac)
+            + (_jseg(0xDD, struct.pack(">H", restart)) if restart else b"")
+            + _jseg(0xC1 if wide else 0xC0, sof)
+            + _jseg(0xDA, bytes([1, 1, 0x00, 0, 63, 0])))
+    flat = np.asarray(blocks, np.int64).reshape(-1, 64)
+    out, bw, pred = [], _JpegBits(), 0
+    for n, b in enumerate(flat):
+        if restart and n and n % restart == 0:
+            marker = 0xD0 + (n // restart - 1) % 8
+            out.append(bw.flush() + bytes([0xFF, marker]))
+            bw, pred = _JpegBits(), 0
+        diff = int(b[0]) - pred
+        pred = int(b[0])
+        size = abs(diff).bit_length()
+        bw.put(size, 5)
+        bw.put(diff if diff >= 0 else diff + (1 << size) - 1, size)
+        run = 0
+        for k in range(1, 64):
+            v = int(b[ZIGZAG[k]])
+            if not v:
+                run += 1
+                continue
+            while run > 15:
+                bw.put(*acode[0xF0])
+                run -= 16
+            size = abs(v).bit_length()
+            bw.put(*acode[run << 4 | size])
+            bw.put(v if v > 0 else v + (1 << size) - 1, size)
+            run = 0
+        if run:
+            bw.put(*acode[0])
+    out.append(bw.flush())
+    return head + b"".join(out) + b"\xff\xd9"
+
+
+def _dct_matrix() -> np.ndarray:
+    k = np.arange(8)
+    m = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    m[0] /= np.sqrt(2)
+    return m
+
+
+def jpeg_grey(px: np.ndarray, quality_table: int = 8, **kw) -> bytes:
+    """A grey JPEG of (h, w) samples: the float DCT of each block
+    (edge-replicated to whole blocks), quantised by a flat table of
+    `quality_table`, through jpeg_blocks."""
+    h, w = px.shape
+    a = np.pad(px.astype(np.float64) - 128, ((0, -h % 8), (0, -w % 8)),
+               mode="edge")
+    m = _dct_matrix()
+    blk = a.reshape(a.shape[0] // 8, 8, a.shape[1] // 8, 8).transpose(
+        0, 2, 1, 3)
+    coef = np.einsum("ij,abjk,lk->abil", m, blk, m)
+    qt = np.full(64, quality_table)
+    q = np.round(coef.reshape(*coef.shape[:2], 64) / qt).astype(np.int64)
+    return jpeg_blocks(q, w, h, qt, **kw)
+
+
+def fli_bytes(w: int, h: int, frames: list, flc: bool = True,
+              flags: int = 3, prefix: bytes = b"") -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file of `frames`, each a list of
+    (sub-chunk type, data); `prefix` is the body of a 0xF100 prefix chunk
+    put before the first frame."""
+    body = b""
+    if prefix:
+        body += struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix
+    for chunks in frames:
+        subs = b"".join(struct.pack("<IH", 6 + len(d), t) + d
+                        for t, d in chunks)
+        body += struct.pack("<IHH8x", 16 + len(subs), 0xF1FA,
+                            len(chunks)) + subs
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(body),
+                     0xAF12 if flc else 0xAF11, len(frames), w, h, 8, flags,
+                     70)
+    return bytes(head) + body
+
+
+def fli_colour(palette: np.ndarray, six_bit: bool = False,
+               packets=None) -> bytes:
+    """A COLOR_256 (chunk 4) or COLOR_64 (11, `six_bit`) body: `packets`
+    of (skip, count), by default one packet of every entry."""
+    pal = np.asarray(palette, np.int64) >> (2 if six_bit else 0)
+    packets = packets or [(0, len(pal))]
+    out, at = [struct.pack("<H", len(packets))], 0
+    for skip, n in packets:
+        at += skip
+        out.append(bytes([skip, n % 256]) + pal[at:at + n].astype(
+            np.uint8).tobytes())
+        at += n
+    return b"".join(out)
+
+
+def fli_brun(index: np.ndarray) -> bytes:
+    """A BRUN body (chunk 15): each row byte runs (a count and a value)
+    and literal packets (a negative count and the bytes)."""
+    out = bytearray()
+    for row in index.astype(np.uint8):
+        packets, x, w = [], 0, len(row)
+        while x < w:
+            run = 1
+            while x + run < w and run < 127 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3:
+                packets.append(bytes([run, row[x]]))
+                x += run
+                continue
+            lit = 1
+            while x + lit < w and lit < 127 and not (
+                    x + lit + 2 < w and row[x + lit] == row[x + lit + 1]
+                    == row[x + lit + 2]):
+                lit += 1
+            packets.append(bytes([256 - lit]) + row[x:x + lit].tobytes())
+            x += lit
+        out += bytes([len(packets) % 256]) + b"".join(packets)
+    return bytes(out)
+
+
+def fli_lc(old: np.ndarray, new: np.ndarray) -> bytes:
+    """An LC body (chunk 12, byte deltas) turning `old` into `new`: the
+    first changed line, the line count, then per line packets of a skip,
+    and a literal count (or a negative run count and its byte)."""
+    rows = [y for y in range(len(new)) if (old[y] != new[y]).any()]
+    if not rows:
+        return struct.pack("<HH", 0, 0)
+    y0, y1 = rows[0], rows[-1] + 1
+    out = bytearray(struct.pack("<HH", y0, y1 - y0))
+    for y in range(y0, y1):
+        diff = np.flatnonzero(old[y] != new[y])
+        packets, x = [], 0
+        i = 0
+        while i < len(diff):
+            start = int(diff[i])
+            end = start + 1
+            while end < len(new[y]) and end - start < 120 and (
+                    old[y][end] != new[y][end]):
+                end += 1
+            while start - x > 255:
+                packets.append(bytes([255, 0]))
+                x += 255
+            seg = new[y][start:end].astype(np.uint8)
+            if len(seg) >= 3 and (seg == seg[0]).all():
+                packets.append(bytes([start - x, 256 - len(seg), seg[0]]))
+            else:
+                packets.append(bytes([start - x, len(seg)]) + seg.tobytes())
+            x = end
+            i = int(np.searchsorted(diff, end))
+        out += bytes([len(packets)]) + b"".join(packets)
+    return bytes(out)
+
+
+def fli_ss2(old: np.ndarray, new: np.ndarray, skip_words: bool = True
+            ) -> bytes:
+    """An SS2 body (chunk 7, word deltas) turning `old` into `new`: a line
+    count, then per line up to the last changed one a skip word over
+    unchanged lines (or, without `skip_words`, a line of no packets for
+    each), a last-byte word where the width is odd, a packet count and
+    packets of a skip and a word count (255: a run of one word)."""
+    h, w = new.shape
+    even = w & ~1
+    changed = [y for y in range(h) if (old[y] != new[y]).any()]
+    out, lines, y = bytearray(), 0, 0
+    for cy in changed:
+        words = []
+        if cy > y and skip_words:
+            words.append(struct.pack("<H", (65536 - (cy - y)) & 0xFFFF))
+        elif cy > y:
+            out += bytes(2 * (cy - y))          # lines of no packets
+            lines += cy - y
+        if w & 1:
+            words.append(struct.pack("<H", 0x8000 | int(new[cy, w - 1])))
+        packets, x = [], 0
+        for start in range(0, even, 2):
+            if (old[cy, start:start + 2] == new[cy, start:start + 2]).all():
+                continue
+            while start - x > 255:
+                packets.append(bytes([255, 0]))
+                x += 255
+            pair = new[cy, start:start + 2].astype(np.uint8).tobytes()
+            kind = bytes([start - x, 255]) if start % 4 == 0 else \
+                bytes([start - x, 1])
+            packets.append(kind + pair)
+            x = start + 2
+        out += b"".join(words) + struct.pack("<H", len(packets)) + b"".join(
+            packets)
+        lines += 1
+        y = cy + 1
+    return struct.pack("<H", lines) + bytes(out)
+
+
+def _palette_index(px: np.ndarray) -> tuple:
+    """(palette (n, 3), (h, w) indices) of an RGB image of at most 256
+    colours."""
+    flat = px.reshape(-1, 3)
+    pal, index = np.unique(flat, axis=0, return_inverse=True)
+    if len(pal) > 256:
+        raise ValueError("more than 256 colours")
+    return pal, index.reshape(px.shape[:2])
+
+
+def _cube(px: np.ndarray) -> tuple:
+    """(palette, indices) of an RGB image quantised to a 6x7x6 cube."""
+    steps = np.array([6, 7, 6])
+    q = (px.astype(np.int64) * (steps - 1) + 127) // 255
+    index = (q[..., 0] * 7 + q[..., 1]) * 6 + q[..., 2]
+    r, g, b = np.meshgrid(np.arange(6), np.arange(7), np.arange(6),
+                          indexing="ij")
+    pal = np.stack([r * 51, g * 255 // 6, b * 51], -1).reshape(-1, 3)
+    return pal, index
+
+
+def pcd_bytes(rgb: np.ndarray, orientation: int = 0) -> bytes:
+    """A PhotoCD file of a (512, 768, 3) image: "PCD_IPI" at byte 2048,
+    the orientation at 2048 + 1538, and the base image at 96 x 2048 in
+    PhotoYCC (two luma rows, then their 4:2:0 C1 and C2), the inverse of
+    Pillow's YCC;P unpacker."""
+    p = rgb.astype(np.float64)
+    lum = (0.299 * p[..., 0] + 0.587 * p[..., 1] + 0.114 * p[..., 2])
+    y = np.clip(np.round(lum / 1.3584), 0, 255)
+    c1 = np.clip(np.round((p[..., 2] - lum) / 2.2179 + 156), 0, 255)
+    c2 = np.clip(np.round((p[..., 0] - lum) / 1.8215 + 137), 0, 255)
+
+    def sub(c):
+        return np.round(c.reshape(256, 2, 384, 2).mean(axis=(1, 3)))
+
+    chunks = np.concatenate([y.reshape(256, 1536), sub(c1), sub(c2)], 1)
+    head = bytearray(96 * 2048)
+    head[2048:2055] = b"PCD_IPI"
+    head[2048 + 1538] = orientation
+    return bytes(head) + chunks.astype(np.uint8).tobytes()
+
+
+def _card(key: str, value: str = None) -> bytes:
+    text = key.ljust(8) if value is None else f"{key:<8}= {value:>20}"
+    return text.ljust(80).encode()
+
+
+def fits_bytes(values: np.ndarray, bitpix: int, *, cards=(),
+               naxis: int = None, pad: bool = True) -> bytes:
+    """A FITS file of (h, w) values (rows bottom-up, as FITS keeps them)
+    of BITPIX 8, 16, 32, -32 or -64, big-endian, with extra header
+    `cards`; `naxis` 1 writes one axis of w, 3 a third axis of 1."""
+    h, w = values.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    naxis = naxis or 2
+    head = [_card("SIMPLE", "T"), _card("BITPIX", str(bitpix)),
+            _card("NAXIS", str(naxis)), _card("NAXIS1", str(w))]
+    if naxis > 1:
+        head.append(_card("NAXIS2", str(h)))
+    if naxis > 2:
+        head.append(_card("NAXIS3", "1"))
+    head += [_card(*c) if isinstance(c, tuple) else c for c in cards]
+    head.append(_card("END"))
+    head = b"".join(head)
+    head += b" " * (-len(head) % 2880)
+    data = values[::-1].astype(dt).tobytes()
+    return head + data + (bytes(-len(data) % 2880) if pad else b"")
+
+
+def fits_gzip(values: np.ndarray, zbitpix: int = 16, tiles: int = 1
+              ) -> bytes:
+    """A FITS file whose image is a tile-compressed BINTABLE (ZIMAGE = T,
+    ZCMPTYPE 'GZIP_1  ') of (h, w) values, the heap one gzip member a
+    tile of rows, each pixel as 4 big-endian bytes (Pillow keeps the last
+    ZBITPIX / 8 of them); the file ends with the heap, as Pillow's reader
+    wants it."""
+    import gzip
+    h, w = values.shape
+    rows = values[::-1].astype(">i4")
+    parts = np.array_split(rows, tiles)
+    members = [gzip.compress(p.tobytes(), mtime=0) for p in parts]
+    primary = [_card("SIMPLE", "T"), _card("BITPIX", "8"),
+               _card("NAXIS", "0"), _card("EXTEND", "T"), _card("END")]
+    prim = b"".join(primary)
+    prim += b" " * (-len(prim) % 2880)
+    table = b"".join(struct.pack(">ii", len(m), sum(len(x) for x in
+                                                    members[:i]))
+                     for i, m in enumerate(members))
+    ext = [_card("XTENSION", "'BINTABLE'"), _card("BITPIX", "8"),
+           _card("NAXIS", "2"), _card("NAXIS1", "8"),
+           _card("NAXIS2", str(tiles)), _card("PCOUNT",
+                                              str(sum(map(len, members)))),
+           _card("GCOUNT", "1"), _card("TFIELDS", "1"),
+           _card("TTYPE1", "'COMPRESSED_DATA'"), _card("TFORM1", "'1PB'"),
+           _card("ZIMAGE", "T"), _card("ZBITPIX", str(zbitpix)),
+           _card("ZNAXIS", "2"), _card("ZNAXIS1", str(w)),
+           _card("ZNAXIS2", str(h)), _card("ZTILE1", str(w)),
+           _card("ZTILE2", str(-(-h // tiles))),
+           _card("ZCMPTYPE", "'GZIP_1  '"), _card("END")]
+    ext = b"".join(ext)
+    ext += b" " * (-len(ext) % 2880)
+    return prim + ext + table + b"".join(members)
+
+
+def iptc_field(rec: int, num: int, value: bytes, extended: bool = False
+               ) -> bytes:
+    """An IPTC/NAA field: 0x1C, record, dataset, a 2-byte size (or, where
+    `extended`, the size as PIL reads an extended one: 0x84 in place of
+    its first byte and the size in the 4 bytes after the header)."""
+    if extended:
+        return bytes([0x1C, rec, num, 0x84, 0]) + struct.pack(
+            ">I", len(value)) + value
+    return bytes([0x1C, rec, num]) + struct.pack(">H", len(value)) + value
+
+
+def iptc_bytes(w: int, h: int, data: bytes, layers: int = 1,
+               component: int = 0, compression: int = 1, band: int = None,
+               chunk: int = 30000) -> bytes:
+    """An IPTC/NAA image: its size, layers, compression (1 raw, 5 JPEG)
+    and band fields, then the data in (8, 10) fields of `chunk` bytes."""
+    fields = [iptc_field(2, 5, b"make_image_formats"),
+              iptc_field(3, 60, bytes([layers, component])),
+              iptc_field(3, 20, struct.pack(">H", w)),
+              iptc_field(3, 30, struct.pack(">H", h)),
+              iptc_field(3, 120, bytes([compression]))]
+    if band is not None:
+        fields.append(iptc_field(3, 65, bytes([band])))
+    for at in range(0, len(data), chunk):
+        fields.append(iptc_field(8, 10, data[at:at + chunk]))
+    return b"".join(fields)
+
+
+def _port_png(name: str) -> np.ndarray:
+    from rlshaders_tpu_torch.scene.png import decode_png
+    with open(os.path.join(modes.DATA, name), "rb") as f:
+        return decode_png(f.read())
+
+
+def _read(*parts: str) -> bytes:
+    with open(os.path.join(modes.DATA, *parts), "rb") as f:
+        return f.read()
+
+
+def _mutate(data: bytes, edits) -> bytes:
+    out = bytearray(data)
+    for at, value in edits:
+        out[at] = value
+    return bytes(out)
+
+
+def idct_extremes() -> bytes:
+    """A grey JPEG of eight blocks of extreme coefficients under a 16-bit
+    table with values past 32767 (negative as libjpeg-turbo's 16-bit
+    multiplier), where libjpeg-turbo's SIMD IDCT and its C routine give
+    other samples: full-range AC values, a DC-only block (the column
+    pass's shortcut) and DC values whose product wraps."""
+    rng = np.random.default_rng(19001)
+    blocks = np.zeros((1, 8, 64), np.int64)
+    for b in range(8):
+        idx = rng.choice(64, 12 + 6 * b, replace=False)
+        blocks[0, b, idx] = rng.integers(-32767, 32768, len(idx))
+    blocks[0, 3, 1:] = 0                       # DC only
+    blocks[0, 4, 8:] = 0                       # AC in the first row only
+    blocks[0, :, 0] = (-30000, 20000, -5000, 32000, 900, -32000, 0, 12345)
+    qt = rng.integers(1, 65536, 64)
+    qt[0] = 40000
+    return jpeg_blocks(blocks, 64, 8, qt, wide=True)
+
+
+def grey_restart() -> bytes:
+    """A seeded 64x40 grey JPEG with a restart marker every 3 blocks."""
+    img = np.random.default_rng(3).integers(0, 256, (40, 64))
+    return jpeg_grey(img.astype(np.uint8), restart=3)
+
+
+# damaged JPEGs: (base, one-byte edits (offset, value), cut (EOI then
+# appended) or bytes appended after dropping the EOI): each a case of
+# tests/test_torch_image_jpeg_damaged.py's fuzz that PIL decodes. A base
+# is a file under scenes/data or one of the writers above ("@name").
+_WRITTEN = {"grey_restart": grey_restart, "idct_extremes": idct_extremes}
+DAMAGED = {
+    # the SIMD IDCT's samples differ from the C routine's (268 pixels)
+    "grid_simd_idct.jpg": ("grid.jpg", [(2664, 229)], None),
+    # a marker made mid-scan: the rest of the scan is grey
+    "grid_marker_hit.jpg": ("grid.jpg", [(8688, 255)], None),
+    "grid_bad_code.jpg": ("grid.jpg", [(9944, 21)], None),
+    # the EOI lost and two bytes after the scan: the bit buffer's last
+    # read-ahead stops short of the end, so PIL decodes it
+    "grid_eoi_lost.jpg": ("grid.jpg", [], b"\x00\x00"),
+    "logo_progressive_damaged.jpg": ("modes/logo_progressive.jpg",
+                                     [(5770, 131)], None),
+    "logo_progressive_refine_damaged.jpg": ("modes/logo_progressive.jpg",
+                                            [(9059, 243)], None),
+    # cut after its fourth scan: block smoothing fills the low AC
+    "logo_progressive_smoothed.jpg": ("modes/logo_progressive.jpg", [],
+                                      3984),
+    # the second restart marker turned into RST3: libjpeg resyncs
+    "grey_restart_resync.jpg": ("@grey_restart", [(970, 0xD3)], None),
+    "idct_extremes.jpg": ("@idct_extremes", [], None),
+    "odd_lab_jpeg_damaged.tif": ("formats_h/odd_lab_jpeg.tif",
+                                 [(1199, 130)], None),
+}
+
+
+def damaged_jpegs() -> dict:
+    """{name: bytes} of DAMAGED."""
+    out = {}
+    for name, (base, edits, end) in DAMAGED.items():
+        data = _WRITTEN[base[1:]]() if base.startswith("@") else _read(
+            *base.split("/"))
+        data = _mutate(data, edits)
+        if isinstance(end, int):
+            data = data[:end] + b"\xff\xd9"
+        elif end is not None:
+            data = data[:-2] + end
+        out[name] = data
+    return out
+
+
+def flc_texture(side_w: int = 640, side_h: int = 480) -> bytes:
+    """Frame S's FLC: the 2048x2048 texture's top-left corner quantised to
+    a 6x7x6 cube, as one BRUN frame with its COLOR_256 palette."""
+    tex = modes.big_texture()[:side_h, :side_w]
+    pal, index = _cube(tex)
+    return fli_bytes(side_w, side_h, [[(4, fli_colour(pal)),
+                                       (15, fli_brun(index))]])
+
+
+def files_i() -> dict:
+    """{name in scenes/data/formats_i: bytes}, written by hand with no
+    PIL: FLI and FLC files of every sub-chunk type (COLOR_64, COLOR_256,
+    BRUN, LC, SS2, BLACK, COPY, PSTAMP) and frame S's 640x480 FLC; a
+    768x512 PhotoCD and its two turned orientations; FITS of each BITPIX,
+    one and three axes and a GZIP_1 tile table, and frame T's 512x512
+    16-bit height map (GZIP_1 tiles, to keep the folder small); raw and
+    JPEG IPTC (grey, a band
+    of RGB and CMYK, a colour JPEG); and damaged JPEGs (DAMAGED)."""
+    logo = _port_png("logo.png")
+    grid = _port_png("grid.png")
+    rng = np.random.default_rng(19000)
+    out = {}
+    # FLI / FLC
+    gpal, gidx = _palette_index(grid)
+    lpal, lidx = _palette_index(logo)
+    out["grid_brun.flc"] = fli_bytes(256, 256, [[
+        (4, fli_colour(gpal)), (15, fli_brun(gidx))]])
+    black = np.zeros_like(lidx)
+    out["logo_color64_lc.fli"] = fli_bytes(300, 200, [[
+        (11, fli_colour(lpal, six_bit=True)), (13, b""),
+        (12, fli_lc(black, lidx))], [(13, b"")]], flc=False, flags=0)
+    odd = rng.integers(0, 40, (37, 53)).astype(np.uint8)
+    odd2 = odd.copy()
+    odd2[5:30:3, 4:50] = rng.integers(0, 40, (9, 46))
+    out["odd_copy_ss2.flc"] = fli_bytes(53, 37, [[
+        (4, fli_colour(rng.integers(0, 256, (40, 3)), packets=[(3, 20),
+                                                            (5, 15)])),
+        (16, odd.tobytes()), (7, fli_ss2(odd, odd2)),
+        (18, bytes(64))]])
+    out["texture_640_brun.flc"] = flc_texture()
+    # PhotoCD
+    tex = modes.big_texture()[::4, ::4][:512, :768]
+    tex = np.pad(tex, ((0, 0), (0, 768 - tex.shape[1]), (0, 0)),
+                 mode="reflect")
+    for turn, name in ((0, "photo_768.pcd"), (1, "photo_768_turn90.pcd"),
+                       (3, "photo_768_turn270.pcd")):
+        out[name] = pcd_bytes(tex, turn)
+    # FITS
+    y, x = np.mgrid[0:37, 0:53]
+    ramp = (x * 4 + y * 3) % 256
+    out["odd_8bit.fits"] = fits_bytes(ramp, 8, cards=[
+        ("BZERO", "0"), ("BSCALE", "1"), _card("COMMENT   hand-written")])
+    out["odd_16bit.fits"] = fits_bytes(
+        (ramp << 8) + (rng.random((37, 53)) < 0.1) * 3, 16)
+    out["odd_32bit.fits"] = fits_bytes(
+        (ramp.astype(np.int64) << 24) - (1 << 31) * (ramp > 200), 32)
+    f32 = np.frombuffer(np.asarray(ramp - 20.5, "<f4").tobytes(), ">f4")
+    out["odd_float32.fits"] = fits_bytes(f32.reshape(37, 53), -32)
+    out["odd_float64.fits"] = fits_bytes(
+        rng.normal(0, 1, (37, 53)), -64)
+    out["odd_naxis1.fits"] = fits_bytes(ramp[:1], 8, naxis=1)
+    out["odd_naxis3.fits"] = fits_bytes(ramp, 8, naxis=3)
+    out["odd_gzip_tiles.fits"] = fits_gzip((ramp << 16) + ramp, 16, 3)
+    height = modes.big_texture()[::4, ::4, 1][:512, :512].astype(np.int64)
+    out["height_512_16bit_gzip.fits"] = fits_gzip(
+        (height << 8) + (height > 230) * 7, 16, 8)
+    # IPTC
+    out["odd_raw_grey.iptc"] = iptc_bytes(53, 37, ramp.astype(
+        np.uint8).tobytes(), chunk=500)
+    out["logo_raw_rgb_band.iptc"] = iptc_bytes(
+        300, 200, logo[..., 1].tobytes(), 3, 1, band=2)
+    out["odd_raw_cmyk_band.iptc"] = iptc_bytes(
+        53, 37, ramp.astype(np.uint8).tobytes(), 4, 1, band=4)
+    out["odd_jpeg_grey.iptc"] = iptc_bytes(
+        53, 37, jpeg_grey(ramp.astype(np.uint8)), compression=5)
+    out["grid_jpeg_rgb.iptc"] = iptc_bytes(256, 256, _read("grid.jpg"),
+                                           compression=5)
+    out.update(damaged_jpegs())
+    return out
+
+
 BOMBS = os.path.join(os.path.dirname(modes.DATA), "bombs")
 
 
@@ -3072,13 +3616,14 @@ SETS = {"formats": (files, "FORMAT_DIGESTS"),
         "formats_e": (files_e, "FORMAT_E_DIGESTS"),
         "formats_f": (files_f, "FORMAT_F_DIGESTS"),
         "formats_g": (files_g, "FORMAT_G_DIGESTS"),
-        "formats_h": (files_h, "FORMAT_H_DIGESTS")}
+        "formats_h": (files_h, "FORMAT_H_DIGESTS"),
+        "formats_i": (files_i, "FORMAT_I_DIGESTS")}
 
 
 def main(argv=None) -> None:
     """Write the folder named on the command line (scenes/data/formats by
     default, formats_b, formats_c, formats_d, formats_e, formats_f,
-    formats_g or formats_h) and
+    formats_g, formats_h or formats_i) and
     print its digests; `bombs` writes scenes/bombs (outside scenes/data:
     no texture; each file raises)."""
     argv = sys.argv[1:] if argv is None else argv
