@@ -1,0 +1,304 @@
+"""Batched surface-shader evaluation with material-type dispatch.
+
+Counterpart of rlshaders_tpu/models/dispatch.py for the four material types
+of the ported slices: `rlGgx` (Oren-Nayar diffuse + GGX specular with the
+dielectric Fresnel), Arnold's `standard` (Oren-Nayar diffuse + the
+cook_torrance Beckmann lobe, or GGX, with Schlick or no Fresnel; its Ksss
+lobe is the SSS stage's), `rlDisney` (the principled diffuse and the GTR2 +
+clearcoat + sheen specular mixture, bsdf/disney.py) and `rlSkin` (a GGX
+specular lobe under a GGX sheen lobe with Fresnel energy layering; its
+diffuse is the SSS stage's at camera hits and the albedo sss_color *
+sss_weight on diffuse rays). Every lobe evaluator computes the models of
+all lanes and masks by type; the models of types a table lacks are left
+out, as the caller's per-table flags say.
+
+No texture links or bump maps: the scene builder refuses a scene with an
+image (scene/texture.py).
+
+Lobe contract (local frame, +z = forward-facing shading normal):
+  diffuse:  f*cos V3, pdf   (cosine sampled)
+  specular: f*cos V3, pdf   (GGX, Beckmann, Disney's mixture, or rlSkin's
+                             two lobes)
+  refract:  sampled direction and its Walter Eq.41 weight * Kt * KtColor
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..bsdf import beckmann, disney, ggx, orennayar
+from ..core import vec3
+from ..core.vec3 import V3, v3
+from ..scene.build import MAT_DISNEY, MAT_SKIN, MAT_STANDARD, Materials
+
+# the columns only rlDisney rows read
+_DISNEY_FIELDS = ("subsurface", "metallic", "specular", "specular_tint",
+                  "sheen", "sheen_tint", "clearcoat", "clearcoat_gloss",
+                  "indirect_diffuse_scale", "indirect_specular_scale")
+
+
+class MatG(NamedTuple):
+    """Per-hit gathered material parameters and lobe parameters."""
+
+    mtype: torch.Tensor
+    diffuse_color: V3
+    diffuse_roughness: torch.Tensor
+    spec_weight: V3
+    spec_fresnel_mode: torch.Tensor  # 0 dielectric ior, 1 Schlick ksn, 2 none
+    spec_ksn: torch.Tensor
+    spec_dist: torch.Tensor          # 0 GGX, 1 Beckmann
+    ggx: ggx.GGXParams               # GGX lobe (rlGgx, standard, skin)
+    ggx2: ggx.GGXParams              # rlSkin's sheen lobe
+    spec2_weight: V3                 # sheen lobe multiplier (rlSkin)
+    skin_spec_w: torch.Tensor        # specular_weight (rlSkin layering)
+    skin_sheen_w: torch.Tensor       # sheen_weight (rlSkin layering)
+    sheen_layer: torch.Tensor        # 1 - avgF(sheen) * sheen_weight; 1.0
+    #                                  until skin_layer_fields fills it
+    dsy: disney.DisneyParams         # rlDisney's lobes
+    kt_color: V3                     # KtColor * Kt
+    opacity: V3
+    emission: V3
+    indirect_diffuse_scale: torch.Tensor   # rlDisney's indirect multipliers
+    indirect_specular_scale: torch.Tensor
+    sss_color: V3
+    sss_weight: torch.Tensor
+    sss_dist: V3
+    cavity_fadeout: torch.Tensor
+    has_diffuse: torch.Tensor        # bool masks
+    has_spec: torch.Tensor
+    has_refract: torch.Tensor
+
+
+def _absmax(c: V3) -> torch.Tensor:
+    return torch.maximum(torch.abs(c.x),
+                         torch.maximum(torch.abs(c.y), torch.abs(c.z)))
+
+
+def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor, *,
+           has_skin: bool, has_disney: bool,
+           diffuse_ray: bool = False) -> MatG:
+    """Gather the material rows of a hit batch and build lobe parameters.
+    `has_skin` and `has_disney` say whether the table has rlSkin and
+    rlDisney rows (decided once per table, on the host). Without rlSkin the
+    sheen lobe is left out (`ggx2` None), without rlDisney its lobes and
+    columns (`dsy` and the indirect scales None): the lobe evaluators then
+    skip their arithmetic, which would change no lane."""
+    mid = mat_id.long()
+    g = Materials(*(None if f in _DISNEY_FIELDS and not has_disney
+                    else a[mid] for f, a in zip(Materials._fields, mats)))
+    is_standard = g.mtype == MAT_STANDARD
+    is_skin = g.mtype == MAT_SKIN
+    base_color = v3(g.kd_color)
+    ks = g.ks
+
+    # rlGgx/standard diffuse: Kd * Kd_color (rlGgx.cpp:278-279); rlSkin's
+    # on diffuse rays: the albedo sss_color * sss_weight (rlSss.h:172-186);
+    # rlDisney's lobe carries its base colour itself
+    diffuse_color = vec3.where(is_skin, v3(g.sss_color) * g.sss_weight,
+                               base_color * g.kd)
+    dsy_p = None
+    if has_disney:
+        is_disney = g.mtype == MAT_DISNEY
+        diffuse_color = vec3.where(is_disney, 1.0, diffuse_color)
+        # every field per lane: base_color is kd_color,
+        # roughness spec_roughness, anisotropic spec_aniso
+        dsy_p = disney.make_params(
+            base_color=base_color, subsurface=g.subsurface,
+            metallic=g.metallic, specular=g.specular,
+            specular_tint=g.specular_tint, roughness=g.spec_roughness,
+            anisotropic=g.spec_aniso, sheen=g.sheen, sheen_tint=g.sheen_tint,
+            clearcoat=g.clearcoat, clearcoat_gloss=g.clearcoat_gloss)
+    spec_weight = vec3.where(is_skin,
+                             v3(g.skin_spec_color) * g.skin_spec_weight,
+                             v3(g.ks_color) * ks)
+    if diffuse_ray:
+        # standard with enable_glossy_caustics off kills the whole specular
+        # response on diffuse rays; the rl* plugins carry no such gate
+        spec_weight = vec3.where(is_standard & ~g.glossy_caustics, 0.0,
+                                 spec_weight)
+    spec2_weight = v3(g.skin_sheen_color) * g.skin_sheen_weight
+    # ior < 1 is legal (near-mirror through TIR); the reference clamps only
+    # at 1e-4 (rlGgx.h:139)
+    zero = torch.zeros_like(g.spec_aniso)
+    ggx_p = ggx.make_params(
+        torch.where(is_skin, g.skin_spec_roughness, g.spec_roughness),
+        torch.where(is_skin, g.skin_spec_ior, torch.clamp_min(g.ior, 1e-4)),
+        torch.where(is_skin, zero, g.spec_aniso), entering)
+    ggx2_p = (ggx.make_params(g.skin_sheen_roughness, g.skin_sheen_ior, zero,
+                              entering) if has_skin else None)
+    kt_color = v3(g.kt_color) * g.kt
+    eps = 1e-5
+    has_spec = ((_absmax(spec_weight) > eps)
+                | (is_skin & (_absmax(spec2_weight) > eps)))
+    if has_disney:
+        # rlDisney's specular is its own lobe (spec_weight is 0 on its rows)
+        has_spec = has_spec | is_disney
+    return MatG(
+        mtype=g.mtype,
+        diffuse_color=diffuse_color,
+        diffuse_roughness=g.diffuse_roughness,
+        spec_weight=spec_weight,
+        spec_fresnel_mode=g.spec_fresnel_mode,
+        spec_ksn=g.spec_ksn,
+        spec_dist=g.spec_dist,
+        ggx=ggx_p,
+        ggx2=ggx2_p,
+        spec2_weight=spec2_weight,
+        skin_spec_w=torch.where(is_skin, g.skin_spec_weight, zero),
+        skin_sheen_w=torch.where(is_skin, g.skin_sheen_weight, zero),
+        sheen_layer=torch.ones_like(g.skin_spec_weight),
+        dsy=dsy_p,
+        kt_color=kt_color,
+        opacity=v3(g.opacity),
+        emission=v3(g.emission),
+        indirect_diffuse_scale=g.indirect_diffuse_scale,
+        indirect_specular_scale=g.indirect_specular_scale,
+        sss_color=v3(g.sss_color),
+        sss_weight=g.sss_weight,
+        sss_dist=v3(g.sss_dist),
+        cavity_fadeout=g.cavity_fadeout,
+        has_diffuse=_absmax(diffuse_color) > eps,
+        has_spec=has_spec,
+        has_refract=_absmax(kt_color) > eps,
+    )
+
+
+def skin_layer_fields(m: MatG, wo: V3) -> MatG:
+    """Fill rlSkin's view-dependent Fresnel energy layering (rlSkin.cpp:
+    204, 228, 231, 238), once per shading point with the local view
+    direction:
+
+        sheenFresnel    = avgF(sheen lobe)    * sheen_weight
+        specularFresnel = avgF(specular lobe) * specular_weight
+        specular       *= 1 - sheenFresnel               -> sheen_layer
+        sssWeight      *= 1 - specularFresnel * (1 - sheenFresnel)
+
+    The layered SSS weight also scales the diffuse-ray albedo. Other lanes
+    are unchanged."""
+    is_skin = m.mtype == MAT_SKIN
+    sheen_fres = torch.clamp(ggx.avg_fresnel(m.ggx2, wo) * m.skin_sheen_w,
+                             0.0, 1.0)
+    spec_fres = torch.clamp(ggx.avg_fresnel(m.ggx, wo) * m.skin_spec_w,
+                            0.0, 1.0)
+    sss_layer = 1.0 - spec_fres * (1.0 - sheen_fres)
+    return m._replace(
+        sheen_layer=torch.where(is_skin, 1.0 - sheen_fres, 1.0),
+        sss_weight=torch.where(is_skin, m.sss_weight * sss_layer,
+                               m.sss_weight),
+        diffuse_color=vec3.where(is_skin, m.diffuse_color * sss_layer,
+                                 m.diffuse_color),
+    )
+
+
+def tile_v(m: MatG, k: int) -> MatG:
+    """Repeat a MatG k times along the batch axis (column-major chunks,
+    matching vec3.tile's layout)."""
+    if k == 1:
+        return m
+
+    def f(a):
+        if a is None:
+            return None
+        if isinstance(a, tuple):
+            return type(a)(*(f(x) for x in a))
+        return a.repeat(k)
+
+    return f(m)
+
+
+def eval_diffuse(m: MatG, wo: V3, wi: V3):
+    """(f*cos V3, pdf) of the diffuse lobe in the local frame. The pdf is
+    the cosine sampler's, also on Disney lanes (clamped at 1e-9, not at
+    disney.pdf_diffuse's 1e-4), as the JAX dispatch has it."""
+    f = m.diffuse_color * orennayar.eval_brdf(m.diffuse_roughness, wo, wi)
+    if m.dsy is not None:
+        f = vec3.where(m.mtype == MAT_DISNEY,
+                       disney.eval_diffuse_cos(m.dsy, wo, wi), f)
+    pdf = torch.clamp_min(wi.z, 0.0) / math.pi
+    return vec3.where(m.has_diffuse, f, 0.0), torch.clamp_min(pdf, 1e-9)
+
+
+def sample_diffuse(m: MatG, wo: V3, rx, ry) -> V3:
+    del m, wo
+    return orennayar.sample_v(rx, ry)
+
+
+def eval_specular(m: MatG, wo: V3, wi: V3):
+    """(f*cos V3, pdf) of the specular lobe in the local frame; the Fresnel
+    mode follows the material (dielectric IOR, Schlick with F0 = Ksn, or
+    none), and cook_torrance swaps in the Beckmann D*G and pdf."""
+    f_diel, gd = ggx.reflection_parts(m.ggx, wo, wi)
+    h = vec3.normalize(wo + wi)
+    s = torch.clamp(1.0 - torch.abs(vec3.dot(wi, h)), 0.0, 1.0)
+    s2 = s * s
+    f_schlick = m.spec_ksn + (1.0 - m.spec_ksn) * (s * (s2 * s2))
+    fres = torch.where(
+        m.spec_fresnel_mode == 0,
+        f_diel,
+        torch.where(m.spec_fresnel_mode == 1, f_schlick, 1.0),
+    )
+    is_beck = m.spec_dist == 1
+    gd = torch.where(is_beck, beckmann.gd(wo, wi, m.ggx.alpha_g), gd)
+    valid = vec3.dot(wi, wi) > 1e-12
+    refl = torch.where(valid, fres * gd * wi.z, 0.0)
+    f_ggx = m.spec_weight * refl
+    p_ggx = torch.where(
+        is_beck,
+        beckmann.pdf(wo, wi, m.ggx.alpha_g),
+        ggx.pdf(m.ggx, wo, wi),
+    )
+    f, pdf = f_ggx, p_ggx
+    if m.ggx2 is not None:
+        # rlSkin: the sheen lobe over the specular one, which the
+        # view-averaged sheen Fresnel attenuates (sheen_layer,
+        # rlSkin.cpp:204-238)
+        refl2 = torch.where(valid,
+                            ggx.reflection_term(m.ggx2, wo, wi) * wi.z, 0.0)
+        f_skin = m.spec2_weight * refl2 + f_ggx * m.sheen_layer
+        has_sheen = vec3.maxc(m.spec2_weight) > 1e-5
+        p_skin = torch.where(has_sheen,
+                             0.5 * (p_ggx + ggx.pdf(m.ggx2, wo, wi)), p_ggx)
+        is_skin = m.mtype == MAT_SKIN
+        f = vec3.where(is_skin, f_skin, f)
+        pdf = torch.where(is_skin, p_skin, pdf)
+    if m.dsy is not None:
+        # rlDisney: the GTR2 + clearcoat + sheen mixture, clearcoat on (at
+        # clearcoat 0 it equals the off branch exactly)
+        is_disney = m.mtype == MAT_DISNEY
+        f = vec3.where(is_disney, disney.eval_specular_cos(m.dsy, wo, wi), f)
+        pdf = torch.where(is_disney, disney.pdf_specular(m.dsy, wo, wi), pdf)
+    return vec3.where(m.has_spec, f, 0.0), torch.clamp_min(pdf, 1e-9)
+
+
+def sample_specular(m: MatG, wo: V3, rx, ry) -> V3:
+    if m.ggx2 is None:
+        wi_ggx, _ = ggx.sample(m.ggx, wo, rx, ry)
+        wi_beck = beckmann.sample(wo, m.ggx.alpha_g, rx, ry)
+        wi = vec3.where(m.spec_dist == 1, wi_beck, wi_ggx)
+    else:
+        # rlSkin with sheen picks the sheen or the specular lobe 50/50 and
+        # remaps rx to [0, 1) for the lobe picked; without sheen the raw rx
+        # feeds the specular lobe
+        has_sheen = vec3.maxc(m.spec2_weight) > 1e-5
+        use_sheen = (rx < 0.5) & has_sheen
+        rx_spec = torch.where(has_sheen, (rx - 0.5) * 2.0, rx)
+        wi_ggx, _ = ggx.sample(m.ggx, wo, rx_spec, ry)
+        wi_beck = beckmann.sample(wo, m.ggx.alpha_g, rx_spec, ry)
+        wi_ggx = vec3.where(m.spec_dist == 1, wi_beck, wi_ggx)
+        rx_sheen = torch.where(use_sheen, rx * 2.0, rx)
+        wi_sheen, _ = ggx.sample(m.ggx2, wo, rx_sheen, ry)
+        wi_skin = vec3.where(use_sheen, wi_sheen, wi_ggx)
+        wi = vec3.where(m.mtype == MAT_SKIN, wi_skin, wi_ggx)
+    if m.dsy is not None:
+        wi = vec3.where(m.mtype == MAT_DISNEY,
+                        disney.sample_specular(m.dsy, wo, rx, ry), wi)
+    return wi
+
+
+def sample_refract(m: MatG, wo: V3, rx, ry):
+    """(wi V3, weight V3) of one rough-refraction sample (integrateRefract
+    per sample, rlGgx.h:228-243); the weight is 0 where nothing refracts."""
+    wi, w, _ = ggx.sample_refract(m.ggx, wo, rx, ry)
+    return wi, vec3.where(m.has_refract, m.kt_color * w, 0.0)
