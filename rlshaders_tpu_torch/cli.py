@@ -17,7 +17,12 @@ Differences, all deliberate:
 * `render --profile` passes `profile=True` to the renderer (the JAX
   package reads RLS_PROFILE) and traces with torch.profiler into
   `<output>_trace/trace.json` (the card's activity on a CUDA scene),
-  printing the five CUDA kernels with the most device time;
+  printing the five CUDA kernels with the most device time and a line per
+  span of the program (`core/tracer.py`): on a CUDA scene the device ms,
+  launches and idle ms charged to it (each kernel to the innermost span
+  open at its launch, each idle gap to the span of the launch that ended
+  it), on a CPU scene its host seconds less its child spans' and its
+  rows;
 * `display` writes its PNG sheets and `test` resizes a render with
   `io/png.py`, not PIL;
 * `--suite` defaults to `testsuite` in the working directory.
@@ -63,7 +68,8 @@ def _host(out: dict) -> dict:
 def _profiled(fn, trace_path: str, device):
     """Run fn under torch.profiler and write its Chrome trace to
     trace_path; on the card, print the five CUDA kernels with the most
-    device time. Returns fn's result.
+    device time. Then a line per span of the program (`core/tracer.py`).
+    Returns fn's result.
 
     A CUDA scene records the card's activity (its kernels, and the CUDA
     runtime calls that launch them on the host), a CPU scene the CPU's.
@@ -72,6 +78,8 @@ def _profiled(fn, trace_path: str, device):
     whose parsing alone takes minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from .core import tracer
 
     cuda = torch.device(device).type == "cuda"
     acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
@@ -93,6 +101,18 @@ def _profiled(fn, trace_path: str, device):
         for name in sorted(ms, key=ms.get, reverse=True)[:5]:
             print(f"[rls]   kernel {ms[name]:10.4f} ms x{count[name]:<7d} "
                   f"{name[:100]}")
+    rows, _ = tracer.take()
+    if cuda:
+        att = tracer.attribute(rows, *tracer.device_events(prof))
+        for name in sorted(set(att.device_ns) | set(att.idle_ns),
+                           key=lambda k: -att.device_ns.get(k, 0)):
+            print(f"[rls]   span {name:10s} "
+                  f"{att.device_ns.get(name, 0) / 1e6:10.4f} ms "
+                  f"x{att.launches.get(name, 0):<7d} idle "
+                  f"{att.idle_ns.get(name, 0) / 1e6:.4f} ms")
+    else:
+        for name, (ns, n) in sorted(tracer.host_table(rows).items()):
+            print(f"[rls]   span {name:10s} {ns / 1e9:8.4f}s  x{n}")
     return out
 
 
@@ -427,7 +447,8 @@ def main(argv=None):
     r.add_argument("--tile", type=int, default=8192)
     r.add_argument("--aovs", action="store_true", help="write AOV images too")
     r.add_argument("--profile", action="store_true",
-                   help="per-stage wall timing + torch.profiler trace dump")
+                   help="per-stage wall timing, a line per span + "
+                        "torch.profiler trace dump")
     r.add_argument("--device", default="cuda",
                    help="where the scene and the render live (cuda, cpu)")
     r.set_defaults(fn=cmd_render)

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from . import tracer
+
 M32 = 0xFFFFFFFF
 
 # ---------------------------------------------------------------------------
@@ -71,6 +73,7 @@ def PRNGKey(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & M32], dtype=torch.int64)
 
 
+@tracer.traced("rng")
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """jax.random.fold_in: hash the counter pair (0, data) under key."""
     k0, k1 = _words(key)
@@ -81,6 +84,7 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.cat([y0, y1])
 
 
+@tracer.traced("rng")
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """jax.random.split (fold-like, partitionable): (num, 2) keys, key i
     being the hash of the counter pair (0, i)."""
@@ -106,6 +110,7 @@ def bits(key: torch.Tensor, shape: tuple[int, ...],
     return (y0 ^ y1).reshape(shape)
 
 
+@tracer.traced("rng")
 def uniform(key: torch.Tensor, shape: tuple[int, ...],
             device="cpu") -> torch.Tensor:
     """jax.random.uniform(key, shape, float32) on [0, 1): the top 23 bits
@@ -115,6 +120,7 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
     return torch.clamp_min(f, 0.0)
 
 
+@tracer.traced("rng")
 def bits_scalar(key: torch.Tensor) -> int:
     """jax.random.bits(key, (), uint32) as a Python int."""
     return int(bits(key, ()).item())
@@ -130,6 +136,7 @@ def stream(seed: int) -> torch.Tensor:
     return PRNGKey(seed)
 
 
+@tracer.traced("rng")
 def fold(key: torch.Tensor, *ids: int) -> torch.Tensor:
     """Derive a subkey from integer identifiers."""
     for i in ids:
@@ -137,12 +144,14 @@ def fold(key: torch.Tensor, *ids: int) -> torch.Tensor:
     return key
 
 
+@tracer.traced("rng")
 def uniform2(key: torch.Tensor, shape: tuple[int, ...],
              device="cpu") -> torch.Tensor:
     """Uniform (..., 2) samples in [0, 1)."""
     return uniform(key, tuple(shape) + (2,), device)
 
 
+@tracer.traced("rng")
 def stratified2(key: torch.Tensor, batch_shape: tuple[int, ...], n: int,
                 device="cpu") -> torch.Tensor:
     """(..., n*n, 2) stratified samples, BATCH-major: element [..., k, :]
@@ -155,6 +164,7 @@ def stratified2(key: torch.Tensor, batch_shape: tuple[int, ...], n: int,
     return (base + jitter) / float(n)
 
 
+@tracer.traced("rng")
 def stratified2_flat(key: torch.Tensor, n: int, s: int,
                      device="cpu") -> torch.Tensor:
     """(s*s*n, 2) stratified samples in SAMPLE-MAJOR flat layout: row
@@ -255,6 +265,7 @@ def _stream_seed(pix: torch.Tensor, purpose, salt: int) -> torch.Tensor:
     return _hash_u32((pix.to(torch.int64) & M32) ^ p ^ (int(salt) & M32))
 
 
+@tracer.traced("rng")
 def sobol2_flat(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
                 purpose: int, salt: int) -> torch.Tensor:
     """(s_count*N, 2) per-pixel jointly-stratified samples, COLUMN-major:
@@ -266,6 +277,7 @@ def sobol2_flat(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
     return sobol2(idx, seed)
 
 
+@tracer.traced("rng")
 def sobol2_rep(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
                purpose: int, salt: int) -> torch.Tensor:
     """(N*s_count, 2) LANE-major variant of `sobol2_flat`: row i*s_count + c

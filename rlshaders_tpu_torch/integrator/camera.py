@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import rng, tracer
 from ..core.vecmath import normalize
 from ..scene.build import Camera
 
@@ -24,6 +24,7 @@ class CameraRays(NamedTuple):
     sub_xy: torch.Tensor     # (N, 2) subpixel position in [0,1)^2
 
 
+@tracer.traced("camera")
 def generate(cam: Camera, key: torch.Tensor, aa_samples: int,
              xres: int | None = None, yres: int | None = None) -> CameraRays:
     """All camera rays of the frame, aa_samples^2 per pixel, pixel-major,

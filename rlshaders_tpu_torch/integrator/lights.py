@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..bsdf.orennayar import sample_v
-from ..core import vec3
+from ..core import tracer, vec3
 from ..core.frame import (
     build_frame_polar, build_frame_polar_v, to_world, to_world_v,
 )
@@ -45,6 +45,7 @@ def _row(a: torch.Tensor) -> V3:
     return V3(a[0], a[1], a[2])
 
 
+@tracer.traced("light")
 def sample_quad_flat(verts_l, normal_l, area_l, radiance_l, p: V3,
                      u: torch.Tensor) -> LightSampleV:
     """Uniform-area sample of one (parallelogram) quad light; verts_l
@@ -72,6 +73,7 @@ def sample_quad_flat(verts_l, normal_l, area_l, radiance_l, p: V3,
     )
 
 
+@tracer.traced("light")
 def sample_disk_flat(center_l, uax_l, vax_l, normal_l, area_l, radiance_l,
                      p: V3, u: torch.Tensor) -> LightSampleV:
     """Uniform-area sample of one disk light; p V3 of (M,), u (M, 2)."""
@@ -100,6 +102,7 @@ def sample_disk_flat(center_l, uax_l, vax_l, normal_l, area_l, radiance_l,
     )
 
 
+@tracer.traced("light")
 def sample_sky_flat(radiance, nf: V3, u: torch.Tensor) -> LightSampleV:
     """Cosine-hemisphere sample about nf (V3 of (M,)); u (M, 2)."""
     local = sample_v(u[..., 0], u[..., 1])
@@ -185,6 +188,7 @@ def _area_sample(to_l, normal, area, radiance) -> LightSample:
     )
 
 
+@tracer.traced("light")
 def sample_quads_batched(verts, normal, area, radiance, p,
                          u) -> LightSample:
     """verts (L, 4, 3), p (N, 3), u (N, L, S, 2) -> fields (N, L, S, ...)."""
@@ -195,6 +199,7 @@ def sample_quads_batched(verts, normal, area, radiance, p,
                         area[None, :, None], radiance[None, :, None])
 
 
+@tracer.traced("light")
 def sample_disk(center, u, v, normal, area, radiance, p, u1,
                 u2) -> LightSample:
     """Uniform-area sample of one disk light at rows p (..., 3)."""
@@ -205,6 +210,7 @@ def sample_disk(center, u, v, normal, area, radiance, p, u1,
     return _area_sample(q - p, normal, area, radiance)
 
 
+@tracer.traced("light")
 def sample_disks_batched(center, uax, vax, normal, area, radiance, p,
                          u) -> LightSample:
     """center (L, 3), p (N, 3), u (N, L, S, 2) -> fields (N, L, S, ...)."""
@@ -217,6 +223,7 @@ def sample_disks_batched(center, uax, vax, normal, area, radiance, p,
                         area[None, :, None], radiance[None, :, None])
 
 
+@tracer.traced("light")
 def sample_sky_batched(radiance, nf, u) -> LightSample:
     """nf (N, 3), u (N, 1, S, 2) -> (N, 1, S, ...) cosine samples about nf."""
     local = cosine_sample_hemisphere(u[..., 0], u[..., 1])

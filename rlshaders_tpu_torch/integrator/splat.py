@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..core import tracer
+
 # Gaussian falloff exponent, calibrated against the Arnold goldens.
 ALPHA = 1.0
 
@@ -53,6 +55,7 @@ def splat(vals: torch.Tensor, pixel: torch.Tensor, sub_xy: torch.Tensor,
     return image[:n_pix], wsum[:n_pix]
 
 
+@tracer.traced("splat")
 def splat_accum(vals, pixel, sub_xy, image, wsum, xres: int, yres: int,
                 filter_width: float) -> None:
     """Splat one tile's samples and add them into the running framebuffer
@@ -62,6 +65,7 @@ def splat_accum(vals, pixel, sub_xy, image, wsum, xres: int, yres: int,
     wsum += ws_t
 
 
+@tracer.traced("splat")
 def pack_aovs(rgb: torch.Tensor, aovs: dict):
     """Stack RGB + AOVs (sorted by name) into one (N, C) payload; returns
     (vals, names)."""

@@ -60,7 +60,7 @@ from typing import NamedTuple
 import torch
 
 from ..accel import trace as tracemod
-from ..core import rng, vec3
+from ..core import rng, tracer, vec3
 from ..core.frame import (
     Frame, build_frame_polar_v, tile_frame, to_local_v, to_world_v,
 )
@@ -263,6 +263,7 @@ def _row(a: torch.Tensor) -> V3:
     return V3(a[0], a[1], a[2])
 
 
+@tracer.traced("query")
 def _nearest(sc: DeviceScene, o, d, vis_mask, exclude=None, t_max=None):
     sc.stats["nearest_rays"] += o.shape[0]
     sc.stats["nearest_calls"] += 1
@@ -270,6 +271,7 @@ def _nearest(sc: DeviceScene, o, d, vis_mask, exclude=None, t_max=None):
                             exclude_tri=exclude, t_max=t_max)
 
 
+@tracer.traced("query")
 def _occluded(sc: DeviceScene, o, d, tmax, ex) -> torch.Tensor:
     sc.stats["shadow_rays"] += o.shape[0]
     sc.stats["shadow_calls"] += 1
@@ -313,6 +315,7 @@ def _shadow_transmission(sc: DeviceScene, static: SceneStatic, sh) -> V3:
     return atten
 
 
+@tracer.traced("surface")
 def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d, base_fp=None,
              spread=None) -> Surface:
     """The hit records as surfaces. With `spread` (scenes with textures or
@@ -358,6 +361,7 @@ def _surface(sc: DeviceScene, t, tri_in, uu, vv, o, d, base_fp=None,
     )
 
 
+@tracer.traced("light")
 def _light_grid(sc: DeviceScene, static: SceneStatic, pv: V3, nfv: V3, key,
                 camera_level: bool, include_sky: bool,
                 ctx: SampleCtx | None) -> LightGrid | None:
@@ -433,6 +437,7 @@ def _light_grid(sc: DeviceScene, static: SceneStatic, pv: V3, nfv: V3, key,
     )
 
 
+@tracer.traced("light")
 def _direct_eval(matv, frame: Frame, wo: V3, grid: LightGrid, nb_d, nb_g,
                  sky_nb_d, sky_nb_g):
     """MIS-weighted per-column light contributions before shadowing:
@@ -487,6 +492,7 @@ def _area_lights(sc, static, lobe):
                    else static.disk_w_s[li])
 
 
+@tracer.traced("light")
 def _light_pickup(sc, static, o: V3, d: V3, lobe_pdf, nb, camera_level,
                   lobe):
     """Analytic emission of the nearest area light along BSDF rays, MIS
@@ -510,6 +516,7 @@ def _light_pickup(sc, static, o: V3, d: V3, lobe_pdf, nb, camera_level,
     return out, t_light
 
 
+@tracer.traced("light")
 def _sky_pickup(sc, static, nf_at_origin: V3, d: V3, vis: V3, lobe_pdf, nb,
                 lobe, full_weight) -> V3:
     """Dome radiance picked up by BSDF-family directions; `vis` is the
@@ -564,6 +571,7 @@ def _spawn(sc, static, surf: Surface, pv, matv, frame, wo, key, lobe, nb,
     return o, wi_w, w, torch.where(ok, pdf, 0.0), ok
 
 
+@tracer.traced("light")
 def _spec_direct_t(sc, static, surf: Surface, pv, matv, frame, wo, key,
                    lobes) -> V3:
     """One BSDF sample per hit for each lobe in `lobes` (depth exhausted):
@@ -611,6 +619,7 @@ def _spec_direct_t(sc, static, surf: Surface, pv, matv, frame, wo, key,
     return out
 
 
+@tracer.traced("surface")
 def _footprint(static, conf, n, base_fp, spread, device):
     """(base_fp, spread) of a generation's rays: None in scenes without
     textures or bump, else a camera generation's defaults (no base, the
@@ -639,6 +648,7 @@ def _tiled_fp(surf: Surface, nb: int):
     return None if surf.fp is None else surf.fp.repeat(nb)
 
 
+@tracer.traced("generation")
 def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
                  indirect_scaled, base_fp=None, spread=None,
                  trace_pack=None, ctx: SampleCtx | None = None,
@@ -657,6 +667,8 @@ def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
 
     base_fp, spread = _footprint(static, conf, n, base_fp, spread, o.device)
     surf = _surface(sc, t, tri, uu, vv, o, d, base_fp, spread)
+    tracer.count("lanes", n)
+    tracer.count("live_lanes", surf.valid)
     if static.has_bump:
         ns = dispatch.apply_bump(sc.materials, sc.textures, surf.mat_id,
                                  surf.p, surf.ns, fp=surf.fp,
@@ -738,6 +750,7 @@ def _gen_shade_t(sc, static, conf, o, d, key, vis, camera_level,
     )
 
 
+@tracer.traced("generation")
 def _family_t(sc, static, conf, surf, pv, nfv, matv, frame, wo, key, lobe,
               nb, cam_pickup, ctx: SampleCtx | None = None):
     """Spawn + trace + analytic light and dome pickup of one lobe family.
@@ -788,6 +801,7 @@ def _family_t(sc, static, conf, surf, pv, nfv, matv, frame, wo, key, lobe,
     return o1, d1, w1, pick, (hit.t, hit.tri, hit.u, hit.v)
 
 
+@tracer.traced("generation")
 def _refr_t(sc, static, conf, surf: Surface, pv, matv, frame, wo, key, nb,
             ctx: SampleCtx | None = None, rrf: int = 0):
     """Rough-refraction spawn (Walter Eq.41 weights) + trace, nb rays per
@@ -843,6 +857,7 @@ def _lobe_family_full(sc, static, conf, surf, pv, nfv, matv, frame, wo, key,
     return vec3.kmean(w1 * sub, nb)
 
 
+@tracer.traced("generation")
 def _secondary_indirect_t(sc, static, conf, surf, pv, nfv, matv, frame, wo,
                           key, ray_lobe, rr, indirect_scaled) -> V3:
     """Indirect + BSDF-sampled direct light at a secondary hit under the GI
@@ -1044,10 +1059,12 @@ class TileRenderer:
 
     def _run(self, name: str, fn, *args):
         if not self.profile:
-            return fn(*args)
+            with tracer.span(name):
+                return fn(*args)
         _sync(self.sc.geometry.v0.device)
         t0 = time.perf_counter()
-        out = fn(*args)
+        with tracer.span(name):
+            out = fn(*args)
         _sync(self.sc.geometry.v0.device)
         dt = time.perf_counter() - t0
         self.stats[f"t_{name}"] = self.stats.get(f"t_{name}", 0.0) + dt
@@ -1105,43 +1122,48 @@ def render_tiles(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,
     `parts` with tiles of padding rays (traced, then dropped by the
     splat), are split into `parts` contiguous blocks; a tile keeps its
     global index in its key and its rays' offset in the frame, so the
-    parts' framebuffers add up to the whole frame's."""
-    device = scene.device
-    if accel.tree.bbox_min.device != device:
-        raise ValueError(f"accel is on {accel.tree.bbox_min.device}, the "
-                         f"scene on {device}")
-    opts = scene.options
-    aa = aa_samples or opts.aa_samples
-    xres = xres or opts.xres
-    yres = yres or opts.yres
-    n_pix = xres * yres
-    n_sub = aa * aa
+    parts' framebuffers add up to the whole frame's. `profile` times the
+    stages (`TileRenderer`) and turns on the spans of `core/tracer.py`
+    for the call."""
+    with tracer.enabled(spans=profile), tracer.span("render"):
+        device = scene.device
+        if accel.tree.bbox_min.device != device:
+            raise ValueError(f"accel is on {accel.tree.bbox_min.device}, "
+                             f"the scene on {device}")
+        opts = scene.options
+        aa = aa_samples or opts.aa_samples
+        xres = xres or opts.xres
+        yres = yres or opts.yres
+        n_pix = xres * yres
+        n_sub = aa * aa
 
-    key = rng.stream(opts.aa_seed + seed)
-    rays = cameramod.generate(scene.camera, rng.fold(key, 77), aa, xres, yres)
-    tr = TileRenderer(scene, accel, aa, rr_refr_start, xres=xres,
-                      profile=profile)
+        key = rng.stream(opts.aa_seed + seed)
+        rays = cameramod.generate(scene.camera, rng.fold(key, 77), aa, xres,
+                                  yres)
+        tr = TileRenderer(scene, accel, aa, rr_refr_start, xres=xres,
+                          profile=profile)
 
-    n_rays = n_pix * n_sub
-    tile_rays = min(tile_pixels * n_sub, n_rays)
-    n_tiles = (n_rays + tile_rays - 1) // tile_rays
-    n_tiles = (n_tiles + parts - 1) // parts * parts
-    rays = _pad_rays(rays, n_tiles * tile_rays - n_rays)
+        n_rays = n_pix * n_sub
+        tile_rays = min(tile_pixels * n_sub, n_rays)
+        n_tiles = (n_rays + tile_rays - 1) // tile_rays
+        n_tiles = (n_tiles + parts - 1) // parts * parts
+        rays = _pad_rays(rays, n_tiles * tile_rays - n_rays)
 
-    per = n_tiles // parts
-    image = wsum = names = None
-    for ti in range(part * per, (part + 1) * per):
-        start = ti * tile_rays
-        rgb, aovs = tr.render_tile_at(rays, start, tile_rays,
-                                      rng.fold(key, 1000 + ti))
-        vals, names = splatmod.pack_aovs(rgb, aovs)
-        if image is None:
-            image = torch.zeros((n_pix, vals.shape[1]), device=device)
-            wsum = torch.zeros((n_pix,), device=device)
-        sl = slice(start, start + tile_rays)
-        splatmod.splat_accum(vals, rays.pixel[sl], rays.sub_xy[sl], image,
-                             wsum, xres, yres, float(opts.filter_width))
-    return Framebuffer(image, wsum, names, xres, yres, tr.stats)
+        per = n_tiles // parts
+        image = wsum = names = None
+        for ti in range(part * per, (part + 1) * per):
+            start = ti * tile_rays
+            rgb, aovs = tr.render_tile_at(rays, start, tile_rays,
+                                          rng.fold(key, 1000 + ti))
+            vals, names = splatmod.pack_aovs(rgb, aovs)
+            if image is None:
+                image = torch.zeros((n_pix, vals.shape[1]), device=device)
+                wsum = torch.zeros((n_pix,), device=device)
+            sl = slice(start, start + tile_rays)
+            splatmod.splat_accum(vals, rays.pixel[sl], rays.sub_xy[sl],
+                                 image, wsum, xres, yres,
+                                 float(opts.filter_width))
+        return Framebuffer(image, wsum, names, xres, yres, tr.stats)
 
 
 def render(scene: Scene, accel: tracemod.Accel, *, seed: int = 0,

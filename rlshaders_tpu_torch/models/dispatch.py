@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..bsdf import beckmann, disney, ggx, orennayar
-from ..core import vec3
+from ..core import tracer, vec3
 from ..core.frame import build_frame_polar_v
 from ..core.vec3 import V3, v3
 from ..scene import texture as texmod
@@ -180,6 +180,7 @@ def _absmax(c: V3) -> torch.Tensor:
                          torch.maximum(torch.abs(c.y), torch.abs(c.z)))
 
 
+@tracer.traced("material")
 def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor, *,
            has_skin: bool, has_disney: bool, diffuse_ray: bool = False,
            tex: TexLookup | None = None) -> MatG:
@@ -273,6 +274,7 @@ def gather(mats: Materials, mat_id: torch.Tensor, entering: torch.Tensor, *,
     )
 
 
+@tracer.traced("material")
 def apply_bump(mats: Materials, stack: texmod.TextureStack, mat_id, p: V3,
                ns: V3, fp, tex_gamma: float) -> V3:
     """The shading normal perturbed by the hit material's bump3d height
@@ -305,6 +307,7 @@ def apply_bump(mats: Materials, stack: texmod.TextureStack, mat_id, p: V3,
     return vec3.where(bump_tex >= 0, bumped, ns)
 
 
+@tracer.traced("material")
 def skin_layer_fields(m: MatG, wo: V3) -> MatG:
     """Fill rlSkin's view-dependent Fresnel energy layering (rlSkin.cpp:
     204, 228, 231, 238), once per shading point with the local view
@@ -332,6 +335,7 @@ def skin_layer_fields(m: MatG, wo: V3) -> MatG:
     )
 
 
+@tracer.traced("material")
 def tile_v(m: MatG, k: int) -> MatG:
     """Repeat a MatG k times along the batch axis (column-major chunks,
     matching vec3.tile's layout)."""
@@ -348,6 +352,7 @@ def tile_v(m: MatG, k: int) -> MatG:
     return f(m)
 
 
+@tracer.traced("bsdf")
 def eval_diffuse(m: MatG, wo: V3, wi: V3):
     """(f*cos V3, pdf) of the diffuse lobe in the local frame. The pdf is
     the cosine sampler's, also on Disney lanes (clamped at 1e-9, not at
@@ -360,11 +365,13 @@ def eval_diffuse(m: MatG, wo: V3, wi: V3):
     return vec3.where(m.has_diffuse, f, 0.0), torch.clamp_min(pdf, 1e-9)
 
 
+@tracer.traced("bsdf")
 def sample_diffuse(m: MatG, wo: V3, rx, ry) -> V3:
     del m, wo
     return orennayar.sample_v(rx, ry)
 
 
+@tracer.traced("bsdf")
 def eval_specular(m: MatG, wo: V3, wi: V3):
     """(f*cos V3, pdf) of the specular lobe in the local frame; the Fresnel
     mode follows the material (dielectric IOR, Schlick with F0 = Ksn, or
@@ -412,6 +419,7 @@ def eval_specular(m: MatG, wo: V3, wi: V3):
     return vec3.where(m.has_spec, f, 0.0), torch.clamp_min(pdf, 1e-9)
 
 
+@tracer.traced("bsdf")
 def sample_specular(m: MatG, wo: V3, rx, ry) -> V3:
     if m.ggx2 is None:
         wi_ggx, _ = ggx.sample(m.ggx, wo, rx, ry)
@@ -437,6 +445,7 @@ def sample_specular(m: MatG, wo: V3, rx, ry) -> V3:
     return wi
 
 
+@tracer.traced("bsdf")
 def sample_refract(m: MatG, wo: V3, rx, ry):
     """(wi V3, weight V3) of one rough-refraction sample (integrateRefract
     per sample, rlGgx.h:228-243); the weight is 0 where nothing refracts."""
