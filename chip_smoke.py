@@ -9,7 +9,8 @@ nonzero):
 
 1. the card's name and power limit (nvidia-smi); refuses to run without a
    CUDA device;
-2. builds the ray-query kernels (ops/csrc/intersect.cu) with nvcc;
+2. builds the ray-query kernels (ops/csrc/intersect.cu) and the random
+   draws' kernels (ops/csrc/rng.cu) with nvcc into one library;
 3. holds each kernel against its plain PyTorch version (accel/bvh.py) on
    the card: on every query of a 256x256 demo frame (camera, GI and shadow
    rays), on random rays with dead lanes, exclude_tri and each visibility
@@ -282,7 +283,29 @@ nonzero):
    PhotoCD, the block-smoothed cut progressive JPEG) and frame T (the
    512x512 16-bit GZIP_1 FITS, an RGB IPTC band, the baseline JPEG whose
    samples follow the SIMD IDCT), each held to the plain walk as in 34;
-   phases 47-48 must take 60 s at most.
+   phases 47-48 must take 60 s at most;
+49. the random draws' kernels (ops/csrc/rng.cu: rls_rng_threefry,
+   rls_rng_sobol_stream, rls_rng_sobol_at): every public draw of
+   core/rng.py on the card at the shapes of one tile of portbench's
+   disney.frame512 cell (2,359,296 lanes: the tile's camera uniform,
+   uniform2, stratified2_flat and sobol2_flat, and bits, stratified2,
+   stratified2_flat at s = 3, sobol2_rep, sobol2_at with an int purpose
+   and with the SSS stage's tensor of purposes, sobol2), each one launch
+   of its kernel and held bit for bit to core/rng.py's plain int64 code on
+   the same inputs on the CPU (the values that differ from that code run
+   on the card counted: torch's CUDA division by a scalar multiplies by
+   its reciprocal), timed (device_ms, call_ms, plain_ms) beside its bound
+   (bytes, or the operations of rng.cuh at the card's issue rate), with
+   each kernel's instructions in the SASS; then the disney_grid frame at
+   512x512, AA 3 (one tile) with the launch counts reset and the tracer's
+   counters on: the draws' launches a kernel equal to the tile's mix
+   (RNG_TILE), its values equal to theirs, every value drawn by a kernel;
+   and the tile through `TileRenderer.render_tile_at` bit-equal in every
+   plane to the same tile with the plain draws forced in.
+
+Every main-path render above (phases 4, 7, 11, 14, 18, 20, 23-25, 28,
+30-48 and 49's frame) resets the launch counts of both libraries first
+and reads both.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -305,7 +328,12 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_formats_c` for phase 36, `launches_formats_d` for phase 38,
 `launches_formats_e` for phase 40, `launches_formats_f` for phase 42,
 `launches_formats_g` for phase 44, `launches_formats_h` for phase 46,
-`launches_formats_i` for phase 48, whose sum is `launches`); the card's
+`launches_formats_i` for phase 48, `launches_frame512` for phase 49's
+frame, whose sum is `launches`; after the two query kernels, one entry
+per draw kernel with its mismatches, the device, call, plain and bound ms
+of the frame512 tile's draws of it (of the SSS columns draw for
+rls_rng_sobol_at, which the tile does not launch) and each draw as a
+shape); the card's
 name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
@@ -1075,6 +1103,78 @@ OPS_PER_BOX = 25      # box_hit: 6 sub, 6 mul, 11 min/max, 2 compares
 OPS_PER_TRI = 53      # tri_test: Moller-Trumbore and its 6 hit compares
 OUT_BYTES = {"rls_nearest": 16, "rls_occluded": 1}
 
+# The random draws' kernels (ops/csrc/rng.cu, phase 49). They replace no
+# TPU kernel: the JAX package leaves its draws to XLA.
+RNG_KERNELS = {
+    "rls_rng_threefry": "none: rlshaders_tpu/core/rng.py's jax.random "
+                        "threefry draws, left to XLA",
+    "rls_rng_sobol_stream": "none: rlshaders_tpu/core/rng.py's Owen-Sobol "
+                            "streams in jnp, left to XLA",
+    "rls_rng_sobol_at": "none: rlshaders_tpu/core/rng.py's Owen-Sobol "
+                        "points in jnp, left to XLA",
+}
+RNG_SOURCE = "rlshaders_tpu_torch/ops/csrc/rng.cu"
+# phase 49 draws at the shapes of one tile of portbench's disney.frame512
+# cell (the disney_grid scene at 512x512, AA 3: one tile of 262,144
+# pixels) and renders that frame
+RNG_SCENE = "portbench/configs/disney_grid.ass"
+RNG_RES = 512
+RNG_AA = 3
+RNG_LANES = RNG_RES * RNG_RES * RNG_AA * RNG_AA   # 2,359,296
+RNG_SEED = 2**31 + 5   # above 32 signed bits, as the benchmark's seeds
+RNG_SALT = 0xFFFFFFFF
+RNG_PURPOSE = 604 << 8
+RNG_COLUMNS = 4        # purposes a lane of the SSS stage's light columns
+RNG_S = 4              # the tile's sobol2_flat s_count and uniform2 columns
+#                        (the grid's 2x2 light and BSDF samples)
+RNG_REPS = 20
+# The tile's draws, as the frame512 frame makes them (phase 49 reads the
+# frame's launches per kernel and holds them to this mix): name -> calls
+RNG_TILE = {"camera_uniform": 1, "uniform2": 11, "stratified2_flat": 1,
+            "sobol2_flat": 3}
+# Operations of one output element (a value of a threefry draw, a row of
+# two of a Sobol draw), counted from ops/csrc/rng.cuh and rng.cu as
+# written: each add, xor, and, or, shift, rotate (one funnel shift), bit
+# reversal (one __brev), multiply, compare, select, conversion and float
+# add, multiply or division counts one; an int64 division or remainder
+# counts one though the card emulates it in tens of instructions, and
+# nothing the compiler folds into a constant is counted, so the count is a
+# floor. Over ISSUE_OPS_PER_S, the H100's issue rate (four warp
+# instructions a clock an SM: 128 lanes x 132 SMs x 1.98 GHz): Hopper also
+# issues integer adds, logic and multiplies on its float pipe, so the
+# 64-lane int32 pipe alone is no bound (a tile's draws run faster than it
+# would allow).
+ISSUE_OPS_PER_S = 128 * 132 * 1.98e9
+OPS_INDEX = 3          # the thread's element index and its bounds test
+OPS_THREEFRY = 80      # third key word 2, first injection 2, 20 rounds x
+#                        (add, rotate, xor) 60, four more injections x 3
+#                        and the last 3, the xor of the two words 1
+OPS_UNIT = 5           # unit_float: shift, or, subtract, compare, select
+OPS_STRAT = {"batch": 11, "flat": 10}   # the stratum (mode test, shift or
+#                        multiply, division or remainder, the plane bit),
+#                        then two conversions, an add and a division
+OPS_SOBOL2 = 94        # two lowbias32 (16) and the seed's xor, two Owen
+#                        scrambles (2 x 11), the index's bit reversal,
+#                        sobol_d1 (16 bits x shift, and, select-xor),
+#                        two to_unit (2 x 3)
+RNG_OPS = {
+    "bits": OPS_INDEX + 1 + OPS_THREEFRY,
+    "uniform": OPS_INDEX + 2 + OPS_THREEFRY + OPS_UNIT,
+    "stratified2": OPS_INDEX + 2 + OPS_THREEFRY + OPS_UNIT
+    + OPS_STRAT["batch"],
+    "stratified2_flat": OPS_INDEX + 2 + OPS_THREEFRY + OPS_UNIT
+    + OPS_STRAT["flat"],
+    # the row's lane and sample (layout tests, division, remainder), its
+    # index (multiply, add), the stream's seed (xor, lowbias32)
+    "sobol_stream": OPS_INDEX + 15 + OPS_SOBOL2,
+    # the lane (division), the seeded and purposes tests; the stream's
+    # seed: xor, lowbias32, and for a purpose column its remainder,
+    # lowbias32 and xor
+    "sobol_at_seeded": OPS_INDEX + 2 + OPS_SOBOL2,
+    "sobol_at": OPS_INDEX + 3 + 9 + OPS_SOBOL2,
+    "sobol_at_columns": OPS_INDEX + 3 + 19 + OPS_SOBOL2,
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1392,9 +1492,22 @@ def dead_lanes(calls, name: str) -> dict:
 
 
 def reset(kernels) -> None:
-    for counts in (kernels.LAUNCHES, kernels.PATH_LAUNCHES):
+    """Zero the launch counts of the query kernels (`kernels`, ops/
+    intersect.py) and of the draws' kernels (ops/rng.py)."""
+    from rlshaders_tpu_torch.ops import rng as rng_kernels
+
+    for counts in (kernels.LAUNCHES, kernels.PATH_LAUNCHES,
+                   rng_kernels.LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def launched(kernels) -> dict:
+    """Launches per kernel since `reset`: the query kernels' and the
+    draws'."""
+    from rlshaders_tpu_torch.ops import rng as rng_kernels
+
+    return {**kernels.LAUNCHES, **rng_kernels.LAUNCHES}
 
 
 def path_launches(kernels) -> dict:
@@ -1420,8 +1533,10 @@ def barred_render(render, bvh, scene, accel, **kw):
 
 
 def check_launched(launches: dict, what: str) -> None:
-    for k, n in launches.items():
-        if n <= 0:
+    """Both query kernels and the threefry draw (every frame's camera
+    jitter) launched."""
+    for k in (*REPLACES, "rls_rng_threefry"):
+        if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched by {what}")
 
 
@@ -1644,7 +1759,7 @@ def scene_phases(tags, path: str, aa: int, check: int, cpu_size: int,
     t0 = time.perf_counter()
     reset(kernels)
     out, dt = barred_render(wavefront.render, bvh, scene, accel)
-    launches = dict(kernels.LAUNCHES)
+    launches = launched(kernels)
     o = scene.options
     check_planes(out, o.xres)
     check_launched(launches, f"the {shape} render")
@@ -1751,7 +1866,7 @@ def cli_phase(card: str) -> dict:
         rc = cli.main(["render", TEXTURED, "-o", out, "--passes", "2",
                        "--aovs", "--profile"])
         wall = time.perf_counter() - t1
-        launches = dict(kernels.LAUNCHES)
+        launches = launched(kernels)
         if rc != 0:
             raise AssertionError(f"cli render returned {rc}")
         check_launched(launches, "cli render")
@@ -1963,7 +2078,7 @@ def mesh_world1_phase(card: str) -> dict:
             sharded = partial(mesh.render_sharded, mesh=m)
             reset(kernels)
             out, dt = barred_render(sharded, bvh, scene, accel, **kw)
-            launches = dict(kernels.LAUNCHES)
+            launches = launched(kernels)
             check_planes(out, SIZE)
             check_launched(launches, "render_sharded at world size 1")
             ref = wavefront.render(scene, accel, seed=SEED, **kw)
@@ -2035,7 +2150,7 @@ def mesh_rank(rank: int) -> dict:
         out, dt = barred_render(partial(mesh.render_sharded, mesh=m), bvh,
                                 scene, accel, aa_samples=AA, xres=SIZE,
                                 yres=SIZE, tile_pixels=tile)
-        mine[tile] = {"launches": dict(kernels.LAUNCHES),
+        mine[tile] = {"launches": launched(kernels),
                       "stats": out.pop("__stats__"), "seconds": dt}
         planes[tile] = host_planes(out)
     params, wo = mesh.demo_batch(STEP_W * STEP_H)
@@ -2077,7 +2192,7 @@ def mesh_world2_phase(card: str) -> dict:
     # a warm-up frame, so that the timed frames below pay no first calls
     wavefront.render(scene, accel, seed=SEED, aa_samples=AA, xres=SIZE,
                      yres=SIZE)
-    launches = dict.fromkeys(REPLACES, 0)
+    launches = dict.fromkeys((*REPLACES, *RNG_KERNELS), 0)
     for tile in MESH_TILES:
         per = [r[tile] for r in res["ranks"]]
         for i, r in enumerate(per):
@@ -2166,7 +2281,7 @@ def jpeg_phase(card: str) -> dict:
     accel = tracemod.build(scene.geometry)
     reset(kernels)
     out, dt = barred_render(wavefront.render, bvh, scene, accel)
-    launches = dict(kernels.LAUNCHES)
+    launches = launched(kernels)
     o = scene.options
     check_planes(out, o.xres)
     check_launched(launches, "the JPEG-textured render")
@@ -2252,7 +2367,7 @@ def image_phases(card: str, folder: str = "modes",
     with open(TEXTURED) as f:
         base_src = f.read()
     base = os.path.dirname(TEXTURED)
-    launches = {k: 0 for k in IMAGE_LAUNCHES}
+    launches = dict.fromkeys((*REPLACES, *RNG_KERNELS), 0)
     for tag, images in frames.items():
         src = with_images(base_src, images)
         t1 = time.perf_counter()
@@ -2267,7 +2382,7 @@ def image_phases(card: str, folder: str = "modes",
         accel = tracemod.build(scene.geometry)
         reset(kernels)
         out, dt = barred_render(wavefront.render, bvh, scene, accel)
-        got = dict(kernels.LAUNCHES)
+        got = launched(kernels)
         o = scene.options
         check_planes(out, o.xres)
         stats = out["__stats__"]
@@ -2275,7 +2390,7 @@ def image_phases(card: str, folder: str = "modes",
             f"{dt:.4f} s/frame, mean RGB {float(out['RGBA'].mean()):.6f}, "
             f"launches {got}, nearest rays {stats['nearest_rays']}, shadow "
             f"rays {stats['shadow_rays']}; {card}")
-        if got != IMAGE_LAUNCHES:
+        if {k: got[k] for k in IMAGE_LAUNCHES} != IMAGE_LAUNCHES:
             raise AssertionError(f"[{pb}] frame {tag} launched {got}, "
                                  f"expected {IMAGE_LAUNCHES}")
         for k in launches:
@@ -2628,7 +2743,7 @@ def dense_phases(card: str) -> dict:
     t0 = time.perf_counter()
     reset(kernels)
     out, dt = barred_render(wavefront.render, bvh, scene, accel)
-    launches = dict(kernels.LAUNCHES)
+    launches = launched(kernels)
     took = path_launches(kernels)
     o = scene.options
     check_planes(out, o.xres)
@@ -2658,6 +2773,249 @@ def dense_phases(card: str) -> dict:
     log(f"[28] phase {time.perf_counter() - t0:.1f} s")
     return {"compare": res, "times": times, "bounds": bounds,
             "launches": launches}
+
+
+@contextlib.contextmanager
+def plain_draws(rng):
+    """core/rng.py's int64 tensor code for draws on the card, inside the
+    block (the kernels' plain version)."""
+    real = rng._on_card
+    rng._on_card = lambda device: False
+    try:
+        yield
+    finally:
+        rng._on_card = real
+
+
+def differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Elements of two draws (same device, dtype and shape) whose bits
+    differ."""
+    if a.dtype != torch.int64:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def rng_draws(rng, dev) -> list:
+    """Every public draw of core/rng.py at a frame512 tile's shapes: (name,
+    kernel, draw, bytes read and written, operations). The tile's own
+    draws (RNG_TILE) come first; the rest are the other draws and layouts
+    the main path and the SSS stage make, at the tile's lanes."""
+    n = RNG_LANES
+    key = rng.fold(rng.PRNGKey(RNG_SEED), 1000, 3)
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    pix = (lane // (RNG_AA * RNG_AA)).to(torch.int32)
+    aa = (lane % (RNG_AA * RNG_AA)).to(torch.int32)
+    # sample indices across the uint32 range, past sobol_d1's 16 bits
+    idx = (lane * 2654435761 + RNG_SEED) & 0xFFFFFFFF
+    seeds = (lane * 0x9E3779B9 ^ RNG_SALT) & 0xFFFFFFFF
+    col = torch.arange(RNG_COLUMNS, dtype=torch.int64, device=dev)
+    purposes = ((RNG_PURPOSE * 0x1003) & 0xFFFFFFFF) ^ (0x10007 + col)
+    tf, ss, sa = RNG_KERNELS
+    s = RNG_S
+    sides = RNG_AA              # a stratified draw's s: no power of two
+    return [
+        ("camera_uniform", tf, lambda: rng.uniform(
+            key, (n // (RNG_AA * RNG_AA), RNG_AA * RNG_AA, 2), dev),
+         8 * n, 2 * n * RNG_OPS["uniform"]),
+        ("uniform2", tf, lambda: rng.uniform2(key, (s * n,), dev),
+         8 * s * n, 2 * s * n * RNG_OPS["uniform"]),
+        ("stratified2_flat", tf, lambda: rng.stratified2_flat(
+            key, s * n, 1, dev),
+         8 * s * n, 2 * s * n * RNG_OPS["stratified2_flat"]),
+        ("sobol2_flat", ss, lambda: rng.sobol2_flat(
+            pix, aa, s, RNG_PURPOSE, RNG_SALT),
+         8 * s * n + 8 * n, s * n * RNG_OPS["sobol_stream"]),
+        ("bits", tf, lambda: rng.bits(key, (n,), dev),
+         8 * n, n * RNG_OPS["bits"]),
+        ("stratified2", tf, lambda: rng.stratified2(
+            key, (n // (sides * sides),), sides, dev),
+         8 * n, 2 * n * RNG_OPS["stratified2"]),
+        ("stratified2_flat_s3", tf, lambda: rng.stratified2_flat(
+            key, n // (sides * sides), sides, dev),
+         8 * n, 2 * n * RNG_OPS["stratified2_flat"]),
+        ("sobol2_rep", ss, lambda: rng.sobol2_rep(
+            pix, aa, s, RNG_PURPOSE, RNG_SALT),
+         8 * s * n + 8 * n, s * n * RNG_OPS["sobol_stream"]),
+        ("sobol2_at", sa, lambda: rng.sobol2_at(
+            pix, idx, RNG_PURPOSE, RNG_SALT),
+         8 * n + 12 * n, n * RNG_OPS["sobol_at"]),
+        ("sobol2_at_columns", sa, lambda: rng.sobol2_at(
+            pix, idx, purposes, RNG_SALT),
+         8 * RNG_COLUMNS * n + 12 * n + 8 * RNG_COLUMNS,
+         RNG_COLUMNS * n * RNG_OPS["sobol_at_columns"]),
+        ("sobol2", sa, lambda: rng.sobol2(idx, seeds),
+         8 * n + 16 * n, n * RNG_OPS["sobol_at_seeded"]),
+    ]
+
+
+def sass_counts(lib: str) -> dict:
+    """Instructions of each draw kernel in the library's SASS
+    (cuobjdump), a static count over all of a kernel's branches; {} where
+    cuobjdump is not found."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    run = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True)
+    if run.returncode != 0:
+        return {}
+    text = run.stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((k for k in ("threefry_kernel", "sobol_stream_kernel",
+                                     "sobol_at_kernel") if k in fn), None)
+            if name:
+                out[name] = 0
+        elif name and line.strip().startswith("/*") and "*/" in line and \
+                line.split("*/", 1)[1].strip():
+            out[name] += 1
+    return out
+
+
+def rng_phase(card: str) -> dict:
+    """Phase 49: the draws' kernels. Every public draw of core/rng.py on
+    the card at a frame512 tile's shapes (rng_draws), each one launch of
+    its kernel and bit-equal to the plain int64 code on the same inputs on
+    the CPU (the values that differ from that code run on the card are
+    counted: torch's CUDA division by a scalar multiplies by its
+    reciprocal, so a stratified draw whose s is no power of two differs
+    there), timed (device_ms, call_ms, plain_ms on the card) beside its
+    bound; the disney_grid
+    frame512 frame (portbench's cell) with the launch counts reset and the
+    counters on: the launches per kernel equal to RNG_TILE's mix and every
+    value drawn by a kernel; its tile through `render_tile_at` equal bit
+    for bit to the same tile with the plain draws. Returns per kernel its
+    shapes, mismatches and the tile's numbers, and the frame's launches."""
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.core import rng, tracer
+    from rlshaders_tpu_torch.integrator import camera as cameramod
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.ops import rng as rng_kernels
+    from rlshaders_tpu_torch.scene.build import build
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    per = {k: {"shapes": {}, "mismatches": 0, "max_abs_err": 0.0}
+           for k in RNG_KERNELS}
+    cpu = torch.device("cpu")
+    for (name, kern, draw, nbytes, ops), ref in zip(
+            rng_draws(rng, dev), (d[2] for d in rng_draws(rng, cpu))):
+        before = dict(rng_kernels.LAUNCHES)
+        got = draw()
+        torch.cuda.synchronize()
+        made = {k: n - before[k] for k, n in rng_kernels.LAUNCHES.items()}
+        if made != {k: int(k == kern) for k in made}:
+            raise AssertionError(f"[49] {name} launched {made}, expected "
+                                 f"one {kern}")
+        want = ref()
+        with plain_draws(rng):
+            on_card = draw()
+            pm = cuda_ms(draw, 1)
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"[49] {name}: {got.dtype} "
+                                 f"{tuple(got.shape)}, plain {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        bad = differ(got.cpu(), want)
+        bad_card = differ(got, on_card)
+        err = float((got.cpu().double() - want.double()).abs().max())
+        values = got.numel()
+        del got, want, on_card
+        dm = device_ms(draw, RNG_REPS)
+        cm = cuda_ms(draw, RNG_REPS)
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, \
+            ops / ISSUE_OPS_PER_S * 1e3
+        b = max(byte_ms, op_ms)
+        row = per[kern]
+        row["mismatches"] += bad
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["shapes"][name] = {
+            "launches": 1, "values": values, "device_ms": dm,
+            "call_ms": cm, "plain_ms": pm,
+            "bound_ms": b, "bound_by": "bytes" if byte_ms >= op_ms
+            else "operations", "byte_ms": byte_ms, "op_ms": op_ms,
+            "mismatches": bad, "differ_plain_card": bad_card}
+        log(f"[49] {name} ({kern}): {bad} mismatches against the plain "
+            f"draw on the CPU, max abs err {err:.3g}; {bad_card} values "
+            f"differ from the plain draw on the card; device {dm:.4f} ms, "
+            f"call "
+            f"{cm:.4f} ms, plain {pm:.4f} ms; bound {b:.4f} ms by "
+            f"{row['shapes'][name]['bound_by']} (bytes {nbytes} B "
+            f"{byte_ms:.4f} ms, operations {ops} {op_ms:.4f} ms), share "
+            f"of device time {b / dm:.4f}")
+        if bad:
+            raise AssertionError(f"[49] {name} disagrees with the plain "
+                                 f"draw")
+    for k, row in per.items():
+        tile = [(row["shapes"][n], c) for n, c in RNG_TILE.items()
+                if n in row["shapes"]]
+        row["tile"] = {
+            f: sum(sh[f] * c for sh, c in tile)
+            for f in ("launches", "values", "device_ms", "call_ms",
+                      "plain_ms", "bound_ms", "byte_ms", "op_ms")}
+        if tile:
+            t = row["tile"]
+            log(f"[49] {k}: the tile's {t['launches']} draws, device "
+                f"{t['device_ms']:.4f} ms, call {t['call_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} "
+                f"ms (bytes {t['byte_ms']:.4f}, operations "
+                f"{t['op_ms']:.4f}), share {t['bound_ms'] / t['device_ms']:.4f}")
+    log(f"[49] instructions a kernel in the SASS (static, every branch): "
+        f"{sass_counts(kernels.build())}; {card}")
+
+    # ---- the frame512 frame: launches, counters, the tile held equal ----
+    scene = build(RNG_SCENE)
+    accel = tracemod.build(scene.geometry)
+    kw = dict(seed=RNG_SEED, tile_pixels=RNG_RES * RNG_RES,
+              aa_samples=RNG_AA, xres=RNG_RES, yres=RNG_RES)
+    wavefront.render_tiles(scene, accel, **kw)
+    tracer.take()
+    reset(kernels)
+    with tracer.enabled(counters=True):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wavefront.render_tiles(scene, accel, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        _, counters = tracer.take()
+    launches = launched(kernels)
+    want = {k: 0 for k in RNG_KERNELS}
+    for n, c in RNG_TILE.items():
+        want[next(k for k, r in per.items() if n in r["shapes"])] += c
+    got = {k: launches[k] for k in RNG_KERNELS}
+    values = sum(r["tile"]["values"] for r in per.values())
+    share = counters["rng_kernel_values"] / max(counters["rng_values"], 1)
+    log(f"[49] disney_grid {RNG_RES}x{RNG_RES} AA {RNG_AA}, one tile: "
+        f"{dt:.4f} s/frame (counters on), launches {launches}, values "
+        f"drawn {counters['rng_values']} (the draws above {values}), by "
+        f"the kernels {share:.4f}")
+    if got != want or counters["rng_values"] != values or share != 1.0:
+        raise AssertionError(f"[49] the frame's draws {got} (expected "
+                             f"{want}), values {counters['rng_values']} "
+                             f"(expected {values}), kernel share {share}")
+    key = rng.stream(scene.options.aa_seed + RNG_SEED)
+    rays = cameramod.generate(scene.camera, rng.fold(key, 77), RNG_AA,
+                              RNG_RES, RNG_RES)
+    tiles = []
+    for plain in (False, True):
+        tr = wavefront.TileRenderer(scene, accel, RNG_AA, xres=RNG_RES)
+        with plain_draws(rng) if plain else contextlib.nullcontext():
+            rgb, aovs = tr.render_tile_at(rays, 0, RNG_LANES,
+                                          rng.fold(key, 1000))
+        tiles.append({"RGBA": rgb, **aovs})
+    bad = {k: int((v.view(torch.int32)
+                   != tiles[1][k].view(torch.int32)).sum())
+           for k, v in tiles[0].items()}
+    log(f"[49] the tile ({RNG_LANES} lanes) through render_tile_at with "
+        f"the kernels' and the plain draws: values that differ by plane "
+        f"{bad}")
+    if any(bad.values()) or not float(tiles[0]["RGBA"].abs().sum()) > 0.0:
+        raise AssertionError("[49] the tile differs with the plain draws")
+    del tiles, rays
+    log(f"[49] phase {time.perf_counter() - t0:.1f} s; {card}")
+    return {"kernels": per, "launches": launches}
 
 
 def main() -> int:
@@ -2735,7 +3093,7 @@ def main() -> int:
     reset(kernels)
     out, dt = barred_render(wavefront.render, bvh, scene, accel,
                             aa_samples=AA, xres=SIZE, yres=SIZE)
-    demo_launches = dict(kernels.LAUNCHES)
+    demo_launches = launched(kernels)
     check_planes(out, SIZE)
     check_launched(demo_launches, "the demo render")
     stats = out["__stats__"]
@@ -2821,7 +3179,7 @@ def main() -> int:
     reset(kernels)
     gout, gdt = barred_render(wavefront.render, bvh, gscene, gaccel,
                               aa_samples=GLASS_AA, xres=SIZE, yres=SIZE)
-    glass_launches = dict(kernels.LAUNCHES)
+    glass_launches = launched(kernels)
     check_planes(gout, SIZE)
     if glass_launches["rls_nearest"] <= 0:
         raise AssertionError("rls_nearest was not launched by the glass "
@@ -2929,7 +3287,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reset(kernels)
     sout, sdt = barred_render(wavefront.render, bvh, sscene, saccel)
-    skin_launches = dict(kernels.LAUNCHES)
+    skin_launches = launched(kernels)
     so = sscene.options
     check_planes(sout, so.xres)
     check_launched(skin_launches, "the skin render")
@@ -2981,6 +3339,27 @@ def main() -> int:
     format_g_launches = format_g_phases(card)
     format_h_launches = format_h_phases(card)
     format_i_launches = format_i_phases(card)
+    rngrun = rng_phase(card)
+
+    # the launches of each main-path run, by kernel
+    runs = {"demo": [demo_launches], "glass": [glass_launches],
+            "skin": [skin_launches], "disney": [dsy["launches"]],
+            "textured": [tex["launches"]], "cli": [clirun["launches"]],
+            "mesh": [mesh1, mesh2], "jpeg": [jpeg_launches],
+            "dense": [dense["launches"]], "images": [image_launches],
+            "formats": [format_launches], "formats_b": [format_b_launches],
+            "formats_c": [format_c_launches],
+            "formats_d": [format_d_launches],
+            "formats_e": [format_e_launches],
+            "formats_f": [format_f_launches],
+            "formats_g": [format_g_launches],
+            "formats_h": [format_h_launches],
+            "formats_i": [format_i_launches],
+            "frame512": [rngrun["launches"]]}
+
+    def run_launches(k: str) -> dict:
+        return {f"launches_{r}": sum(d.get(k, 0) for d in ds)
+                for r, ds in runs.items()}
 
     entries = []
     for k in REPLACES:
@@ -3007,19 +3386,11 @@ def main() -> int:
         for tag in jsets:
             dm, cm, pm, b = jwalk[(k, tag)]
             shapes[f"jwalk_{tag}"] = shape(dm, cm, pm, b, 1)
+        by_run = run_launches(k)
         entries.append({
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k],
-            "launches": (demo_launches[k] + glass_launches[k]
-                         + skin_launches[k] + dsy["launches"][k]
-                         + tex["launches"][k] + clirun["launches"][k]
-                         + mesh1[k] + mesh2[k] + jpeg_launches[k]
-                         + dense["launches"][k] + image_launches[k]
-                         + format_launches[k] + format_b_launches[k]
-                         + format_c_launches[k] + format_d_launches[k]
-                         + format_e_launches[k] + format_f_launches[k]
-                         + format_g_launches[k] + format_h_launches[k]
-                         + format_i_launches[k]),
+            "launches": sum(by_run.values()),
             "max_abs_err": max(frame[k][2], rand[k][2], glass[k][2],
                                soup[k][2], skin[k][2], skin_demo[k][2],
                                dsy["compare"][k][2], tex["compare"][k][2],
@@ -3028,26 +3399,26 @@ def main() -> int:
             "ms": times[k][1], "plain_ms": times[k][2],
             "bound_ms": demo_bound[k]["bound_ms"],
             "bound_by": demo_bound[k]["bound_by"], "library_ms": None,
-            "launches_demo": demo_launches[k],
-            "launches_glass": glass_launches[k],
-            "launches_skin": skin_launches[k],
-            "launches_disney": dsy["launches"][k],
-            "launches_textured": tex["launches"][k],
-            "launches_cli": clirun["launches"][k],
-            "launches_mesh": mesh1[k] + mesh2[k],
-            "launches_jpeg": jpeg_launches[k],
-            "launches_dense": dense["launches"][k],
-            "launches_images": image_launches[k],
-            "launches_formats": format_launches[k],
-            "launches_formats_b": format_b_launches[k],
-            "launches_formats_c": format_c_launches[k],
-            "launches_formats_d": format_d_launches[k],
-            "launches_formats_e": format_e_launches[k],
-            "launches_formats_f": format_f_launches[k],
-            "launches_formats_g": format_g_launches[k],
-            "launches_formats_h": format_h_launches[k],
-            "launches_formats_i": format_i_launches[k],
-            "shapes": shapes,
+            **by_run, "shapes": shapes,
+        })
+    # the draws' kernels: top-level times those of a frame512 tile's
+    # draws (the SSS stage's purpose columns for rls_rng_sobol_at, which
+    # the tile does not launch)
+    for k, row in rngrun["kernels"].items():
+        top = (row["tile"] if row["tile"]["launches"]
+               else row["shapes"]["sobol2_at_columns"])
+        by_run = run_launches(k)
+        entries.append({
+            "name": k, "route": "cuda", "source": RNG_SOURCE,
+            "replaces": RNG_KERNELS[k],
+            "launches": sum(by_run.values()),
+            "mismatches": row["mismatches"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": top["call_ms"], "device_ms": top["device_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": ("bytes" if top["byte_ms"] >= top["op_ms"]
+                         else "operations"), "library_ms": None,
+            **by_run, "shapes": row["shapes"],
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

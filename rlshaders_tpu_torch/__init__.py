@@ -21,7 +21,9 @@ EXR (`cli` also runs a golden-image testsuite); from Python,
 the card unless asked for the CPU (`device="cpu"`, `--device cpu`);
 `render` runs where the scene lives. Ray queries on CUDA tensors run the
 hand-written kernels of `ops/csrc/intersect.cu`, built with nvcc at first
-use; on CPU tensors they run the plain BVH walk.
+use; on CPU tensors they run the plain BVH walk. Random draws on CUDA run
+one kernel of `ops/csrc/rng.cu` each (the same library); on the CPU the
+int64 tensor code of `core/rng.py`.
 """
 
 __version__ = "0.1.0"

@@ -65,14 +65,17 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
 
 
 def build(flags: tuple = CXX_FLAGS, source: str | None = None,
-          stem: str = "librls_accel") -> str:
+          stem: str = "librls_accel", headers: tuple = ()) -> str:
     """Compile `source` (SOURCE, the builder, unless another is named) if
-    the library for this source, these flags and this host is missing;
-    returns the library's path, `stem` and a digest of the three."""
+    the library for this source, the `headers` it includes, these flags
+    and this host is missing; returns the library's path, `stem` and a
+    digest of them."""
     cxx = _compiler()
     source = source or SOURCE
-    with open(source, "rb") as f:
-        key = hashlib.sha256(f.read())
+    key = hashlib.sha256()
+    for path in (source, *headers):
+        with open(path, "rb") as f:
+            key.update(f.read())
     key.update(" ".join(flags).encode())
     # the compiler's version and the flags -march=native expands to here
     key.update(_run([cxx, "-march=native", "-E", "-v", "-x", "c++",

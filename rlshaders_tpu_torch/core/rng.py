@@ -13,17 +13,40 @@ CPU: deriving a key is a few scalar hashes, and `bits` reads the two words
 as Python ints to hash a counter tensor on any device. There is no global
 generator state.
 
-All uint32 arithmetic runs in int64 under `& 0xFFFFFFFF`: torch's uint32
-has no shift or multiply kernels on the CPU. Products of two 32-bit words
-are split into 16-bit halves so that no intermediate leaves int64.
+A draw on a CUDA device (its `device`, or the device of its lane tensors)
+is one launch of a kernel of ops/rng.py, which keeps every word a uint32
+in registers; elsewhere it runs the tensor code of this module, the plain
+version, which the kernels equal bit for bit. There all uint32 arithmetic
+runs in int64 under `& 0xFFFFFFFF`: torch's uint32 has no shift or
+multiply kernels on the CPU. Products of two 32-bit words are split into
+16-bit halves so that no intermediate leaves int64.
+
+With the tracer's counters on, every draw adds its values to `rng_values`
+and, where a kernel drew them, to `rng_kernel_values`.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..ops import rng as kernels
 from . import tracer
 
 M32 = 0xFFFFFFFF
+
+
+def _on_card(device) -> bool:
+    """Whether a draw on `device` goes to the kernels of ops/rng.py."""
+    return torch.device(device).type == "cuda"
+
+
+def _counted(out: torch.Tensor, kernel: bool) -> torch.Tensor:
+    """Count a draw's values (host ints: no kernel, no synchronization)."""
+    if tracer.TRACER.counters_on:
+        tracer.count("rng_values", out.numel())
+        tracer.count("rng_kernel_values", out.numel() if kernel else 0)
+    return out
 
 # ---------------------------------------------------------------------------
 # uint32 helpers on int64 tensors
@@ -96,18 +119,36 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=1)
 
 
+def _bits(key: torch.Tensor, shape: tuple[int, ...], device) -> torch.Tensor:
+    k0, k1 = _words(key)
+    lo = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return (y0 ^ y1).reshape(shape)
+
+
+def _uniform(key: torch.Tensor, shape: tuple[int, ...],
+             device) -> torch.Tensor:
+    b = _bits(key, shape, device)
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f, 0.0)
+
+
+def _threefry(key: torch.Tensor, shape: tuple[int, ...], device, mode: int,
+              s: int = 1, lanes: int = 1) -> torch.Tensor:
+    """A threefry draw of the kernels (ops/rng.py's modes)."""
+    return kernels.threefry(*_words(key), math.prod(shape), mode, device, s,
+                            lanes).reshape(shape)
+
+
+@tracer.traced("rng")
 def bits(key: torch.Tensor, shape: tuple[int, ...],
          device="cpu") -> torch.Tensor:
     """jax.random.bits(key, shape, uint32), as int64 tensor of uint32
     values: element j (row-major) is the xor of the two hash words of the
     counter pair (0, j)."""
-    k0, k1 = _words(key)
-    n = 1
-    for s in shape:
-        n *= s
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
-    return (y0 ^ y1).reshape(shape)
+    if _on_card(device):
+        return _counted(_threefry(key, shape, device, kernels.BITS), True)
+    return _counted(_bits(key, shape, device), False)
 
 
 @tracer.traced("rng")
@@ -115,15 +156,16 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...],
             device="cpu") -> torch.Tensor:
     """jax.random.uniform(key, shape, float32) on [0, 1): the top 23 bits
     as the mantissa of a float in [1, 2), minus one."""
-    b = bits(key, shape, device)
-    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    if _on_card(device):
+        return _counted(_threefry(key, shape, device, kernels.UNIFORM), True)
+    return _counted(_uniform(key, shape, device), False)
 
 
 @tracer.traced("rng")
 def bits_scalar(key: torch.Tensor) -> int:
-    """jax.random.bits(key, (), uint32) as a Python int."""
-    return int(bits(key, ()).item())
+    """jax.random.bits(key, (), uint32) as a Python int (a key derivation
+    on the host, not a draw)."""
+    return int(_bits(key, (), "cpu").item())
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +200,14 @@ def stratified2(key: torch.Tensor, batch_shape: tuple[int, ...], n: int,
     is jittered inside stratum (k % n, k // n). Not interchangeable with
     `stratified2_flat`, which draws the same jitter in sample-major order."""
     count = n * n
-    jitter = uniform(key, tuple(batch_shape) + (count, 2), device)
+    shape = tuple(batch_shape) + (count, 2)
+    if _on_card(device):
+        return _counted(_threefry(key, shape, device, kernels.STRAT_BATCH,
+                                  n), True)
+    jitter = _uniform(key, shape, device)
     k = torch.arange(count, dtype=torch.float32, device=device)
     base = torch.stack([torch.remainder(k, n), torch.floor(k / n)], dim=-1)
-    return (base + jitter) / float(n)
+    return _counted((base + jitter) / float(n), False)
 
 
 @tracer.traced("rng")
@@ -170,12 +216,15 @@ def stratified2_flat(key: torch.Tensor, n: int, s: int,
     """(s*s*n, 2) stratified samples in SAMPLE-MAJOR flat layout: row
     k*n + i is element i's jittered sample in stratum (k % s, k // s)."""
     count = s * s
-    jitter = uniform(key, (count, n, 2), device)
+    if _on_card(device):
+        return _counted(_threefry(key, (count * n, 2), device,
+                                  kernels.STRAT_FLAT, s, n), True)
+    jitter = _uniform(key, (count, n, 2), device)
     k = torch.arange(count, dtype=torch.float32, device=device)
     sx = torch.remainder(k, s)
     sy = torch.floor(k / s)
     base = torch.stack([sx, sy], dim=-1)[:, None, :]
-    return ((base + jitter) / float(s)).reshape(count * n, 2)
+    return _counted(((base + jitter) / float(s)).reshape(count * n, 2), False)
 
 
 # ---------------------------------------------------------------------------
@@ -243,10 +292,7 @@ def _to_unit(x: torch.Tensor) -> torch.Tensor:
     return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def sobol2(idx: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """Owen-scrambled Sobol (0,2) points: idx (N,) global sample indices,
-    seed (N,) per-stream scramble ids (int64 holding uint32). Returns
-    (N, 2) float32."""
+def _sobol2(idx: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     idx = idx.to(torch.int64) & M32
     sx = _hash_u32(seed)
     sy = _hash_u32(seed ^ 0x9E3779B9)
@@ -255,14 +301,39 @@ def sobol2(idx: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
     return torch.stack([_to_unit(d0), _to_unit(d1)], dim=-1)
 
 
+@tracer.traced("rng")
+def sobol2(idx: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Owen-scrambled Sobol (0,2) points: idx (N,) global sample indices,
+    seed (N,) per-stream scramble ids (int64 holding uint32). Returns
+    (N, 2) float32."""
+    if _on_card(idx.device):
+        return _counted(kernels.sobol_at(seed, idx, 0, seeded=True), True)
+    return _counted(_sobol2(idx, seed), False)
+
+
+def _hash_int(x: int) -> int:
+    """lowbias32 of a Python int (`_hash_u32` on the host)."""
+    x &= M32
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & M32
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & M32
+    return x ^ (x >> 16)
+
+
 def _stream_seed(pix: torch.Tensor, purpose, salt: int) -> torch.Tensor:
     """Per-(pixel, purpose) scramble seed. `purpose` is an int or an int64
     tensor of uint32 values that broadcasts against `pix`."""
-    if not isinstance(purpose, torch.Tensor):
-        purpose = torch.tensor(int(purpose), dtype=torch.int64,
-                               device=pix.device)
-    p = _hash_u32(purpose.to(pix.device))
+    if isinstance(purpose, torch.Tensor):
+        p = _hash_u32(purpose.to(pix.device))
+    else:
+        p = _hash_int(int(purpose))
     return _hash_u32((pix.to(torch.int64) & M32) ^ p ^ (int(salt) & M32))
+
+
+def _stream_key(purpose: int, salt: int) -> int:
+    """The kernels' key of a (purpose, salt) stream."""
+    return _hash_int(int(purpose)) ^ (int(salt) & M32)
 
 
 @tracer.traced("rng")
@@ -271,10 +342,13 @@ def sobol2_flat(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
     """(s_count*N, 2) per-pixel jointly-stratified samples, COLUMN-major:
     row c*N + i is lane i's c-th sample, with global sequence index
     aa[i]*s_count + c in lane i's (pixel, purpose) stream."""
+    if _on_card(pix.device):
+        return _counted(kernels.sobol_stream(
+            pix, aa, s_count, False, _stream_key(purpose, salt)), True)
     c = torch.arange(s_count, dtype=torch.int64, device=pix.device)
     idx = (aa.to(torch.int64)[None, :] * s_count + c[:, None]).reshape(-1)
     seed = _stream_seed(pix, purpose, salt).repeat(s_count)
-    return sobol2(idx, seed)
+    return _counted(_sobol2(idx, seed), False)
 
 
 @tracer.traced("rng")
@@ -283,7 +357,35 @@ def sobol2_rep(pix: torch.Tensor, aa: torch.Tensor, s_count: int,
     """(N*s_count, 2) LANE-major variant of `sobol2_flat`: row i*s_count + c
     is lane i's c-th sample (the layout of `repeat_interleave(s_count)`
     batches, the SSS probe stage's)."""
+    if _on_card(pix.device):
+        return _counted(kernels.sobol_stream(
+            pix, aa, s_count, True, _stream_key(purpose, salt)), True)
     c = torch.arange(s_count, dtype=torch.int64, device=pix.device)
     idx = (aa.to(torch.int64)[:, None] * s_count + c[None, :]).reshape(-1)
     seed = _stream_seed(pix, purpose, salt).repeat_interleave(s_count)
-    return sobol2(idx, seed)
+    return _counted(_sobol2(idx, seed), False)
+
+
+@tracer.traced("rng")
+def sobol2_at(pix: torch.Tensor, idx: torch.Tensor, purpose,
+              salt: int) -> torch.Tensor:
+    """Lane i's sample at global sequence index idx[i] of its (pixel,
+    purpose) stream: pix and idx (N,); an int purpose gives (N, 2), a (K,)
+    int64 tensor of uint32 purposes (N, K, 2), column k drawn from stream
+    (pix[i], purpose[k])."""
+    if _on_card(pix.device):
+        if isinstance(purpose, torch.Tensor):
+            out = kernels.sobol_at(pix, idx, int(salt) & M32,
+                                   purposes=purpose)
+            out = out.reshape(pix.shape[0], purpose.shape[0], 2)
+        else:
+            out = kernels.sobol_at(pix, idx, _stream_key(purpose, salt))
+        return _counted(out, True)
+    if isinstance(purpose, torch.Tensor):
+        k = purpose.shape[0]
+        seed = _stream_seed(pix[:, None], purpose[None, :], salt)
+        idx = torch.broadcast_to(idx[:, None], (pix.shape[0], k))
+        out = _sobol2(idx.reshape(-1), seed.reshape(-1)).reshape(-1, k, 2)
+    else:
+        out = _sobol2(idx, _stream_seed(pix, purpose, salt))
+    return _counted(out, False)

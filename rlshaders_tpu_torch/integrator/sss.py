@@ -105,10 +105,7 @@ def _lambert_direct(sc, static, surf_p, surf_n, exclude_tri, key, sq=None,
         pix, sidx, salt, pb = sq
         col = torch.arange(k, dtype=torch.int64, device=dev)
         purpose = ((pb * 0x1003) & M32) ^ ((slot * 0x10007 + col) & M32)
-        seed = rng._stream_seed(pix[:, None], purpose[None, :], salt)
-        idx = torch.broadcast_to(sidx[:, None], (n, k))
-        return rng.sobol2(idx.reshape(-1), seed.reshape(-1)).reshape(
-            n, k, 1, 2)
+        return rng.sobol2_at(pix, sidx, purpose, salt).reshape(n, k, 1, 2)
 
     dirs, dists, rads, pdfs, sizes = [], [], [], [], []
 
@@ -336,8 +333,7 @@ def _j_sss(sc, static, surf_p, surf_ns, surf_mesh, is_sss, sss_dist,
         # one cosine-sampled indirect bounce (rlSss.h:456-483)
         if gi_diffuse > 0:
             if use_sobol:
-                ub = rng.sobol2(sidx_f, rng._stream_seed(
-                    pix_f, 200 + k_step, salt))
+                ub = rng.sobol2_at(pix_f, sidx_f, 200 + k_step, salt)
             else:
                 ub = rng.uniform2(rng.fold(key, 200 + k_step),
                                   (nf_total, 1), dev)[:, 0]

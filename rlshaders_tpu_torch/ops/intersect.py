@@ -19,8 +19,10 @@ the ray tensors.
 
 The source is compiled by nvcc into a shared library with a plain C
 interface at first use, into `rlshaders_tpu_torch/build/` (named by a hash
-of the source, so an edited source is rebuilt), and bound with ctypes. A
-failed build raises, and so does a launch whose CUDA error is not 0.
+of the sources, so an edited source is rebuilt), and bound with ctypes.
+The same library holds the random draws' kernels (`csrc/rng.cu`, bound by
+ops/rng.py), so one build serves both. A failed build raises, and so does
+a launch whose CUDA error is not 0.
 Kernels run on the current torch stream (also inside CUDA graph capture)
 and do not synchronise.
 
@@ -43,6 +45,9 @@ from ..accel.bvh import BVH, LEAF_SIZE, Hit, Tris
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "intersect.cu")
+# the library's sources and the header they include
+SOURCES = (SOURCE, os.path.join(_HERE, "csrc", "rng.cu"))
+HEADERS = (os.path.join(_HERE, "csrc", "rng.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
@@ -150,21 +155,23 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile the kernels if the library for this source is missing;
+    """Compile the kernels if the library for these sources is missing;
     returns the library's path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib = os.path.join(BUILD_DIR,
-                       f"librls_intersect_{digest.hexdigest()[:12]}.so")
+    digest = hashlib.sha256()
+    for path in SOURCES + HEADERS:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    lib = os.path.join(BUILD_DIR, f"librls_cuda_{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+            f"nvcc failed ({proc.returncode}) building {SOURCES}:\n"
             f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib

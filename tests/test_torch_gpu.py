@@ -33,7 +33,9 @@ and a WebP with alpha; a SPIDER, a palette WebP and a quality-5 WebP; a
 JP2, a tiled J2K and an animated lossless WebP; a 2048x2048 AVIF, an
 RGBA AVIF and a premultiplied one; a lossless 4:4:4 AVIF, a 4:0:0 AVIF
 with alpha and a limited-range 4:2:2 AVIF) render on the card as on the
-CPU.
+CPU. The random draws' kernels (ops/rng.py) equal the CPU draws bit for
+bit, and a tile of the benchmark's disney_grid frame drawn by them equals
+the same tile with core/rng.py's plain draws forced in.
 """
 import os
 import types
@@ -1542,3 +1544,134 @@ def test_format_i_frames_on_the_card_match_the_cpu(cuda_device, tag):
     and GI samples: through both kernels on the card, held to the CPU
     render with chip_smoke.py's tolerance."""
     _frame_matches_the_cpu(cuda_device, FORMAT_I_FRAMES[tag])
+
+
+# ---------------------------------------------------------------------------
+# The random draws' kernels (ops/rng.py)
+# ---------------------------------------------------------------------------
+
+# a frame512 tile's lanes: 512 x 512 pixels at AA 3
+TILE_LANES = 512 * 512 * 9
+
+
+def _draws(device, n):
+    """Every public draw of core/rng.py at n lanes on `device`, purposes as
+    ints and as a tensor; lanes int32 as the renderer keeps them, and
+    int64."""
+    from rlshaders_tpu_torch.core import rng
+
+    key = rng.fold(rng.PRNGKey(2**31 + 12345), 1000, 3)
+    s = 2 if n > 2**21 else 3
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    pix = (lane * 7919 % 786_432 - (lane % 97 == 0).long()).to(torch.int32)
+    aa = (lane % 9).to(torch.int32)
+    idx = (lane * 2654435761 + 2**16 - 3) & 0xFFFFFFFF
+    purposes = torch.tensor([0, 5, 2**32 - 1], dtype=torch.int64,
+                            device=device)
+    salt = 0xC0FFEE42
+    return {
+        "bits": rng.bits(key, (n,), device),
+        "uniform": rng.uniform(key, (n,), device),
+        "uniform2": rng.uniform2(key, (n,), device),
+        "stratified2": rng.stratified2(key, (n,), s, device),
+        "stratified2_flat": rng.stratified2_flat(key, n, s, device),
+        "sobol2": rng.sobol2(idx, lane * 40503),
+        "sobol2_flat": rng.sobol2_flat(pix, aa, 4, 101 << 8, salt),
+        "sobol2_flat_64": rng.sobol2_flat(pix.long(), aa.long(), 1, 7, 0),
+        "sobol2_rep": rng.sobol2_rep(pix, aa, s * s, 601 << 8, 2**32 - 1),
+        "sobol2_at": rng.sobol2_at(pix, idx, 203, salt),
+        "sobol2_at_cols": rng.sobol2_at(pix, idx, purposes, salt),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 7, 2**20 + 3, TILE_LANES])
+def test_cuda_draws_equal_cpu_draws(cuda_device, n):
+    """Every draw on the card goes to its kernel, one launch each (none for
+    an empty draw), and equals the CPU draw bit for bit."""
+    from rlshaders_tpu_torch.ops import rng as kernels
+
+    before = sum(kernels.LAUNCHES.values())
+    card = _draws(cuda_device, n)
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES.values()) - before == (len(card) if n else 0)
+    cpu = _draws("cpu", n)
+    for name, want in cpu.items():
+        got = card[name]
+        assert got.device.type == "cuda", name
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        if want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got.cpu(), want), name
+
+
+def _grid_tile(device, xres=512, tile_pixels=16384, ti=7):
+    """Tile `ti` of the disney_grid frame at AA 3, through wavefront._tile:
+    (rgb, aovs) of its lanes, no splat."""
+    from rlshaders_tpu_torch.core import rng
+    from rlshaders_tpu_torch.integrator import camera, wavefront
+    from rlshaders_tpu_torch.scene.build import build
+
+    scene = build("portbench/configs/disney_grid.ass", device=str(device))
+    accel = trace.build(scene.geometry)
+    key = rng.stream(scene.options.aa_seed + 2**31 + 77)
+    rays = camera.generate(scene.camera, rng.fold(key, 77), 3, xres, xres)
+    tr = wavefront.TileRenderer(scene, accel, 3, xres=xres)
+    tile_rays = tile_pixels * 9
+    return tr.render_tile_at(rays, ti * tile_rays, tile_rays,
+                             rng.fold(key, 1000 + ti))
+
+
+@pytest.mark.gpu
+def test_cuda_tile_equals_plain_draws_tile(cuda_device, monkeypatch):
+    """One tile of the disney_grid frame on the card with the kernels'
+    draws and with core/rng.py's plain tensor code forced in: the same
+    rgb and AOVs, bit for bit."""
+    from rlshaders_tpu_torch.core import rng
+
+    rgb, aovs = _grid_tile(cuda_device)
+    with monkeypatch.context() as m:
+        m.setattr(rng, "_on_card", lambda device: False)
+        rgb_p, aovs_p = _grid_tile(cuda_device)
+    assert float(rgb.abs().sum()) > 0.0
+    assert torch.equal(rgb.view(torch.int32), rgb_p.view(torch.int32))
+    for name, plane in aovs.items():
+        assert torch.equal(plane.view(torch.int32),
+                           aovs_p[name].view(torch.int32)), name
+
+
+@pytest.mark.gpu
+def test_rng_counters_on_card_and_cpu_tiles(cuda_device):
+    """The kernels draw every value of a CUDA tile and none of a CPU one."""
+    from rlshaders_tpu_torch.core import tracer
+
+    shares = {}
+    for dev, xres, tile in ((cuda_device, 512, 16384), ("cpu", 16, 64)):
+        tracer.take()
+        with tracer.enabled(counters=True):
+            _grid_tile(dev, xres=xres, tile_pixels=tile, ti=1)
+            _, counters = tracer.take()
+        assert counters["rng_values"] > 0
+        shares[str(dev)] = (counters["rng_kernel_values"]
+                            / counters["rng_values"])
+    assert shares == {"cuda": 1.0, "cpu": 0.0}
+
+
+@pytest.mark.gpu
+def test_rng_wrappers_refuse_bad_lanes(cuda_device):
+    from rlshaders_tpu_torch.ops import rng as kernels
+
+    pix = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        kernels.sobol_stream(pix, pix.cpu(), 2, False, 0)
+    with pytest.raises(ValueError):
+        kernels.sobol_stream(pix, pix[:7], 2, False, 0)
+    with pytest.raises(ValueError):
+        kernels.sobol_at(pix.reshape(2, 4), pix.reshape(2, 4), 0)
+    with pytest.raises(ValueError):
+        kernels.threefry(0, 1, 8, kernels.UNIFORM, "cpu")
+    # other integer lanes are read as int64, non-contiguous ones copied
+    aa = torch.arange(16, dtype=torch.int32, device=cuda_device)[::2]
+    got = kernels.sobol_stream(pix.to(torch.int16), aa, 2, True, 5)
+    want = kernels.sobol_stream(pix, aa.contiguous().long(), 2, True, 5)
+    assert torch.equal(got, want)
