@@ -20,9 +20,12 @@ reduction kernel where it counts. State is per process: one tracer, on
 one thread.
 
 The program's spans are a fixed set, each where its work is enqueued:
-render (`render_tiles`), camera, tile, sss, generation, surface, material,
-bsdf, light, rng, query and splat. Its counters: `lanes` (rays of every
-shaded generation) and `live_lanes` (those that hit a surface).
+render (`render_tiles`), camera, tile, sss, generation, refract (the
+rough-refraction spawn), march (the shadow march through non-opaque
+surfaces), surface, material, bsdf, light, rng, query and splat. Its
+counters: `lanes` (rays of every shaded generation) and `live_lanes`
+(those that hit a surface); `refr_lanes` (rays of every refraction spawn)
+and `refr_live_lanes` (those still carrying weight after roulette).
 
 `device_events` reads a torch.profiler run of the card and `attribute`
 charges each kernel, copy and fill to the innermost span open at its

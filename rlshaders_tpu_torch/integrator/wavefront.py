@@ -295,23 +295,25 @@ def _shadow_transmission(sc: DeviceScene, static: SceneStatic, sh) -> V3:
         return V3(vis, vis, vis)
     sc.stats["march_segments"] += o.shape[0]
     mats = sc.materials
-    one = torch.ones(o.shape[0], device=o.device)
-    atten = V3(one, one, one)
-    origin, remaining, exclude = o, tmax, ex
-    for _ in range(SHADOW_HITS):
-        hit = _nearest(sc, origin, d, VIS_SHADOW, exclude=exclude,
-                       t_max=torch.clamp_min(remaining, 0.0))
-        ok = (hit.tri >= 0) & (hit.t < remaining)
-        mid = sc.geometry.mat_id[torch.clamp_min(hit.tri, 0).long()].long()
-        kt = v3(mats.kt_color[mid]) * mats.kt[mid]
-        trans = vec3.clip(vec3.vmax(kt, 1.0 - v3(mats.opacity[mid])),
-                          0.0, 1.0)
-        atten = atten * vec3.where(ok, trans, 1.0)
-        step = torch.where(ok, hit.t + 2 * RAY_EPS, remaining)
-        origin = origin + d * step[:, None]
-        remaining = torch.where(vec3.maxc(atten) > 1e-4, remaining - step,
-                                0.0)
-        exclude = torch.where(ok, hit.tri, -1)
+    with tracer.span("march"):
+        one = torch.ones(o.shape[0], device=o.device)
+        atten = V3(one, one, one)
+        origin, remaining, exclude = o, tmax, ex
+        for _ in range(SHADOW_HITS):
+            hit = _nearest(sc, origin, d, VIS_SHADOW, exclude=exclude,
+                           t_max=torch.clamp_min(remaining, 0.0))
+            ok = (hit.tri >= 0) & (hit.t < remaining)
+            mid = sc.geometry.mat_id[
+                torch.clamp_min(hit.tri, 0).long()].long()
+            kt = v3(mats.kt_color[mid]) * mats.kt[mid]
+            trans = vec3.clip(vec3.vmax(kt, 1.0 - v3(mats.opacity[mid])),
+                              0.0, 1.0)
+            atten = atten * vec3.where(ok, trans, 1.0)
+            step = torch.where(ok, hit.t + 2 * RAY_EPS, remaining)
+            origin = origin + d * step[:, None]
+            remaining = torch.where(vec3.maxc(atten) > 1e-4,
+                                    remaining - step, 0.0)
+            exclude = torch.where(ok, hit.tri, -1)
     return atten
 
 
@@ -801,7 +803,7 @@ def _family_t(sc, static, conf, surf, pv, nfv, matv, frame, wo, key, lobe,
     return o1, d1, w1, pick, (hit.t, hit.tri, hit.u, hit.v)
 
 
-@tracer.traced("generation")
+@tracer.traced("refract")
 def _refr_t(sc, static, conf, surf: Surface, pv, matv, frame, wo, key, nb,
             ctx: SampleCtx | None = None, rrf: int = 0):
     """Rough-refraction spawn (Walter Eq.41 weights) + trace, nb rays per
@@ -826,6 +828,8 @@ def _refr_t(sc, static, conf, surf: Surface, pv, matv, frame, wo, key, nb,
         wgt = wgt * torch.where(survive, 1.0 / p_surv, 0.0)
         ok = ok & survive
         t_max = torch.where(ok, 1e30, 0.0)
+    tracer.count("refr_lanes", n * nb)
+    tracer.count("refr_live_lanes", ok)
     wi_w = to_world_v(tile_frame(frame, nb), wi_l)
     o1 = (vec3.tile(pv, nb) + wi_w * RAY_EPS).aos()
     d1 = wi_w.aos()

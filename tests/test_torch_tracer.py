@@ -4,9 +4,13 @@ stage is one `tile` span with the generation tree's stages beneath it;
 `live_lanes` is the count of valid hits; the spans share torch.profiler's
 host clock; and the attribution of device activity to spans, on
 synthetic rows, is a partition that charges each kernel to the innermost
-span at its launch and each idle gap to the launch that ended it."""
+span at its launch and each idle gap to the launch that ended it. On a
+reduced glass sphere the refraction spawns and the shadow march are spans
+of their own, and the refraction counters count the spawns' lanes and
+those roulette left alive; the grid has neither."""
 import random
 import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -15,12 +19,22 @@ from rlshaders_tpu_torch import cli as tcli
 from rlshaders_tpu_torch.accel import trace as ttrace
 from rlshaders_tpu_torch.core import tracer
 from rlshaders_tpu_torch.integrator import wavefront as twave
+from rlshaders_tpu_torch.scene import build as tbuild
 from rlshaders_tpu_torch.scene import demo as tdemo
+
+ROOT = Path(__file__).resolve().parents[1]
 
 SPANS = {"render", "camera", "tile", "sss", "generation", "surface",
          "material", "bsdf", "light", "rng", "query", "splat"}
 # 8x8 at AA 1 in tiles of 16 pixels: four tiles
 FRAME = dict(aa_samples=1, xres=8, yres=8, tile_pixels=16)
+# the benchmark's glass sphere at refraction depth 2 (roulette from 2
+# reaches the chain's second spawn) with no diffuse or glossy families: 16x16
+# at AA 1 in one tile, where roulette kills some lanes
+GLASS = {"GI_refraction_depth": 2, "GI_diffuse_depth": 0,
+         "GI_glossy_depth": 0, "GI_diffuse_samples": 1,
+         "GI_glossy_samples": 1}
+GLASS_FRAME = dict(aa_samples=1, xres=16, yres=16, tile_pixels=256)
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +114,110 @@ def test_live_lanes_is_the_count_of_valid_hits(demo, monkeypatch):
     assert counters["lanes"] == seen["rays"] == stats["nearest_rays"]
     assert counters["live_lanes"] == seen["hits"]
     assert 0 < counters["live_lanes"] < counters["lanes"]
+
+
+def glass_scene():
+    with open(ROOT / "portbench" / "configs" / "glass_sphere.ass") as f:
+        src = f.read()
+    for k, v in GLASS.items():
+        src, n = re.subn(rf"^ {k} \d+$", f" {k} {v}", src, flags=re.M)
+        assert n == 1, k
+    scene = tbuild.build_text(src, device="cpu")
+    return scene, ttrace.build(scene.geometry)
+
+
+@pytest.fixture(scope="module")
+def glass():
+    """Frames of the reduced glass sphere: roulette from 2 with the tracer
+    off, and with spans and counters on, each spawn's n * nb recorded;
+    roulette off with the counters on."""
+    scene, accel = glass_scene()
+    tracer.take()
+    off = twave.render(scene, accel, rr_refr_start=2, **GLASS_FRAME)
+    assert tracer.take() == ([], {})
+    spawned = []
+    real = twave._refr_t
+
+    def refr_t(*args, **kwargs):
+        spawned.append(args[4].x.shape[0] * args[9])
+        return real(*args, **kwargs)
+
+    twave._refr_t = refr_t
+    try:
+        with tracer.enabled(spans=True, counters=True):
+            on = twave.render(scene, accel, rr_refr_start=2, **GLASS_FRAME)
+    finally:
+        twave._refr_t = real
+    rows, counters = tracer.take()
+    with tracer.enabled(counters=True):
+        twave.render(scene, accel, rr_refr_start=99, **GLASS_FRAME)
+    _, no_rr = tracer.take()
+    return dict(off=off, on=on, rows=rows, counters=counters, no_rr=no_rr,
+                spawned=spawned)
+
+
+def test_glass_refract_and_march_rows_nest_inside_tile(glass):
+    rows = glass["rows"]
+    names = [r[0] for r in rows]
+    assert set(names) <= SPANS | {"refract", "march"}
+    assert names.count("tile") == 1
+
+    def chain(i):
+        while i >= 0:
+            yield rows[i][0]
+            i = rows[i][3]
+
+    for name in ("refract", "march"):
+        at = [i for i, n in enumerate(names) if n == name]
+        assert at, name
+        for i in at:
+            assert "tile" in chain(rows[i][3]), name
+            assert name not in chain(rows[i][3]), name
+    # a refraction spawn's draws, BSDF samples and trace stay innermost
+    under = {rows[i][0] for i in range(len(rows))
+             if rows[i][3] >= 0 and rows[rows[i][3]][0] == "refract"}
+    assert {"rng", "bsdf", "query"} <= under
+    # the march's nearest queries, one a step
+    assert "query" in {rows[i][0] for i in range(len(rows))
+                       if rows[i][3] >= 0 and rows[rows[i][3]][0] == "march"}
+    assert glass["on"]["__stats__"]["march_segments"] > 0
+
+
+def test_glass_refraction_counters(glass):
+    c, no_rr = glass["counters"], glass["no_rr"]
+    spawned = glass["spawned"]
+    # 256 camera lanes spawn nb_r = 4 rays each; at the chain's next depth
+    # each of those 1,024 lanes spawns one
+    assert spawned == [256 * 4, 1024 * 1]
+    assert c["refr_lanes"] == sum(spawned) == no_rr["refr_lanes"]
+    assert 0 < c["refr_live_lanes"] <= c["refr_lanes"]
+    assert c["refr_live_lanes"] < no_rr["refr_live_lanes"] <= c["refr_lanes"]
+
+
+def test_glass_frame_equal_with_the_tracer_on_and_off(glass):
+    off, on = glass["off"], glass["on"]
+    assert set(off) == set(on)
+    for k in off:
+        if k == "__stats__":
+            assert off[k] == on[k]
+        else:
+            assert torch.equal(off[k], on[k]), k
+    assert float(off["refraction"].abs().sum()) > 0.0
+
+
+def test_grid_has_no_refraction_rows_or_counters():
+    scene = tbuild.build(str(ROOT / "portbench" / "configs" /
+                             "disney_grid.ass"), device="cpu")
+    accel = ttrace.build(scene.geometry)
+    with tracer.enabled(spans=True, counters=True):
+        stats = twave.render(scene, accel, aa_samples=1, xres=4, yres=4,
+                             tile_pixels=16)["__stats__"]
+    rows, counters = tracer.take()
+    names = {r[0] for r in rows}
+    assert {"tile", "generation", "query"} <= names
+    assert not {"refract", "march"} & names
+    assert not {"refr_lanes", "refr_live_lanes"} & set(counters)
+    assert counters["lanes"] > 0 and stats["march_segments"] == 0
 
 
 def test_spans_share_the_profilers_clock():
