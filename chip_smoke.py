@@ -301,11 +301,26 @@ nonzero):
    counters on: the draws' launches a kernel equal to the tile's mix
    (RNG_TILE), its values equal to theirs, every value drawn by a kernel;
    and the tile through `TileRenderer.render_tile_at` bit-equal in every
-   plane to the same tile with the plain draws forced in.
+   plane to the same tile with the plain draws forced in;
+50. the lobes' kernels (ops/csrc/bsdf.cu: rls_bsdf_eval_diffuse,
+   rls_bsdf_sample_diffuse, rls_bsdf_eval_specular,
+   rls_bsdf_sample_specular, rls_bsdf_sample_refract): the disney_grid
+   frame at 512x512, AA 3 (one tile) with every lobe call of
+   models/dispatch.py run by its kernel and then by the eager torch code
+   on the same inputs on the card (the lanes that differ counted, with
+   their largest ulp distance; at most 0.2% of an entry's lanes beyond 4
+   ulps and 1e-4 relative), the launch
+   counts reset and the tracer's counters on: one launch a call and every
+   lobe lane handled by a kernel; then portbench's glass scene up to its
+   first refraction family (9,437,184 lanes), held the same way; the
+   largest call of each entry point (the frame's 9,437,184-lane light
+   columns and BSDF families, the glass family) timed (device_ms, call_ms,
+   plain_ms) beside its bound (the bytes of its branches, or their
+   operations at the card's issue rate).
 
 Every main-path render above (phases 4, 7, 11, 14, 18, 20, 23-25, 28,
-30-48 and 49's frame) resets the launch counts of both libraries first
-and reads both.
+30-48, 49's frame and 50's) resets the launch counts of the three
+kernel sets first and reads them.
 
 Each kernel is timed two ways at each shape (the demo frame's queries, the
 glass frame's, the skin frame's, the Disney frame's, the textured frame's,
@@ -329,11 +344,14 @@ launches of each main-path run, `launches_demo` ... `launches_cli`,
 `launches_formats_e` for phase 40, `launches_formats_f` for phase 42,
 `launches_formats_g` for phase 44, `launches_formats_h` for phase 46,
 `launches_formats_i` for phase 48, `launches_frame512` for phase 49's
-frame, whose sum is `launches`; after the two query kernels, one entry
-per draw kernel with its mismatches, the device, call, plain and bound ms
-of the frame512 tile's draws of it (of the SSS columns draw for
-rls_rng_sobol_at, which the tile does not launch) and each draw as a
-shape); the card's
+frame, `launches_lobes` for phase 50's frames, whose sum is `launches`;
+after the two query kernels, one entry per draw kernel with its
+mismatches, the device, call, plain and bound ms of the frame512 tile's
+draws of it (of the SSS columns draw for rls_rng_sobol_at, which the tile
+does not launch) and each draw as a shape; then one entry per lobe kernel
+with its differing lanes and largest ulp distance, the device, call,
+plain and bound ms of its largest call and each timed call as a shape);
+the card's
 name
 and power limit as nvidia-smi prints them; and {"ok": true, "device":
 {...}}.
@@ -1176,6 +1194,50 @@ RNG_OPS = {
 }
 
 
+# The lobes' kernels (ops/csrc/bsdf.cu, phase 50). They replace no TPU
+# kernel: the JAX package leaves its lobes to XLA.
+LOBE_ENTRIES = ("eval_diffuse", "sample_diffuse", "eval_specular",
+                "sample_specular", "sample_refract")
+LOBE_KERNELS = {f"rls_bsdf_{e}": "none: the lobes of rlshaders_tpu/models/"
+                "dispatch.py in jnp, left to XLA" for e in LOBE_ENTRIES}
+LOBE_SOURCE = "rlshaders_tpu_torch/ops/csrc/bsdf.cu"
+# phase 50 holds every lobe call of the frame512 frame (RNG_SCENE, one
+# tile) and of the glass cell's first refraction family to the eager code
+LOBE_GLASS = "portbench/configs/glass_sphere.ass"
+LOBE_FAMILY = 4 * RNG_LANES   # 9,437,184: a frame512 column or family
+LOBE_REPS = 10
+# the share of an entry's lanes that may be far from the eager lobes (a
+# gate flipped on a last bit of libdevice's transcendentals, which the
+# kernels reach built with -fmad=false)
+LOBE_FAR_SHARE = 0.002
+# Bytes a lane reads and writes in bsdf.cuh, by the branch it takes
+# ("disney", "skin" or "other"): its directions or random numbers, the
+# fields its model reads (4 B, a mask 1 B) and its output rows; "mtype"
+# where the table's rlDisney or rlSkin parts make the lane read its type.
+LOBE_BYTES = {
+    "eval_diffuse": {"lane": 24 + 1 + 16, "mtype": 4,
+                     "disney": 24, "skin": 16, "other": 16},
+    "sample_diffuse": {"lane": 8 + 12, "mtype": 0,
+                       "disney": 0, "skin": 0, "other": 0},
+    "eval_specular": {"lane": 24 + 1 + 16, "mtype": 4,
+                      "disney": 48, "skin": 80, "other": 44},
+    "sample_specular": {"lane": 20 + 12, "mtype": 4,
+                        "disney": 16, "skin": 32, "other": 12},
+    "sample_refract": {"lane": 20 + 1 + 24, "mtype": 0,
+                       "disney": 32, "skin": 32, "other": 32},
+}
+# Operations a lane of each branch, estimated from bsdf.cuh as written:
+# each float add, multiply, division, square root, compare, select,
+# minimum or maximum counts one, and so does each libdevice call (expf,
+# logf, sinf, cosf, tanf, acosf), which runs tens: a floor.
+LOBE_OPS = {
+    "eval_diffuse": {"disney": 80, "skin": 85, "other": 85},
+    "sample_diffuse": {"disney": 25, "skin": 25, "other": 25},
+    "eval_specular": {"disney": 220, "skin": 330, "other": 190},
+    "sample_specular": {"disney": 110, "skin": 115, "other": 105},
+    "sample_refract": {"disney": 180, "skin": 180, "other": 180},
+}
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -1493,21 +1555,25 @@ def dead_lanes(calls, name: str) -> dict:
 
 def reset(kernels) -> None:
     """Zero the launch counts of the query kernels (`kernels`, ops/
-    intersect.py) and of the draws' kernels (ops/rng.py)."""
+    intersect.py), of the draws' kernels (ops/rng.py) and of the lobes'
+    (ops/bsdf.py)."""
+    from rlshaders_tpu_torch.ops import bsdf as lobe_kernels
     from rlshaders_tpu_torch.ops import rng as rng_kernels
 
     for counts in (kernels.LAUNCHES, kernels.PATH_LAUNCHES,
-                   rng_kernels.LAUNCHES):
+                   rng_kernels.LAUNCHES, lobe_kernels.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launched(kernels) -> dict:
-    """Launches per kernel since `reset`: the query kernels' and the
-    draws'."""
+    """Launches per kernel since `reset`: the query kernels', the draws'
+    and the lobes'."""
+    from rlshaders_tpu_torch.ops import bsdf as lobe_kernels
     from rlshaders_tpu_torch.ops import rng as rng_kernels
 
-    return {**kernels.LAUNCHES, **rng_kernels.LAUNCHES}
+    return {**kernels.LAUNCHES, **rng_kernels.LAUNCHES,
+            **lobe_kernels.LAUNCHES}
 
 
 def path_launches(kernels) -> dict:
@@ -2192,7 +2258,7 @@ def mesh_world2_phase(card: str) -> dict:
     # a warm-up frame, so that the timed frames below pay no first calls
     wavefront.render(scene, accel, seed=SEED, aa_samples=AA, xres=SIZE,
                      yres=SIZE)
-    launches = dict.fromkeys((*REPLACES, *RNG_KERNELS), 0)
+    launches = dict.fromkeys((*REPLACES, *RNG_KERNELS, *LOBE_KERNELS), 0)
     for tile in MESH_TILES:
         per = [r[tile] for r in res["ranks"]]
         for i, r in enumerate(per):
@@ -2367,7 +2433,7 @@ def image_phases(card: str, folder: str = "modes",
     with open(TEXTURED) as f:
         base_src = f.read()
     base = os.path.dirname(TEXTURED)
-    launches = dict.fromkeys((*REPLACES, *RNG_KERNELS), 0)
+    launches = dict.fromkeys((*REPLACES, *RNG_KERNELS, *LOBE_KERNELS), 0)
     for tag, images in frames.items():
         src = with_images(base_src, images)
         t1 = time.perf_counter()
@@ -3018,6 +3084,226 @@ def rng_phase(card: str) -> dict:
     return {"kernels": per, "launches": launches}
 
 
+class _LobeStop(Exception):
+    """Ends a render once phase 50 holds the call it waits for."""
+
+
+def lobe_ordered(x: torch.Tensor) -> torch.Tensor:
+    i = x.view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def lobe_diff(got, want) -> tuple:
+    """(lanes whose outputs differ, their largest ulp distance, lanes
+    apart by more than 4 ulps and 1e-4 of max(1, |eager value|)) of a lobe
+    call on the kernel and on the eager path (-0 equals +0, NaN NaN)."""
+    def rows(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for a in x for t in rows(a)]
+
+    g, w = torch.stack(rows(got)), torch.stack(rows(want))
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    ulps = torch.where(same, 0, (lobe_ordered(g) - lobe_ordered(w)).abs())
+    far = ((ulps > 4) & ((g - w).abs()
+                         > 1e-4 * torch.clamp_min(w.abs(), 1.0))).any(0)
+    ulps = ulps.amax(0)
+    if ulps.numel() == 0:
+        return 0, 0, 0
+    return int((ulps > 0).sum()), int(ulps.max()), int(far.sum())
+
+
+@contextlib.contextmanager
+def eager_lobes(dispatch):
+    """models/dispatch.py's eager lobes on the card inside the block (the
+    kernels' plain version)."""
+    real = dispatch._on_card
+    dispatch._on_card = lambda wo: False
+    try:
+        yield
+    finally:
+        dispatch._on_card = real
+
+
+@contextlib.contextmanager
+def held_lobes(dispatch, per: dict, keep: dict, stop=None):
+    """Inside the block every lobe call runs its kernel, then the eager
+    code on the same inputs: per[kernel] counts calls, lanes, differing
+    lanes and their largest ulp distance; keep[entry] holds the arguments
+    of the entry's largest call. `stop(entry, lanes)` true ends the render
+    (_LobeStop) after that call."""
+    reals = {e: getattr(dispatch, e) for e in LOBE_ENTRIES}
+
+    def held(entry):
+        def call(*args):
+            got = reals[entry](*args)
+            with eager_lobes(dispatch):
+                want = reals[entry](*args)
+            lanes = args[1].x.shape[0]
+            differ, ulps, far = lobe_diff(got, want)
+            row = per[f"rls_bsdf_{entry}"]
+            row["calls"] += 1
+            row["lanes"] += lanes
+            row["differ"] += differ
+            row["far"] += far
+            row["max_ulps"] = max(row["max_ulps"], ulps)
+            if lanes >= keep.get(entry, (0,))[0]:
+                keep[entry] = (lanes, args)
+            del want
+            if stop is not None and stop(entry, lanes):
+                raise _LobeStop
+            return got
+        return call
+
+    try:
+        for e in LOBE_ENTRIES:
+            setattr(dispatch, e, held(e))
+        yield
+    finally:
+        for e, f in reals.items():
+            setattr(dispatch, e, f)
+
+
+def lobe_bound(entry: str, m, lanes: int) -> dict:
+    """The bound of one call of `entry` over its lanes (LOBE_BYTES and
+    LOBE_OPS by branch, the branches counted on the card)."""
+    from rlshaders_tpu_torch.scene.build import MAT_DISNEY, MAT_SKIN
+
+    count = {"disney": 0, "skin": 0}
+    if entry != "sample_diffuse":
+        if m.dsy is not None:
+            count["disney"] = int((m.mtype == MAT_DISNEY).sum())
+        if m.ggx2 is not None:
+            count["skin"] = int((m.mtype == MAT_SKIN).sum())
+    count["other"] = lanes - count["disney"] - count["skin"]
+    bb, ops = LOBE_BYTES[entry], LOBE_OPS[entry]
+    typed = entry != "sample_diffuse" and (m.dsy is not None
+                                           or m.ggx2 is not None)
+    nbytes = lanes * (bb["lane"] + (bb["mtype"] if typed else 0)) + sum(
+        c * bb[k] for k, c in count.items())
+    nops = sum(c * ops[k] for k, c in count.items())
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = nops / ISSUE_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": nops, "byte_ms": byte_ms, "op_ms": op_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "branches": count}
+
+
+def time_lobe(dispatch, kernels_mod, tag: str, entry: str, args) -> dict:
+    """One kept call timed: device_ms (the kernel in a CUDA graph),
+    call_ms (dispatch's entry point, host packing included), plain_ms (the
+    eager lobes on the card), beside its bound."""
+    m, lanes = args[0], args[1].x.shape[0]
+    if entry == "sample_diffuse":
+        kern = partial(kernels_mod.sample_diffuse, args[2], args[3])
+    else:
+        kern = partial(getattr(kernels_mod, entry), *args)
+    fn = getattr(dispatch, entry)
+    dm = device_ms(kern, LOBE_REPS)
+    cm = cuda_ms(lambda: fn(*args), LOBE_REPS)
+    with eager_lobes(dispatch):
+        pm = cuda_ms(lambda: fn(*args), 1)
+    b = lobe_bound(entry, m, lanes)
+    row = {"lanes": lanes, "device_ms": dm, "call_ms": cm, "plain_ms": pm,
+           **b}
+    log(f"[50] {tag} {entry} (rls_bsdf_{entry}), {lanes} lanes "
+        f"{b['branches']}: device {dm:.4f} ms, call {cm:.4f} ms, plain "
+        f"{pm:.4f} ms; bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"(bytes {b['bytes']} {b['byte_ms']:.4f} ms, operations "
+        f"{b['ops']} {b['op_ms']:.4f} ms), share of device time "
+        f"{b['bound_ms'] / dm:.4f}")
+    return row
+
+
+def lobe_phase(card: str) -> dict:
+    """Phase 50: the lobes' kernels. The disney_grid frame512 frame (one
+    tile, portbench's disney.frame512 cell) with every lobe call run by
+    its kernel and by the eager code on the same inputs (lanes that differ
+    counted with their largest ulp distance), the launch counts reset and
+    the counters on: one launch a call and every lobe lane handled by a
+    kernel; then the glass cell's scene up to its first refraction family
+    (9,437,184 lanes), held the same way. The largest call of each entry
+    point (the frame's 9,437,184-lane columns and families, the glass
+    family) timed beside its bound. Returns per kernel its numbers and the
+    frames' launches."""
+    from rlshaders_tpu_torch.accel import trace as tracemod
+    from rlshaders_tpu_torch.core import tracer
+    from rlshaders_tpu_torch.integrator import wavefront
+    from rlshaders_tpu_torch.models import dispatch
+    from rlshaders_tpu_torch.ops import bsdf as lobe_kernels
+    from rlshaders_tpu_torch.ops import intersect as kernels
+    from rlshaders_tpu_torch.scene.build import build
+
+    t0 = time.perf_counter()
+    per = {k: {"calls": 0, "lanes": 0, "differ": 0, "far": 0,
+               "max_ulps": 0, "shapes": {}} for k in LOBE_KERNELS}
+    scene = build(RNG_SCENE)
+    accel = tracemod.build(scene.geometry)
+    kw = dict(seed=RNG_SEED + 50, tile_pixels=RNG_RES * RNG_RES,
+              aa_samples=RNG_AA, xres=RNG_RES, yres=RNG_RES)
+    wavefront.render_tiles(scene, accel, **kw)
+    tracer.take()
+    reset(kernels)
+    keep = {}
+    with held_lobes(dispatch, per, keep), tracer.enabled(counters=True):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wavefront.render_tiles(scene, accel, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        _, counters = tracer.take()
+    launches = launched(kernels)
+    calls = {k: r["calls"] for k, r in per.items()}
+    share = counters["bsdf_kernel_lanes"] / max(counters["bsdf_lanes"], 1)
+    lanes = sum(r["lanes"] for r in per.values())
+    log(f"[50] disney_grid {RNG_RES}x{RNG_RES} AA {RNG_AA}, one tile, every "
+        f"lobe call held to the eager lobes: {dt:.4f} s; calls {calls}, "
+        f"launches {({k: launches[k] for k in LOBE_KERNELS})}, lanes "
+        f"{counters['bsdf_lanes']} (the calls' {lanes}), by the kernels "
+        f"{share:.4f}")
+    if ({k: launches[k] for k in LOBE_KERNELS} != calls or share != 1.0
+            or counters["bsdf_lanes"] != lanes):
+        raise AssertionError(f"[50] the frame's lobe launches "
+                             f"{launches} (calls {calls}), kernel share "
+                             f"{share}")
+    for entry, (n, args) in sorted(keep.items()):
+        per[f"rls_bsdf_{entry}"]["shapes"][f"frame512_{entry}"] = time_lobe(
+            dispatch, lobe_kernels, "frame512", entry, args)
+    keep.clear()
+    del scene, accel
+
+    # ---- glass: up to the first refraction family ----
+    scene = build(LOBE_GLASS)
+    accel = tracemod.build(scene.geometry)
+    reset(kernels)
+    try:
+        with held_lobes(dispatch, per, keep, lambda e, n: (
+                e == "sample_refract" and n == LOBE_FAMILY)):
+            wavefront.render_tiles(scene, accel, **kw)
+        raise AssertionError(f"[50] the glass frame made no refraction "
+                             f"family of {LOBE_FAMILY} lanes")
+    except _LobeStop:
+        pass
+    torch.cuda.synchronize()
+    glass_launches = launched(kernels)
+    n, args = keep["sample_refract"]
+    per["rls_bsdf_sample_refract"]["shapes"]["glass_family"] = time_lobe(
+        dispatch, lobe_kernels, "glass", "sample_refract", args)
+    keep.clear()
+    for k, r in per.items():
+        log(f"[50] {k}: {r['calls']} calls, {r['lanes']} lanes, {r['differ']} "
+            f"differ from the eager lobes on the card, at most "
+            f"{r['max_ulps']} ulps apart, {r['far']} beyond 4 ulps and "
+            f"1e-4 relative")
+        if r["far"] > LOBE_FAR_SHARE * r["lanes"]:
+            raise AssertionError(f"[50] {k} is far from the eager lobes "
+                                 f"on {r['far']} of {r['lanes']} lanes")
+    log(f"[50] phase {time.perf_counter() - t0:.1f} s; {card}")
+    return {"kernels": per, "launches": launches,
+            "glass_launches": glass_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this test runs only on a GPU",
@@ -3340,6 +3626,7 @@ def main() -> int:
     format_h_launches = format_h_phases(card)
     format_i_launches = format_i_phases(card)
     rngrun = rng_phase(card)
+    lobes = lobe_phase(card)
 
     # the launches of each main-path run, by kernel
     runs = {"demo": [demo_launches], "glass": [glass_launches],
@@ -3355,7 +3642,8 @@ def main() -> int:
             "formats_g": [format_g_launches],
             "formats_h": [format_h_launches],
             "formats_i": [format_i_launches],
-            "frame512": [rngrun["launches"]]}
+            "frame512": [rngrun["launches"]],
+            "lobes": [lobes["launches"], lobes["glass_launches"]]}
 
     def run_launches(k: str) -> dict:
         return {f"launches_{r}": sum(d.get(k, 0) for d in ds)
@@ -3418,6 +3706,21 @@ def main() -> int:
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
             "bound_by": ("bytes" if top["byte_ms"] >= top["op_ms"]
                          else "operations"), "library_ms": None,
+            **by_run, "shapes": row["shapes"],
+        })
+    # the lobes' kernels: top-level times those of the kernel's largest
+    # call (the frame512 frame's, the glass family's for sample_refract)
+    for k, row in lobes["kernels"].items():
+        top = max(row["shapes"].values(), key=lambda r: r["lanes"])
+        by_run = run_launches(k)
+        entries.append({
+            "name": k, "route": "cuda", "source": LOBE_SOURCE,
+            "replaces": LOBE_KERNELS[k],
+            "launches": sum(by_run.values()),
+            "mismatches": row["differ"], "max_ulps": row["max_ulps"],
+            "ms": top["call_ms"], "device_ms": top["device_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
             **by_run, "shapes": row["shapes"],
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -25,6 +25,13 @@ Lobe contract (local frame, +z = forward-facing shading normal):
   specular: f*cos V3, pdf   (GGX, Beckmann, Disney's mixture, or rlSkin's
                              two lobes)
   refract:  sampled direction and its Walter Eq.41 weight * Kt * KtColor
+
+On CUDA tensors each call of a lobe entry point (`eval_diffuse`,
+`sample_diffuse`, `eval_specular`, `sample_specular`, `sample_refract`) is
+one launch of a kernel of ops/bsdf.py, in which each lane evaluates only
+its own material's model; elsewhere the torch code here runs, the plain
+version. With the tracer's counters on, every call adds its lanes to
+`bsdf_lanes` and, where a kernel handled them, to `bsdf_kernel_lanes`.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from ..bsdf import beckmann, disney, ggx, orennayar
 from ..core import tracer, vec3
 from ..core.frame import build_frame_polar_v
 from ..core.vec3 import V3, v3
+from ..ops import bsdf as kernels
 from ..scene import texture as texmod
 from ..scene.build import MAT_DISNEY, MAT_SKIN, MAT_STANDARD, Materials
 
@@ -352,11 +360,24 @@ def tile_v(m: MatG, k: int) -> MatG:
     return f(m)
 
 
+def _on_card(wo: V3) -> bool:
+    """Whether a lobe call goes to the kernels of ops/bsdf.py (host ints
+    counted: no kernel, no synchronization)."""
+    card = wo.x.device.type == "cuda"
+    if tracer.TRACER.counters_on:
+        n = wo.x.shape[0]
+        tracer.count("bsdf_lanes", n)
+        tracer.count("bsdf_kernel_lanes", n if card else 0)
+    return card
+
+
 @tracer.traced("bsdf")
 def eval_diffuse(m: MatG, wo: V3, wi: V3):
     """(f*cos V3, pdf) of the diffuse lobe in the local frame. The pdf is
     the cosine sampler's, also on Disney lanes (clamped at 1e-9, not at
     disney.pdf_diffuse's 1e-4), as the JAX dispatch has it."""
+    if _on_card(wo):
+        return kernels.eval_diffuse(m, wo, wi)
     f = m.diffuse_color * orennayar.eval_brdf(m.diffuse_roughness, wo, wi)
     if m.dsy is not None:
         f = vec3.where(m.mtype == MAT_DISNEY,
@@ -367,7 +388,8 @@ def eval_diffuse(m: MatG, wo: V3, wi: V3):
 
 @tracer.traced("bsdf")
 def sample_diffuse(m: MatG, wo: V3, rx, ry) -> V3:
-    del m, wo
+    if _on_card(wo):
+        return kernels.sample_diffuse(rx, ry)
     return orennayar.sample_v(rx, ry)
 
 
@@ -376,6 +398,8 @@ def eval_specular(m: MatG, wo: V3, wi: V3):
     """(f*cos V3, pdf) of the specular lobe in the local frame; the Fresnel
     mode follows the material (dielectric IOR, Schlick with F0 = Ksn, or
     none), and cook_torrance swaps in the Beckmann D*G and pdf."""
+    if _on_card(wo):
+        return kernels.eval_specular(m, wo, wi)
     f_diel, gd = ggx.reflection_parts(m.ggx, wo, wi)
     h = vec3.normalize(wo + wi)
     s = torch.clamp(1.0 - torch.abs(vec3.dot(wi, h)), 0.0, 1.0)
@@ -421,6 +445,8 @@ def eval_specular(m: MatG, wo: V3, wi: V3):
 
 @tracer.traced("bsdf")
 def sample_specular(m: MatG, wo: V3, rx, ry) -> V3:
+    if _on_card(wo):
+        return kernels.sample_specular(m, wo, rx, ry)
     if m.ggx2 is None:
         wi_ggx, _ = ggx.sample(m.ggx, wo, rx, ry)
         wi_beck = beckmann.sample(wo, m.ggx.alpha_g, rx, ry)
@@ -449,5 +475,7 @@ def sample_specular(m: MatG, wo: V3, rx, ry) -> V3:
 def sample_refract(m: MatG, wo: V3, rx, ry):
     """(wi V3, weight V3) of one rough-refraction sample (integrateRefract
     per sample, rlGgx.h:228-243); the weight is 0 where nothing refracts."""
+    if _on_card(wo):
+        return kernels.sample_refract(m, wo, rx, ry)
     wi, w, _ = ggx.sample_refract(m.ggx, wo, rx, ry)
     return wi, vec3.where(m.has_refract, m.kt_color * w, 0.0)

@@ -21,7 +21,8 @@ The source is compiled by nvcc into a shared library with a plain C
 interface at first use, into `rlshaders_tpu_torch/build/` (named by a hash
 of the sources, so an edited source is rebuilt), and bound with ctypes.
 The same library holds the random draws' kernels (`csrc/rng.cu`, bound by
-ops/rng.py), so one build serves both. A failed build raises, and so does
+ops/rng.py) and the lobes' (`csrc/bsdf.cu`, bound by ops/bsdf.py), so one
+build serves all three. A failed build raises, and so does
 a launch whose CUDA error is not 0.
 Kernels run on the current torch stream (also inside CUDA graph capture)
 and do not synchronise.
@@ -45,9 +46,11 @@ from ..accel.bvh import BVH, LEAF_SIZE, Hit, Tris
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "intersect.cu")
-# the library's sources and the header they include
-SOURCES = (SOURCE, os.path.join(_HERE, "csrc", "rng.cu"))
-HEADERS = (os.path.join(_HERE, "csrc", "rng.cuh"),)
+# the library's sources and the headers they include
+SOURCES = (SOURCE, os.path.join(_HERE, "csrc", "rng.cu"),
+           os.path.join(_HERE, "csrc", "bsdf.cu"))
+HEADERS = (os.path.join(_HERE, "csrc", "rng.cuh"),
+           os.path.join(_HERE, "csrc", "bsdf.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")

@@ -35,8 +35,13 @@ RGBA AVIF and a premultiplied one; a lossless 4:4:4 AVIF, a 4:0:0 AVIF
 with alpha and a limited-range 4:2:2 AVIF) render on the card as on the
 CPU. The random draws' kernels (ops/rng.py) equal the CPU draws bit for
 bit, and a tile of the benchmark's disney_grid frame drawn by them equals
-the same tile with core/rng.py's plain draws forced in.
+the same tile with core/rng.py's plain draws forced in. The lobes' kernels
+(ops/bsdf.py) are held lane by lane to models/dispatch.py's eager code on
+the card in every lobe call of a disney_grid tile, a glass tile and a
+skin close-up tile, one launch a call, and handle every lane of a CUDA
+tile.
 """
+import contextlib
 import os
 import types
 
@@ -1605,14 +1610,15 @@ def test_cuda_draws_equal_cpu_draws(cuda_device, n):
         assert torch.equal(got.cpu(), want), name
 
 
-def _grid_tile(device, xres=512, tile_pixels=16384, ti=7):
-    """Tile `ti` of the disney_grid frame at AA 3, through wavefront._tile:
-    (rgb, aovs) of its lanes, no splat."""
+def _grid_tile(device, xres=512, tile_pixels=16384, ti=7,
+               path="portbench/configs/disney_grid.ass"):
+    """Tile `ti` of the disney_grid frame (or of the scene at `path`) at
+    AA 3, through wavefront._tile: (rgb, aovs) of its lanes, no splat."""
     from rlshaders_tpu_torch.core import rng
     from rlshaders_tpu_torch.integrator import camera, wavefront
     from rlshaders_tpu_torch.scene.build import build
 
-    scene = build("portbench/configs/disney_grid.ass", device=str(device))
+    scene = build(path, device=str(device))
     accel = trace.build(scene.geometry)
     key = rng.stream(scene.options.aa_seed + 2**31 + 77)
     rays = camera.generate(scene.camera, rng.fold(key, 77), 3, xres, xres)
@@ -1675,3 +1681,145 @@ def test_rng_wrappers_refuse_bad_lanes(cuda_device):
     got = kernels.sobol_stream(pix.to(torch.int16), aa, 2, True, 5)
     want = kernels.sobol_stream(pix, aa.contiguous().long(), 2, True, 5)
     assert torch.equal(got, want)
+
+
+LOBES = ("eval_diffuse", "sample_diffuse", "eval_specular",
+         "sample_specular", "sample_refract")
+# the share of a call's lanes whose outputs may be far (4 ulps and 1e-4
+# relative) from the eager code's on the card: where the kernel reaches
+# libdevice's expf, logf, sinf, cosf, tanf or acosf built with
+# -fmad=false, a last bit may differ and a gate flip on it; the rest is
+# the same float32 arithmetic. Lanes that differ at all are logged.
+LOBE_FAR_SHARE = 0.002
+
+
+def _ordered(x: torch.Tensor) -> torch.Tensor:
+    i = x.view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def _lobe_diff(got, want) -> tuple:
+    """(lanes whose outputs differ, their largest ulp distance, lanes
+    apart by more than 4 ulps and 1e-4 of max(1, |eager value|)) of a lobe
+    call's outputs on the kernel and the eager path (-0 equals +0, NaN
+    equals NaN)."""
+    def rows(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for a in x for t in rows(a)]
+
+    g, w = torch.stack(rows(got)), torch.stack(rows(want))
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    ulps = torch.where(same, 0, (_ordered(g) - _ordered(w)).abs())
+    far = ((ulps > 4) & ((g - w).abs()
+                         > 1e-4 * torch.clamp_min(w.abs(), 1.0))).any(0)
+    ulps = ulps.amax(0)
+    if ulps.numel() == 0:
+        return 0, 0, 0
+    return int((ulps > 0).sum()), int(ulps.max()), int(far.sum())
+
+
+@contextlib.contextmanager
+def _held_lobes():
+    """Inside the block every lobe call of models/dispatch.py runs its
+    kernel and then the eager code on the same inputs; yields the list of
+    (entry, lanes, differing lanes, largest ulp distance, far lanes,
+    launches)."""
+    from rlshaders_tpu_torch.models import dispatch
+    from rlshaders_tpu_torch.ops import bsdf as kernels
+
+    calls, reals = [], {n: getattr(dispatch, n) for n in LOBES}
+    on_card = dispatch._on_card
+
+    def held(name):
+        def call(*args):
+            key = f"rls_bsdf_{name}"
+            before = kernels.LAUNCHES[key]
+            got = reals[name](*args)
+            made = kernels.LAUNCHES[key] - before
+            dispatch._on_card = lambda wo: False
+            try:
+                want = reals[name](*args)
+            finally:
+                dispatch._on_card = on_card
+            calls.append((name, args[1].x.shape[0], *_lobe_diff(got, want),
+                          made))
+            return got
+        return call
+
+    try:
+        for n in LOBES:
+            setattr(dispatch, n, held(n))
+        yield calls
+    finally:
+        for n, f in reals.items():
+            setattr(dispatch, n, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["disney_grid", "glass", "skin"])
+def test_lobe_kernels_equal_eager_lobes(cuda_device, scene):
+    """Every lobe call of a tile on the card: one launch of its kernel, and
+    its lanes equal to the eager code's on the same inputs, or a logged
+    count of differing lanes with their largest ulp distance, of which at
+    most LOBE_FAR_SHARE far."""
+    path = {"disney_grid": "portbench/configs/disney_grid.ass",
+            "glass": "scenes/glass_sphere.ass",
+            "skin": "scenes/skin_closeup.ass"}[scene]
+    with _held_lobes() as calls:
+        _grid_tile(cuda_device, xres=64, tile_pixels=1024, ti=1, path=path)
+    torch.cuda.synchronize()
+    entries = {c[0] for c in calls}
+    assert entries >= set(LOBES) - ({"sample_refract"}
+                                    if scene != "glass" else set())
+    for name, lanes, differ, ulps, far, made in calls:
+        print(f"{scene} {name}: {lanes} lanes, {differ} differ from the "
+              f"eager lobes, at most {ulps} ulps apart, {far} far")
+        assert made == (1 if lanes else 0), name
+        assert far <= LOBE_FAR_SHARE * lanes, (name, differ, ulps, far)
+
+
+@pytest.mark.gpu
+def test_bsdf_counters_on_card_and_cpu_tiles(cuda_device):
+    """The kernels handle every lobe lane of a CUDA tile and none of a CPU
+    one."""
+    from rlshaders_tpu_torch.core import tracer
+
+    shares = {}
+    for dev, xres, tile in ((cuda_device, 512, 16384), ("cpu", 16, 64)):
+        tracer.take()
+        with tracer.enabled(counters=True):
+            _grid_tile(dev, xres=xres, tile_pixels=tile, ti=1)
+            _, counters = tracer.take()
+        assert counters["bsdf_lanes"] > 0
+        shares[str(dev)] = (counters["bsdf_kernel_lanes"]
+                            / counters["bsdf_lanes"])
+    assert shares == {"cuda": 1.0, "cpu": 0.0}
+
+
+@pytest.mark.gpu
+def test_lobe_wrappers_refuse_bad_fields(cuda_device):
+    from rlshaders_tpu_torch.core.vec3 import V3
+    from rlshaders_tpu_torch.models import dispatch
+    from rlshaders_tpu_torch.ops import bsdf as kernels
+    from rlshaders_tpu_torch.scene.build import build
+
+    scene = build("portbench/configs/disney_grid.ass", device="cuda")
+    n = 1000
+    ids = torch.arange(n, device=cuda_device, dtype=torch.int32) % int(
+        scene.materials.mtype.shape[0])
+    m = dispatch.gather(scene.materials, ids,
+                        torch.ones(n, dtype=torch.bool, device=cuda_device),
+                        has_skin=False, has_disney=True)
+    z = torch.zeros(n, device=cuda_device)
+    wo = V3(z, z, z + 1.0)
+    with pytest.raises(ValueError):
+        kernels.eval_specular(m, V3(*(c.cpu() for c in wo)), wo)
+    with pytest.raises(TypeError):
+        kernels.eval_specular(m._replace(spec_ksn=m.spec_ksn.double()), wo,
+                              wo)
+    with pytest.raises(ValueError):
+        kernels.eval_diffuse(m, wo, V3(z[:7], z, z))
+    f, pdf = kernels.eval_specular(m, wo, wo)
+    torch.cuda.synchronize()
+    assert f.x.shape == (n,) and bool(torch.isfinite(pdf).all())
